@@ -5,16 +5,24 @@
 
 Phases, each fatal on failure:
   1. device: the card's name and power limit (nvidia-smi), torch / CUDA;
-  2. build: compile the CUDA kernels from hcmvs_tpu_torch/kernels/csrc;
-  3. kernel parity: each kernel against its plain PyTorch version on the
-     card, at the slice's 1280x960 shapes, with median times;
-  4. the dense slice through the kernels: estimate_scene + finalize at
-     4 views x 3 neighbours, 1280x960; every kernel must have launched;
-  5. the same slice through the plain versions on the card, compared
-     with phase 4.
-Then one JSON line per kernel table, the nvidia-smi line, and a last line
-``{"ok": true, "device": {...}}``.  Exits non-zero, with no result line,
-without a CUDA device or without the package beside this script.
+  2. build: compile the CUDA kernels from hcmvs_tpu_torch/kernels/csrc
+     (one nvcc per source, all started together);
+  3. kernel parity: each of the five kernels against its plain PyTorch
+     version on the card, at the 1280x960 shapes the two paths give it,
+     with median times and the least time the card could take (bound);
+  4. the exact path through the kernels: estimate_scene + finalize at
+     4 views x 3 neighbours, 1280x960, exact table scoring; kernels A, B
+     and C must have launched;
+  5. the same path through the plain versions on the card, compared with
+     phase 4;
+  6. the hybrid, candidate-batched path through the kernels (warped
+     scoring in the photometric phase, batched table scoring in the
+     geometric one); all five kernels must have launched;
+  7. the same path through the plain versions, compared with phase 6.
+Then a JSON line per path, one for the kernels, the nvidia-smi line, and
+a last line ``{"ok": true, "device": {...}}``.  Exits non-zero, with no
+result line, without a CUDA device or without the package beside this
+script.
 """
 
 from __future__ import annotations
@@ -26,6 +34,16 @@ import time
 
 H, W, N_VIEWS, N_NBR = 960, 1280, 4, 3
 MARGIN = 6   # interior margin of depth_acc_2pct, as in the parity tests
+# H100 SXM peaks (NVIDIA data sheet) for the bound: device memory rate and
+# float32 outside the tensor cores (the kernels' integer work is counted
+# at the same rate)
+HBM_BYTES_PER_S = 3.35e12
+F32_OPS_PER_S = 67e12
+# operations per output element of each kernel (from its source: index
+# arithmetic, clamps, decode, lerp, encode; kernel E per offset, its exp
+# counted as one)
+OPS_PER_ELEMENT = {"rect_build": 25, "volume_lookup": 10, "rect_lookup": 15,
+                   "volume_lookup_multi": 10, "zncc_warped": 20}
 
 
 def log(msg: str) -> None:
@@ -56,6 +74,19 @@ def cuda_ms(fn, reps: int, warmup: int = 2) -> float:
         times.append(a.elapsed_time(b))
     times.sort()
     return times[len(times) // 2]
+
+
+def bound(name: str, n_bytes: float, n_elements: float):
+    """(ms, "bytes" or "operations"): the least time of the work, the
+    larger of its bytes over the memory rate and its operations over the
+    float32 rate."""
+    t_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
+    t_ops = n_elements * OPS_PER_ELEMENT[name] / F32_OPS_PER_S * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def nbytes(*ts) -> int:
+    return sum(t.numel() * t.element_size() for t in ts)
 
 
 def make_scene(dev):
@@ -92,6 +123,18 @@ def slice_cfg():
                        optimize=0)
 
 
+# the kernels each path runs
+EXACT_KERNELS = ("rect_build", "volume_lookup", "rect_lookup")
+HYBRID_KERNELS = EXACT_KERNELS + ("volume_lookup_multi", "zncc_warped")
+# view 0 depth_acc_2pct floors.  With two external iterations the hybrid
+# path's warped photometric phase (explore sampling: one exactly warped
+# corner) leaves it far below the exact path, in the JAX package too, and
+# lower the larger the image (tests/test_torch_batched.py, run as a
+# script, compares the two packages at a given size; PERF.md has the
+# numbers); the random init scores about 0.05.
+MIN_ACC = {"exact": 0.5, "hybrid_batched": 0.15}
+
+
 def depth_acc_2pct(depth, gt) -> float:
     import numpy as np
     rel = np.abs(depth - gt) / gt
@@ -99,16 +142,33 @@ def depth_acc_2pct(depth, gt) -> float:
     return float((rel < 0.02)[m:-m, m:-m].mean())
 
 
-def kernel_parity(scene, dev):
-    """Phase 3: each kernel vs its plain version at the slice's shapes."""
+def kernel_parity(scene, cfg, dev):
+    """Phase 3: each kernel vs its plain version at the paths' shapes.
+    Returns one row per kernel (name, source, replaces, max_abs_err, ms,
+    plain_ms, bound_ms, bound_by, library_ms)."""
     import torch
     from hcmvs_tpu_torch import kernels
+    from hcmvs_tpu_torch.dense import score as S
+    from hcmvs_tpu_torch.dense.patchmatch import (_propagate_from,
+                                                  propagation_offsets)
     from hcmvs_tpu_torch.dense.scene_driver import init_scene_state
-    from hcmvs_tpu_torch.dense.types import make_view_geometry
+    from hcmvs_tpu_torch.dense.types import make_view_geometry, pixel_rays
     from hcmvs_tpu_torch.ops import rect_gather as rg
     from hcmvs_tpu_torch.ops import volume as vol
+    from hcmvs_tpu_torch.ops import zncc_warped as zw
+    from hcmvs_tpu_torch.ops.gradients import sobel_magnitude
 
     rows = []
+
+    def row(name, replaces, err, ms, plain_ms, n_bytes, n_elements):
+        b_ms, b_by = bound(name, n_bytes, n_elements)
+        rows.append(dict(
+            name=name, source=f"hcmvs_tpu_torch/kernels/csrc/{name}.cu",
+            replaces=replaces, max_abs_err=err, ms=ms, plain_ms=plain_ms,
+            bound_ms=b_ms, bound_by=b_by,
+            # no single PyTorch call computes any of these functions
+            library_ms=None))
+
     nbr = scene.nbr_idx[0]
     geom = make_view_geometry(scene.cams[0], scene.cams[nbr])
 
@@ -120,18 +180,16 @@ def kernel_parity(scene, dev):
     plain = vol._rect_build_plain(*args)
     d = (tab.to(torch.int32) - plain.to(torch.int32)).abs()
     within = float((d <= 1).float().mean())
-    err = float(d.max()) / 65535.0
     log(f"[parity] A rect_build: tab {tuple(tab.shape)} u16, "
         f"<=1 LSB on {within:.6f} of entries, max {int(d.max())} LSB")
     if within < 0.999:
         raise AssertionError(f"kernel A: only {within} within 1 LSB")
-    rows.append(dict(
-        name="rect_build", source="hcmvs_tpu_torch/kernels/csrc/rect_build.cu",
-        replaces="hcmvs_tpu/ops/volume.py:569",
-        max_abs_err=err,
-        ms=cuda_ms(lambda: kernels.rect_build(*args), 10),
-        plain_ms=cuda_ms(lambda: vol._rect_build_plain(*args), 3, 1)))
-    del plain
+    row("rect_build", "hcmvs_tpu/ops/volume.py:569",
+        float(d.max()) / 65535.0,
+        cuda_ms(lambda: kernels.rect_build(*args), 10),
+        cuda_ms(lambda: vol._rect_build_plain(*args), 3, 1),
+        nbytes(*args[:-1], tab), tab.numel())
+    del plain, d
 
     # B: one pair's table against a (P_pad, 36) index field
     g = torch.Generator(device=dev).manual_seed(1)
@@ -144,13 +202,10 @@ def kernel_parity(scene, dev):
         f"max |kernel - plain| {err:.3g}")
     if not torch.allclose(out, plain, rtol=0, atol=1e-6):
         raise AssertionError(f"kernel B: max abs err {err}")
-    rows.append(dict(
-        name="volume_lookup",
-        source="hcmvs_tpu_torch/kernels/csrc/volume_lookup.cu",
-        replaces="hcmvs_tpu/ops/volume.py:211",
-        max_abs_err=err, ms=cuda_ms(lambda: kernels.volume_lookup(tab0, f),
-                                    20),
-        plain_ms=cuda_ms(lambda: vol.volume_lookup_plain(tab0, f), 10)))
+    row("volume_lookup", "hcmvs_tpu/ops/volume.py:211", err,
+        cuda_ms(lambda: kernels.volume_lookup(tab0, f), 20),
+        cuda_ms(lambda: vol.volume_lookup_plain(tab0, f), 10),
+        nbytes(tab0, f, out), out.numel())
     del tab, tab0, f, out, plain
 
     # C: the neighbour maps of view 0 (random init) at the init depths
@@ -169,21 +224,89 @@ def kernel_parity(scene, dev):
         f"max |taps kernel - plain| {err:.3g}, reads hit {hit:.4f}")
     if not same:
         raise AssertionError("kernel C differs from its plain version")
-    rows.append(dict(
-        name="rect_lookup",
-        source="hcmvs_tpu_torch/kernels/csrc/rect_lookup.cu",
-        replaces="hcmvs_tpu/ops/rect_gather.py:322",
-        max_abs_err=err,
-        ms=cuda_ms(lambda: kernels.rect_lookup(ctx.maps, ctx.row_int, ctx.c0,
-                                               ctx.k, ctx.rb, sigma), 20),
-        plain_ms=cuda_ms(lambda: rg.rect_lookup_plain(ctx, sigma), 10)))
+    c_args = (ctx.maps, ctx.row_int, ctx.c0, ctx.k, ctx.rb, sigma)
+    row("rect_lookup", "hcmvs_tpu/ops/rect_gather.py:322", err,
+        cuda_ms(lambda: kernels.rect_lookup(*c_args), 20),
+        cuda_ms(lambda: rg.rect_lookup_plain(ctx, sigma), 10),
+        nbytes(*c_args, out), out[:, 0].numel())
+    del ctx, out, plain
+
+    # D: view 0's tables against the packed, bounded field of its nine
+    # propagation candidates, at full (C = 324) and explore (C = 81)
+    # sampling
+    h, w = scene.gray.shape[1:]
+    rays = pixel_rays(geom.K_inv_ref, h, w)
+    vt = vol.build_volume_tables_rect(geom, scene.gray[nbr], scene.d_min[0],
+                                      scene.d_max[0])
+    cand = [(st.depth[0], st.normal[0])] + [
+        _propagate_from(st.depth[0], st.normal[0], rays, dy, dx)
+        for dy, dx in propagation_offsets(cfg)]
+    depths = torch.stack([c[0] for c in cand])
+    normals = torch.stack([c[1] for c in cand])
+    bounds0 = S.volume_bounds(vt)[0]
+    tab0 = vt.tab[0]
+    for step in (cfg.patch_step, cfg.explore_patch_step):
+        offsets = S.patch_offsets(cfg.replace(patch_step=step))
+        f2, _ = S.packed_fields(geom, vt, depths, normals, rays, offsets)
+        out = kernels.volume_lookup_multi(tab0, f2, bounds0)
+        plain = vol.volume_lookup_multi_plain(tab0, f2, bounds0)
+        oi, pi = vol.u16_as_int32(out), vol.u16_as_int32(plain)
+        err = float((oi - pi).abs().max())
+        valid = float((oi < 65535).float().mean())
+        log(f"[parity] D volume_lookup_multi: out {tuple(out.shape)} u16 "
+            f"bounded, bit-equal {err == 0}, valid {valid:.4f}")
+        if err != 0:
+            raise AssertionError(f"kernel D differs from its plain version "
+                                 f"by up to {err} LSB")
+        ms = cuda_ms(lambda: kernels.volume_lookup_multi(tab0, f2, bounds0),
+                     20)
+        plain_ms = cuda_ms(
+            lambda: vol.volume_lookup_multi_plain(tab0, f2, bounds0), 5)
+        # of the bounds panel only lanes 0 and 64 are needed: two 32 B
+        # sectors a row
+        d_bytes = nbytes(tab0, f2, out) + 64 * tab0.shape[0]
+        log(f"[parity] volume_lookup_multi C={out.shape[1]}: kernel "
+            f"{ms:.3f} ms, plain {plain_ms:.3f} ms, bound "
+            f"{bound('volume_lookup_multi', d_bytes, out.numel())[0]:.3f} ms")
+        if step == cfg.patch_step:    # the table's row: full sampling
+            row("volume_lookup_multi", "hcmvs_tpu/ops/volume.py:290", err,
+                ms, plain_ms, d_bytes, out.numel())
+        del f2, out, plain, oi, pi
+    del vt, bounds0, tab0
+
+    # E: view 0's random init scored warped against its three neighbours
+    # with the photometric phase's explore sampling (pad 5, 8 offsets)
+    cfg_x = cfg.replace(patch_step=cfg.explore_patch_step)
+    offsets = S.patch_offsets(cfg_x)
+    hw = S.halfwin_map(sobel_magnitude(scene.gray[0]), cfg_x)
+    stats = S.ref_patch_stats(scene.gray[0], hw, offsets)
+    x = S.warped_inputs(geom, scene.gray[nbr], stats, hw, st.depth[0],
+                        st.normal[0], rays, offsets)
+    e_args = x[:9]
+    out_s, out_v = kernels.zncc_warped(*e_args)
+    plain_s, plain_v = zw.zncc_warped_plain(*e_args)
+    err = max(float((out_s - plain_s).abs().max()),
+              float((out_v - plain_v).abs().max()))
+    close = (torch.allclose(out_s, plain_s, rtol=1e-4, atol=2e-4)
+             and torch.allclose(out_v, plain_v, rtol=1e-4, atol=2e-4))
+    log(f"[parity] E zncc_warped: out {tuple(out_s.shape)} x 2, "
+        f"{len(x.scan_offsets)} offsets, pad {x.pad}, max |kernel - plain| "
+        f"{err:.3g}, within rtol 1e-4 / atol 2e-4: {close}")
+    if not close:
+        raise AssertionError(f"kernel E: max abs err {err}")
+    row("zncc_warped", "hcmvs_tpu/ops/pallas_zncc.py:43", err,
+        cuda_ms(lambda: kernels.zncc_warped(*e_args), 20),
+        cuda_ms(lambda: zw.zncc_warped_plain(*e_args), 10),
+        nbytes(*(t for t in e_args if torch.is_tensor(t)), out_s, out_v),
+        out_s.numel() * len(x.scan_offsets))
     for r in rows:
-        log(f"[parity] {r['name']}: kernel {r['ms']:.3f} ms, "
-            f"plain {r['plain_ms']:.3f} ms")
+        log(f"[parity] {r['name']}: kernel {r['ms']:.3f} ms, plain "
+            f"{r['plain_ms']:.3f} ms, bound {r['bound_ms']:.3f} ms "
+            f"({r['bound_by']})")
     return rows
 
 
-def run_slice(scene, cfg, dev, label):
+def run_path(scene, cfg, dev, label):
     """One estimate_scene + finalize; returns (depth, keep, timings,
     seconds)."""
     import torch
@@ -214,6 +337,55 @@ def run_slice(scene, cfg, dev, label):
         seconds
 
 
+def check_path(sc, scene, cfg, dev, label, path_kernels):
+    """Phases 4-7 for one path: through the kernels (every kernel of the
+    path launched, counts reset just before and read just after), then
+    through the plain versions (no launch), compared.  Returns (launches,
+    JSON summary, the checks that failed)."""
+    import numpy as np
+    from hcmvs_tpu_torch import kernels
+
+    failed = []
+    kernels.reset_launches()
+    depth_k, keep_k, t_k, sec_k = run_path(scene, cfg, dev, label)
+    launches = dict(kernels.launches)
+    log(f"[{label}] kernel launches {launches}")
+    if min(launches[k] for k in path_kernels) <= 0:
+        failed.append(f"{label}: a kernel of the path never launched: "
+                      f"{launches}")
+    acc_k = depth_acc_2pct(depth_k[0], sc.depth_gt)
+    log(f"[{label}] view 0 interior depth_acc_2pct {acc_k:.4f}")
+    if acc_k < MIN_ACC[label]:
+        failed.append(f"{label}: depth accuracy {acc_k} < {MIN_ACC[label]}")
+
+    kernels.reset_launches()
+    with kernels.plain_versions():
+        depth_p, keep_p, t_p, sec_p = run_path(scene, cfg, dev,
+                                               f"{label} plain")
+    if any(kernels.launches.values()):
+        failed.append(f"{label} plain run launched kernels: "
+                      f"{kernels.launches}")
+    acc_p = depth_acc_2pct(depth_p[0], sc.depth_gt)
+    agree = float((np.abs(depth_k - depth_p)
+                   <= 0.01 * np.abs(depth_p)).mean())
+    keep_agree = float((keep_k == keep_p).mean())
+    log(f"[{label} plain] view 0 interior depth_acc_2pct {acc_p:.4f}; depth "
+        f"within 1% of the kernel run on {agree:.5f} of pixels; keep masks "
+        f"agree on {keep_agree:.5f}")
+    if agree < 0.98:
+        failed.append(f"{label}: kernel and plain runs agree on {agree}")
+    if abs(acc_k - acc_p) > 0.01:
+        failed.append(f"{label}: accuracy {acc_k} (kernels) vs {acc_p} "
+                      f"(plain)")
+    return launches, {
+        "views": N_VIEWS, "neighbours": N_NBR, "h": H, "w": W,
+        "tables_s": t_k["tables"],
+        "phase_s": [t for _, _, t in t_k["sweeps"]],
+        "total_s": sec_k, "views_per_s": N_VIEWS / sec_k,
+        "plain_total_s": sec_p, "depth_acc_2pct": acc_k,
+        "plain_depth_acc_2pct": acc_p, "agree_1pct": agree}, failed
+
+
 def main() -> int:
     try:
         import torch
@@ -229,7 +401,6 @@ def main() -> int:
         print(f"chip_smoke: the port is not importable ({exc})",
               file=sys.stderr)
         return 1
-    import numpy as np
 
     # 1. device
     smi = smi_line()
@@ -248,59 +419,36 @@ def main() -> int:
         if "registers" in line or "spill" in line:
             print(f"[build] {line.strip()}", file=sys.stderr)
 
-    # 3. kernel parity at the slice's shapes
+    # 3. kernel parity at the paths' shapes
     sc, scene = make_scene(dev)
-    rows = kernel_parity(scene, dev)
+    cfg = slice_cfg()
+    rows = kernel_parity(scene, cfg, dev)
     torch.cuda.empty_cache()
 
-    # 4. the slice through the kernels
-    cfg = slice_cfg()
-    kernels.reset_launches()
-    depth_k, keep_k, t_k, sec_k = run_slice(scene, cfg, dev, "slice")
-    launches = dict(kernels.launches)
-    log(f"[slice] kernel launches {launches}")
-    if min(launches.values()) <= 0:
-        raise AssertionError(f"a kernel never launched: {launches}")
-    acc_k = depth_acc_2pct(depth_k[0], sc.depth_gt)
-    log(f"[slice] view 0 interior depth_acc_2pct {acc_k:.4f}")
-    if acc_k < 0.5:
-        raise AssertionError(f"slice depth accuracy {acc_k}")
-
-    # 5. the same slice through the plain versions on the card
-    kernels.reset_launches()
-    with kernels.plain_versions():
-        depth_p, keep_p, t_p, sec_p = run_slice(scene, cfg, dev, "plain")
-    if any(kernels.launches.values()):
-        raise AssertionError(f"plain run launched kernels: "
-                             f"{kernels.launches}")
-    acc_p = depth_acc_2pct(depth_p[0], sc.depth_gt)
-    agree = float((np.abs(depth_k - depth_p)
-                   <= 0.01 * np.abs(depth_p)).mean())
-    keep_agree = float((keep_k == keep_p).mean())
-    log(f"[plain] view 0 interior depth_acc_2pct {acc_p:.4f}; depth within "
-        f"1% of the kernel run on {agree:.5f} of pixels; keep masks agree "
-        f"on {keep_agree:.5f}")
-    if agree < 0.98:
-        raise AssertionError(f"kernel and plain slices agree on {agree}")
-    if abs(acc_k - acc_p) > 0.01:
-        raise AssertionError(f"accuracy {acc_k} (kernels) vs {acc_p} "
-                             f"(plain)")
+    # 4-7. the two paths, each through the kernels and the plain versions
+    paths = {}
+    paths["exact"] = check_path(sc, scene, cfg, dev, "exact", EXACT_KERNELS)
+    torch.cuda.empty_cache()
+    paths["hybrid_batched"] = check_path(
+        sc, scene, cfg.replace(score_mode="hybrid", candidate_kernel="on"),
+        dev, "hybrid_batched", HYBRID_KERNELS)
+    failed = [f for _, _, fs in paths.values() for f in fs]
+    if failed:
+        for f in failed:
+            print(f"chip_smoke: {f}", file=sys.stderr)
+        return 1
 
     for r in rows:
-        r["launches"] = launches[r["name"]]
-        r["route"] = "cuda"
-    kernels_line = {"kernels": [
-        {k: r[k] for k in ("name", "route", "source", "replaces",
-                           "launches", "max_abs_err", "ms", "plain_ms")}
-        for r in rows]}
-    log(json.dumps({"slice": {
-        "views": N_VIEWS, "neighbours": N_NBR, "h": H, "w": W,
-        "tables_s": t_k["tables"],
-        "phase_s": [t for _, _, t in t_k["sweeps"]],
-        "total_s": sec_k, "views_per_s": N_VIEWS / sec_k,
-        "plain_total_s": sec_p, "depth_acc_2pct": acc_k,
-        "plain_depth_acc_2pct": acc_p, "agree_1pct": agree}}))
-    log(json.dumps(kernels_line))
+        per_path = {p: launches[r["name"]]
+                    for p, (launches, _, _) in paths.items()}
+        r.update(route="cuda", launches=sum(per_path.values()),
+                 launches_per_path=per_path)
+    keys = ("name", "route", "source", "replaces", "launches",
+            "launches_per_path", "max_abs_err", "ms", "plain_ms", "bound_ms",
+            "bound_by", "library_ms")
+    log(json.dumps({"paths": {p: summary
+                              for p, (_, summary, _) in paths.items()}}))
+    log(json.dumps({"kernels": [{k: r[k] for k in keys} for r in rows]}))
     log(smi)
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -108,15 +108,17 @@ class DenseConfig:
     use_pallas: bool = True            # False selects the direct-gather
                                        # paths, which are not ported
     sweep_mode: str = "jacobi"         # "jacobi" | "redblack"
-    batch_candidates: bool = False     # not ported
-    score_mode: str = "exact"          # "warped"/"hybrid" not ported
+    batch_candidates: bool = False     # retired path, not carried over:
+                                       # raises when set
+    score_mode: str = "exact"          # "exact" | "warped" | "hybrid"
     exact_backend: str = "auto"        # "auto"/"volume": sigma tables on
                                        # every device; "bilinear" not ported
     geo_backend: str = "auto"          # "auto"/"rect": rect engine on every
                                        # device; "direct" not ported
     volume_planes: int = 128           # > 128 not ported
-    candidate_kernel: str = "auto"     # "on" not ported
-    refine_batched: bool = False       # not ported
+    candidate_kernel: str = "auto"     # "on": batched candidate scoring
+                                       # (kernel D); "auto" is off
+    refine_batched: bool = False
     window_ref_width: int = 0
     volume_streaming: bool = False     # not ported
     volume_build: str = "auto"         # "auto"/"rect": rect-frame build on

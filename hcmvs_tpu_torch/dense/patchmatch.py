@@ -7,7 +7,11 @@ are the current hypothesis, plane propagation from the HC-MVS cross
 pattern (ref: DepthMap.cpp:1064-1274) and the annealed random refinement
 ladder (ref: DepthMap.cpp:384, :1441-1501).  Each candidate's full cost is
 computed, and the winner taken by argmin (the carry-free scan of the JAX
-package, written as a loop).
+package, written as a loop).  With ``candidate_kernel="on"`` the
+photometric term of all propagation candidates comes from one batched
+table lookup per view (``_batched_best``); ``refine_batched`` perturbs
+the post-propagation best at every refinement scale and scores the set
+together instead of one scale after another.
 """
 
 from __future__ import annotations
@@ -41,6 +45,9 @@ class ScoreContext:
     nbr_depth: Optional[torch.Tensor]     # (V, H, W) or None
     nbr_normal: Optional[torch.Tensor]    # (V, 3, H, W) or None
     vol: Optional[object] = None          # ops.volume.VolumeTables (V)
+    vol_bounds: Optional[torch.Tensor] = None  # (V, P_pad, 128) u16
+                                          # score.volume_bounds, once per
+                                          # sweep call
     rect: Optional[object] = None         # ops.rect_gather.RectContext
 
 
@@ -163,6 +170,32 @@ def _select_by_index(stack: torch.Tensor, k_star: torch.Tensor
     return torch.gather(stack, 0, idx)[0]
 
 
+def _batched_best(ctx: ScoreContext, cd: torch.Tensor, cn: torch.Tensor,
+                  cv: torch.Tensor, init_cost: Optional[torch.Tensor],
+                  cur_d: torch.Tensor, cur_n: torch.Tensor,
+                  delta_c2pmax: torch.Tensor, cfg: DenseConfig, phase: int,
+                  offsets):
+    """Score a (K, ...) candidate stack with its photometric term from one
+    batched lookup per view (kernel D) and fold to (best cost, best
+    index).  The fold starts from ``init_cost`` (inf when None) with index
+    -1, which callers read as "keep the incumbent"; a candidate wins only
+    with a strictly lower cost, so ties keep the earlier one."""
+    ncc_all, bad_all = S.photometric_scores_volume_batched(
+        ctx.geom, ctx.vol, ctx.stats, ctx.hw, cd, cn, ctx.rays, offsets,
+        cfg, bounds_all=ctx.vol_bounds)
+    bc = (torch.full_like(cur_d, float("inf")) if init_cost is None
+          else init_cost)
+    bk = torch.full(cur_d.shape, -1, dtype=torch.int64, device=cur_d.device)
+    for k in range(cd.shape[0]):
+        c_k = finish_cost(ctx, ncc_all[k], bad_all[k], cd[k], cn[k], cur_d,
+                          cur_n, delta_c2pmax, cfg, phase)
+        c_k = torch.where(cv[k], c_k, float("inf"))
+        better = c_k < bc
+        bc = torch.where(better, c_k, bc)
+        bk = torch.where(better, k, bk)
+    return bc, bk
+
+
 def half_sweep(state: PatchMatchState, ctx: ScoreContext, cfg: DenseConfig,
                phase: int, parity: int, offsets, prop_offsets: list,
                gen: torch.Generator) -> PatchMatchState:
@@ -176,39 +209,77 @@ def half_sweep(state: PatchMatchState, ctx: ScoreContext, cfg: DenseConfig,
                     ).abs().amax()
     cur_d, cur_n = state.depth, state.normal
     lo_ok, hi_ok = ctx.d_min * 0.8, ctx.d_max * 1.2
+    # the batched path serves the phases that score through the tables
+    use_batch = (S.use_candidate_batch(cfg) and ctx.vol is not None
+                 and S.exact_scoring(cfg, phase))
 
     def cost_of(d, n):
         return compute_cost(ctx, d, n, cur_d, cur_n, delta_c2pmax, cfg,
                             phase, offsets)
 
     # propagation: the current state is candidate 0
-    cand_d, cand_n, cand_v = [cur_d], [cur_n], [None]
+    cand_d, cand_n, cand_v = [cur_d], [cur_n], [torch.ones_like(cur_d,
+                                                                dtype=bool)]
     for dy, dx in prop_offsets:
         d_p, n_p = _propagate_from(cur_d, cur_n, ctx.rays, dy, dx)
         cand_d.append(d_p)
         cand_n.append(n_p)
         cand_v.append((d_p >= lo_ok) & (d_p <= hi_ok))
-    costs = []
-    for d_c, n_c, v_c in zip(cand_d, cand_n, cand_v):
-        c = cost_of(d_c, n_c)
-        costs.append(c if v_c is None else torch.where(v_c, c, float("inf")))
-    costs = torch.stack(costs)
-    k = torch.argmin(costs, dim=0)
-    bd = _select_by_index(torch.stack(cand_d), k)
-    bn = _select_by_index(torch.stack(cand_n), k)
-    bc = costs.amin(dim=0)
+    cd, cn = torch.stack(cand_d), torch.stack(cand_n)
+    if use_batch:
+        bc, k = _batched_best(ctx, cd, cn, torch.stack(cand_v), None, cur_d,
+                              cur_n, delta_c2pmax, cfg, phase, offsets)
+        k = torch.clamp_min(k, 0)
+    else:
+        costs = torch.stack([torch.where(v_c, cost_of(d_c, n_c),
+                                         float("inf"))
+                             for d_c, n_c, v_c in zip(cand_d, cand_n,
+                                                      cand_v)])
+        k = torch.argmin(costs, dim=0)
+        bc = costs.amin(dim=0)
+    bd = _select_by_index(cd, k)
+    bn = _select_by_index(cn, k)
 
-    # annealed random refinement, each step accepted against the best
-    for r in range(cfg.random_iters):
-        scale = 0.5 ** r
-        draws = _perturb_draws(gen, h, w, scale, cfg, cur_d.device)
-        d_r, n_r = _perturb(draws, bd, bn, ctx.rays, scale, cfg)
-        valid = (d_r >= lo_ok) & (d_r <= hi_ok)
-        c = torch.where(valid, cost_of(d_r, n_r), float("inf"))
-        better = c < bc
-        bd = torch.where(better, d_r, bd)
-        bn = torch.where(better[None], n_r, bn)
-        bc = torch.where(better, c, bc)
+    # annealed random refinement
+    if cfg.refine_batched and cfg.random_iters:
+        # every scale perturbs the post-propagation best; the set is
+        # scored together and the winner kept if it beats the incumbent
+        r_d, r_n, r_v = [], [], []
+        for r in range(cfg.random_iters):
+            scale = 0.5 ** r
+            draws = _perturb_draws(gen, h, w, scale, cfg, cur_d.device)
+            d_r, n_r = _perturb(draws, bd, bn, ctx.rays, scale, cfg)
+            r_d.append(d_r)
+            r_n.append(n_r)
+            r_v.append((d_r >= lo_ok) & (d_r <= hi_ok))
+        rd, rn = torch.stack(r_d), torch.stack(r_n)
+        if use_batch:
+            bc, k2 = _batched_best(ctx, rd, rn, torch.stack(r_v), bc, cur_d,
+                                   cur_n, delta_c2pmax, cfg, phase, offsets)
+            upd = k2 >= 0
+            k2 = torch.clamp_min(k2, 0)
+            bd = torch.where(upd, _select_by_index(rd, k2), bd)
+            bn = torch.where(upd[None], _select_by_index(rn, k2), bn)
+        else:
+            all_c = torch.stack([bc] + [
+                torch.where(v_r, cost_of(d_r, n_r), float("inf"))
+                for d_r, n_r, v_r in zip(r_d, r_n, r_v)])
+            k2 = torch.argmin(all_c, dim=0)
+            bd = _select_by_index(torch.cat([bd[None], rd]), k2)
+            bn = _select_by_index(torch.cat([bn[None], rn]), k2)
+            bc = all_c.amin(dim=0)
+    else:
+        # each step perturbs the running best and is accepted against it
+        for r in range(cfg.random_iters):
+            scale = 0.5 ** r
+            draws = _perturb_draws(gen, h, w, scale, cfg, cur_d.device)
+            d_r, n_r = _perturb(draws, bd, bn, ctx.rays, scale, cfg)
+            valid = (d_r >= lo_ok) & (d_r <= hi_ok)
+            c = torch.where(valid, cost_of(d_r, n_r), float("inf"))
+            better = c < bc
+            bd = torch.where(better, d_r, bd)
+            bn = torch.where(better[None], n_r, bn)
+            bc = torch.where(better, c, bc)
 
     if cfg.sweep_mode == "jacobi":
         return PatchMatchState(depth=bd, normal=bn, cost=bc)

@@ -11,8 +11,8 @@ Schedule (ref: SceneDensify.cpp:3684-3713, :3914-3958):
 
 Views are processed one after another.  Inputs and knobs whose code the
 port does not have yet (fusion via ``optimize``, priors, optical flow,
-cross-scale injection, view-spread, streamed tables) raise
-NotImplementedError instead of being skipped.
+cross-scale injection, view-spread, streamed tables, the retired
+``batch_candidates``) raise NotImplementedError instead of being skipped.
 """
 
 from __future__ import annotations
@@ -101,10 +101,14 @@ def _per_view_context(scene: SceneTensors, i: int,
     rays = pixel_rays(geom.K_inv_ref, h, w)
     vol_i = (None if scene.vols is None
              else VolumeTables(*(x[i] for x in scene.vols)))
+    # kernel D's bounds panels depend only on the tables: once per call
+    vb = (S.volume_bounds(vol_i)
+          if vol_i is not None and S.use_candidate_batch(cfg) else None)
     return ScoreContext(
         geom=geom, src_grays=scene.gray[nbr], stats=stats, hw=hw,
         rays=rays, gra=gra, d_min=scene.d_min[i], d_max=scene.d_max[i],
-        nbr_depth=nbr_depth, nbr_normal=nbr_normal, vol=vol_i)
+        nbr_depth=nbr_depth, nbr_normal=nbr_normal, vol=vol_i,
+        vol_bounds=vb)
 
 
 def scene_sweeps(state: SceneState, scene: SceneTensors, cfg: DenseConfig,
@@ -191,11 +195,11 @@ def _build_scene_volumes(scene: SceneTensors) -> VolumeTables:
 
 def attach_volumes(scene: SceneTensors, cfg: DenseConfig) -> SceneTensors:
     """Build the exact-scoring sigma tables (once per stage: they depend
-    only on images, geometry and depth range)."""
-    if scene.vols is not None:
+    only on images, geometry and depth range); none for "warped" scoring,
+    which never reads them."""
+    if scene.vols is not None or not S.use_volume_tables(cfg):
         return scene
     h, w = scene.gray.shape[1:]
-    S.use_volume_tables(cfg)
     use_rect_volume_build(cfg, h, w)
     return dataclasses.replace(scene, vols=_build_scene_volumes(scene))
 

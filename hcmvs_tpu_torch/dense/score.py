@@ -8,13 +8,17 @@ with para_tapa / para_part chosen per pixel from the texture-gradient
 thresholds (ref: DepthMap.cpp:900-930), then min-mean aggregation over
 views.
 
-Exact ZNCC is scored through the sigma tables (``ops/volume.py``) and the
-geo term reads the neighbour maps through the rect engine
-(``ops/rect_gather.py``): in the port, "auto" resolves to these on every
-device.  The branches the port does not have (warped/hybrid scoring,
-direct bilinear scoring, direct geo gathers) raise NotImplementedError.
-Per-offset sums are accumulated in the JAX package's order, so CPU results
-agree with it to rounding.
+Exact ZNCC is scored through the sigma tables (``ops/volume.py``), one
+candidate at a time (kernel B) or, with ``candidate_kernel="on"``, all
+propagation candidates in one multi-column lookup per view (kernel D);
+the warped mode scores against centre-warped sources (kernel E,
+``ops/zncc_warped.py``), and "hybrid" takes it in the photometric phase
+and exact scoring after.  The geo term reads the neighbour maps through
+the rect engine (``ops/rect_gather.py``).  In the port, "auto" resolves to
+the tables and the rect engine on every device; the branches the port does
+not have (direct bilinear scoring, direct geo gathers) raise
+NotImplementedError.  Per-offset sums are accumulated in the JAX package's
+order, so CPU results agree with it to rounding.
 """
 
 from __future__ import annotations
@@ -27,7 +31,7 @@ import torch
 from hcmvs_tpu_torch.core.config import DenseConfig
 from hcmvs_tpu_torch.dense.types import (ViewGeometry, mat3_apply,
                                          mat3_apply_t, normalize3)
-from hcmvs_tpu_torch.ops.sampling import pad_edge
+from hcmvs_tpu_torch.ops.sampling import bilinear_sample_xy, pad_edge
 
 _SIGMA_COLOR = 0.2          # ref: DepthMap.h:538 GetWeight sigmaColor
 _GRA_STRONG = 100.0         # ref: DepthMap.cpp:457 hardcoded texture split
@@ -101,26 +105,264 @@ def ref_patch_stats(ref_gray: torch.Tensor, hw: torch.Tensor,
                          ref_pad=ref_pad, wts=wts)
 
 
+class WarpedInputs(NamedTuple):
+    """Kernel E's arguments (``ops/zncc_warped.zncc_warped``) for one
+    hypothesis field, and the centre warp's out-of-bounds mask."""
+
+    ref_pad: torch.Tensor     # (H+2P, W+2P) edge-padded reference
+    tm: torch.Tensor          # (H, W)
+    nsq0: torch.Tensor        # (H, W)
+    warped_pad: torch.Tensor  # (V, H+2P, W+2P) edge-padded warped sources
+    valid_pad: torch.Tensor   # (V, H+2P, W+2P) centre-warp validity, 0-pad
+    hw: torch.Tensor          # (H, W)
+    acc: torch.Tensor         # (V, 4, H, W) exactly warped corner sums
+    scan_offsets: tuple       # the offsets read from the warped images
+    pad: int
+    oob: torch.Tensor         # (V, H, W) centre warp off-image or behind
+
+
+def warped_inputs(geom: ViewGeometry, src_grays: torch.Tensor,
+                  stats: RefPatchStats, hw: torch.Tensor,
+                  depth: torch.Tensor, normal: torch.Tensor,
+                  rays: torch.Tensor, offsets) -> WarpedInputs:
+    """Everything of warped scoring up to kernel E: each source sampled
+    once per pixel at the hypothesis' warp centre, and the window corners
+    (|dy| = |dx| = pad) warped exactly through the pixel's own plane (the
+    centre warp alone is normal-independent) into the starting sums."""
+    h, w = depth.shape
+    pad = _pad_of(offsets)
+    dev = depth.device
+    n_ray0, inv_dp, nk_x, nk_y = _plane_terms(geom, depth, normal, rays)
+    v_, u_ = torch.meshgrid(torch.arange(h, dtype=torch.float32, device=dev),
+                            torch.arange(w, dtype=torch.float32, device=dev),
+                            indexing="ij")
+    ref_center = _shifted(stats.ref_pad, pad, 0, 0, h, w)
+    corner_offsets = tuple((dy, dx) for dy, dx in offsets
+                           if abs(dy) == pad and abs(dx) == pad)
+    scan_offsets = tuple(o for o in offsets if o not in corner_offsets)
+    s_c = n_ray0 * inv_dp
+
+    warped, valid, oob, acc = [], [], [], []
+    for vi in range(src_grays.shape[0]):
+        A, wvec, src = geom.A[vi], geom.wv[vi], src_grays[vi]
+        # centre warp: one bilinear sample per pixel
+        phx = A[0, 0] * u_ + A[0, 1] * v_ + A[0, 2] + wvec[0] * s_c
+        phy = A[1, 0] * u_ + A[1, 1] * v_ + A[1, 2] + wvec[1] * s_c
+        phz = A[2, 0] * u_ + A[2, 1] * v_ + A[2, 2] + wvec[2] * s_c
+        inv_z = 1.0 / torch.where(phz.abs() < 1e-9, 1e-9, phz)
+        wv_c, ok_c = bilinear_sample_xy(src, phx * inv_z, phy * inv_z)
+        warped.append(wv_c)
+        valid.append(ok_c)
+        oob.append(~ok_c | (phz <= 0))
+        # corners warped exactly
+        zeros = torch.zeros_like(depth)
+        num, s1, sq1, sw = zeros, zeros, zeros, zeros
+        for dy, dx in corner_offsets:
+            v_d = _shifted(stats.ref_pad, pad, dy, dx, h, w)
+            wt = _weights_traced(ref_center, v_d, float(dy), float(dx), hw)
+            s = (n_ray0 + nk_x * dx + nk_y * dy) * inv_dp
+            qx = A[0, 0] * (u_ + dx) + A[0, 1] * (v_ + dy) + A[0, 2] \
+                + wvec[0] * s
+            qy = A[1, 0] * (u_ + dx) + A[1, 1] * (v_ + dy) + A[1, 2] \
+                + wvec[1] * s
+            qz = A[2, 0] * (u_ + dx) + A[2, 1] * (v_ + dy) + A[2, 2] \
+                + wvec[2] * s
+            inv_qz = 1.0 / torch.where(qz.abs() < 1e-9, 1e-9, qz)
+            v1, ok = bilinear_sample_xy(src, qx * inv_qz, qy * inv_qz)
+            wt = wt * ok
+            num = num + wt * (v_d - stats.tm) * v1
+            s1 = s1 + wt * v1
+            sq1 = sq1 + wt * v1 * v1
+            sw = sw + wt
+        acc.append(torch.stack([num, s1, sq1, sw]))
+    warped_pad = pad_edge(torch.stack(warped), pad)
+    valid_pad = torch.nn.functional.pad(
+        torch.stack(valid).to(torch.float32), (pad, pad, pad, pad))
+    return WarpedInputs(
+        ref_pad=stats.ref_pad.contiguous(), tm=stats.tm.contiguous(),
+        nsq0=stats.norm_sq0.contiguous(), warped_pad=warped_pad,
+        valid_pad=valid_pad, hw=hw.contiguous(), acc=torch.stack(acc),
+        scan_offsets=scan_offsets, pad=pad, oob=torch.stack(oob))
+
+
+def photometric_scores_warped(geom: ViewGeometry, src_grays: torch.Tensor,
+                              stats: RefPatchStats, hw: torch.Tensor,
+                              depth: torch.Tensor, normal: torch.Tensor,
+                              rays: torch.Tensor, offsets, cfg: DenseConfig
+                              ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Warped-image weighted ZNCC: each source is sampled once per pixel
+    at the warp centre and the patch read from that image at static
+    offsets (exact only where neighbouring pixels carry the same plane;
+    the window corners are warped exactly).  Returns ``(scores, bad)``,
+    both (V, H, W), as ``photometric_scores_volume``."""
+    from hcmvs_tpu_torch.ops.zncc_warped import zncc_warped
+    x = warped_inputs(geom, src_grays, stats, hw, depth, normal, rays,
+                      offsets)
+    score, var1 = zncc_warped(x.ref_pad, x.tm, x.nsq0, x.warped_pad,
+                              x.valid_pad, x.hw, x.acc, x.scan_offsets,
+                              x.pad)
+    bad = (x.oob | (var1 <= 1e-12)
+           | (stats.norm_sq0 <= cfg.min_patch_variance ** 2)[None])
+    return torch.where(bad, cfg.ncc_threshold_keep * 1.2, score), bad
+
+
+def volume_bounds(vol) -> torch.Tensor:
+    """Per-view bounds panels (V, P_pad, 128) u16 of kernel D's bounded
+    mode: each table row's valid-sigma interval on the packed index scale
+    (lo replicated in lanes 0..63, hi in 64..127).  Depends only on the
+    stage's tables, so it is built once per sweep call."""
+    from hcmvs_tpu_torch.ops.volume import F_PACK_SCALE, to_volume_order
+    p_pad, d_planes = vol.tab.shape[-2], vol.tab.shape[-1]
+    out = []
+    for vi in range(vol.tab.shape[0]):
+        lo_idx = (vol.sig_lo[vi] - vol.sig0[vi]) * vol.inv_dsig[vi]
+        hi_idx = (vol.sig_hi[vi] - vol.sig0[vi]) * vol.inv_dsig[vi]
+        lo_e = torch.ceil(torch.clamp(lo_idx * F_PACK_SCALE, 0.0, 65535.0))
+        hi_e = torch.floor(torch.clamp(
+            torch.clamp_max(hi_idx, d_planes - 1.0) * F_PACK_SCALE,
+            0.0, 65534.0))
+        # intervals entirely outside the grid stay empty after the clips
+        lo_e = torch.where((hi_idx < 0.0) | (lo_idx > 1023.0), 65535.0,
+                           lo_e)
+        lo_hi = torch.stack([to_volume_order(lo_e), to_volume_order(hi_e)],
+                            dim=1)                       # (P_used, 2)
+        lo_hi = torch.nn.functional.pad(
+            lo_hi, (0, 0, 0, p_pad - lo_hi.shape[0]))
+        out.append(lo_hi[:, :, None].expand(p_pad, 2, 64)
+                   .reshape(p_pad, 128).to(torch.uint16))
+    return torch.stack(out)
+
+
+def packed_fields(geom: ViewGeometry, vol, depths: torch.Tensor,
+                  normals: torch.Tensor, rays: torch.Tensor, offsets
+                  ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Kernel D's index field for K hypotheses: (P_pad, K * S) u16 in the
+    tables' row order, column k * S + j holding the packed sigma index
+    (``F_PACK_SCALE`` steps) of candidate k's sample j, and the sentinel
+    0xFFFF beyond the grid; plus the (K, H, W) centre sigmas."""
+    from hcmvs_tpu_torch.ops.volume import F_PACK_SCALE, to_volume_order_multi
+    sig0, inv_dsig = vol.sig0[0], vol.inv_dsig[0]
+    d_planes = vol.tab.shape[-1]
+    enc, s_cs = [], []
+    for k in range(depths.shape[0]):
+        s_c, fwd = _sample_sigmas(geom, depths[k], normals[k], rays, offsets)
+        f = (fwd - sig0) * inv_dsig
+        in_grid = (f >= 0.0) & (f <= d_planes - 1.0)
+        enc.append(torch.where(in_grid, torch.round(f * F_PACK_SCALE),
+                               65535.0).to(torch.int32).to(torch.int16))
+        s_cs.append(s_c)
+    f2 = to_volume_order_multi(torch.cat(enc))           # (P_used, C)
+    f2 = torch.nn.functional.pad(f2, (0, 0, 0, vol.tab.shape[1]
+                                      - f2.shape[0]))
+    return f2.view(torch.uint16), torch.stack(s_cs)
+
+
+def photometric_scores_volume_batched(geom: ViewGeometry, vol,
+                                      stats: RefPatchStats, hw: torch.Tensor,
+                                      depths: torch.Tensor,
+                                      normals: torch.Tensor,
+                                      rays: torch.Tensor, offsets,
+                                      cfg: DenseConfig, bounds_all=None
+                                      ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Exact table scoring of K hypotheses at once: all K x S index
+    columns of a pixel ride one multi-column lookup per view (kernel D),
+    so each table row is read once per view instead of once per candidate.
+
+    This is the JAX package's packed TPU route, taken on every device:
+    u16 index fields, bounded lookups whose 0xFFFF sentinel doubles as the
+    validity mask, bf16-rounded bilateral weights, and a per-candidate
+    accumulation straight off the sentinel panel.  ``depths`` (K, H, W),
+    ``normals`` (K, 3, H, W); ``bounds_all`` from ``volume_bounds`` (built
+    here when None).  Returns (scores, bad), both (K, V, H, W).
+    """
+    from hcmvs_tpu_torch.ops.volume import (from_volume_order_multi,
+                                            padded_hw, u16_as_int32,
+                                            volume_lookup_multi)
+    k_n, h, w = depths.shape
+    pad = _pad_of(offsets)
+    s_count = len(offsets)
+    th_robust = cfg.ncc_threshold_keep * 1.2
+    h8, w128 = padded_hw(h, w)
+    f2, s_c_all = packed_fields(geom, vol, depths, normals, rays, offsets)
+    if bounds_all is None:
+        bounds_all = volume_bounds(vol)
+    v_ds = _stacked_shifts(stats.ref_pad, pad, offsets, h, w)
+    # the weight panels are rounded to bf16 as on the TPU route (ZNCC is
+    # scale-invariant and the weights are smooth Gaussian factors)
+    wts_r = stats.wts.to(torch.bfloat16).to(torch.float32)
+    coef_r = (stats.wts * (v_ds - stats.tm[None])).to(
+        torch.bfloat16).to(torch.float32)
+    min_var_bad = stats.norm_sq0 <= cfg.min_patch_variance ** 2
+
+    # one view's (P, C) panel is live at a time, one candidate's samples
+    # are decoded at a time
+    scores, bads = [], []
+    for vi in range(vol.tab.shape[0]):
+        lo_v, hi_v = vol.sig_lo[vi], vol.sig_hi[vi]
+        out2 = volume_lookup_multi(vol.tab[vi], f2, bounds_all[vi])
+        v3 = from_volume_order_multi(
+            out2[:h8 * w128].view(torch.int16), h, w)   # (C, H, W)
+        s_v, b_v = [], []
+        for k in range(k_n):
+            vp = torch.nn.functional.pad(
+                u16_as_int32(v3[k * s_count:(k + 1) * s_count]),
+                (pad, pad, pad, pad), value=65535)
+            zeros = torch.zeros_like(hw)
+            num, s1, sq1, sw = zeros, zeros, zeros, zeros
+            for j, (dy, dx) in enumerate(offsets):
+                vs = _shifted(vp[j], pad, dy, dx, h, w)
+                ok = (vs < 65535).to(torch.float32)
+                v1 = vs.to(torch.float32) * (1.0 / 65535.0)
+                w_ok = wts_r[j] * ok
+                num = num + coef_r[j] * ok * v1
+                s1 = s1 + w_ok * v1
+                sq1 = sq1 + w_ok * v1 * v1
+                sw = sw + w_ok
+            var1 = sq1 - s1 * s1 / torch.clamp_min(sw, 1e-12)
+            denom = torch.sqrt(torch.clamp_min(stats.norm_sq0 * var1,
+                                               1e-16))
+            score = 1.0 - torch.clamp(num / denom, -1.0, 1.0)
+            oob = (s_c_all[k] < lo_v) | (s_c_all[k] > hi_v)
+            bad = oob | (var1 <= 1e-12) | min_var_bad
+            s_v.append(torch.where(bad, th_robust, score))
+            b_v.append(bad)
+        scores.append(torch.stack(s_v))
+        bads.append(torch.stack(b_v))
+    return torch.stack(scores, dim=1), torch.stack(bads, dim=1)
+
+
 def use_volume_tables(cfg: DenseConfig) -> bool:
-    """Whether exact scoring routes through the sigma tables: always, in
-    the port; the other scoring paths are not ported."""
-    if cfg.score_mode != "exact":
-        raise NotImplementedError(
-            f"score_mode={cfg.score_mode!r} (warped-image scoring and the "
-            "zncc_warped Pallas kernel are not ported)")
+    """Whether scoring reads the sigma tables in some phase: "exact" does
+    in every phase, "hybrid" in the geometric ones, "warped" never (no
+    tables are built for it).  Raises for the scoring knobs the port does
+    not have."""
+    if cfg.score_mode not in ("exact", "hybrid", "warped"):
+        raise ValueError(f"unknown score_mode {cfg.score_mode!r}")
     if cfg.exact_backend == "bilinear" or not cfg.use_pallas:
         raise NotImplementedError(
             "exact_backend='bilinear' / use_pallas=False (direct bilinear "
             "scoring, not ported)")
-    if cfg.candidate_kernel == "on" or cfg.batch_candidates \
-            or cfg.refine_batched:
+    if cfg.batch_candidates:
         raise NotImplementedError(
-            "candidate_kernel='on' / batch_candidates / refine_batched "
-            "(batched candidate scoring and volume_lookup_multi, not "
-            "ported)")
+            "batch_candidates (the retired vmapped candidate path, not "
+            "carried over; candidate_kernel='on' batches candidates)")
     if cfg.volume_streaming:
         raise NotImplementedError("volume_streaming (not ported)")
-    return True
+    return cfg.score_mode != "warped"
+
+
+def exact_scoring(cfg: DenseConfig, phase: int) -> bool:
+    """Whether ``phase`` scores exactly through the tables ("exact", and
+    "hybrid" from the geometric phase on) rather than warped."""
+    return cfg.score_mode == "exact" or (cfg.score_mode == "hybrid"
+                                         and phase >= 1)
+
+
+def use_candidate_batch(cfg: DenseConfig) -> bool:
+    """Whether propagation candidates are scored together through kernel
+    D (``photometric_scores_volume_batched``); "auto" resolves off, as in
+    the JAX package."""
+    return cfg.candidate_kernel == "on"
 
 
 def use_rect_backend(cfg: DenseConfig, h: int, w: int) -> bool:
@@ -132,6 +374,44 @@ def use_rect_backend(cfg: DenseConfig, h: int, w: int) -> bool:
             "geo_backend='direct' / use_pallas=False (direct neighbour "
             "gathers, not ported)")
     return True
+
+
+def _plane_terms(geom: ViewGeometry, depth: torch.Tensor,
+                 normal: torch.Tensor, rays: torch.Tensor):
+    """(n_ray0, inv_dp, nk_x, nk_y) of the per-pixel plane hypotheses:
+    a sample at offset (dy, dx) lies at the epipolar parameter
+    ``s = (n_ray0 + nk_x*dx + nk_y*dy) * inv_dp``, the same for every
+    view."""
+    nx, ny, nz = normal[0], normal[1], normal[2]
+    n_ray0 = nx * rays[0] + ny * rays[1] + nz * rays[2]
+    d_plane = n_ray0 * depth
+    inv_dp = 1.0 / torch.where(d_plane.abs() < 1e-12, 1e-12, d_plane)
+    Ki = geom.K_inv_ref
+    nk_x = nx * Ki[0, 0] + ny * Ki[1, 0] + nz * Ki[2, 0]
+    nk_y = nx * Ki[0, 1] + ny * Ki[1, 1] + nz * Ki[2, 1]
+    return n_ray0, inv_dp, nk_x, nk_y
+
+
+def _sample_sigmas(geom: ViewGeometry, depth: torch.Tensor,
+                   normal: torch.Tensor, rays: torch.Tensor, offsets
+                   ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The hypothesis' epipolar parameter at the centre, s_c (H, W), and
+    its forward-shifted sample fields (S, H, W): row q of field k holds
+    s(q - delta_k), so a table lookup lands on the row of the SAMPLE
+    pixel q = p + delta."""
+    h, w = depth.shape
+    pad = _pad_of(offsets)
+    n_ray0, inv_dp, nk_x, nk_y = _plane_terms(geom, depth, normal, rays)
+    s_c = n_ray0 * inv_dp
+    s_cp = pad_edge(s_c, pad)
+    gxp = pad_edge(nk_x * inv_dp, pad)
+    gyp = pad_edge(nk_y * inv_dp, pad)
+    fwd = torch.stack([
+        _shifted(s_cp, pad, -dy, -dx, h, w)
+        + _shifted(gxp, pad, -dy, -dx, h, w) * dx
+        + _shifted(gyp, pad, -dy, -dx, h, w) * dy
+        for dy, dx in offsets])
+    return s_c, fwd
 
 
 def photometric_scores_volume(geom: ViewGeometry, vol, stats: RefPatchStats,
@@ -154,28 +434,7 @@ def photometric_scores_volume(geom: ViewGeometry, vol, stats: RefPatchStats,
     h, w = depth.shape
     pad = _pad_of(offsets)
     th_robust = cfg.ncc_threshold_keep * 1.2
-
-    nx, ny, nz = normal[0], normal[1], normal[2]
-    n_ray0 = nx * rays[0] + ny * rays[1] + nz * rays[2]
-    d_plane = n_ray0 * depth
-    inv_dp = 1.0 / torch.where(d_plane.abs() < 1e-12, 1e-12, d_plane)
-    Ki = geom.K_inv_ref
-    nk_x = nx * Ki[0, 0] + ny * Ki[1, 0] + nz * Ki[2, 0]
-    nk_y = nx * Ki[0, 1] + ny * Ki[1, 1] + nz * Ki[2, 1]
-    s_c = n_ray0 * inv_dp
-    gx = nk_x * inv_dp
-    gy = nk_y * inv_dp
-
-    # forward-shifted s fields: row q of field k holds s(q - delta_k), so
-    # the lookup lands on the table row of the SAMPLE pixel q = p + delta
-    s_cp = pad_edge(s_c, pad)
-    gxp = pad_edge(gx, pad)
-    gyp = pad_edge(gy, pad)
-    fwd = torch.stack([
-        _shifted(s_cp, pad, -dy, -dx, h, w)
-        + _shifted(gxp, pad, -dy, -dx, h, w) * dx
-        + _shifted(gyp, pad, -dy, -dx, h, w) * dy
-        for dy, dx in offsets])                       # (S, H, W)
+    s_c, fwd = _sample_sigmas(geom, depth, normal, rays, offsets)
 
     # the sigma grid is shared across views
     sig0 = vol.sig0[0]
@@ -234,8 +493,12 @@ def score_photometric(geom: ViewGeometry, src_grays: torch.Tensor,
                       rays: torch.Tensor, offsets, cfg: DenseConfig,
                       phase: int = 1,
                       vol=None) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Exact photometric scoring through the sigma tables."""
-    del src_grays, phase
+    """Dispatch on cfg.score_mode: exact scoring through the sigma tables,
+    or the warped approximation ("warped", and "hybrid" in the
+    photometric phase)."""
+    if not exact_scoring(cfg, phase):
+        return photometric_scores_warped(geom, src_grays, stats, hw, depth,
+                                         normal, rays, offsets, cfg)
     use_volume_tables(cfg)
     if vol is None:
         raise ValueError("exact scoring needs the sigma tables "

@@ -36,13 +36,13 @@ import torch
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_ROOT = Path(__file__).resolve().parent / "_build"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "--fmad=false", "-Xptxas", "-v", "-shared",
-              "-Xcompiler", "-fPIC")
+              "-O3", "--fmad=false", "-Xptxas", "-v", "-Xcompiler", "-fPIC")
 LIB_NAME = "libhcmvs_kernels.so"
 
 # launches of each kernel since the last reset_launches()
 launches: Dict[str, int] = {"rect_build": 0, "volume_lookup": 0,
-                            "rect_lookup": 0}
+                            "rect_lookup": 0, "volume_lookup_multi": 0,
+                            "zncc_warped": 0}
 
 _state = {"lib": None, "plain": False, "build_seconds": None}
 
@@ -90,9 +90,25 @@ def _nvcc() -> str:
     return str(path)
 
 
+def _run_all(cmds, log: Path) -> None:
+    """Run the commands side by side, append their output to ``log``, and
+    raise with the first failure's command and output."""
+    procs = [subprocess.Popen(c, stdout=subprocess.PIPE,
+                              stderr=subprocess.STDOUT, text=True)
+             for c in cmds]
+    outs = [p.communicate()[0] for p in procs]
+    with log.open("a") as fh:
+        fh.write("".join(outs))
+    for cmd, proc, out in zip(cmds, procs, outs):
+        if proc.returncode != 0:
+            raise RuntimeError(f"nvcc failed ({proc.returncode}):\n"
+                               f"{' '.join(cmd)}\n{out}")
+
+
 def build() -> Path:
     """Compile the kernels unless this exact build exists; returns the
-    library's path.  Raises with nvcc's output if the compile fails."""
+    library's path.  One nvcc per source, all started together, then one
+    link.  Raises with nvcc's output if a compile fails."""
     digest = hashlib.sha256()
     for src in _sources():
         digest.update(src.name.encode())
@@ -103,15 +119,18 @@ def build() -> Path:
     if lib.exists():
         return lib
     out_dir.mkdir(parents=True, exist_ok=True)
-    tmp = out_dir / f"{LIB_NAME}.{os.getpid()}.tmp"
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp),
-           *[str(s) for s in _sources() if s.suffix == ".cu"]]
+    tag = os.getpid()
+    log = out_dir / "build.log"
+    log.write_text("")
+    nvcc = _nvcc()
+    units = [s for s in _sources() if s.suffix == ".cu"]
+    objs = [out_dir / f"{s.stem}.{tag}.o" for s in units]
+    tmp = out_dir / f"{LIB_NAME}.{tag}.tmp"
     t0 = time.perf_counter()
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    (out_dir / "build.log").write_text(proc.stdout + proc.stderr)
-    if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n"
-                           f"{' '.join(cmd)}\n{proc.stdout}{proc.stderr}")
+    _run_all([[nvcc, *NVCC_FLAGS, "-c", "-o", str(o), str(s)]
+              for s, o in zip(units, objs)], log)
+    _run_all([[nvcc, *NVCC_FLAGS, "-shared", "-o", str(tmp),
+               *map(str, objs)]], log)
     os.replace(tmp, lib)
     _state["build_seconds"] = time.perf_counter() - t0
     return lib
@@ -133,8 +152,14 @@ def library() -> ctypes.CDLL:
                                          i64, p]
         lib.hcmvs_rect_lookup.argtypes = [p, p, p, p, p, p, p, i, i, i, i,
                                           i, i, p]
+        lib.hcmvs_volume_lookup_multi.argtypes = [p, p, p, p, i64, i, i, i,
+                                                  p]
+        lib.hcmvs_zncc_warped.argtypes = [p, p, p, p, p, p, p, p, p,
+                                          ctypes.POINTER(ctypes.c_int), i, i,
+                                          i, i, i, p]
         for fn in (lib.hcmvs_volume_lookup, lib.hcmvs_rect_build,
-                   lib.hcmvs_rect_lookup):
+                   lib.hcmvs_rect_lookup, lib.hcmvs_volume_lookup_multi,
+                   lib.hcmvs_zncc_warped):
             fn.restype = ctypes.c_int
         lib.hcmvs_error_string.argtypes = [i]
         lib.hcmvs_error_string.restype = ctypes.c_char_p
@@ -233,3 +258,75 @@ def rect_lookup(maps: torch.Tensor, row_int: torch.Tensor,
             k.data_ptr(), rb.data_ptr(), sigma.data_ptr(), out.data_ptr(),
             v, c, h, w, h_r, w_r)
     return out
+
+
+def volume_lookup_multi(tab: torch.Tensor, f: torch.Tensor,
+                        bounds: torch.Tensor = None) -> torch.Tensor:
+    """Kernel D: tab (P, D) u16, f (P, C) f32 -> (P, C) f32; or f (P, C)
+    u16 (packed, f * 64) -> (P, C) u16, with the sentinel 0xFFFF outside
+    the per-row interval of ``bounds`` (P, 128) u16 when given."""
+    if tab.device.type != "cuda":
+        raise ValueError("volume_lookup_multi kernel needs CUDA tensors")
+    if tab.dim() != 2 or f.dim() != 2 or tab.shape[1] % 128 \
+            or not 128 <= tab.shape[1] <= 512:
+        raise ValueError(f"kernel D takes (P, D) tables, D a multiple of "
+                         f"128 up to 512, and (P, C) fields, got "
+                         f"{tuple(tab.shape)}, {tuple(f.shape)}")
+    p, c = f.shape
+    dev = tab.device
+    _check_tensor("tab", tab, torch.uint16, (p, tab.shape[1]), dev)
+    if tab.data_ptr() % 16:
+        raise ValueError("tab is not 16-byte aligned")
+    if f.dtype not in (torch.uint16, torch.float32):
+        raise TypeError(f"f has dtype {f.dtype}, expected uint16 or float32")
+    if f.dtype == torch.uint16:
+        mode = 1 if bounds is None else 2
+    elif bounds is not None:
+        raise ValueError("bounds need a packed (u16) field")
+    else:
+        mode = 0
+    _check_tensor("f", f, f.dtype, (p, c), dev)
+    if bounds is not None:
+        _check_tensor("bounds", bounds, torch.uint16, (p, 128), dev)
+    out = torch.empty((p, c), dtype=f.dtype, device=dev)
+    lib = library()
+    _launch("volume_lookup_multi", lib.hcmvs_volume_lookup_multi, dev,
+            tab.data_ptr(), f.data_ptr(),
+            None if bounds is None else bounds.data_ptr(), out.data_ptr(),
+            p, c, tab.shape[1], mode)
+    return out
+
+
+def zncc_warped(ref_pad: torch.Tensor, tm: torch.Tensor, nsq0: torch.Tensor,
+                warped_pad: torch.Tensor, valid_pad: torch.Tensor,
+                hw: torch.Tensor, acc: torch.Tensor, scan_offsets,
+                pad: int):
+    """Kernel E: (score, var1), both (V, H, W), from the padded reference
+    (H+2p, W+2p), tm/nsq0/hw (H, W), the padded warped sources and their
+    validity (V, H+2p, W+2p) and the corner sums acc (V, 4, H, W)."""
+    if tm.device.type != "cuda":
+        raise ValueError("zncc_warped kernel needs CUDA tensors")
+    v = warped_pad.shape[0]
+    h, w = tm.shape
+    dev = tm.device
+    padded = (h + 2 * pad, w + 2 * pad)
+    _check_tensor("ref_pad", ref_pad, torch.float32, padded, dev)
+    for name, t in (("tm", tm), ("nsq0", nsq0), ("hw", hw)):
+        _check_tensor(name, t, torch.float32, (h, w), dev)
+    for name, t in (("warped_pad", warped_pad), ("valid_pad", valid_pad)):
+        _check_tensor(name, t, torch.float32, (v, *padded), dev)
+    _check_tensor("acc", acc, torch.float32, (v, 4, h, w), dev)
+    offs = [int(x) for o in scan_offsets for x in o]
+    if len(offs) > 2 * 128 or any(abs(x) > pad for x in offs):
+        raise ValueError(f"kernel E takes at most 128 offsets within the "
+                         f"pad {pad}, got {list(scan_offsets)}")
+    offs_c = (ctypes.c_int * max(len(offs), 1))(*offs)
+    score = torch.empty((v, h, w), dtype=torch.float32, device=dev)
+    var1 = torch.empty((v, h, w), dtype=torch.float32, device=dev)
+    lib = library()
+    _launch("zncc_warped", lib.hcmvs_zncc_warped, dev,
+            ref_pad.data_ptr(), tm.data_ptr(), nsq0.data_ptr(),
+            warped_pad.data_ptr(), valid_pad.data_ptr(), hw.data_ptr(),
+            acc.data_ptr(), score.data_ptr(), var1.data_ptr(), offs_c,
+            len(offs) // 2, v, h, w, pad)
+    return score, var1

@@ -12,11 +12,15 @@ The tables are built in each pair's rectified frame
 strided run of one rect row.  Its pixel order is tile-major
 (``to_volume_order``); the scoring consumer uses the same order.
 
-Two kernels live here, each beside its plain PyTorch version:
+Three kernels live here, each beside its plain PyTorch version:
 - kernel A, ``rect_build_tab`` (``kernels/csrc/rect_build.cu``), replaces
   the Pallas ``_rect_build_kernel``;
 - kernel B, ``volume_lookup`` (``kernels/csrc/volume_lookup.cu``),
-  replaces the Pallas ``_lookup_kernel``.
+  replaces the Pallas ``_lookup_kernel``;
+- kernel D, ``volume_lookup_multi``
+  (``kernels/csrc/volume_lookup_multi.cu``), replaces the Pallas
+  ``_lookup_multi_kernel``: C index columns (all candidates' samples of a
+  pixel) against one table row.
 """
 
 from __future__ import annotations
@@ -30,6 +34,7 @@ from hcmvs_tpu_torch.dense.types import mat3_apply
 from hcmvs_tpu_torch.ops.sampling import bicubic_sample_xy
 
 D_PLANES = 128          # sigma planes per table
+F_PACK_SCALE = 64       # packed index fields: u16 steps of 1/64 plane
 _SIGMA_MARGIN = 1.35    # widening of the sigma range for patch obliquity
 _CHUNK = 2048           # table rows are padded to a multiple of this
 
@@ -132,9 +137,34 @@ def from_volume_order(x: torch.Tensor, h: int, w: int) -> torch.Tensor:
     return x.reshape(*lead, h8, w128)[..., :h, :w]
 
 
+def to_volume_order_multi(x: torch.Tensor) -> torch.Tensor:
+    """(C, H, W) -> (P, C): the rows of ``to_volume_order`` with the C
+    channels minor, in one copy.  Unaligned images are zero-padded."""
+    c, h, w = x.shape
+    h8, w128 = padded_hw(h, w)
+    if (h8, w128) != (h, w):
+        x = torch.nn.functional.pad(x, (0, w128 - w, 0, h8 - h))
+    x = x.reshape(c, h8 // 8, 8, w128 // 128, 128)
+    return x.permute(1, 3, 4, 2, 0).reshape(h8 * w128, c)
+
+
+def from_volume_order_multi(x: torch.Tensor, h: int, w: int) -> torch.Tensor:
+    """Inverse of to_volume_order_multi: (P, C) -> (C, H, W)."""
+    c = x.shape[1]
+    h8, w128 = padded_hw(h, w)
+    x = x.reshape(h8 // 8, w128 // 128, 128, 8, c).permute(4, 0, 3, 1, 2)
+    return x.reshape(c, h8, w128)[:, :h, :w]
+
+
 # --------------------------------------------------------------------------
 # kernel B: table lookup
 # --------------------------------------------------------------------------
+
+def u16_as_int32(x: torch.Tensor) -> torch.Tensor:
+    """u16 (or its int16 view) -> int32 values 0..65535 (PyTorch has few
+    u16 kernels; conversions through an int16 view work everywhere)."""
+    return x.view(torch.int16).to(torch.int32) & 0xFFFF
+
 
 def volume_lookup_plain(tab: torch.Tensor, f: torch.Tensor) -> torch.Tensor:
     """Plain version of kernel B: tab (P, D) u16, f (P, S) f32 ->
@@ -146,7 +176,7 @@ def volume_lookup_plain(tab: torch.Tensor, f: torch.Tensor) -> torch.Tensor:
     t16 = tab.view(torch.int16)       # gather has no u16 variant
 
     def dec(idx):
-        raw = torch.gather(t16, 1, idx).to(torch.int32) & 0xFFFF
+        raw = u16_as_int32(torch.gather(t16, 1, idx))
         return raw.to(torch.float32) * (1.0 / 65535.0)
 
     g0 = dec(i0i)
@@ -161,6 +191,51 @@ def volume_lookup(tab: torch.Tensor, f: torch.Tensor) -> torch.Tensor:
     if kernels.use_kernel(tab):
         return kernels.volume_lookup(tab, f)
     return volume_lookup_plain(tab, f)
+
+
+# --------------------------------------------------------------------------
+# kernel D: lookup of many index columns per table row
+# --------------------------------------------------------------------------
+
+def volume_lookup_multi_plain(tab: torch.Tensor, f: torch.Tensor,
+                              bounds: torch.Tensor = None) -> torch.Tensor:
+    """Plain version of kernel D.  tab (P, D) u16.
+
+    - f (P, C) f32: ``volume_lookup_plain`` (decoded f32 values);
+    - f (P, C) u16, packed (f * F_PACK_SCALE): ``i0 = min(f >> 6, D - 2)``,
+      ``t = (f - 64 i0) / 64``, the lerp on the raw u16 scale, rounded half
+      to even, low 16 bits kept -> (P, C) u16;
+    - with ``bounds`` (P, 128) u16 (lo in lanes 0..63, hi in 64..127):
+      ``min(value, 65534)`` where lo <= f <= hi, else the sentinel 0xFFFF.
+    """
+    if f.dtype == torch.float32:
+        if bounds is not None:
+            raise ValueError("bounds need a packed (u16) field")
+        return volume_lookup_plain(tab, f)
+    d = tab.shape[1]
+    fi = u16_as_int32(f)
+    i0 = torch.clamp_max(fi >> 6, d - 2)
+    t = (fi - (i0 << 6)).to(torch.float32) * (1.0 / F_PACK_SCALE)
+    t16 = tab.view(torch.int16)
+    i0l = i0.to(torch.int64)
+    g0 = u16_as_int32(torch.gather(t16, 1, i0l)).to(torch.float32)
+    g1 = u16_as_int32(torch.gather(t16, 1, i0l + 1)).to(torch.float32)
+    li = torch.round(g0 + (g1 - g0) * t).to(torch.int32)
+    if bounds is not None:
+        b = u16_as_int32(bounds)
+        ok = (fi >= b[:, :1]) & (fi <= b[:, 64:65])
+        li = torch.where(ok, torch.clamp_max(li, 65534), 65535)
+    return (li & 0xFFFF).to(torch.int16).view(torch.uint16)
+
+
+def volume_lookup_multi(tab: torch.Tensor, f: torch.Tensor,
+                        bounds: torch.Tensor = None) -> torch.Tensor:
+    """Lerp-sample per-pixel tables at C index columns per row (see
+    ``volume_lookup_multi_plain``).  Kernel D on CUDA, the plain version
+    on the CPU."""
+    if kernels.use_kernel(tab):
+        return kernels.volume_lookup_multi(tab, f, bounds)
+    return volume_lookup_multi_plain(tab, f, bounds)
 
 
 # --------------------------------------------------------------------------

@@ -8,7 +8,10 @@ the JAX package (``--noconftest`` skips tests/conftest.py, which does):
 
 Tests marked ``gpu`` skip without a CUDA device.  Tolerances on the card:
 kernel A within 1 u16 LSB on >= 99.9% of entries, kernel B at atol 1e-6,
-kernel C bit-exact (the bars chip_smoke.py applies at full size).
+kernel C bit-exact, kernel D bit-exact in its packed and bounded modes and
+at atol 1e-6 in its f32 mode, kernel E at rtol 1e-4 / atol 2e-4 (exp
+differs by an ulp between implementations; the bars chip_smoke.py applies
+at full size).
 """
 
 import numpy as np
@@ -20,6 +23,7 @@ from hcmvs_tpu_torch.core.camera import Camera
 from hcmvs_tpu_torch.dense.types import make_view_geometry
 from hcmvs_tpu_torch.ops import rect_gather as rg
 from hcmvs_tpu_torch.ops import volume as vol
+from hcmvs_tpu_torch.ops import zncc_warped as zw
 from hcmvs_tpu_torch.utils.synth import make_plane_scene
 
 # pytest-xdist runs one process per core; torch's own intra-op pool in
@@ -170,3 +174,89 @@ def test_kernel_c_matches_plain():
         ref = rg.rect_lookup(ctx, sigma)
     assert torch.equal(out.view(torch.int32), ref.view(torch.int32))
     assert (out[:, 0] != 0).float().mean() > 0.5
+
+
+def _zncc_case(device, v=3, h=40, w=48, pad=5):
+    rng = np.random.default_rng(11)
+    hp, wp = h + 2 * pad, w + 2 * pad
+    f32 = np.float32
+    arrs = dict(ref_pad=rng.random((hp, wp)), tm=rng.random((h, w)),
+                nsq0=rng.random((h, w)) + 0.1,
+                warped_pad=rng.random((v, hp, wp)),
+                valid_pad=rng.random((v, hp, wp)) > 0.1,
+                hw=rng.choice([3.0, 5.0], (h, w)),
+                acc=rng.random((v, 4, h, w)) * 0.1)
+    args = {k: torch.from_numpy(a.astype(f32)).to(device)
+            for k, a in arrs.items()}
+    offs = [(dy, dx) for dy in range(-pad, pad + 1, 2)
+            for dx in range(-pad, pad + 1, 2)
+            if not (abs(dy) == pad and abs(dx) == pad)]
+    return dict(args, scan_offsets=tuple(offs), pad=pad)
+
+
+def test_launchers_d_and_e_refuse_cpu_tensors():
+    tab = _u16(np.zeros((64, 128)))
+    with pytest.raises(ValueError):
+        kernels.volume_lookup_multi(tab, _u16(np.zeros((64, 81))))
+    with pytest.raises(ValueError):
+        kernels.zncc_warped(**_zncc_case("cpu"))
+    # the dispatching wrappers take the plain versions for CPU tensors
+    before = dict(kernels.launches)
+    vol.volume_lookup_multi(tab, _u16(np.zeros((64, 81))))
+    zw.zncc_warped(**_zncc_case("cpu"))
+    assert kernels.launches == before
+
+
+@pytest.mark.gpu
+def test_kernel_d_matches_plain():
+    dev = _cuda()
+    rng = np.random.default_rng(12)
+    p = 4096
+    for d in (128, 256):
+        tab = _u16(rng.integers(0, 65536, (p, d))).to(dev)
+        for c in (81, 324):
+            f32 = torch.from_numpy(rng.uniform(-3, d + 2, (p, c)).astype(
+                np.float32)).to(dev)
+            out = vol.volume_lookup_multi(tab, f32)
+            with kernels.plain_versions():
+                ref = vol.volume_lookup_multi(tab, f32)
+            torch.testing.assert_close(out, ref, rtol=0, atol=1e-6)
+            enc = rng.integers(0, (d - 1) * vol.F_PACK_SCALE + 1, (p, c))
+            enc[:, 0] = 65535                         # beyond-grid sentinel
+            f16 = _u16(enc).to(dev)
+            lo = rng.integers(0, 40 * vol.F_PACK_SCALE, p)
+            hi = rng.integers(60 * vol.F_PACK_SCALE, 65535, p)
+            bounds = _u16(np.concatenate(
+                [np.repeat(lo[:, None], 64, 1), np.repeat(hi[:, None], 64, 1)],
+                axis=1)).to(dev)
+            for b in (None, bounds):
+                out = vol.volume_lookup_multi(tab, f16, b)
+                with kernels.plain_versions():
+                    ref = vol.volume_lookup_multi(tab, f16, b)
+                # beyond the grid the unbounded lerp extrapolates, rounded
+                # as the plain version rounds it op by op (--fmad=false)
+                assert torch.equal(vol.u16_as_int32(out),
+                                   vol.u16_as_int32(ref))
+    before = kernels.launches["volume_lookup_multi"]
+    vol.volume_lookup_multi(tab, f16, bounds)
+    assert kernels.launches["volume_lookup_multi"] == before + 1
+    with pytest.raises(ValueError):
+        kernels.volume_lookup_multi(tab, f32, bounds)   # bounds need u16
+    with pytest.raises(ValueError):
+        kernels.volume_lookup_multi(tab, f16[:, ::2])   # not contiguous
+
+
+@pytest.mark.gpu
+def test_kernel_e_matches_plain():
+    dev = _cuda()
+    case = _zncc_case(dev)
+    before = kernels.launches["zncc_warped"]
+    out_s, out_v = zw.zncc_warped(**case)
+    assert kernels.launches["zncc_warped"] == before + 1
+    with kernels.plain_versions():
+        ref_s, ref_v = zw.zncc_warped(**case)
+    torch.testing.assert_close(out_s, ref_s, rtol=1e-4, atol=2e-4)
+    torch.testing.assert_close(out_v, ref_v, rtol=1e-4, atol=2e-4)
+    with pytest.raises(ValueError):                     # beyond the pad
+        kernels.zncc_warped(**dict(
+            case, scan_offsets=case["scan_offsets"] + ((6, 0),)))

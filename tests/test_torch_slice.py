@@ -246,9 +246,10 @@ def test_aggregate_scores_match():
 def test_unported_knobs_raise(world):
     scene_t = scene_from_numpy(world["scene"])
     gen = torch.Generator().manual_seed(0)
-    for kw in (dict(score_mode="hybrid"), dict(exact_backend="bilinear"),
+    for kw in (dict(exact_backend="bilinear"),
                dict(geo_backend="direct"), dict(volume_build="planes"),
-               dict(volume_planes=256), dict(candidate_kernel="on"),
+               dict(volume_planes=256), dict(batch_candidates=True),
+               dict(batch_candidates=True, score_mode="warped"),
                dict(view_spread=1), dict(volume_streaming=True),
                dict(optimize=1)):
         with pytest.raises(NotImplementedError):
