@@ -5,6 +5,9 @@ container (``SceneTensors``, ``SceneState``, ``ViewGeometry``,
 ``VolumeTables``, ``RectContext``) and reads every array through
 ``np.asarray``, so this module needs no JAX.  The tests use them to run
 both packages on identical scenes, states, tables and rect contexts.
+Like the port's other entry points they put the tensors on the card
+unless the caller asks for another device (the CPU tests pass
+``device="cpu"``); without a card torch's own error is raised.
 """
 
 from __future__ import annotations
@@ -28,7 +31,7 @@ def _t(x, device, dtype=None) -> torch.Tensor:
     return t.to(device=device, dtype=dtype or t.dtype)
 
 
-def scene_from_numpy(scene, device="cpu") -> SceneTensors:
+def scene_from_numpy(scene, device="cuda") -> SceneTensors:
     """The JAX ``SceneTensors`` (no optional channels, no tables)."""
     cams = Camera(K=_t(scene.cams.K, device, torch.float32),
                   R=_t(scene.cams.R, device, torch.float32),
@@ -41,20 +44,20 @@ def scene_from_numpy(scene, device="cpu") -> SceneTensors:
         d_max=_t(scene.d_max, device, torch.float32))
 
 
-def state_from_numpy(state, device="cpu") -> SceneState:
+def state_from_numpy(state, device="cuda") -> SceneState:
     """The JAX ``SceneState`` (its PRNG keys are dropped)."""
     return SceneState(depth=_t(state.depth, device, torch.float32),
                       normal=_t(state.normal, device, torch.float32),
                       cost=_t(state.cost, device, torch.float32))
 
 
-def geometry_from_numpy(geom, device="cpu") -> ViewGeometry:
+def geometry_from_numpy(geom, device="cuda") -> ViewGeometry:
     """The JAX ``ViewGeometry``."""
     return ViewGeometry(**{f: _t(getattr(geom, f), device, torch.float32)
                            for f in ViewGeometry.__dataclass_fields__})
 
 
-def tables_from_numpy(vol, device="cpu") -> VolumeTables:
+def tables_from_numpy(vol, device="cuda") -> VolumeTables:
     """The JAX ``VolumeTables`` (u16 tables, any leading dims)."""
     return VolumeTables(tab=_t(vol.tab, device),
                         sig0=_t(vol.sig0, device, torch.float32),
@@ -63,7 +66,7 @@ def tables_from_numpy(vol, device="cpu") -> VolumeTables:
                         sig_hi=_t(vol.sig_hi, device, torch.float32))
 
 
-def rect_context_from_numpy(ctx, device="cpu") -> RectContext:
+def rect_context_from_numpy(ctx, device="cuda") -> RectContext:
     """The JAX ``RectContext``; its (V, C, n_rh, n_ch, 8, 256) blocked
     maps become (V, C, H_r, W_r)."""
     maps = np.asarray(ctx.maps)

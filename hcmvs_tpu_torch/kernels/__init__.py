@@ -46,6 +46,10 @@ launches: Dict[str, int] = {"rect_build": 0, "volume_lookup": 0,
 
 _state = {"lib": None, "plain": False, "build_seconds": None}
 
+# kernel E keeps every view's sums in registers: views per launch, at most
+# (zncc_warped.cu kMaxViews; covers the 10-neighbour operating point)
+ZNCC_MAX_VIEWS = 10
+
 
 def reset_launches() -> None:
     for name in launches:
@@ -316,6 +320,9 @@ def zncc_warped(ref_pad: torch.Tensor, tm: torch.Tensor, nsq0: torch.Tensor,
     for name, t in (("warped_pad", warped_pad), ("valid_pad", valid_pad)):
         _check_tensor(name, t, torch.float32, (v, *padded), dev)
     _check_tensor("acc", acc, torch.float32, (v, 4, h, w), dev)
+    if not 1 <= v <= ZNCC_MAX_VIEWS:
+        raise ValueError(f"kernel E takes 1 to {ZNCC_MAX_VIEWS} views, "
+                         f"got {v}")
     offs = [int(x) for o in scan_offsets for x in o]
     if len(offs) > 2 * 128 or any(abs(x) > pad for x in offs):
         raise ValueError(f"kernel E takes at most 128 offsets within the "

@@ -15,89 +15,186 @@
 // score = 1 - clip(num / sqrt(max(nsq0 * var1, 1e-16)), -1, 1).
 // Padded arrays are (H + 2 pad, W + 2 pad) with every |dy|, |dx| <= pad.
 // The Pallas row tiles with their halo copies, the (8, 128) alignment
-// padding and the pltpu.roll shifts are Mosaic plumbing: here a thread
-// reads its shifted neighbours directly.
+// padding and the pltpu.roll shifts are Mosaic plumbing.
 //
 // What bounds it on the H100: bytes.  Phase 0 of the hybrid path (V = 3 at
 // 960 x 1280, pad 5, 8 offsets) reads ref_pad (5 MB), warped_pad and
 // valid_pad (30 MB), tm, nsq0, hw (15 MB) and acc (59 MB) and writes
-// score and var1 (29.5 MB): about 138 MB, 41 us at 3.35 TB/s; its 29.5 M
-// exps are far below the special-function units' rate.  The design is one
-// thread per (view, pixel), x fastest, so each offset's reads of a warp are
-// one contiguous run of a row and the neighbouring offsets hit L1; the
-// offsets ride in the kernel's parameter space (uniform across a warp).
-// Accumulation order and every rounding step follow the plain version
-// (built with --fmad=false; expf, not __expf).
+// score and var1 (29.5 MB): about 138 MB, 41 us at 3.35 TB/s; its 9.8 M
+// exps are far below the special-function units' rate.
+//
+// The first design ran one thread per (view, pixel) and read every tap from
+// global memory: the reference's taps and the bilateral weight, which do
+// not depend on the view, were loaded and computed V times, each texel was
+// fetched once per offset per view, and two 64-bit divisions split the
+// flat index.  This one runs a 2D grid of 32 x 16 pixel tiles, 256 threads
+// a block, each thread two pixels of a column (rows y and y + 8), each for
+// all V views (V a template parameter, 1..kMaxViews).  The block stages
+// its haloed tile of ref_pad and of every view's warped_pad and valid_pad
+// in shared memory ((16 + 2 pad) x (32 + 2 pad) floats each, 30.6 KB at
+// V = 3, pad 5), so each texel leaves L2 once per block.  The staging uses
+// cp.async: a thread's ~30 copies are all in flight at once instead of
+// one load-store round trip after another.  Per offset the thread
+// computes the reference's terms once (v_d, the colour and spatial
+// weights, the window mask, e = exp(..) * in_win) and each view adds
+// wt = e * ok to its own four sums, in the offsets' order.  The offsets
+// ride in the kernel's parameter space as shared-memory displacements
+// with dy^2 + dx^2 and max(|dy|, |dx|) beside them.  All indices are
+// 32-bit (the launcher checks the sizes), with no division.  The
+// accumulation order and every rounding step follow the plain version
+// (built with --fmad=false; expf, not __expf): (exp(..) * in_win) * ok is
+// the plain version's product, so the outputs stay equal to it.
+//
+// Measured (chip_smoke.py, NVIDIA H100 80GB HBM3, 700.00 W), with kernel
+// time taken from launches queued behind a spin kernel: the first design
+// 0.111 ms, this one 0.063 ms at the phase-0 shapes above (65% of the byte
+// bound).
 #include "common.cuh"
 
 namespace {
 
 constexpr int kMaxOffsets = 128;
+constexpr int kMaxViews = 10;
+constexpr int kTileX = 32;             // a block's pixel tile
+constexpr int kTileY = 16;
+constexpr int kThreadsY = 8;           // 32 x 8 threads, two rows each
+constexpr int kMaxSmemBytes = 232448;  // a block's limit on the H100
+
+// asynchronous 4-byte copy from global to shared memory (sm_80 and later)
+__device__ __forceinline__ void copy_async(float* dst, const float* src) {
+  const unsigned d = (unsigned)__cvta_generic_to_shared(dst);
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(d),
+               "l"(src));
+}
 
 struct Offsets {
   int n;
-  signed char dy[kMaxOffsets];
-  signed char dx[kMaxOffsets];
+  int disp[kMaxOffsets];    // dy * tile_w + dx in the shared tile
+  float d2[kMaxOffsets];    // dy^2 + dx^2
+  float cheb[kMaxOffsets];  // max(|dy|, |dx|)
 };
 
-__global__ void zncc_warped_kernel(const float* __restrict__ ref_pad,
-                                   const float* __restrict__ tm,
-                                   const float* __restrict__ nsq0,
-                                   const float* __restrict__ warped_pad,
-                                   const float* __restrict__ valid_pad,
-                                   const float* __restrict__ hw,
-                                   const float* __restrict__ acc,
-                                   float* __restrict__ score,
-                                   float* __restrict__ var_out,
-                                   const Offsets offs, int v_n, int h, int w,
-                                   int pad) {
-  const long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  const long long hw_n = (long long)h * w;
-  if (i >= (long long)v_n * hw_n) return;
-  const int v = (int)(i / hw_n);
-  const long long pix = i - (long long)v * hw_n;
-  const int y = (int)(pix / w);
-  const int x = (int)(pix - (long long)y * w);
+template <int NV>
+__global__ void __launch_bounds__(kTileX * kThreadsY)
+    zncc_warped_kernel(const float* __restrict__ ref_pad,
+                       const float* __restrict__ tm,
+                       const float* __restrict__ nsq0,
+                       const float* __restrict__ warped_pad,
+                       const float* __restrict__ valid_pad,
+                       const float* __restrict__ hw,
+                       const float* __restrict__ acc,
+                       float* __restrict__ score, float* __restrict__ var_out,
+                       const Offsets offs, int h, int w, int pad) {
+  extern __shared__ float tile[];
+  const int tw = kTileX + 2 * pad;
+  const int th = kTileY + 2 * pad;
+  const int tsz = tw * th;
   const int wp = w + 2 * pad;
-  const long long plane = (long long)(h + 2 * pad) * wp;
-  const long long centre = (long long)(y + pad) * wp + (x + pad);
-  const float* warp_v = warped_pad + (long long)v * plane;
-  const float* valid_v = valid_pad + (long long)v * plane;
-  const float* acc_v = acc + (long long)v * 4 * hw_n;
+  const int hp = h + 2 * pad;
+  const int plane = hp * wp;
+  const int x0 = blockIdx.x * kTileX;
+  const int y0 = blockIdx.y * kTileY;
 
-  const float v_c = ref_pad[centre];
-  const float tm_p = tm[pix];
-  const float hw_p = hw[pix];
-  const float inv_2hw2 = -0.5f * (1.0f / (hw_p * hw_p));
-  const float inv_2sc2 = -12.5f;        // -1 / (2 * 0.2^2)
-  float num = acc_v[pix];
-  float s1 = acc_v[hw_n + pix];
-  float sq1 = acc_v[2 * hw_n + pix];
-  float sw = acc_v[3 * hw_n + pix];
-
-#pragma unroll 1
-  for (int k = 0; k < offs.n; ++k) {
-    const int dy = offs.dy[k];
-    const int dx = offs.dx[k];
-    const long long q = centre + (long long)dy * wp + dx;
-    const float v_d = ref_pad[q];
-    const float w_d = warp_v[q];
-    const float ok = valid_v[q];
-    const float dc = v_d - v_c;
-    const float w_color = (dc * dc) * inv_2sc2;
-    const float w_sp = (float)(dy * dy + dx * dx) * inv_2hw2;
-    const float in_win = (float)max(abs(dy), abs(dx)) <= hw_p ? 1.0f : 0.0f;
-    const float wt = (expf(w_color + w_sp) * in_win) * ok;
-    num = num + (wt * (v_d - tm_p)) * w_d;
-    s1 = s1 + wt * w_d;
-    sq1 = sq1 + (wt * w_d) * w_d;
-    sw = sw + wt;
+  // tile planes: 0 the reference, 1..NV the warped views, NV+1..2NV their
+  // validity.  Tile row r, column c is padded row y0 + r, column x0 + c.
+  for (int r = threadIdx.y; r < th; r += kThreadsY) {
+    const int gy = y0 + r;
+    for (int c = threadIdx.x; c < tw; c += kTileX) {
+      const int gx = x0 + c;
+      if (gy < hp && gx < wp) {
+        const int g = gy * wp + gx;
+        const int s = r * tw + c;
+        copy_async(tile + s, ref_pad + g);
+#pragma unroll
+        for (int v = 0; v < NV; ++v) {
+          copy_async(tile + (1 + v) * tsz + s, warped_pad + v * plane + g);
+          copy_async(tile + (1 + NV + v) * tsz + s,
+                     valid_pad + v * plane + g);
+        }
+      }
+    }
   }
-  const float var1 = sq1 - (s1 * s1) / fmaxf(sw, 1e-12f);
-  const float denom = sqrtf(fmaxf(nsq0[pix] * var1, 1e-16f));
-  const float ncc = hcmvs::clampf(num / denom, -1.0f, 1.0f);
-  score[i] = 1.0f - ncc;
-  var_out[i] = var1;
+  asm volatile("cp.async.commit_group;\n" ::);
+  asm volatile("cp.async.wait_group 0;\n" ::);
+  __syncthreads();
+
+  const int hw_n = h * w;
+  const float* t_ref = tile;
+  const float* t_warp = tile + tsz;
+  const float* t_valid = tile + (1 + NV) * tsz;
+  const float inv_2sc2 = -12.5f;        // -1 / (2 * 0.2^2)
+#pragma unroll 1
+  for (int sub = 0; sub < kTileY / kThreadsY; ++sub) {
+    const int ty = threadIdx.y + kThreadsY * sub;
+    const int x = x0 + threadIdx.x;
+    const int y = y0 + ty;
+    if (x >= w || y >= h) return;
+    const int pix = y * w + x;
+    float num[NV], s1[NV], sq1[NV], sw[NV];
+#pragma unroll
+    for (int v = 0; v < NV; ++v) {
+      const float* acc_v = acc + v * 4 * hw_n + pix;
+      num[v] = acc_v[0];
+      s1[v] = acc_v[hw_n];
+      sq1[v] = acc_v[2 * hw_n];
+      sw[v] = acc_v[3 * hw_n];
+    }
+    const float tm_p = tm[pix];
+    const float hw_p = hw[pix];
+    const int centre = (ty + pad) * tw + threadIdx.x + pad;
+    const float v_c = t_ref[centre];
+    const float inv_2hw2 = -0.5f * (1.0f / (hw_p * hw_p));
+
+#pragma unroll 4
+    for (int k = 0; k < offs.n; ++k) {
+      const int q = centre + offs.disp[k];
+      const float v_d = t_ref[q];
+      const float dc = v_d - v_c;
+      const float w_color = (dc * dc) * inv_2sc2;
+      const float w_sp = offs.d2[k] * inv_2hw2;
+      const float in_win = offs.cheb[k] <= hw_p ? 1.0f : 0.0f;
+      const float e = expf(w_color + w_sp) * in_win;
+      const float dt = v_d - tm_p;
+#pragma unroll
+      for (int v = 0; v < NV; ++v) {
+        const float w_d = t_warp[v * tsz + q];
+        const float wt = e * t_valid[v * tsz + q];
+        num[v] = num[v] + (wt * dt) * w_d;
+        const float t = wt * w_d;
+        s1[v] = s1[v] + t;
+        sq1[v] = sq1[v] + t * w_d;
+        sw[v] = sw[v] + wt;
+      }
+    }
+    const float nsq0_p = nsq0[pix];
+#pragma unroll
+    for (int v = 0; v < NV; ++v) {
+      const float var1 = sq1[v] - (s1[v] * s1[v]) / fmaxf(sw[v], 1e-12f);
+      const float denom = sqrtf(fmaxf(nsq0_p * var1, 1e-16f));
+      const float ncc = hcmvs::clampf(num[v] / denom, -1.0f, 1.0f);
+      score[v * hw_n + pix] = 1.0f - ncc;
+      var_out[v * hw_n + pix] = var1;
+    }
+  }
+}
+
+template <int NV>
+int launch(const float* ref_pad, const float* tm, const float* nsq0,
+           const float* warped_pad, const float* valid_pad, const float* hw,
+           const float* acc, float* score, float* var_out,
+           const Offsets& offs, int h, int w, int pad, int smem,
+           cudaStream_t stream) {
+  if (smem > 48 * 1024) {
+    cudaError_t rc = cudaFuncSetAttribute(
+        zncc_warped_kernel<NV>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        smem);
+    if (rc != cudaSuccess) return (int)rc;
+  }
+  const dim3 grid((w + kTileX - 1) / kTileX, (h + kTileY - 1) / kTileY);
+  zncc_warped_kernel<NV><<<grid, dim3(kTileX, kThreadsY), smem, stream>>>(
+      ref_pad, tm, nsq0, warped_pad, valid_pad, hw, acc, score, var_out,
+      offs, h, w, pad);
+  return (int)cudaGetLastError();
 }
 
 }  // namespace
@@ -105,16 +202,24 @@ __global__ void zncc_warped_kernel(const float* __restrict__ ref_pad,
 // ref_pad (h + 2 pad, w + 2 pad); tm, nsq0, hw (h, w); warped_pad,
 // valid_pad (v, h + 2 pad, w + 2 pad); acc (v, 4, h, w); score, var_out
 // (v, h, w); all f32, contiguous.  offsets: host array of n (dy, dx)
-// int pairs, n <= 128, every |dy|, |dx| <= pad.
+// int pairs, n <= 128, every |dy|, |dx| <= pad; 1 <= v <= 10; every
+// array's element count below 2^31; the (1 + 2 v) haloed tiles within a
+// block's shared memory.
 HCMVS_API int hcmvs_zncc_warped(const void* ref_pad, const void* tm,
                                 const void* nsq0, const void* warped_pad,
                                 const void* valid_pad, const void* hw,
                                 const void* acc, void* score, void* var_out,
                                 const int* offsets, int n_offsets, int v,
                                 int h, int w, int pad, void* stream) {
-  if (n_offsets < 0 || n_offsets > kMaxOffsets) {
+  const long long tile = (long long)(kTileX + 2 * pad) * (kTileY + 2 * pad);
+  const long long smem = (1 + 2LL * v) * tile * (long long)sizeof(float);
+  const long long padded = (long long)(h + 2 * pad) * (w + 2 * pad);
+  if (n_offsets < 0 || n_offsets > kMaxOffsets || v < 1 || v > kMaxViews ||
+      pad < 0 || smem > kMaxSmemBytes || (long long)v * padded >= (1LL << 31) ||
+      4LL * v * h * w >= (1LL << 31)) {
     return (int)cudaErrorInvalidValue;
   }
+  if (h <= 0 || w <= 0) return (int)cudaSuccess;
   Offsets offs;
   offs.n = n_offsets;
   for (int k = 0; k < n_offsets; ++k) {
@@ -122,17 +227,35 @@ HCMVS_API int hcmvs_zncc_warped(const void* ref_pad, const void* tm,
     if (dy < -pad || dy > pad || dx < -pad || dx > pad) {
       return (int)cudaErrorInvalidValue;
     }
-    offs.dy[k] = (signed char)dy;
-    offs.dx[k] = (signed char)dx;
+    offs.disp[k] = dy * (kTileX + 2 * pad) + dx;
+    offs.d2[k] = (float)(dy * dy + dx * dx);
+    const int ay = dy < 0 ? -dy : dy, ax = dx < 0 ? -dx : dx;
+    offs.cheb[k] = (float)(ay > ax ? ay : ax);
   }
-  const long long n = (long long)v * h * w;
-  if (n > 0) {
-    zncc_warped_kernel<<<hcmvs::flat_blocks(n), hcmvs::kFlatThreads, 0,
-                         (cudaStream_t)stream>>>(
-        (const float*)ref_pad, (const float*)tm, (const float*)nsq0,
-        (const float*)warped_pad, (const float*)valid_pad, (const float*)hw,
-        (const float*)acc, (float*)score, (float*)var_out, offs, v, h, w,
-        pad);
+  const float* a[7] = {(const float*)ref_pad,    (const float*)tm,
+                       (const float*)nsq0,       (const float*)warped_pad,
+                       (const float*)valid_pad,  (const float*)hw,
+                       (const float*)acc};
+  float* s = (float*)score;
+  float* o = (float*)var_out;
+  const int sm = (int)smem;
+  cudaStream_t st = (cudaStream_t)stream;
+  switch (v) {
+#define HCMVS_ZNCC_CASE(NV)                                                \
+  case NV:                                                                 \
+    return launch<NV>(a[0], a[1], a[2], a[3], a[4], a[5], a[6], s, o, offs, \
+                      h, w, pad, sm, st);
+    HCMVS_ZNCC_CASE(1)
+    HCMVS_ZNCC_CASE(2)
+    HCMVS_ZNCC_CASE(3)
+    HCMVS_ZNCC_CASE(4)
+    HCMVS_ZNCC_CASE(5)
+    HCMVS_ZNCC_CASE(6)
+    HCMVS_ZNCC_CASE(7)
+    HCMVS_ZNCC_CASE(8)
+    HCMVS_ZNCC_CASE(9)
+    HCMVS_ZNCC_CASE(10)
+#undef HCMVS_ZNCC_CASE
   }
-  return (int)cudaGetLastError();
+  return (int)cudaErrorInvalidValue;
 }

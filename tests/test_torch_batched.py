@@ -182,8 +182,9 @@ def world():
     sc, scene = _jax_scene(H, W)
     jcfg = JConfig(**SLICE, **FORCED)
     scene_v = jsd.attach_volumes(scene, jcfg)
-    tscene = dataclasses.replace(scene_from_numpy(scene),
-                                 vols=tables_from_numpy(scene_v.vols))
+    tscene = dataclasses.replace(
+        scene_from_numpy(scene, device="cpu"),
+        vols=tables_from_numpy(scene_v.vols, device="cpu"))
     return dict(sc=sc, scene=scene, scene_v=scene_v, jcfg=jcfg,
                 tcfg=TConfig(**SLICE), tscene=tscene,
                 state0=jsd.init_scene_state(jax.random.PRNGKey(0), scene))
@@ -198,12 +199,12 @@ def _contexts(world, cfg_j, cfg_t):
     ctx_j = jsd._per_view_context(world["scene_v"], 0, nd, nn, cfg_j)
     ctx_j = dataclasses.replace(ctx_j, rect=jrg.build_rect_context(
         ctx_j.geom, jrg.pack_depth_normals(nd, nn)))
-    tst = state_from_numpy(st)
+    tst = state_from_numpy(st, device="cpu")
     ctx_t = tsd._per_view_context(world["tscene"], 0, tst.depth[nidx],
                                   tst.normal[nidx], cfg_t)
     return ctx_j, dataclasses.replace(
-        ctx_t, geom=geometry_from_numpy(ctx_j.geom),
-        rect=rect_context_from_numpy(ctx_j.rect))
+        ctx_t, geom=geometry_from_numpy(ctx_j.geom, device="cpu"),
+        rect=rect_context_from_numpy(ctx_j.rect, device="cpu"))
 
 
 def test_volume_bounds_match_jax(world):
@@ -297,7 +298,7 @@ def test_half_sweep_batched_matches(world, tpu_route, monkeypatch,
             jax.random.uniform(k2, (h, w), minval=-a2, maxval=a2))))
 
     monkeypatch.setattr(tpm, "_perturb_draws", jax_draws)
-    tst = state_from_numpy(st)
+    tst = state_from_numpy(st, device="cpu")
     st0 = tpm.PatchMatchState(depth=tst.depth[0], normal=tst.normal[0],
                               cost=tst.cost[0])
     stt = tpm.half_sweep(st0, ctx_t, cfg_t, 1, 0, offsets, prop,
@@ -322,7 +323,8 @@ def hybrid_batched_accuracy(sc, scene):
     key = jax.random.PRNGKey(0)
     ref = jsd.estimate_scene(key, scene, JConfig(**cfg, **FORCED))
     out = tsd.estimate_scene(torch.Generator().manual_seed(0),
-                             scene_from_numpy(scene), TConfig(**cfg))
+                             scene_from_numpy(scene, device="cpu"),
+                             TConfig(**cfg))
     init = jsd.init_scene_state(key, scene)
     return (_acc(_np(ref.depth[0]), sc.depth_gt),
             _acc(out.depth[0].numpy(), sc.depth_gt),

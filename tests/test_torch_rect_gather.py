@@ -87,8 +87,9 @@ def test_rect_context_matches_jax(setup):
     geom, depth, n, _, ctx_j, _ = setup
     packed = trg.pack_depth_normals(torch.from_numpy(depth),
                                     torch.from_numpy(n))
-    ctx_t = trg.build_rect_context(geometry_from_numpy(geom), packed)
-    ctx_c = rect_context_from_numpy(ctx_j)
+    ctx_t = trg.build_rect_context(geometry_from_numpy(geom, device="cpu"),
+                                   packed)
+    ctx_c = rect_context_from_numpy(ctx_j, device="cpu")
     assert ctx_t.maps.shape == ctx_c.maps.shape
     assert (ctx_t.row_int == ctx_c.row_int).float().mean() >= 0.999
     assert (ctx_t.rb == ctx_c.rb).float().mean() >= 0.999
@@ -103,7 +104,7 @@ def test_rect_context_matches_jax(setup):
 
 def test_rect_lookup_plain_equals_jax_exactly(setup):
     _, _, _, _, ctx_j, sigma = setup
-    ctx_t = rect_context_from_numpy(ctx_j)
+    ctx_t = rect_context_from_numpy(ctx_j, device="cpu")
     out = trg.rect_lookup(ctx_t, torch.from_numpy(sigma)).numpy()
     ref_xla = np.asarray(jrg.rect_lookup_xla(ctx_j, jnp.asarray(sigma)))
     ref_pl = np.asarray(jrg.rect_lookup(ctx_j, jnp.asarray(sigma),

@@ -76,8 +76,9 @@ def world():
     jcfg = JConfig(**SLICE, **FORCED)
     state0 = jsd.init_scene_state(jax.random.PRNGKey(0), scene)
     scene_v = jsd.attach_volumes(scene, jcfg)
-    tscene = dataclasses.replace(scene_from_numpy(scene),
-                                 vols=tables_from_numpy(scene_v.vols))
+    tscene = dataclasses.replace(
+        scene_from_numpy(scene, device="cpu"),
+        vols=tables_from_numpy(scene_v.vols, device="cpu"))
     return dict(sc=sc, scene=scene, scene_v=scene_v, jcfg=jcfg,
                 tcfg=TConfig(**SLICE), state0=state0, tscene=tscene)
 
@@ -94,13 +95,14 @@ def _contexts(world, phase, cfg_j, cfg_t):
     if use_nbr:
         ctx_j = dataclasses.replace(ctx_j, rect=jrg.build_rect_context(
             ctx_j.geom, jrg.pack_depth_normals(nd, nn)))
-    tst = state_from_numpy(st)
+    tst = state_from_numpy(st, device="cpu")
     ctx_t = tsd._per_view_context(
         world["tscene"], 0, tst.depth[nidx] if use_nbr else None,
         tst.normal[nidx] if use_nbr else None, cfg_t)
     ctx_t = dataclasses.replace(
-        ctx_t, geom=geometry_from_numpy(ctx_j.geom),
-        rect=rect_context_from_numpy(ctx_j.rect) if use_nbr else None)
+        ctx_t, geom=geometry_from_numpy(ctx_j.geom, device="cpu"),
+        rect=(rect_context_from_numpy(ctx_j.rect, device="cpu") if use_nbr
+              else None))
     return ctx_j, ctx_t
 
 
@@ -185,7 +187,7 @@ def test_half_sweep_matches(world, phase, sweep_mode, parity):
         jpm.half_sweep, cfg=cfg_j, phase=phase, parity=parity,
         offsets=offsets, prop_offsets=prop))
     sj = sweep(sj0, ctx_j)
-    tst = state_from_numpy(st)
+    tst = state_from_numpy(st, device="cpu")
     st0 = tpm.PatchMatchState(depth=tst.depth[0], normal=tst.normal[0],
                               cost=tst.cost[0])
     stt = tpm.half_sweep(st0, ctx_t, cfg_t, phase, parity, offsets, prop,
@@ -204,10 +206,12 @@ def test_estimate_scene_matches_jax(world):
     port builds its own tables and rect contexts."""
     cfg_j, cfg_t = world["jcfg"], world["tcfg"]
     ref = jsd.estimate_scene(jax.random.PRNGKey(0), world["scene"], cfg_j)
-    scene_t = scene_from_numpy(world["scene"])
+    scene_t = scene_from_numpy(world["scene"], device="cpu")
     timings = {}
     out = tsd.estimate_scene(torch.Generator().manual_seed(0), scene_t,
-                             cfg_t, init=state_from_numpy(world["state0"]),
+                             cfg_t,
+                             init=state_from_numpy(world["state0"],
+                                                   device="cpu"),
                              timings=timings)
     assert [s[:2] for s in timings["sweeps"]] == [(0, 0), (1, 1)]
     d_ref, d_out = _np(ref.depth), out.depth.numpy()
@@ -225,7 +229,8 @@ def test_estimate_scene_accuracy_with_own_generator(world):
     cfg_t = world["tcfg"].replace(random_iters=4)
     ref = jsd.estimate_scene(jax.random.PRNGKey(0), world["scene"], cfg_j)
     out = tsd.estimate_scene(torch.Generator().manual_seed(0),
-                             scene_from_numpy(world["scene"]), cfg_t)
+                             scene_from_numpy(world["scene"], device="cpu"),
+                             cfg_t)
     gt = world["sc"].depth_gt
     acc_j = _acc(_np(ref.depth[0]), gt)
     acc_t = _acc(out.depth[0].numpy(), gt)
@@ -244,7 +249,7 @@ def test_aggregate_scores_match():
 
 
 def test_unported_knobs_raise(world):
-    scene_t = scene_from_numpy(world["scene"])
+    scene_t = scene_from_numpy(world["scene"], device="cpu")
     gen = torch.Generator().manual_seed(0)
     for kw in (dict(exact_backend="bilinear"),
                dict(geo_backend="direct"), dict(volume_build="planes"),

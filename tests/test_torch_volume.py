@@ -47,7 +47,7 @@ def builds():
                                         jnp.asarray(d_min),
                                         jnp.asarray(d_max))
     out = tvol.build_volume_tables_rect(
-        geometry_from_numpy(geom), torch.from_numpy(src),
+        geometry_from_numpy(geom, device="cpu"), torch.from_numpy(src),
         torch.tensor(d_min), torch.tensor(d_max))
     return ref, out
 

@@ -123,7 +123,8 @@ def world():
         nbr_valid=jnp.ones((N, NBR), bool),
         d_min=jnp.full((N,), sc.d_min, jnp.float32),
         d_max=jnp.full((N,), sc.d_max, jnp.float32))
-    return dict(sc=sc, scene=scene, tscene=scene_from_numpy(scene),
+    return dict(sc=sc, scene=scene,
+                tscene=scene_from_numpy(scene, device="cpu"),
                 state0=jsd.init_scene_state(jax.random.PRNGKey(0), scene))
 
 
@@ -132,8 +133,8 @@ def _contexts(world, cfg_j, cfg_t):
     the warped mode reads the source images)."""
     ctx_j = jsd._per_view_context(world["scene"], 0, None, None, cfg_j)
     ctx_t = tsd._per_view_context(world["tscene"], 0, None, None, cfg_t)
-    return ctx_j, dataclasses.replace(ctx_t,
-                                      geom=geometry_from_numpy(ctx_j.geom))
+    return ctx_j, dataclasses.replace(
+        ctx_t, geom=geometry_from_numpy(ctx_j.geom, device="cpu"))
 
 
 def _hypotheses(world):
@@ -187,7 +188,7 @@ def test_half_sweep_photometric_phase_matches(world, score_mode):
     sj = jax.jit(functools.partial(
         jpm.half_sweep, cfg=cfg_j, phase=0, parity=0, offsets=offsets,
         prop_offsets=prop))(sj0, ctx_j)
-    tst = state_from_numpy(st)
+    tst = state_from_numpy(st, device="cpu")
     st0 = tpm.PatchMatchState(depth=tst.depth[0], normal=tst.normal[0],
                               cost=tst.cost[0])
     stt = tpm.half_sweep(st0, ctx_t, cfg_t, 0, 0, offsets, prop,
