@@ -8,11 +8,14 @@ Phases, each fatal on failure:
   2. build: compile the CUDA kernels from hcmvs_tpu_torch/kernels/csrc
      (one nvcc per source, all started together);
   3. kernel parity: each of the five kernels against its plain PyTorch
-     version on the card, at the 1280x960 shapes the two paths give it,
-     with its device time (``cuda_ms``: launches queued behind a spin
-     kernel, so the host's launch work is not counted; checked against
-     torch.profiler on kernel A) and the least time the card could take
-     (bound);
+     version on the card, at the 1280x960 shapes the paths give it (B
+     at every index-field width: 36 and 9 offsets, and the densify
+     path's 64 and 16 on a table at its depth range; D at 324 and 81
+     columns), with its device time (``cuda_ms``: launches queued
+     behind a spin kernel, so the host's launch work is not counted;
+     checked against torch.profiler on kernel A) and the least time the
+     card could take (bound: B's and D's table bytes are the sectors
+     this run's lookups read);
   4. the exact path through the kernels: estimate_scene + finalize at
      4 views x 3 neighbours, 1280x960, exact table scoring; kernels A, B
      and C must have launched;
@@ -21,19 +24,34 @@ Phases, each fatal on failure:
   6. the hybrid, candidate-batched path through the kernels (warped
      scoring in the photometric phase, batched table scoring in the
      geometric one); all five kernels must have launched;
-  7. the same path through the plain versions, compared with phase 6.
+  7. the same path through the plain versions, compared with phase 6;
+  8. the densify path through the kernels: the DensifyPointCloud entry
+     point (``hcmvs_tpu_torch.pipeline.densify.main``) on the same scene
+     written as ``scene.mvs`` + four 1280x960 PNGs, at DenseConfig()
+     defaults plus ``resolution-level=0`` (4 external iterations of 3
+     sweeps, 6 random steps, the mid-schedule filter at iterations 1 and
+     2, LK flow, 3 neighbours); kernels A, B and C must have launched, the
+     ``.dmap`` / ``.ply`` / ``.mvs`` files must read back, view 0 must
+     reach its accuracy floor and the fused cloud must lie on the plane;
+  9. the same ``densify`` through the plain versions, compared with 8.
 Then a JSON line per path, one for the kernels, the nvidia-smi line, and
 a last line ``{"ok": true, "device": {...}}``.  Exits non-zero, with no
 result line, without a CUDA device or without the package beside this
-script.
+script.  The densify outputs go to a temporary directory beside this
+script, removed at the end.
 """
 
 from __future__ import annotations
 
+import collections
+import contextlib
 import json
+import shutil
 import subprocess
 import sys
+import tempfile
 import time
+from pathlib import Path
 
 H, W, N_VIEWS, N_NBR = 960, 1280, 4, 3
 MARGIN = 6   # interior margin of depth_acc_2pct, as in the parity tests
@@ -166,6 +184,24 @@ def nbytes(*ts) -> int:
     return sum(t.numel() * t.element_size() for t in ts)
 
 
+def table_bytes(tab, i0, need=None) -> int:
+    """Bytes of the u16 table ``tab`` (P, D) that this run's lookups
+    need: the distinct 32-byte sectors of each row holding tap ``i0`` or
+    ``i0 + 1`` ((P, S) int64), of the entries where ``need`` holds (all
+    by default).  A lookup that ends near one end of the grid, or outside
+    its bounds, needs less than the whole row."""
+    import torch
+    per = 32 // tab.element_size()
+    n_sec = -(-tab.shape[1] // per)
+    touched = torch.zeros((tab.shape[0], n_sec + 1), dtype=torch.bool,
+                          device=tab.device)
+    for idx in (i0 // per, (i0 + 1) // per):
+        if need is not None:
+            idx = torch.where(need, idx, n_sec)
+        touched.scatter_(1, idx, True)
+    return int(touched[:, :n_sec].sum()) * 32
+
+
 def make_scene(dev):
     """The bench scene (bench._build) at 1280x960, focal length scaled with
     width as hcmvs_tpu/eval/golden.py does."""
@@ -209,7 +245,55 @@ HYBRID_KERNELS = EXACT_KERNELS + ("volume_lookup_multi", "zncc_warped")
 # lower the larger the image (tests/test_torch_batched.py, run as a
 # script, compares the two packages at a given size; PERF.md has the
 # numbers); the random init scores about 0.05.
-MIN_ACC = {"exact": 0.5, "hybrid_batched": 0.15}
+MIN_ACC = {"exact": 0.5, "hybrid_batched": 0.15, "densify": 0.85}
+# the densify path: DenseConfig() defaults plus these reference flags; the
+# fused cloud's median distance to the scene's plane, at most this share
+# of the median depth (the JAX package's own CPU runs of this config at
+# 96x128 and 240x320 reach 0.0015 and 0.0010; PERF.md)
+DENSIFY_FLAGS = ("resolution-level=0",)
+MAX_CLOUD_DISTANCE = 0.01
+# the densify path's images are written with the Paeth row filter, as
+# OpenCV's encoder writes smooth images, so that their decode takes the
+# decoder's wavefront, its slow path
+DENSIFY_PNG_FILTER = 4
+
+
+def densify_cfg():
+    """DenseConfig() defaults plus DENSIFY_FLAGS, as the densify path
+    runs them."""
+    from hcmvs_tpu_torch.core.config import config_from_cli_flags
+    return config_from_cli_flags(dict(f.split("=", 1)
+                                      for f in DENSIFY_FLAGS))
+
+
+@contextlib.contextmanager
+def b_widths():
+    """Counts kernel B's launches by index-field width (S) inside the
+    block: a recorder around ``kernels.volume_lookup``, which the ops
+    call through the module (``kernels.launches`` is unchanged)."""
+    from hcmvs_tpu_torch import kernels
+    counts = collections.Counter()
+    launch = kernels.volume_lookup
+
+    def recorded(tab, f):
+        counts[f.shape[1]] += 1
+        return launch(tab, f)
+
+    kernels.volume_lookup = recorded
+    try:
+        yield counts
+    finally:
+        kernels.volume_lookup = launch
+
+
+def check_widths(label, launches, widths, failed) -> dict:
+    """B's launches by width; a failed check unless they add up to its
+    launch count."""
+    log(f"[{label}] kernel B launches by field width {dict(widths)}")
+    if sum(widths.values()) != launches["volume_lookup"]:
+        failed.append(f"{label}: B launches by width {dict(widths)} do not "
+                      f"add up to {launches['volume_lookup']}")
+    return dict(widths)
 
 
 def depth_acc_2pct(depth, gt) -> float:
@@ -219,30 +303,46 @@ def depth_acc_2pct(depth, gt) -> float:
     return float((rel < 0.02)[m:-m, m:-m].mean())
 
 
-def kernel_parity(scene, cfg, dev):
+def kernel_parity(sc, scene, cfg, dev):
     """Phase 3: each kernel vs its plain version at the paths' shapes.
     Returns one row per kernel (name, source, replaces, max_abs_err, ms,
-    plain_ms, bound_ms, bound_by, library_ms)."""
+    plain_ms, bound_ms, bound_by, library_ms, and for B and D ``shapes``:
+    the same numbers at each shape the paths give the kernel; the row's
+    own are its first shape's)."""
+    import dataclasses
+
+    import numpy as np
     import torch
     from hcmvs_tpu_torch import kernels
+    from hcmvs_tpu_torch.core.config import window_cfg_for_width
     from hcmvs_tpu_torch.dense import score as S
     from hcmvs_tpu_torch.dense.patchmatch import (_propagate_from,
                                                   propagation_offsets)
-    from hcmvs_tpu_torch.dense.scene_driver import init_scene_state
+    from hcmvs_tpu_torch.dense.scene_driver import (init_scene_state,
+                                                    phase_cfg)
+    from hcmvs_tpu_torch.dense.view_selection import depth_range_from_points
     from hcmvs_tpu_torch.dense.types import make_view_geometry, pixel_rays
     from hcmvs_tpu_torch.ops import rect_gather as rg
     from hcmvs_tpu_torch.ops import volume as vol
     from hcmvs_tpu_torch.ops import zncc_warped as zw
     from hcmvs_tpu_torch.ops.gradients import sobel_magnitude
+    from hcmvs_tpu_torch.utils.synth import plane_sparse_points
 
     rows = []
 
-    def row(name, replaces, err, ms, plain_ms, n_bytes, n_elements):
+    def measured(name, err, ms, plain_ms, n_bytes, n_elements, **extra):
         b_ms, b_by = bound(name, n_bytes, n_elements)
+        return dict(extra, max_abs_err=err, ms=ms, plain_ms=plain_ms,
+                    bound_ms=b_ms, bound_by=b_by)
+
+    def row(name, replaces, *args, shapes=None):
+        r = (dict(shapes[0], shapes=shapes) if shapes
+             else measured(name, *args))
+        r.pop("shape", None)
+        r.pop("field", None)
         rows.append(dict(
-            name=name, source=f"hcmvs_tpu_torch/kernels/csrc/{name}.cu",
-            replaces=replaces, max_abs_err=err, ms=ms, plain_ms=plain_ms,
-            bound_ms=b_ms, bound_by=b_by,
+            r, name=name, source=f"hcmvs_tpu_torch/kernels/csrc/{name}.cu",
+            replaces=replaces,
             # no single PyTorch call computes any of these functions
             library_ms=None))
 
@@ -269,26 +369,67 @@ def kernel_parity(scene, cfg, dev):
         nbytes(*a_args[:-1], tab), tab.numel())
     del plain, d
 
-    # B: one pair's table against a (P_pad, 36) index field
+    # B: one pair's table against index fields of each width the paths
+    # give it: a random (P_pad, 36) field, the fields of view 0's random
+    # init at the exact path's explore offsets (9), and, as the densify
+    # path runs it, at its final (64) and explore (16) offsets on a table
+    # at the depth range densify takes from the scene's sparse points
+    h, w = scene.gray.shape[1:]
+    rays = pixel_rays(geom.K_inv_ref, h, w)
+    st = init_scene_state(torch.Generator(device=dev).manual_seed(2), scene)
+    vt = vol.build_volume_tables_rect(geom, scene.gray[nbr], scene.d_min[0],
+                                      scene.d_max[0])
     g = torch.Generator(device=dev).manual_seed(1)
-    tab0 = tab[0]
-    f = torch.rand((tab0.shape[0], 36), generator=g, device=dev) * 131 - 2
-    out = kernels.volume_lookup(tab0, f)
-    plain = vol.volume_lookup_plain(tab0, f)
-    err = float((out - plain).abs().max())
-    log(f"[parity] B volume_lookup: out {tuple(out.shape)}, "
-        f"max |kernel - plain| {err:.3g}")
-    if not torch.allclose(out, plain, rtol=0, atol=1e-6):
-        raise AssertionError(f"kernel B: max abs err {err}")
-    row("volume_lookup", "hcmvs_tpu/ops/volume.py:211", err,
-        cuda_ms(lambda: kernels.volume_lookup(tab0, f), 20),
-        cuda_ms(lambda: vol.volume_lookup_plain(tab0, f), 10,
-                host_bound_ok=True),
-        nbytes(tab0, f, out), out.numel())
-    del tab, tab0, f, out, plain
+    f = torch.rand((tab.shape[1], 36), generator=g, device=dev) * 131 - 2
+    b_cases = [("random", tab[0], f), ("init", vt.tab[0], S.volume_fields(
+        geom, vt, st.depth[0], st.normal[0], rays,
+        S.patch_offsets(phase_cfg(cfg, 0, False)))[2])]
+    del tab
+    pts = plane_sparse_points(sc)
+    d_lo, d_hi = depth_range_from_points(
+        pts, np.full(len(pts), N_VIEWS), np.tile(np.arange(N_VIEWS),
+                                                 len(pts)),
+        scene.cams.R[0].cpu().numpy().astype(np.float64),
+        scene.cams.C[0].cpu().numpy().astype(np.float64), 0)
+    log(f"[parity] densify depth range of view 0 (from the sparse points): "
+        f"{d_lo:.4f} to {d_hi:.4f}, against {float(scene.d_min[0]):.4f} to "
+        f"{float(scene.d_max[0]):.4f}")
+    scene_d = dataclasses.replace(
+        scene, d_min=torch.full_like(scene.d_min, d_lo),
+        d_max=torch.full_like(scene.d_max, d_hi))
+    vt_d = vol.build_volume_tables_rect(geom, scene.gray[nbr],
+                                        scene_d.d_min[0], scene_d.d_max[0])
+    st_d = init_scene_state(torch.Generator(device=dev).manual_seed(3),
+                            scene_d)
+    dcfg = window_cfg_for_width(densify_cfg(), w)
+    for final in (True, False):
+        offsets = S.patch_offsets(phase_cfg(dcfg, 0, final))
+        b_cases.append(("init, densify range", vt_d.tab[0], S.volume_fields(
+            geom, vt_d, st_d.depth[0], st_d.normal[0], rays, offsets)[2]))
+    del vt_d, st_d
+    shapes = []
+    for field, tab0, f in b_cases:
+        out = kernels.volume_lookup(tab0, f)
+        plain = vol.volume_lookup_plain(tab0, f)
+        err = float((out - plain).abs().max())
+        log(f"[parity] B volume_lookup ({field} field): table "
+            f"{tuple(tab0.shape)}, field {tuple(f.shape)}, max |kernel - "
+            f"plain| {err:.3g}")
+        if err != 0:
+            raise AssertionError(f"kernel B at {tuple(f.shape)}: max abs "
+                                 f"err {err}")
+        shapes.append(measured(
+            "volume_lookup", err,
+            cuda_ms(lambda: kernels.volume_lookup(tab0, f), 20),
+            cuda_ms(lambda: vol.volume_lookup_plain(tab0, f), 10,
+                    host_bound_ok=True),
+            nbytes(f, out) + table_bytes(tab0, torch.clamp(
+                torch.floor(f), 0, tab0.shape[1] - 2).long()),
+            out.numel(), shape=list(f.shape), field=field))
+    row("volume_lookup", "hcmvs_tpu/ops/volume.py:211", shapes=shapes)
+    del b_cases, tab0, f, out, plain
 
     # C: the neighbour maps of view 0 (random init) at the init depths
-    st = init_scene_state(torch.Generator(device=dev).manual_seed(2), scene)
     ctx = rg.build_rect_context(geom, rg.pack_depth_normals(
         st.depth[nbr], st.normal[nbr]))
     sigma = (1.0 / st.depth[0]).contiguous()
@@ -314,10 +455,6 @@ def kernel_parity(scene, cfg, dev):
     # D: view 0's tables against the packed, bounded field of its nine
     # propagation candidates, at full (C = 324) and explore (C = 81)
     # sampling
-    h, w = scene.gray.shape[1:]
-    rays = pixel_rays(geom.K_inv_ref, h, w)
-    vt = vol.build_volume_tables_rect(geom, scene.gray[nbr], scene.d_min[0],
-                                      scene.d_max[0])
     cand = [(st.depth[0], st.normal[0])] + [
         _propagate_from(st.depth[0], st.normal[0], rays, dy, dx)
         for dy, dx in propagation_offsets(cfg)]
@@ -325,6 +462,7 @@ def kernel_parity(scene, cfg, dev):
     normals = torch.stack([c[1] for c in cand])
     bounds0 = S.volume_bounds(vt)[0]
     tab0 = vt.tab[0]
+    shapes = []
     for step in (cfg.patch_step, cfg.explore_patch_step):
         offsets = S.patch_offsets(cfg.replace(patch_step=step))
         f2, _ = S.packed_fields(geom, vt, depths, normals, rays, offsets)
@@ -338,21 +476,25 @@ def kernel_parity(scene, cfg, dev):
         if err != 0:
             raise AssertionError(f"kernel D differs from its plain version "
                                  f"by up to {err} LSB")
-        ms = cuda_ms(lambda: kernels.volume_lookup_multi(tab0, f2, bounds0),
-                     20)
-        plain_ms = cuda_ms(
-            lambda: vol.volume_lookup_multi_plain(tab0, f2, bounds0), 5,
-            host_bound_ok=True)
         # of the bounds panel only lanes 0 and 64 are needed: two 32 B
-        # sectors a row
-        d_bytes = nbytes(tab0, f2, out) + 64 * tab0.shape[0]
-        log(f"[parity] volume_lookup_multi C={out.shape[1]}: kernel "
-            f"{ms:.3f} ms, plain {plain_ms:.3f} ms, bound "
-            f"{bound('volume_lookup_multi', d_bytes, out.numel())[0]:.3f} ms")
-        if step == cfg.patch_step:    # the table's row: full sampling
-            row("volume_lookup_multi", "hcmvs_tpu/ops/volume.py:290", err,
-                ms, plain_ms, d_bytes, out.numel())
+        # sectors a row; of the table only what the in-bounds entries read
+        fi = vol.u16_as_int32(f2)
+        b = vol.u16_as_int32(bounds0)
+        t_bytes = table_bytes(
+            tab0, torch.clamp_max(fi >> 6, tab0.shape[1] - 2).long(),
+            (fi >= b[:, :1]) & (fi <= b[:, 64:65]))
+        del fi, b
+        shapes.append(measured(
+            "volume_lookup_multi", err,
+            cuda_ms(lambda: kernels.volume_lookup_multi(tab0, f2, bounds0),
+                    20),
+            cuda_ms(lambda: vol.volume_lookup_multi_plain(tab0, f2,
+                                                          bounds0), 5,
+                    host_bound_ok=True),
+            nbytes(f2, out) + 64 * tab0.shape[0] + t_bytes, out.numel(),
+            shape=list(out.shape)))
         del f2, out, plain, oi, pi
+    row("volume_lookup_multi", "hcmvs_tpu/ops/volume.py:290", shapes=shapes)
     del vt, bounds0, tab0
 
     # E: view 0's random init scored warped against its three neighbours
@@ -380,9 +522,11 @@ def kernel_parity(scene, cfg, dev):
         nbytes(*(t for t in e_args if torch.is_tensor(t)), out_s, out_v),
         out_s.numel() * len(x.scan_offsets))
     for r in rows:
-        log(f"[parity] {r['name']}: kernel {r['ms']:.3f} ms, plain "
-            f"{r['plain_ms']:.3f} ms, bound {r['bound_ms']:.3f} ms "
-            f"({r['bound_by']})")
+        for x in r.get("shapes", [r]):
+            at = f" {x['shape']}" if "shape" in x else ""
+            log(f"[parity] {r['name']}{at}: kernel {x['ms']:.3f} ms, plain "
+                f"{x['plain_ms']:.3f} ms, bound {x['bound_ms']:.3f} ms "
+                f"({x['bound_by']})")
     # the timer against the profiler's device time on kernel A
     ev_ms, prof_ms = timer_check(lambda: kernels.rect_build(*a_args),
                                  "rect_build", 10)
@@ -397,19 +541,21 @@ def kernel_parity(scene, cfg, dev):
 
 
 def run_path(scene, cfg, dev, label):
-    """One estimate_scene + finalize; returns (depth, keep, timings,
+    """One estimate_scene + finalize; returns (depth, keep, stage report,
     seconds)."""
     import torch
     from hcmvs_tpu_torch.dense.scene_driver import estimate_scene, finalize
+    from hcmvs_tpu_torch.utils import profiling
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
+    profiling.reset_report()
     gen = torch.Generator(device=dev).manual_seed(0)
-    timings = {}
     t0 = time.perf_counter()
-    state = estimate_scene(gen, scene, cfg, timings=timings)
+    state = estimate_scene(gen, scene, cfg)
     depth, normal, conf = finalize(state, cfg)
     torch.cuda.synchronize()
     seconds = time.perf_counter() - t0
+    rep = profiling.report()
     if not (torch.isfinite(state.depth).all()
             and torch.isfinite(state.cost).all()
             and torch.isfinite(normal).all()):
@@ -417,14 +563,19 @@ def run_path(scene, cfg, dev, label):
     if tuple(depth.shape) != (N_VIEWS, H, W) \
             or tuple(normal.shape) != (N_VIEWS, 3, H, W):
         raise AssertionError(f"{label}: wrong output shapes")
-    phases = ", ".join(f"ext{i} phase{p} {t:.3f} s"
-                       for i, p, t in timings["sweeps"])
-    log(f"[{label}] tables {timings['tables']:.3f} s, {phases}, total "
-        f"{seconds:.3f} s, {N_VIEWS / seconds:.4f} views/s, peak memory "
-        f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB, "
+    phases = ", ".join(f"{k[len('estimate.sweeps.'):]} {t:.3f} s"
+                       for k, t in sweep_seconds(rep))
+    log(f"[{label}] tables {rep['estimate.tables']['total_s']:.3f} s, "
+        f"{phases}, total {seconds:.3f} s, {N_VIEWS / seconds:.4f} views/s, "
+        f"peak memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB, "
         f"kept {float((depth > 0).float().mean()):.4f}")
-    return state.depth.cpu().numpy(), depth.cpu().numpy() > 0, timings, \
-        seconds
+    return state.depth.cpu().numpy(), depth.cpu().numpy() > 0, rep, seconds
+
+
+def sweep_seconds(rep):
+    """[(stage, seconds)] of the report's sweep stages, in run order."""
+    return [(k, v["total_s"]) for k, v in rep.items()
+            if k.startswith("estimate.sweeps.")]
 
 
 def check_path(sc, scene, cfg, dev, label, path_kernels):
@@ -437,9 +588,11 @@ def check_path(sc, scene, cfg, dev, label, path_kernels):
 
     failed = []
     kernels.reset_launches()
-    depth_k, keep_k, t_k, sec_k = run_path(scene, cfg, dev, label)
+    with b_widths() as widths:
+        depth_k, keep_k, t_k, sec_k = run_path(scene, cfg, dev, label)
     launches = dict(kernels.launches)
     log(f"[{label}] kernel launches {launches}")
+    widths = check_widths(label, launches, widths, failed)
     if min(launches[k] for k in path_kernels) <= 0:
         failed.append(f"{label}: a kernel of the path never launched: "
                       f"{launches}")
@@ -469,11 +622,135 @@ def check_path(sc, scene, cfg, dev, label, path_kernels):
                       f"(plain)")
     return launches, {
         "views": N_VIEWS, "neighbours": N_NBR, "h": H, "w": W,
-        "tables_s": t_k["tables"],
-        "phase_s": [t for _, _, t in t_k["sweeps"]],
+        "tables_s": t_k["estimate.tables"]["total_s"],
+        "phase_s": [t for _, t in sweep_seconds(t_k)],
         "total_s": sec_k, "views_per_s": N_VIEWS / sec_k,
         "plain_total_s": sec_p, "depth_acc_2pct": acc_k,
-        "plain_depth_acc_2pct": acc_p, "agree_1pct": agree}, failed
+        "plain_depth_acc_2pct": acc_p, "agree_1pct": agree,
+        "volume_lookup_by_width": widths}, failed
+
+
+def _densify_run(scene_path, img_dir, out_dir, plain: bool):
+    """One densify run on the card, the kernel pass through the CLI entry
+    point, the plain pass through ``densify`` with the same work (depth
+    PNGs included); returns (stats, stage report, seconds, peak GiB)."""
+    import torch
+    from hcmvs_tpu_torch import kernels
+    from hcmvs_tpu_torch.pipeline import densify as D
+    from hcmvs_tpu_torch.utils import profiling
+    profiling.reset_report()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    if plain:
+        with kernels.plain_versions():
+            stats = D.densify(scene_path, img_dir, out_dir, densify_cfg())
+    else:
+        stats = D.main(["--input-file", scene_path, "--images-dir", img_dir,
+                        "-w", out_dir, "--flags", *DENSIFY_FLAGS])
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    return (stats, profiling.report(), seconds,
+            torch.cuda.max_memory_allocated() / 2 ** 30)
+
+
+def check_densify(sc, root):
+    """Phases 8-9: the DensifyPointCloud path through the kernels (counts
+    reset just before, read just after), its files read back and checked,
+    then through the plain versions, compared.  Returns (launches, JSON
+    summary, the checks that failed)."""
+    import numpy as np
+    from hcmvs_tpu_torch import kernels
+    from hcmvs_tpu_torch.io.dmap import read_dmap
+    from hcmvs_tpu_torch.io.mvs import read_mvs
+    from hcmvs_tpu_torch.utils.synth import write_plane_scene
+
+    label = "densify"
+    failed = []
+    t0 = time.perf_counter()
+    scene_path, img_dir = write_plane_scene(str(root), sc,
+                                            png_filter=DENSIFY_PNG_FILTER)
+    log(f"[{label}] scene.mvs + {N_VIEWS} PNGs (row filter "
+        f"{DENSIFY_PNG_FILTER}) written in "
+        f"{time.perf_counter() - t0:.3f} s")
+    out_k = str(root / "kernels")
+    kernels.reset_launches()
+    with b_widths() as widths:
+        st_k, rep_k, sec_k, peak_k = _densify_run(scene_path, img_dir,
+                                                  out_k, plain=False)
+    launches = dict(kernels.launches)
+    log(f"[{label}] kernel launches {launches}")
+    widths = check_widths(label, launches, widths, failed)
+    if min(launches[k] for k in EXACT_KERNELS) <= 0:
+        failed.append(f"{label}: a kernel of the path never launched: "
+                      f"{launches}")
+    for name, s in sorted(rep_k.items(), key=lambda kv: -kv[1]["total_s"]):
+        log(f"[{label}] stage {name:<26} {s['total_s']:9.3f} s "
+            f"x{int(s['calls'])}")
+    log(f"[{label}] total {sec_k:.3f} s, {N_VIEWS / sec_k:.4f} views/s, "
+        f"peak memory {peak_k:.2f} GiB, valid {st_k['valid_frac']:.4f}, "
+        f"points {st_k['n_points']}")
+    for i in range(N_VIEWS):
+        dm = read_dmap(str(root / "kernels" / "depthmap"
+                           / f"depth{i:04d}.dmap"))
+        if dm.depth.shape != (H, W) or not np.array_equal(dm.depth,
+                                                         st_k["depth"][i]):
+            failed.append(f"{label}: depth{i:04d}.dmap reads back "
+                          f"{dm.depth.shape}, not the run's map")
+    dense = read_mvs(str(root / "kernels" / "scene_dense.mvs"))
+    if not len(dense.points) == st_k["n_points"] > 0:
+        failed.append(f"{label}: scene_dense.mvs has {len(dense.points)} "
+                      f"points, stats {st_k['n_points']}")
+    if not (root / "kernels" / "scene_dense.ply").exists():
+        failed.append(f"{label}: no scene_dense.ply")
+    acc_k = depth_acc_2pct(st_k["depth"][0], sc.depth_gt)
+    dist = np.abs(dense.points.astype(np.float64) @ sc.n_w - sc.c_w)
+    cloud = float(np.median(dist) / np.median(sc.depth_gt))
+    log(f"[{label}] view 0 interior depth_acc_2pct {acc_k:.4f}; fused "
+        f"cloud median distance to the plane / median depth {cloud:.6f}")
+    if acc_k < MIN_ACC[label]:
+        failed.append(f"{label}: depth accuracy {acc_k} < {MIN_ACC[label]}")
+    if cloud > MAX_CLOUD_DISTANCE:
+        failed.append(f"{label}: cloud distance {cloud} > "
+                      f"{MAX_CLOUD_DISTANCE}")
+    del dense, dist
+
+    kernels.reset_launches()
+    st_p, rep_p, sec_p, peak_p = _densify_run(scene_path, img_dir,
+                                              str(root / "plain"), plain=True)
+    if any(kernels.launches.values()):
+        failed.append(f"{label} plain run launched kernels: "
+                      f"{kernels.launches}")
+    acc_p = depth_acc_2pct(st_p["depth"][0], sc.depth_gt)
+    agree = float((np.abs(st_k["depth"] - st_p["depth"])
+                   <= 0.01 * np.abs(st_p["depth"])).mean())
+    n_rel = abs(st_k["n_points"] - st_p["n_points"]) / max(st_p["n_points"],
+                                                             1)
+    log(f"[{label} plain] total {sec_p:.3f} s (estimate "
+        f"{rep_p['densify.estimate']['total_s']:.3f} s against "
+        f"{rep_k['densify.estimate']['total_s']:.3f} s), peak memory "
+        f"{peak_p:.2f} GiB, "
+        f"view 0 interior depth_acc_2pct {acc_p:.4f}, points "
+        f"{st_p['n_points']}; depth within 1% of the kernel run on "
+        f"{agree:.5f} of pixels")
+    if agree < 0.98:
+        failed.append(f"{label}: kernel and plain runs agree on {agree}")
+    if abs(acc_k - acc_p) > 0.01:
+        failed.append(f"{label}: accuracy {acc_k} (kernels) vs {acc_p} "
+                      f"(plain)")
+    if n_rel > 0.01:
+        failed.append(f"{label}: point counts {st_k['n_points']} (kernels) "
+                      f"vs {st_p['n_points']} (plain)")
+    return launches, {
+        "views": N_VIEWS, "h": H, "w": W, "flags": list(DENSIFY_FLAGS),
+        "total_s": sec_k, "views_per_s": N_VIEWS / sec_k,
+        "stage_s": {k: v["total_s"] for k, v in rep_k.items()},
+        "peak_gib": peak_k, "valid_frac": st_k["valid_frac"],
+        "n_points": st_k["n_points"], "depth_acc_2pct": acc_k,
+        "cloud_distance": cloud, "plain_total_s": sec_p,
+        "plain_stage_s": {k: v["total_s"] for k, v in rep_p.items()},
+        "plain_depth_acc_2pct": acc_p, "plain_n_points": st_p["n_points"],
+        "agree_1pct": agree, "volume_lookup_by_width": widths}, failed
 
 
 def main() -> int:
@@ -512,7 +789,7 @@ def main() -> int:
     # 3. kernel parity at the paths' shapes
     sc, scene = make_scene(dev)
     cfg = slice_cfg()
-    rows = kernel_parity(scene, cfg, dev)
+    rows = kernel_parity(sc, scene, cfg, dev)
     torch.cuda.empty_cache()
 
     # 4-7. the two paths, each through the kernels and the plain versions
@@ -522,6 +799,16 @@ def main() -> int:
     paths["hybrid_batched"] = check_path(
         sc, scene, cfg.replace(score_mode="hybrid", candidate_kernel="on"),
         dev, "hybrid_batched", HYBRID_KERNELS)
+    del scene
+    torch.cuda.empty_cache()
+
+    # 8-9. the densify path, each through the kernels and the plain versions
+    root = Path(tempfile.mkdtemp(prefix="_densify_smoke_",
+                                 dir=Path(__file__).resolve().parent))
+    try:
+        paths["densify"] = check_densify(sc, root)
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
     failed = [f for _, _, fs in paths.values() for f in fs]
     if failed:
         for f in failed:
@@ -533,12 +820,19 @@ def main() -> int:
                     for p, (launches, _, _) in paths.items()}
         r.update(route="cuda", launches=sum(per_path.values()),
                  launches_per_path=per_path)
+    b_row = next(r for r in rows if r["name"] == "volume_lookup")
+    for x in b_row["shapes"]:             # B's launches at each width
+        x["launches_per_path"] = {
+            p: summary["volume_lookup_by_width"].get(x["shape"][1], 0)
+            for p, (_, summary, _) in paths.items()}
+        x["launches"] = sum(x["launches_per_path"].values())
     keys = ("name", "route", "source", "replaces", "launches",
             "launches_per_path", "max_abs_err", "ms", "plain_ms", "bound_ms",
-            "bound_by", "library_ms")
+            "bound_by", "library_ms", "shapes")
     log(json.dumps({"paths": {p: summary
                               for p, (_, summary, _) in paths.items()}}))
-    log(json.dumps({"kernels": [{k: r[k] for k in keys} for r in rows]}))
+    log(json.dumps({"kernels": [{k: r[k] for k in keys if k in r}
+                                for r in rows]}))
     log(smi)
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -32,16 +32,23 @@ def _t(x, device, dtype=None) -> torch.Tensor:
 
 
 def scene_from_numpy(scene, device="cuda") -> SceneTensors:
-    """The JAX ``SceneTensors`` (no optional channels, no tables)."""
+    """The JAX ``SceneTensors``: cameras, neighbours, depth ranges, and the
+    seed depths and flows when present (no other optional channel, no
+    tables)."""
     cams = Camera(K=_t(scene.cams.K, device, torch.float32),
                   R=_t(scene.cams.R, device, torch.float32),
                   C=_t(scene.cams.C, device, torch.float32))
+
+    def opt(x):
+        return None if x is None else _t(x, device, torch.float32)
+
     return SceneTensors(
         gray=_t(scene.gray, device, torch.float32), cams=cams,
         nbr_idx=_t(scene.nbr_idx, device, torch.int64),
         nbr_valid=_t(scene.nbr_valid, device, torch.bool),
         d_min=_t(scene.d_min, device, torch.float32),
-        d_max=_t(scene.d_max, device, torch.float32))
+        d_max=_t(scene.d_max, device, torch.float32),
+        seed_depth=opt(scene.seed_depth), flows=opt(scene.flows))
 
 
 def state_from_numpy(state, device="cuda") -> SceneState:

@@ -13,6 +13,7 @@ and ``dense/scene_driver.py``); none of them is silently rerouted.
 from __future__ import annotations
 
 import dataclasses
+from typing import Optional
 
 
 @dataclasses.dataclass(frozen=True)
@@ -87,8 +88,7 @@ class DenseConfig:
     ransac_min_points_div: float = 40.
 
     # --- filtering / fusion (ref: DepthMap.cpp:101,142-143) ---------------
-    optimize: int = 1                  # not ported: estimate_scene raises
-                                       # unless 0 (dense/fusion.py)
+    optimize: int = 1
     speckle_size: int = 100
     ipol_gap_size: int = 7
     depth_weight: float = 1.0
@@ -143,3 +143,67 @@ def window_cfg_for_width(cfg: DenseConfig, w: int) -> DenseConfig:
         adapt_half_window=cfg.adapt_half_window * 2,
         patch_half_window=cfg.patch_half_window * 2,
         patch_step=cfg.patch_step * 2)
+
+
+# CLI flag name -> field name, for parity with the reference's run.py layer
+# (ref: apps/DensifyPointCloud/DensifyPointCloud.cpp:140-199).
+CLI_FLAG_MAP = {
+    "resolution-level": "resolution_level",
+    "max-resolution": "max_resolution",
+    "min-resolution": "min_resolution",
+    "number-views": "num_views",
+    "number-views-fuse": "min_views_fuse",
+    "n-EstimationIters": "estimation_iters",
+    "n-EstimationIters-external": "estimation_iters_external",
+    "n-photo2geo": "photo2geo",
+    "n-viewspread": "view_spread",
+    "n-opticalflow": "use_optical_flow",
+    "n-initTriangulate": "init_triangulate",
+    "n-photometric_flow": "photometric_flow",
+    "n-nOptimize": "optimize",
+    "n-usepartconsistency": "use_part_consistency",
+    "n-usegeoconsistency": "use_geo_consistency",
+    "use-semantic": "use_semantic",
+    "n-maxgeo_proportion": "maxgeo_proportion",
+    "n-txthreshold": "tx_threshold",
+    "n-txthreshold2": "tx_threshold2",
+    "n-para_part": "para_part",
+    "n-para_part2": "para_part2",
+    "n-para_tapa": "para_tapa",
+    "n-para_tapa2": "para_tapa2",
+    "n-para_prior": "para_prior",
+    "n-adapthalfwin": "adapt_half_window",
+    "n-propagatehalfwin": "propagate_half_window",
+    "n-propagatestep": "propagate_step",
+    "ransac-probability": "ransac_probability",
+    "ransac-epsilon": "ransac_epsilon_mul",
+    "ransac-cluster": "ransac_cluster_mul",
+    "ransac-min-points": "ransac_min_points_div",
+    "estimate-normals": "estimate_normals",
+}
+
+
+def config_from_cli_flags(flags: dict, base: Optional[DenseConfig] = None
+                          ) -> DenseConfig:
+    """Build a DenseConfig from reference-style CLI flags.
+
+    ``flags`` maps flag names (without leading dashes, e.g. from parsing a
+    reference ``run.py``) to string/number values.
+    """
+    cfg = base or DenseConfig()
+    fields = {f.name: f.type for f in dataclasses.fields(DenseConfig)}
+    updates = {}
+    for flag, value in flags.items():
+        name = CLI_FLAG_MAP.get(flag)
+        if name is None:
+            continue
+        ftype = fields[name]
+        if ftype in ("int", int):
+            updates[name] = int(value)
+        elif ftype in ("float", float):
+            updates[name] = float(value)
+        elif ftype in ("bool", bool):
+            updates[name] = bool(int(value))
+        else:
+            updates[name] = value
+    return cfg.replace(**updates)

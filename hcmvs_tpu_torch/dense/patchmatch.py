@@ -49,6 +49,7 @@ class ScoreContext:
                                           # score.volume_bounds, once per
                                           # sweep call
     rect: Optional[object] = None         # ops.rect_gather.RectContext
+    flow: Optional[torch.Tensor] = None   # (2, H, W) flow to neighbour 0
 
 
 def propagation_offsets(cfg: DenseConfig) -> list:
@@ -70,8 +71,8 @@ def finish_cost(ctx: ScoreContext, ncc: torch.Tensor, bad: torch.Tensor,
                 cur_depth_map: torch.Tensor, cur_normal_map: torch.Tensor,
                 delta_c2pmax: torch.Tensor, cfg: DenseConfig,
                 phase: int) -> torch.Tensor:
-    """Smoothness bonus, geometric and local-smoothness blends and view
-    aggregation (ref: DepthMap.cpp:890-958, :987-1046).  ``ncc``/``bad``
+    """Smoothness bonus, geometric, local-smoothness and flow blends and
+    view aggregation (ref: DepthMap.cpp:890-958, :987-1046).  ``ncc``/``bad``
     are (V, H, W)."""
     bonus = S.smoothness_bonus(cur_depth_map, cur_normal_map, ctx.rays,
                                depth, normal, cfg)
@@ -91,6 +92,12 @@ def finish_cost(ctx: ScoreContext, ncc: torch.Tensor, bad: torch.Tensor,
                     + para_part[None] * gra_s[None])
     else:
         per_view = ncc
+
+    if cfg.use_optical_flow and ctx.flow is not None:
+        fs = S.flow_score(ctx.geom, depth, ctx.rays, ctx.flow, view_idx=0)
+        wt = cfg.photometric_flow
+        per_view = torch.cat([((1.0 - wt) * per_view[0] + wt * fs)[None],
+                              per_view[1:]])
     return S.aggregate_scores(per_view, cfg)
 
 

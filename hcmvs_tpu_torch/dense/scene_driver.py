@@ -7,25 +7,30 @@ Schedule (ref: SceneDensify.cpp:3684-3713, :3914-3958):
       phase = geometric if it_ext >= photo2geo else photometric
       neighbour maps <- snapshot of all views' current state
       run ``estimation_iters`` sweeps on every view
+      if it_ext in {1, 2} and cfg.optimize: cross-view filter + gap fill
   final: confidence threshold (``finalize``)
 
 Views are processed one after another.  Inputs and knobs whose code the
-port does not have yet (fusion via ``optimize``, priors, optical flow,
-cross-scale injection, view-spread, streamed tables, the retired
-``batch_candidates``) raise NotImplementedError instead of being skipped.
+port does not have yet (priors, cross-scale injection, view-spread,
+streamed tables, the retired ``batch_candidates``) raise
+NotImplementedError instead of being skipped.  Every stage of
+``estimate_scene`` is timed into ``utils.profiling``'s report, the device
+synchronised at its end.
 """
 
 from __future__ import annotations
 
 import dataclasses
-import time
 from typing import Optional, Tuple
 
+import numpy as np
 import torch
 
 from hcmvs_tpu_torch.core.camera import Camera
 from hcmvs_tpu_torch.core.config import DenseConfig, window_cfg_for_width
 from hcmvs_tpu_torch.dense import score as S
+from hcmvs_tpu_torch.dense.fusion import (cross_view_filter, gap_interpolate,
+                                          gap_repropagate)
 from hcmvs_tpu_torch.dense.patchmatch import (ScoreContext, half_sweep,
                                               propagation_offsets)
 from hcmvs_tpu_torch.dense.types import (PatchMatchState, init_state,
@@ -36,6 +41,7 @@ from hcmvs_tpu_torch.ops.rect_gather import (build_rect_context,
 from hcmvs_tpu_torch.ops.volume import (VolumeTables,
                                         build_volume_tables_rect,
                                         use_rect_volume_build)
+from hcmvs_tpu_torch.utils.profiling import stage_timer
 
 
 @dataclasses.dataclass(frozen=True)
@@ -49,7 +55,8 @@ class SceneTensors:
     d_min: torch.Tensor       # (N,)
     d_max: torch.Tensor       # (N,)
     seed_depth: Optional[torch.Tensor] = None      # (N, H, W) sparse init
-    flows: Optional[torch.Tensor] = None           # not ported: raises
+    flows: Optional[torch.Tensor] = None           # (N, 2, H, W) ref->best
+                                                   # neighbour (dense/flow)
     prior_depth: Optional[torch.Tensor] = None     # not ported: raises
     ext_prior_depth: Optional[torch.Tensor] = None  # not ported: raises
     semantic: Optional[torch.Tensor] = None        # not ported: raises
@@ -77,9 +84,6 @@ def _check_ported(scene: SceneTensors, cfg: DenseConfig) -> None:
     """Raise for inputs and knobs whose code paths are not ported."""
     if cfg.view_spread:
         raise NotImplementedError("view_spread (not ported)")
-    if cfg.use_optical_flow and scene.flows is not None:
-        raise NotImplementedError("optical-flow term (dense/flow.py, not "
-                                  "ported)")
     if scene.prior_depth is not None or want_prior_pass(scene, cfg):
         raise NotImplementedError("planar priors (dense/priors.py, not "
                                   "ported)")
@@ -108,7 +112,7 @@ def _per_view_context(scene: SceneTensors, i: int,
         geom=geom, src_grays=scene.gray[nbr], stats=stats, hw=hw,
         rays=rays, gra=gra, d_min=scene.d_min[i], d_max=scene.d_max[i],
         nbr_depth=nbr_depth, nbr_normal=nbr_normal, vol=vol_i,
-        vol_bounds=vb)
+        vol_bounds=vb, flow=None if scene.flows is None else scene.flows[i])
 
 
 def scene_sweeps(state: SceneState, scene: SceneTensors, cfg: DenseConfig,
@@ -214,51 +218,71 @@ def phase_cfg(cfg: DenseConfig, phase: int,
     return cfg
 
 
-def _sync(device: torch.device) -> None:
-    if device.type == "cuda":
-        torch.cuda.synchronize(device)
-
-
 def estimate_scene(gen: torch.Generator, scene: SceneTensors,
                    cfg: DenseConfig, verbose: bool = False,
-                   init: Optional[SceneState] = None,
-                   timings: Optional[dict] = None) -> SceneState:
+                   init: Optional[SceneState] = None) -> SceneState:
     """Full multi-view estimation with the HC-MVS external schedule.
 
     ``gen`` drives the random init and refinement (on the scene's
-    device); ``init`` replaces the random init.  ``timings``, when given,
-    receives wall seconds (device synchronised): ``"tables"`` for the
-    table build and ``"sweeps"`` as [(it_ext, phase, seconds), ...].
+    device); ``init`` replaces the random init.  The stages are timed into
+    ``utils.profiling``'s report (device synchronised at each end):
+    ``estimate.tables``, ``estimate.sweeps.ext{i}.phase{p}`` per external
+    iteration and ``estimate.optimize.ext{i}`` per filter pass.
     """
     cfg = window_cfg_for_width(cfg, scene.gray.shape[2])
     _check_ported(scene, cfg)
     n_ext = cfg.estimation_iters_external
-    if cfg.optimize and n_ext > 1:
-        raise NotImplementedError(
-            "optimize (the mid-schedule cross-view filter and gap fill of "
-            "dense/fusion.py, not ported); pass optimize=0")
     dev = scene.gray.device
     state = init if init is not None else init_scene_state(gen, scene)
-    t0 = time.perf_counter()
-    scene = attach_volumes(scene, cfg)
-    if timings is not None:
-        _sync(dev)
-        timings["tables"] = time.perf_counter() - t0
-        timings["sweeps"] = []
+    with stage_timer("estimate.tables", block_on=dev):
+        scene = attach_volumes(scene, cfg)
     for it_ext in range(n_ext):
         phase = 1 if it_ext >= cfg.photo2geo else 0
-        t0 = time.perf_counter()
-        state = scene_sweeps(state, scene,
-                             phase_cfg(cfg, phase, it_ext == n_ext - 1),
-                             phase, cfg.estimation_iters, phase >= 1, gen)
-        if timings is not None:
-            _sync(dev)
-            timings["sweeps"].append((it_ext, phase,
-                                      time.perf_counter() - t0))
+        with stage_timer(f"estimate.sweeps.ext{it_ext}.phase{phase}",
+                         block_on=dev):
+            state = scene_sweeps(state, scene,
+                                 phase_cfg(cfg, phase, it_ext == n_ext - 1),
+                                 phase, cfg.estimation_iters, phase >= 1,
+                                 gen)
+        if cfg.optimize and it_ext in (1, 2):
+            with stage_timer(f"estimate.optimize.ext{it_ext}", block_on=dev):
+                state = optimize_maps(state, scene, cfg)
         if verbose:
             print(f"[dense] it_ext={it_ext} phase={phase} "
                   f"mean_cost={float(state.cost.mean()):.4f}")
     return state
+
+
+def optimize_maps(state: SceneState, scene: SceneTensors,
+                  cfg: DenseConfig) -> SceneState:
+    """Mid-schedule filter: cross-view consistency and the two
+    GapInterpolation phases (ref: EVT_OPTIMIZEDEPTHMAP at it_ext in
+    {1, 2}, SceneDensify.cpp:3929-3958): row/column interpolation of the
+    fused maps (:2295-2785), gradient-guided re-propagation over the
+    remaining holes (:2791-2983), then the copy-back of valid fused pixels
+    (:2988-2998).  Unfilled pixels keep their hypothesis so PatchMatch can
+    re-score them."""
+    conf = torch.clamp_min(1.0 - state.cost, 0.01)
+    filt, fused, _ = cross_view_filter(
+        state.depth, state.normal, conf, scene.cams, scene.nbr_idx,
+        scene.nbr_valid, cfg)
+    depth_fuse = torch.where(filt > 0, fused, 0.0)
+    h, w = depth_fuse.shape[1:]
+    outs = []
+    for i in range(depth_fuse.shape[0]):
+        gra = sobel_magnitude(scene.gray[i])
+        d, c, nrm = gap_interpolate(depth_fuse[i], conf[i], cfg, gra=gra,
+                                    normal=state.normal[i])
+        rays = pixel_rays(scene.cams[i].K_inv, h, w)
+        outs.append(gap_repropagate(d, nrm, state.depth[i], state.normal[i],
+                                    c, gra, rays, cfg))
+    depth2 = torch.stack([o[0] for o in outs])
+    normal2 = torch.stack([o[1] for o in outs])
+    # copy-back: valid fused pixels win; holes revert to the hypothesis
+    return SceneState(
+        depth=torch.where(depth2 > 0, depth2, state.depth),
+        normal=torch.where((depth2 > 0)[:, None], normal2, state.normal),
+        cost=state.cost)
 
 
 def finalize(state: SceneState, cfg: DenseConfig
@@ -269,3 +293,30 @@ def finalize(state: SceneState, cfg: DenseConfig
     depth = torch.where(keep, state.depth, 0.0)
     conf = torch.where(keep, torch.clamp_min(1.0 - state.cost, 0.0), 0.0)
     return depth, state.normal, conf
+
+
+def splat_sparse_depths(points: np.ndarray, view_counts: np.ndarray,
+                        view_ids: np.ndarray, cams_np: list,
+                        n_images: int, h: int, w: int,
+                        radius: int = 1) -> np.ndarray:
+    """Host-side (numpy): project sparse points into each view and splat
+    their depths into (N, H, W) seed maps (0 elsewhere); the first point
+    to reach a pixel keeps it."""
+    seed = np.zeros((n_images, h, w), np.float32)
+    offsets = np.concatenate([[0], np.cumsum(view_counts)])
+    for p in range(len(points)):
+        ids = view_ids[offsets[p]:offsets[p + 1]]
+        for i in ids:
+            K, R, C = cams_np[i]
+            Xc = R @ (points[p] - C)
+            if Xc[2] <= 0:
+                continue
+            uv = K @ Xc
+            x = int(round(uv[0] / uv[2]))
+            y = int(round(uv[1] / uv[2]))
+            if 0 <= x < w and 0 <= y < h:
+                y0, y1 = max(0, y - radius), min(h, y + radius + 1)
+                x0, x1 = max(0, x - radius), min(w, x + radius + 1)
+                region = seed[i, y0:y1, x0:x1]
+                region[region == 0] = Xc[2]
+    return seed

@@ -414,6 +414,22 @@ def _sample_sigmas(geom: ViewGeometry, depth: torch.Tensor,
     return s_c, fwd
 
 
+def volume_fields(geom: ViewGeometry, vol, depth: torch.Tensor,
+                  normal: torch.Tensor, rays: torch.Tensor, offsets
+                  ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """(s_c, fwd, f2): ``_sample_sigmas``'s centre parameter (H, W) and
+    sample fields (S, H, W), and kernel B's index field (P_pad, S): the
+    sample fields as fractional indices of the sigma grid (shared across
+    views), in the rect build's tile-major pixel order, zero rows past
+    the image."""
+    from hcmvs_tpu_torch.ops.volume import to_volume_order
+    s_c, fwd = _sample_sigmas(geom, depth, normal, rays, offsets)
+    f_flat = to_volume_order((fwd - vol.sig0[0]) * vol.inv_dsig[0])
+    f2 = torch.nn.functional.pad(
+        f_flat.T, (0, 0, 0, vol.tab.shape[1] - f_flat.shape[1]))
+    return s_c, fwd, f2.contiguous()
+
+
 def photometric_scores_volume(geom: ViewGeometry, vol, stats: RefPatchStats,
                               hw: torch.Tensor, depth: torch.Tensor,
                               normal: torch.Tensor, rays: torch.Tensor,
@@ -429,22 +445,16 @@ def photometric_scores_volume(geom: ViewGeometry, vol, stats: RefPatchStats,
     (V, H, W): ``1 - zncc`` in [0, 2], with the flat thRobust cost where
     ``bad``.  Tables are in the rect build's tile-major pixel order.
     """
-    from hcmvs_tpu_torch.ops.volume import (from_volume_order,
-                                            to_volume_order, volume_lookup)
+    from hcmvs_tpu_torch.ops.volume import (from_volume_order, padded_hw,
+                                            volume_lookup)
     h, w = depth.shape
     pad = _pad_of(offsets)
     th_robust = cfg.ncc_threshold_keep * 1.2
-    s_c, fwd = _sample_sigmas(geom, depth, normal, rays, offsets)
-
-    # the sigma grid is shared across views
+    s_c, fwd, f2 = volume_fields(geom, vol, depth, normal, rays, offsets)
+    h8, w128 = padded_hw(h, w)
+    p_used = h8 * w128
     sig0 = vol.sig0[0]
-    inv_dsig = vol.inv_dsig[0]
-    p_pad = vol.tab.shape[1]
-    f_flat = to_volume_order((fwd - sig0) * inv_dsig)  # (S, P_used)
-    p_used = f_flat.shape[1]
-    f2 = torch.nn.functional.pad(f_flat.T, (0, 0, 0, p_pad - p_used))
-    f2 = f2.contiguous()                              # (P_pad, S)
-    sig_hi_grid = sig0 + (vol.tab.shape[2] - 1) / inv_dsig
+    sig_hi_grid = sig0 + (vol.tab.shape[2] - 1) / vol.inv_dsig[0]
 
     # candidate-independent numerator weights; ok in {0, 1} multiplies
     # them exactly, so this is the JAX package's per-offset product
@@ -524,6 +534,46 @@ def aggregate_scores(scores: torch.Tensor, cfg: DenseConfig) -> torch.Tensor:
     use1 = best1 < th_robust
     total = best0 + torch.where(use1, best1, 0.0)
     return total / (1.0 + use1.to(torch.float32))
+
+
+def flow_score(geom: ViewGeometry, depth: torch.Tensor, rays: torch.Tensor,
+               flow: torch.Tensor, view_idx: int = 0) -> torch.Tensor:
+    """Optical-flow cross-consistency against the best neighbour: (H, W)
+    in [0, 2] (ref: DepthMap.cpp:741-792; applied to idxView==1 only).
+
+    Compares the hypothesis' motion vector (its projection into the
+    neighbour minus the pixel) with the dense flow ``flow`` (2, H, W),
+    scoring direction and length agreement."""
+    h, w = depth.shape
+    v_, u_ = torch.meshgrid(
+        torch.arange(h, dtype=torch.float32, device=depth.device),
+        torch.arange(w, dtype=torch.float32, device=depth.device),
+        indexing="ij")
+    X0 = (rays[0] * depth, rays[1] * depth, rays[2] * depth)
+    X1 = mat3_apply(geom.R_rel[view_idx], X0)
+    t = geom.t_rel[view_idx]
+    X1 = (X1[0] + t[0], X1[1] + t[1], X1[2] + t[2])
+    p1 = mat3_apply(geom.K_src[view_idx], X1)
+    z1 = p1[2]
+    inv_z1 = 1.0 / torch.where(z1.abs() < 1e-9, 1e-9, z1)
+    u1 = p1[0] * inv_z1
+    v1c = p1[1] * inv_z1
+    mvx = u1 - u_
+    mvy = v1c - v_
+    fvx, fvy = flow[0], flow[1]
+    n_mv = torch.hypot(mvx, mvy)
+    n_fv = torch.hypot(fvx, fvy)
+    max_dist = math.hypot(w / 2, h / 2)
+    cos = (mvx * fvx + mvy * fvy) / torch.clamp_min(n_mv * n_fv, 1e-9)
+    ratio = torch.minimum(n_mv, n_fv) / torch.clamp_min(
+        torch.maximum(n_mv, n_fv), 1e-9)
+    score = (1.0 - cos.abs()) + (1.0 - ratio)
+    score = torch.where(n_mv >= max_dist, 2.0, score)
+    score = torch.where((n_mv < 1e-6) & (n_fv >= 1e-6), 1.0, score)
+    score = torch.where((n_mv >= 1e-6) & (n_fv < 1e-6), 0.0, score)
+    score = torch.where((n_mv < 1e-6) & (n_fv < 1e-6), 0.0, score)
+    oob = (u1 < 0) | (u1 > w - 1) | (v1c < 0) | (v1c > h - 1) | (z1 <= 0)
+    return torch.where(oob, 1.0, torch.clamp(score, 0.0, 2.0))
 
 
 def _rect_taps(rect, depth: torch.Tensor

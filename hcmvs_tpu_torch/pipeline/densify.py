@@ -1,0 +1,367 @@
+"""Dense reconstruction driver, the DensifyPointCloud equivalent (PyTorch
+port of ``hcmvs_tpu/pipeline/densify.py``).
+
+Loads a `.mvs` scene and its images, selects neighbours, computes the
+optical flows, runs the PatchMatch schedule (with the mid-schedule
+filter), fuses a point cloud, and writes the per-view ``.dmap`` files,
+``scene_dense.ply`` and ``scene_dense.mvs`` (ref: apps/DensifyPointCloud/
+DensifyPointCloud.cpp:373-458 main + Scene::DenseReconstruction,
+SceneDensify.cpp:3532).  CLI flags map 1:1 to the reference's through
+``core.config.CLI_FLAG_MAP``.
+
+    python -m hcmvs_tpu_torch.pipeline.densify --input-file scene.mvs \\
+        -w out --flags resolution-level=0 [--device cpu]
+
+Everything runs on the card unless ``device="cpu"`` is asked for; without
+a card that request is required (no quiet fallback).  Modes and options
+whose modules are not ported raise NotImplementedError naming the module:
+SGM (``fusion_mode`` -1/-2), semantic masks, external priors, mesh
+sampling, label projection and the viewer export.
+"""
+
+from __future__ import annotations
+
+import argparse
+import os
+import time
+from typing import Dict, List, Optional
+
+import numpy as np
+import torch
+
+from hcmvs_tpu_torch.core.camera import Camera
+from hcmvs_tpu_torch.core.config import DenseConfig, config_from_cli_flags
+from hcmvs_tpu_torch.dense.fusion import compact_point_cloud, fuse_point_cloud
+from hcmvs_tpu_torch.dense.scene_driver import (SceneState, SceneTensors,
+                                                estimate_scene, finalize,
+                                                splat_sparse_depths)
+from hcmvs_tpu_torch.dense.view_selection import (depth_range_from_points,
+                                                  pair_scores,
+                                                  select_neighbors)
+from hcmvs_tpu_torch.io.dmap import DepthMapData, read_dmap, write_dmap
+from hcmvs_tpu_torch.io.images import (compute_resolution_scale, load_image,
+                                       resize_image, save_depth_png, to_gray)
+from hcmvs_tpu_torch.io.mvs import SceneMVS, read_mvs, write_mvs
+from hcmvs_tpu_torch.io.ply import write_ply_points
+from hcmvs_tpu_torch.utils.profiling import log_report, stage_timer
+
+
+def resolve_device(device) -> torch.device:
+    """``device`` as a torch.device; a CUDA request without a card raises
+    (the CPU must be asked for)."""
+    dev = torch.device(device)
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError("no CUDA device: pass device='cpu' (--device "
+                           "cpu) to run on the CPU")
+    return dev
+
+
+def find_scene_masks(scene: SceneMVS, images_dir: str
+                     ) -> Optional[List[Optional[str]]]:
+    """Per-image semantic-mask paths, or None when no image has one (ref:
+    Image::maskName, frame_main/libs/MVS/Image.h:75-99): the scene's
+    recorded ``mask_name``, then ``<image-stem>.mask.png`` beside the
+    image."""
+    paths: List[Optional[str]] = []
+    for im in scene.images:
+        stem = os.path.splitext(os.path.basename(im.name))[0]
+        cand: List[str] = []
+        if getattr(im, "mask_name", ""):
+            m = im.mask_name
+            if os.path.isabs(m):
+                cand.append(m)
+            else:
+                cand.append(os.path.join(images_dir, m))
+                cand.append(os.path.join(images_dir, os.path.basename(m)))
+        cand.append(os.path.join(images_dir, stem + ".mask.png"))
+        paths.append(next((c for c in cand if os.path.exists(c)), None))
+    return paths if any(p is not None for p in paths) else None
+
+
+def build_scene_tensors(scene: SceneMVS, images_gray: List[np.ndarray],
+                        cfg: DenseConfig,
+                        flows: Optional[torch.Tensor] = None,
+                        device="cuda") -> SceneTensors:
+    """Scene tensors on ``device`` from a host scene (uniform image
+    sizes): cameras, neighbours (covisibility top-k), depth ranges and
+    the splatted sparse seeds."""
+    if cfg.init_triangulate:
+        raise NotImplementedError("init_triangulate (dense/init_tri.py, "
+                                  "not ported)")
+    dev = resolve_device(device)
+    n = len(scene.images)
+    h, w = images_gray[0].shape
+    Ks, Rs, Cs = [], [], []
+    for i in range(n):
+        R, C = scene.pose_of(i)
+        Ks.append(scene.intrinsics_of(i, w, h))
+        Rs.append(R)
+        Cs.append(C)
+
+    def f32(x):
+        return torch.as_tensor(np.asarray(x), dtype=torch.float32,
+                               device=dev)
+
+    cams = Camera(K=f32(np.stack(Ks)), R=f32(np.stack(Rs)),
+                  C=f32(np.stack(Cs)))
+    score = pair_scores(scene.points, scene.point_view_counts,
+                        scene.point_view_ids, np.stack(Cs), n,
+                        cfg.optim_angle, cfg.min_angle, cfg.max_angle)
+    v = min(cfg.geo_max_neighbors, max(n - 1, 1))
+    nbr_idx, nbr_valid = select_neighbors(score, v,
+                                          cfg.view_min_score_ratio)
+    d_ranges = np.stack([
+        depth_range_from_points(scene.points, scene.point_view_counts,
+                                scene.point_view_ids, Rs[i], Cs[i], i)
+        for i in range(n)])
+    seeds = splat_sparse_depths(scene.points, scene.point_view_counts,
+                                scene.point_view_ids,
+                                [(Ks[i], Rs[i], Cs[i]) for i in range(n)],
+                                n, h, w)
+    return SceneTensors(
+        gray=f32(np.stack(images_gray)), cams=cams,
+        nbr_idx=torch.as_tensor(nbr_idx, dtype=torch.int64, device=dev),
+        nbr_valid=torch.as_tensor(nbr_valid, device=dev),
+        d_min=f32(d_ranges[:, 0]), d_max=f32(d_ranges[:, 1]),
+        seed_depth=f32(seeds), flows=flows)
+
+
+def _load_images(scene: SceneMVS, images_dir: str, cfg: DenseConfig):
+    """Gray (H, W) and colour (H, W, 3) float32 images at the working
+    resolution."""
+    grays, colors = [], []
+    scale = None
+    for im in scene.images:
+        name = im.name
+        path = name if os.path.isabs(name) else os.path.join(
+            images_dir, os.path.basename(name))
+        img = load_image(path)
+        if scale is None:
+            scale = compute_resolution_scale(img.shape[1], img.shape[0],
+                                             cfg.resolution_level,
+                                             cfg.max_resolution,
+                                             cfg.min_resolution)
+        img = resize_image(img, scale)
+        if img.ndim == 3:
+            colors.append(img)
+            # BT.601 luminance, as the reference's cv2 IMREAD_GRAYSCALE
+            grays.append(to_gray(img).astype(np.float32))
+        else:
+            colors.append(np.repeat(img[..., None], 3, -1))
+            grays.append(img)
+    return grays, colors
+
+
+def _unported_options(scene: SceneMVS, images_dir: str, cfg: DenseConfig,
+                      masks_dir, fusion_mode: int, priors_dir) -> None:
+    if fusion_mode < 0:
+        raise NotImplementedError(f"fusion_mode {fusion_mode}: SGM stereo "
+                                  f"maps (dense/sgm.py, not ported)")
+    if priors_dir is not None:
+        raise NotImplementedError("--priors-dir: external prior maps "
+                                  "(dense/priors.py, not ported)")
+    if masks_dir is not None or (
+            cfg.use_semantic and find_scene_masks(scene, images_dir)):
+        raise NotImplementedError("semantic masks: the RANSAC planar "
+                                  "priors (dense/priors.py, not ported)")
+
+
+def densify(scene_path: str, images_dir: str, out_dir: str,
+            cfg: Optional[DenseConfig] = None, verbose: bool = True,
+            resume: bool = True,
+            filter_point_cloud: Optional[int] = None,
+            masks_dir: Optional[str] = None,
+            fusion_mode: int = 0,
+            priors_dir: Optional[str] = None,
+            device="cuda", init: Optional[SceneState] = None) -> Dict:
+    """Full densification of a `.mvs` scene; returns summary stats.
+
+    ``resume``: when every per-view ``depth%04d.dmap`` already exists in
+    the output, estimation is skipped and the maps are loaded (ref:
+    SceneDensify.cpp:3865-3880).  ``filter_point_cloud``: run the
+    visibility filter on the fused cloud with this threshold.
+    ``fusion_mode`` (ref: DensifyPointCloud.cpp:154, :436-441): 0 =
+    PatchMatch depth maps + fusion; 1 = depth maps only.  ``device``:
+    where the tensors live ("cuda" by default; "cpu" must be asked for).
+    ``init`` replaces the random initial state (as in ``estimate_scene``).
+    Every stage is timed into ``utils.profiling``'s report.
+    """
+    cfg = cfg or DenseConfig()
+    dev = resolve_device(device)
+    os.makedirs(out_dir, exist_ok=True)
+    scene = read_mvs(scene_path)
+    n = len(scene.images)
+    _unported_options(scene, images_dir, cfg, masks_dir, fusion_mode,
+                      priors_dir)
+    with stage_timer("densify.load_images", log=verbose):
+        grays, colors = _load_images(scene, images_dir, cfg)
+    h, w = grays[0].shape
+
+    flows = None
+    if cfg.use_optical_flow:
+        from hcmvs_tpu_torch.dense.flow import scene_flows
+        with stage_timer("densify.flows", block_on=dev, log=verbose):
+            centers = np.stack([scene.pose_of(i)[1] for i in range(n)])
+            score = pair_scores(scene.points, scene.point_view_counts,
+                                scene.point_view_ids, centers, n)
+            nbr1, _ = select_neighbors(score, 1)
+            flows = scene_flows(torch.as_tensor(np.stack(grays),
+                                                device=dev), nbr1)
+
+    with stage_timer("densify.scene_tensors", block_on=dev, log=verbose):
+        tensors = build_scene_tensors(scene, grays, cfg, flows, device=dev)
+    dmap_dir = os.path.join(out_dir, "depthmap")
+    dmap_path = lambda i: os.path.join(dmap_dir, f"depth{i:04d}.dmap")  # noqa: E731
+    t0 = time.time()
+    if resume and all(os.path.exists(dmap_path(i)) for i in range(n)):
+        # per-image resumability: all maps exist, skip estimation
+        with stage_timer("densify.read_dmap", block_on=dev, log=verbose):
+            loaded = [read_dmap(dmap_path(i)) for i in range(n)]
+
+            def stack(arrs):
+                return torch.as_tensor(np.stack(arrs), device=dev)
+
+            depth = stack([d.depth for d in loaded])
+            normal = stack([np.moveaxis(d.normal, -1, 0) for d in loaded])
+            conf = stack([d.conf for d in loaded])
+    else:
+        with stage_timer("densify.estimate", block_on=dev, log=verbose):
+            gen = torch.Generator(device=dev).manual_seed(0)
+            state = estimate_scene(gen, tensors, cfg, verbose=verbose,
+                                   init=init)
+            depth, normal, conf = finalize(state, cfg)
+    wall = time.time() - t0
+
+    # per-view .dmap artifacts (the stage-handoff format; ref:
+    # SceneDensify.cpp:3984-3992)
+    os.makedirs(dmap_dir, exist_ok=True)
+    depth_np = depth.cpu().numpy()
+    normal_np = normal.cpu().numpy()
+    conf_np = conf.cpu().numpy()
+    nbr_np = tensors.nbr_idx.cpu().numpy()
+    if verbose:
+        # jet-coloured debug maps (the reference's verbosity-gated dumps)
+        with stage_timer("densify.write_depth_png", log=verbose):
+            for i in range(n):
+                save_depth_png(os.path.join(dmap_dir, f"depth{i:04d}.png"),
+                               depth_np[i])
+    with stage_timer("densify.write_dmap", log=verbose):
+        for i in range(n):
+            R, C = scene.pose_of(i)
+            write_dmap(dmap_path(i), DepthMapData(
+                depth=depth_np[i], normal=np.moveaxis(normal_np[i], 0, -1),
+                conf=conf_np[i], K=scene.intrinsics_of(i, w, h), R=R, C=C,
+                d_min=float(tensors.d_min[i]), d_max=float(tensors.d_max[i]),
+                image_size=(w, h), image_name=scene.images[i].name,
+                view_ids=[i] + [int(j) for j in nbr_np[i]]))
+    stats = {"n_views": n, "wall_s": wall, "views_per_s": n / wall,
+             "n_points": 0, "valid_frac": float((depth_np > 0).mean()),
+             "depth": depth_np, "normal": normal_np, "conf": conf_np}
+    if abs(fusion_mode) == 1:
+        # export-only mode stops after the .dmap artifacts (ref: the
+        # ABS(nFusionMode)==1 early exit, DensifyPointCloud.cpp:436-441)
+        return stats
+
+    priority = np.argsort(np.argsort(
+        -tensors.nbr_valid.cpu().numpy().sum(1))).astype(np.float32)
+    with stage_timer("densify.fuse", block_on=dev, log=verbose):
+        fused = fuse_point_cloud(
+            depth, normal, conf, tensors.cams, tensors.nbr_idx,
+            tensors.nbr_valid, priority, cfg,
+            colors=torch.as_tensor(np.stack(colors), device=dev),
+            with_colors=cfg.estimate_colors > 0)
+    with stage_timer("densify.compact", block_on=dev, log=verbose):
+        cloud = compact_point_cloud(fused, nbr_idx=tensors.nbr_idx,
+                                    confs=conf)
+    del fused
+    if filter_point_cloud is not None and len(cloud["points"]):
+        from hcmvs_tpu_torch.dense.point_filter import filter_point_cloud \
+            as fpc
+        with stage_timer("densify.point_filter", log=verbose):
+            keep = fpc(cloud["points"], np.ones(len(cloud["points"]),
+                                                np.int32),
+                       cloud["owner_view"], tensors.cams, (h, w),
+                       th_remove=filter_point_cloud)
+        # the ragged view lists filter through their points
+        ragged_keep = np.repeat(keep, cloud["view_counts"])
+        cloud["view_ids"] = cloud["view_ids"][ragged_keep]
+        cloud["view_confs"] = cloud["view_confs"][ragged_keep]
+        for k in ("points", "normals", "colors", "weights", "support",
+                  "owner_view", "view_counts"):
+            cloud[k] = cloud[k][keep]
+    with stage_timer("densify.write_ply", log=verbose):
+        col_u8 = np.clip(cloud["colors"] * 255, 0, 255).astype(np.uint8)
+        write_ply_points(os.path.join(out_dir, "scene_dense.ply"),
+                         cloud["points"], cloud["normals"], colors=col_u8)
+    # dense scene with full per-point view lists: owner view first, then
+    # every agreeing neighbour with its sampled confidence
+    with stage_timer("densify.write_mvs", log=verbose):
+        write_mvs(os.path.join(out_dir, "scene_dense.mvs"), SceneMVS(
+            platforms=scene.platforms, images=scene.images,
+            points=cloud["points"].astype(np.float32),
+            point_view_counts=cloud["view_counts"].astype(np.int32),
+            point_view_ids=cloud["view_ids"].astype(np.uint32),
+            point_view_confs=cloud["view_confs"].astype(np.float32),
+            point_normals=cloud["normals"].astype(np.float32)))
+    stats["n_points"] = len(cloud["points"])
+    return stats
+
+
+def main(argv=None):
+    ap = argparse.ArgumentParser(
+        description="DensifyPointCloud equivalent (PyTorch/CUDA)")
+    ap.add_argument("--input-file", required=True)
+    ap.add_argument("--images-dir", default=None)
+    ap.add_argument("-w", "--working-dir", default="mvs_out")
+    ap.add_argument("--flags", nargs="*", default=[],
+                    help="reference-style flag=value pairs, e.g. "
+                         "resolution-level=2 n-EstimationIters=3")
+    ap.add_argument("--filter-point-cloud", type=int, default=None,
+                    help="visibility-filter threshold (ref: negative "
+                         "values, e.g. -1)")
+    ap.add_argument("--fusion-mode", type=int, default=0,
+                    help="0 depth-maps & fusion, 1 export depth-maps only "
+                         "(ref: DensifyPointCloud.cpp:154; the SGM modes "
+                         "-1/-2 are not ported)")
+    ap.add_argument("--no-resume", action="store_true",
+                    help="re-estimate even if depth*.dmap files exist")
+    ap.add_argument("--masks-dir", default=None,
+                    help="per-image semantic masks (not ported)")
+    ap.add_argument("--priors-dir", default=None,
+                    help="external prior depth maps (not ported)")
+    ap.add_argument("--export-viewer", action="store_true",
+                    help="offline WebGL viewer (not ported)")
+    ap.add_argument("--sample-mesh", type=float, default=0.0,
+                    help="mesh sampling side mode (not ported)")
+    ap.add_argument("--project-labels", action="store_true",
+                    help="label projection side mode (not ported)")
+    ap.add_argument("--device", default="cuda",
+                    help="torch device of the run (default cuda; cpu must "
+                         "be asked for)")
+    args = ap.parse_args(argv)
+    if args.sample_mesh != 0.0:
+        raise NotImplementedError("--sample-mesh (mesh/mesh_ops.py, not "
+                                  "ported)")
+    if args.project_labels:
+        raise NotImplementedError("--project-labels (pipeline/densify.py "
+                                  "estimate_point_labels, not ported)")
+    if args.export_viewer:
+        raise NotImplementedError("--export-viewer (io/viewer.py, not "
+                                  "ported)")
+    flags = dict(f.split("=", 1) for f in args.flags)
+    cfg = config_from_cli_flags(flags)
+    images_dir = args.images_dir or os.path.dirname(args.input_file)
+    stats = densify(args.input_file, images_dir, args.working_dir, cfg,
+                    resume=not args.no_resume,
+                    filter_point_cloud=args.filter_point_cloud,
+                    masks_dir=args.masks_dir,
+                    fusion_mode=args.fusion_mode,
+                    priors_dir=args.priors_dir, device=args.device)
+    print({k: v for k, v in stats.items()
+           if k not in ("depth", "normal", "conf")})
+    log_report()
+    return stats
+
+
+if __name__ == "__main__":
+    main()

@@ -9,6 +9,7 @@ back as the port's ``Camera`` with float32 CPU tensors.
 from __future__ import annotations
 
 import dataclasses
+import os
 from typing import List, Tuple
 
 import numpy as np
@@ -139,3 +140,48 @@ def plane_depth_of_view(scene: PlaneScene, view: int) -> np.ndarray:
     s = (scene.c_w - scene.n_w @ C) / np.where(
         np.abs(denom) < 1e-12, 1e-12, denom)
     return s.astype(np.float32)                       # rc_z == 1 => depth
+
+
+def plane_sparse_points(scene: PlaneScene, n_sparse: int = 60,
+                        seed: int = 0) -> np.ndarray:
+    """(n_sparse, 3) float32 points drawn on the scene's plane."""
+    xy = np.random.default_rng(seed).uniform(-0.5, 0.5, (n_sparse, 2))
+    z = (scene.c_w - xy @ scene.n_w[:2]) / scene.n_w[2]
+    return np.column_stack([xy, z]).astype(np.float32)
+
+
+def write_plane_scene(root: str, scene: PlaneScene, n_sparse: int = 60,
+                      seed: int = 0, png_filter: int = 2) -> Tuple[str, str]:
+    """Write ``scene`` as ``root/scene.mvs`` (one shared intrinsic, a pose
+    per view, ``plane_sparse_points`` seen by every view) and 8-bit gray
+    PNGs ``root/images/im%04d.png`` (every row with the PNG row filter
+    ``png_filter``); returns (scene path, images dir), the inputs of
+    ``pipeline.densify``."""
+    from hcmvs_tpu_torch.io.images import write_png
+    from hcmvs_tpu_torch.io.mvs import (CameraIntrinsic, ImageRecord,
+                                        Platform, Pose, SceneMVS, write_mvs)
+    h, w = scene.images[0].shape
+    n = len(scene.cameras)
+    plat = Platform(name="p0")
+    plat.cameras.append(CameraIntrinsic(
+        name="c0", width=w, height=h,
+        K=scene.cameras[0].K.cpu().numpy().astype(np.float64),
+        R=np.eye(3), C=np.zeros(3)))
+    mvs = SceneMVS(platforms=[plat])
+    img_dir = os.path.join(root, "images")
+    os.makedirs(img_dir, exist_ok=True)
+    for i, cam in enumerate(scene.cameras):
+        plat.poses.append(Pose(R=cam.R.cpu().numpy().astype(np.float64),
+                               C=cam.C.cpu().numpy().astype(np.float64)))
+        name = f"im{i:04d}.png"
+        write_png(os.path.join(img_dir, name),
+                  (scene.images[i] * 255).astype(np.uint8), png_filter)
+        mvs.images.append(ImageRecord(name=name, platform_id=0,
+                                      camera_id=0, pose_id=i, id=i))
+    mvs.points = plane_sparse_points(scene, n_sparse, seed)
+    mvs.point_view_counts = np.full(n_sparse, n, np.int32)
+    mvs.point_view_ids = np.tile(np.arange(n, dtype=np.uint32), n_sparse)
+    mvs.point_view_confs = np.ones(n_sparse * n, np.float32)
+    path = os.path.join(root, "scene.mvs")
+    write_mvs(path, mvs)
+    return path, img_dir

@@ -208,11 +208,12 @@ def test_init_state_apply_matches_with_jax_draws(scenes):
 
 
 _NO_JAX_SCRIPT = textwrap.dedent("""
-    import importlib, pkgutil, sys
+    import importlib, os, pkgutil, sys
+    BLOCKED = ("jax", "jaxlib", "hcmvs_tpu", "cv2")
     for name in list(sys.modules):
-        if name.split(".")[0] in ("jax", "jaxlib", "hcmvs_tpu"):
+        if name.split(".")[0] in BLOCKED:
             del sys.modules[name]
-    for name in ("jax", "jaxlib", "hcmvs_tpu"):
+    for name in BLOCKED:
         sys.modules[name] = None          # any import of them now fails
     import numpy as np
     import torch
@@ -244,16 +245,27 @@ _NO_JAX_SCRIPT = textwrap.dedent("""
     depth, normal, conf = finalize(st, cfg)
     assert depth.shape == (n, h, w) and normal.shape == (n, 3, h, w)
     assert torch.isfinite(st.depth).all() and torch.isfinite(st.cost).all()
-    assert not any(m.split(".")[0] in ("jax", "jaxlib", "hcmvs_tpu")
+    # the DensifyPointCloud path on the CPU: .mvs + PNGs in, files out
+    from hcmvs_tpu_torch.pipeline.densify import main
+    from hcmvs_tpu_torch.utils.synth import write_plane_scene
+    path, img_dir = write_plane_scene("scene", sc)     # in the cwd
+    stats = main(["--input-file", path, "--images-dir", img_dir,
+                  "-w", "out", "--device", "cpu", "--flags",
+                  "resolution-level=0", "min-resolution=0",
+                  "n-EstimationIters=1", "n-EstimationIters-external=3",
+                  "n-adapthalfwin=3"])
+    assert stats["n_points"] > 0 and os.path.exists("out/scene_dense.mvs")
+    assert not any(m.split(".")[0] in BLOCKED
                    for m in sys.modules if sys.modules[m] is not None)
     print("OK", float((depth > 0).float().mean()))
 """)
 
 
-def test_port_runs_with_jax_blocked():
+def test_port_runs_with_jax_blocked(tmp_path):
     env = dict(os.environ, PYTHONPATH=REPO, OMP_NUM_THREADS="1")
-    proc = subprocess.run([sys.executable, "-c", _NO_JAX_SCRIPT], cwd=REPO,
+    proc = subprocess.run([sys.executable, "-c", _NO_JAX_SCRIPT],
+                          cwd=str(tmp_path),
                           env=env, capture_output=True, text=True,
                           timeout=300)
     assert proc.returncode == 0, proc.stdout + proc.stderr
-    assert proc.stdout.startswith("OK"), proc.stdout
+    assert proc.stdout.splitlines()[-1].startswith("OK"), proc.stdout

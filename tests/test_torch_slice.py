@@ -37,6 +37,7 @@ from hcmvs_tpu_torch.core.config import DenseConfig as TConfig
 from hcmvs_tpu_torch.dense import patchmatch as tpm
 from hcmvs_tpu_torch.dense import scene_driver as tsd
 from hcmvs_tpu_torch.dense import score as tscore
+from hcmvs_tpu_torch.utils.profiling import report, reset_report
 
 # pytest-xdist runs one process per core; torch's own intra-op pool in
 # each of them would oversubscribe the cores many times over.
@@ -207,13 +208,14 @@ def test_estimate_scene_matches_jax(world):
     cfg_j, cfg_t = world["jcfg"], world["tcfg"]
     ref = jsd.estimate_scene(jax.random.PRNGKey(0), world["scene"], cfg_j)
     scene_t = scene_from_numpy(world["scene"], device="cpu")
-    timings = {}
+    reset_report()
     out = tsd.estimate_scene(torch.Generator().manual_seed(0), scene_t,
                              cfg_t,
                              init=state_from_numpy(world["state0"],
-                                                   device="cpu"),
-                             timings=timings)
-    assert [s[:2] for s in timings["sweeps"]] == [(0, 0), (1, 1)]
+                                                   device="cpu"))
+    assert list(report()) == ["estimate.tables",
+                              "estimate.sweeps.ext0.phase0",
+                              "estimate.sweeps.ext1.phase1"]
     d_ref, d_out = _np(ref.depth), out.depth.numpy()
     close = np.abs(d_out - d_ref) <= 1e-3 * np.abs(d_ref)
     assert close.mean() >= 0.99, close.mean()
@@ -248,14 +250,24 @@ def test_aggregate_scores_match():
         assert np.array_equal(out.numpy(), _np(ref))
 
 
-def test_unported_knobs_raise(world):
+def test_unported_knobs_raise(world, tmp_path):
     scene_t = scene_from_numpy(world["scene"], device="cpu")
     gen = torch.Generator().manual_seed(0)
     for kw in (dict(exact_backend="bilinear"),
                dict(geo_backend="direct"), dict(volume_build="planes"),
                dict(volume_planes=256), dict(batch_candidates=True),
                dict(batch_candidates=True, score_mode="warped"),
-               dict(view_spread=1), dict(volume_streaming=True),
-               dict(optimize=1)):
+               dict(view_spread=1), dict(volume_streaming=True)):
         with pytest.raises(NotImplementedError):
             tsd.estimate_scene(gen, scene_t, world["tcfg"].replace(**kw))
+    # the densify options whose modules are not ported: SGM fusion modes
+    # and external prior maps
+    from hcmvs_tpu_torch.io.mvs import SceneMVS, write_mvs
+    from hcmvs_tpu_torch.pipeline.densify import densify
+    path = str(tmp_path / "scene.mvs")
+    write_mvs(path, SceneMVS())
+    for kw in (dict(fusion_mode=-1), dict(fusion_mode=-2),
+               dict(priors_dir=str(tmp_path))):
+        with pytest.raises(NotImplementedError):
+            densify(path, str(tmp_path), str(tmp_path / "out"),
+                    world["tcfg"], verbose=False, device="cpu", **kw)
