@@ -5,17 +5,19 @@
 
 Phases, each fatal on failure:
   1. device: the card's name and power limit (nvidia-smi), torch / CUDA;
-  2. build: compile the CUDA kernels from hcmvs_tpu_torch/kernels/csrc
-     (one nvcc per source, all started together);
+  2. build: compile the CUDA kernels from hcmvs_tpu_torch/kernels/csrc,
+     and the earlier designs of kernels B and D from csrc/earlier into a
+     library of their own (one nvcc per source, all started together);
   3. kernel parity: each of the five kernels against its plain PyTorch
      version on the card, at the 1280x960 shapes the paths give it (B
      at every index-field width: 36 and 9 offsets, and the densify
      path's 64 and 16 on a table at its depth range; D at 324 and 81
      columns), with its device time (``cuda_ms``: launches queued
      behind a spin kernel, so the host's launch work is not counted;
-     checked against torch.profiler on kernel A) and the least time the
-     card could take (bound: B's and D's table bytes are the sectors
-     this run's lookups read);
+     checked against torch.profiler on kernel A), B's and D's earlier
+     designs timed on the same inputs (``earlier_ms``), and the least
+     time the card could take (bound: B's and D's table bytes are the
+     sectors this run's lookups read);
   4. the exact path through the kernels: estimate_scene + finalize at
      4 views x 3 neighbours, 1280x960, exact table scoring; kernels A, B
      and C must have launched;
@@ -44,6 +46,7 @@ script, removed at the end.
 from __future__ import annotations
 
 import collections
+import concurrent.futures
 import contextlib
 import json
 import shutil
@@ -266,34 +269,48 @@ def densify_cfg():
                                       for f in DENSIFY_FLAGS))
 
 
+# the kernels whose launches are counted by index-field width: B by its
+# S, D by its C
+WIDTH_KERNELS = ("volume_lookup", "volume_lookup_multi")
+
+
 @contextlib.contextmanager
-def b_widths():
-    """Counts kernel B's launches by index-field width (S) inside the
-    block: a recorder around ``kernels.volume_lookup``, which the ops
-    call through the module (``kernels.launches`` is unchanged)."""
+def field_widths():
+    """Counts kernel B's and D's launches by index-field width inside the
+    block: recorders around ``kernels.volume_lookup`` and
+    ``kernels.volume_lookup_multi``, which the ops call through the module
+    (``kernels.launches`` is unchanged).  Yields {kernel: Counter}."""
     from hcmvs_tpu_torch import kernels
-    counts = collections.Counter()
-    launch = kernels.volume_lookup
+    counts = {name: collections.Counter() for name in WIDTH_KERNELS}
+    launchers = {name: getattr(kernels, name) for name in WIDTH_KERNELS}
 
-    def recorded(tab, f):
-        counts[f.shape[1]] += 1
-        return launch(tab, f)
+    def recorder(name):
+        def recorded(tab, f, *args):
+            counts[name][f.shape[1]] += 1
+            return launchers[name](tab, f, *args)
+        return recorded
 
-    kernels.volume_lookup = recorded
+    for name in WIDTH_KERNELS:
+        setattr(kernels, name, recorder(name))
     try:
         yield counts
     finally:
-        kernels.volume_lookup = launch
+        for name, launch in launchers.items():
+            setattr(kernels, name, launch)
 
 
 def check_widths(label, launches, widths, failed) -> dict:
-    """B's launches by width; a failed check unless they add up to its
-    launch count."""
-    log(f"[{label}] kernel B launches by field width {dict(widths)}")
-    if sum(widths.values()) != launches["volume_lookup"]:
-        failed.append(f"{label}: B launches by width {dict(widths)} do not "
-                      f"add up to {launches['volume_lookup']}")
-    return dict(widths)
+    """B's and D's launches by width; a failed check unless each kernel's
+    add up to its launch count."""
+    out = {}
+    for name, counts in widths.items():
+        log(f"[{label}] {name} launches by field width {dict(counts)}")
+        if sum(counts.values()) != launches[name]:
+            failed.append(f"{label}: {name} launches by width "
+                          f"{dict(counts)} do not add up to "
+                          f"{launches[name]}")
+        out[name] = dict(counts)
+    return out
 
 
 def depth_acc_2pct(depth, gt) -> float:
@@ -303,17 +320,20 @@ def depth_acc_2pct(depth, gt) -> float:
     return float((rel < 0.02)[m:-m, m:-m].mean())
 
 
-def kernel_parity(sc, scene, cfg, dev):
-    """Phase 3: each kernel vs its plain version at the paths' shapes.
-    Returns one row per kernel (name, source, replaces, max_abs_err, ms,
-    plain_ms, bound_ms, bound_by, library_ms, and for B and D ``shapes``:
-    the same numbers at each shape the paths give the kernel; the row's
-    own are its first shape's)."""
+def lookup_cases(sc, scene, cfg, geom, st, rays):
+    """Kernel B's and D's inputs at the shapes the paths give them, on
+    view 0's first pair: ([(field, table, f)], [(table, f, bounds)]).
+
+    B: a random (P_pad, 36) field, the fields of the random init ``st`` at
+    the exact path's explore offsets (9), and, as the densify path runs
+    it, at its final (64) and explore (16) offsets on a table at the depth
+    range densify takes from the scene's sparse points.  D: the packed,
+    bounded field of view 0's nine propagation candidates at full (C =
+    324) and explore (C = 81) sampling."""
     import dataclasses
 
     import numpy as np
     import torch
-    from hcmvs_tpu_torch import kernels
     from hcmvs_tpu_torch.core.config import window_cfg_for_width
     from hcmvs_tpu_torch.dense import score as S
     from hcmvs_tpu_torch.dense.patchmatch import (_propagate_from,
@@ -321,12 +341,70 @@ def kernel_parity(sc, scene, cfg, dev):
     from hcmvs_tpu_torch.dense.scene_driver import (init_scene_state,
                                                     phase_cfg)
     from hcmvs_tpu_torch.dense.view_selection import depth_range_from_points
+    from hcmvs_tpu_torch.ops import volume as vol
+    from hcmvs_tpu_torch.utils.synth import plane_sparse_points
+
+    dev = st.depth.device
+    nbr = scene.nbr_idx[0]
+    w = scene.gray.shape[2]
+    vt = vol.build_volume_tables_rect(geom, scene.gray[nbr], scene.d_min[0],
+                                      scene.d_max[0])
+    g = torch.Generator(device=dev).manual_seed(1)
+    f = torch.rand((vt.tab.shape[1], 36), generator=g, device=dev) * 131 - 2
+    b_cases = [("random", vt.tab[0], f), ("init", vt.tab[0], S.volume_fields(
+        geom, vt, st.depth[0], st.normal[0], rays,
+        S.patch_offsets(phase_cfg(cfg, 0, False)))[2])]
+    pts = plane_sparse_points(sc)
+    d_lo, d_hi = depth_range_from_points(
+        pts, np.full(len(pts), N_VIEWS), np.tile(np.arange(N_VIEWS),
+                                                 len(pts)),
+        scene.cams.R[0].cpu().numpy().astype(np.float64),
+        scene.cams.C[0].cpu().numpy().astype(np.float64), 0)
+    log(f"[parity] densify depth range of view 0 (from the sparse points): "
+        f"{d_lo:.4f} to {d_hi:.4f}, against {float(scene.d_min[0]):.4f} to "
+        f"{float(scene.d_max[0]):.4f}")
+    scene_d = dataclasses.replace(
+        scene, d_min=torch.full_like(scene.d_min, d_lo),
+        d_max=torch.full_like(scene.d_max, d_hi))
+    vt_d = vol.build_volume_tables_rect(geom, scene.gray[nbr],
+                                        scene_d.d_min[0], scene_d.d_max[0])
+    st_d = init_scene_state(torch.Generator(device=dev).manual_seed(3),
+                            scene_d)
+    dcfg = window_cfg_for_width(densify_cfg(), w)
+    for final in (True, False):
+        offsets = S.patch_offsets(phase_cfg(dcfg, 0, final))
+        b_cases.append(("init, densify range", vt_d.tab[0], S.volume_fields(
+            geom, vt_d, st_d.depth[0], st_d.normal[0], rays, offsets)[2]))
+    cand = [(st.depth[0], st.normal[0])] + [
+        _propagate_from(st.depth[0], st.normal[0], rays, dy, dx)
+        for dy, dx in propagation_offsets(cfg)]
+    depths = torch.stack([c[0] for c in cand])
+    normals = torch.stack([c[1] for c in cand])
+    bounds0 = S.volume_bounds(vt)[0]
+    d_cases = []
+    for step in (cfg.patch_step, cfg.explore_patch_step):
+        offsets = S.patch_offsets(cfg.replace(patch_step=step))
+        f2, _ = S.packed_fields(geom, vt, depths, normals, rays, offsets)
+        d_cases.append((vt.tab[0], f2, bounds0))
+    return b_cases, d_cases
+
+
+def kernel_parity(sc, scene, cfg, dev):
+    """Phase 3: each kernel vs its plain version at the paths' shapes.
+    Returns one row per kernel (name, source, replaces, max_abs_err, ms,
+    plain_ms, bound_ms, bound_by, library_ms, and for B and D ``shapes``:
+    the same numbers at each shape the paths give the kernel, with the
+    earlier design's time ``earlier_ms``; the row's own are its first
+    shape's)."""
+    import torch
+    from hcmvs_tpu_torch import kernels
+    from hcmvs_tpu_torch.dense import score as S
+    from hcmvs_tpu_torch.dense.scene_driver import init_scene_state
     from hcmvs_tpu_torch.dense.types import make_view_geometry, pixel_rays
     from hcmvs_tpu_torch.ops import rect_gather as rg
     from hcmvs_tpu_torch.ops import volume as vol
     from hcmvs_tpu_torch.ops import zncc_warped as zw
     from hcmvs_tpu_torch.ops.gradients import sobel_magnitude
-    from hcmvs_tpu_torch.utils.synth import plane_sparse_points
 
     rows = []
 
@@ -370,64 +448,41 @@ def kernel_parity(sc, scene, cfg, dev):
     del plain, d
 
     # B: one pair's table against index fields of each width the paths
-    # give it: a random (P_pad, 36) field, the fields of view 0's random
-    # init at the exact path's explore offsets (9), and, as the densify
-    # path runs it, at its final (64) and explore (16) offsets on a table
-    # at the depth range densify takes from the scene's sparse points
+    # give it; D: the same table against the packed, bounded fields of
+    # the propagation candidates (see lookup_cases)
     h, w = scene.gray.shape[1:]
     rays = pixel_rays(geom.K_inv_ref, h, w)
     st = init_scene_state(torch.Generator(device=dev).manual_seed(2), scene)
-    vt = vol.build_volume_tables_rect(geom, scene.gray[nbr], scene.d_min[0],
-                                      scene.d_max[0])
-    g = torch.Generator(device=dev).manual_seed(1)
-    f = torch.rand((tab.shape[1], 36), generator=g, device=dev) * 131 - 2
-    b_cases = [("random", tab[0], f), ("init", vt.tab[0], S.volume_fields(
-        geom, vt, st.depth[0], st.normal[0], rays,
-        S.patch_offsets(phase_cfg(cfg, 0, False)))[2])]
     del tab
-    pts = plane_sparse_points(sc)
-    d_lo, d_hi = depth_range_from_points(
-        pts, np.full(len(pts), N_VIEWS), np.tile(np.arange(N_VIEWS),
-                                                 len(pts)),
-        scene.cams.R[0].cpu().numpy().astype(np.float64),
-        scene.cams.C[0].cpu().numpy().astype(np.float64), 0)
-    log(f"[parity] densify depth range of view 0 (from the sparse points): "
-        f"{d_lo:.4f} to {d_hi:.4f}, against {float(scene.d_min[0]):.4f} to "
-        f"{float(scene.d_max[0]):.4f}")
-    scene_d = dataclasses.replace(
-        scene, d_min=torch.full_like(scene.d_min, d_lo),
-        d_max=torch.full_like(scene.d_max, d_hi))
-    vt_d = vol.build_volume_tables_rect(geom, scene.gray[nbr],
-                                        scene_d.d_min[0], scene_d.d_max[0])
-    st_d = init_scene_state(torch.Generator(device=dev).manual_seed(3),
-                            scene_d)
-    dcfg = window_cfg_for_width(densify_cfg(), w)
-    for final in (True, False):
-        offsets = S.patch_offsets(phase_cfg(dcfg, 0, final))
-        b_cases.append(("init, densify range", vt_d.tab[0], S.volume_fields(
-            geom, vt_d, st_d.depth[0], st_d.normal[0], rays, offsets)[2]))
-    del vt_d, st_d
+    b_cases, d_cases = lookup_cases(sc, scene, cfg, geom, st, rays)
     shapes = []
     for field, tab0, f in b_cases:
         out = kernels.volume_lookup(tab0, f)
         plain = vol.volume_lookup_plain(tab0, f)
+        with kernels.earlier_designs():
+            earlier = kernels.volume_lookup(tab0, f)
         err = float((out - plain).abs().max())
+        same = torch.equal(earlier, out)
         log(f"[parity] B volume_lookup ({field} field): table "
             f"{tuple(tab0.shape)}, field {tuple(f.shape)}, max |kernel - "
-            f"plain| {err:.3g}")
-        if err != 0:
+            f"plain| {err:.3g}, equal to the earlier design {same}")
+        if err != 0 or not same:
             raise AssertionError(f"kernel B at {tuple(f.shape)}: max abs "
-                                 f"err {err}")
+                                 f"err {err}, equal to the earlier design "
+                                 f"{same}")
+        ms = cuda_ms(lambda: kernels.volume_lookup(tab0, f), 20)
+        with kernels.earlier_designs():
+            earlier_ms = cuda_ms(lambda: kernels.volume_lookup(tab0, f), 20)
         shapes.append(measured(
-            "volume_lookup", err,
-            cuda_ms(lambda: kernels.volume_lookup(tab0, f), 20),
+            "volume_lookup", err, ms,
             cuda_ms(lambda: vol.volume_lookup_plain(tab0, f), 10,
                     host_bound_ok=True),
             nbytes(f, out) + table_bytes(tab0, torch.clamp(
                 torch.floor(f), 0, tab0.shape[1] - 2).long()),
-            out.numel(), shape=list(f.shape), field=field))
+            out.numel(), shape=list(f.shape), field=field,
+            earlier_ms=earlier_ms))
     row("volume_lookup", "hcmvs_tpu/ops/volume.py:211", shapes=shapes)
-    del b_cases, tab0, f, out, plain
+    del b_cases, tab0, f, out, plain, earlier
 
     # C: the neighbour maps of view 0 (random init) at the init depths
     ctx = rg.build_rect_context(geom, rg.pack_depth_normals(
@@ -452,30 +507,25 @@ def kernel_parity(sc, scene, cfg, dev):
         nbytes(*c_args, out), out[:, 0].numel())
     del ctx, out, plain
 
-    # D: view 0's tables against the packed, bounded field of its nine
-    # propagation candidates, at full (C = 324) and explore (C = 81)
-    # sampling
-    cand = [(st.depth[0], st.normal[0])] + [
-        _propagate_from(st.depth[0], st.normal[0], rays, dy, dx)
-        for dy, dx in propagation_offsets(cfg)]
-    depths = torch.stack([c[0] for c in cand])
-    normals = torch.stack([c[1] for c in cand])
-    bounds0 = S.volume_bounds(vt)[0]
-    tab0 = vt.tab[0]
+    # D: view 0's table against the packed, bounded fields of its nine
+    # propagation candidates at C = 324 and 81
     shapes = []
-    for step in (cfg.patch_step, cfg.explore_patch_step):
-        offsets = S.patch_offsets(cfg.replace(patch_step=step))
-        f2, _ = S.packed_fields(geom, vt, depths, normals, rays, offsets)
+    for tab0, f2, bounds0 in d_cases:
         out = kernels.volume_lookup_multi(tab0, f2, bounds0)
         plain = vol.volume_lookup_multi_plain(tab0, f2, bounds0)
+        with kernels.earlier_designs():
+            earlier = kernels.volume_lookup_multi(tab0, f2, bounds0)
         oi, pi = vol.u16_as_int32(out), vol.u16_as_int32(plain)
         err = float((oi - pi).abs().max())
+        same = torch.equal(vol.u16_as_int32(earlier), oi)
         valid = float((oi < 65535).float().mean())
         log(f"[parity] D volume_lookup_multi: out {tuple(out.shape)} u16 "
-            f"bounded, bit-equal {err == 0}, valid {valid:.4f}")
-        if err != 0:
+            f"bounded, bit-equal {err == 0}, valid {valid:.4f}, equal to "
+            f"the earlier design {same}")
+        if err != 0 or not same:
             raise AssertionError(f"kernel D differs from its plain version "
-                                 f"by up to {err} LSB")
+                                 f"by up to {err} LSB; equal to the "
+                                 f"earlier design {same}")
         # of the bounds panel only lanes 0 and 64 are needed: two 32 B
         # sectors a row; of the table only what the in-bounds entries read
         fi = vol.u16_as_int32(f2)
@@ -484,18 +534,21 @@ def kernel_parity(sc, scene, cfg, dev):
             tab0, torch.clamp_max(fi >> 6, tab0.shape[1] - 2).long(),
             (fi >= b[:, :1]) & (fi <= b[:, 64:65]))
         del fi, b
+        ms = cuda_ms(lambda: kernels.volume_lookup_multi(tab0, f2, bounds0),
+                     20)
+        with kernels.earlier_designs():
+            earlier_ms = cuda_ms(
+                lambda: kernels.volume_lookup_multi(tab0, f2, bounds0), 20)
         shapes.append(measured(
-            "volume_lookup_multi", err,
-            cuda_ms(lambda: kernels.volume_lookup_multi(tab0, f2, bounds0),
-                    20),
+            "volume_lookup_multi", err, ms,
             cuda_ms(lambda: vol.volume_lookup_multi_plain(tab0, f2,
                                                           bounds0), 5,
                     host_bound_ok=True),
             nbytes(f2, out) + 64 * tab0.shape[0] + t_bytes, out.numel(),
-            shape=list(out.shape)))
-        del f2, out, plain, oi, pi
+            shape=list(out.shape), earlier_ms=earlier_ms))
+        del f2, out, plain, earlier, oi, pi
     row("volume_lookup_multi", "hcmvs_tpu/ops/volume.py:290", shapes=shapes)
-    del vt, bounds0, tab0
+    del d_cases, bounds0, tab0
 
     # E: view 0's random init scored warped against its three neighbours
     # with the photometric phase's explore sampling (pad 5, 8 offsets)
@@ -524,9 +577,12 @@ def kernel_parity(sc, scene, cfg, dev):
     for r in rows:
         for x in r.get("shapes", [r]):
             at = f" {x['shape']}" if "shape" in x else ""
-            log(f"[parity] {r['name']}{at}: kernel {x['ms']:.3f} ms, plain "
-                f"{x['plain_ms']:.3f} ms, bound {x['bound_ms']:.3f} ms "
-                f"({x['bound_by']})")
+            was = (f", earlier design {x['earlier_ms']:.3f} ms"
+                   if "earlier_ms" in x else "")
+            log(f"[parity] {r['name']}{at}: kernel {x['ms']:.3f} ms{was}, "
+                f"plain {x['plain_ms']:.3f} ms, bound {x['bound_ms']:.3f} "
+                f"ms ({x['bound_by']}), {100 * x['bound_ms'] / x['ms']:.1f}% "
+                f"of the bound")
     # the timer against the profiler's device time on kernel A
     ev_ms, prof_ms = timer_check(lambda: kernels.rect_build(*a_args),
                                  "rect_build", 10)
@@ -588,7 +644,7 @@ def check_path(sc, scene, cfg, dev, label, path_kernels):
 
     failed = []
     kernels.reset_launches()
-    with b_widths() as widths:
+    with field_widths() as widths:
         depth_k, keep_k, t_k, sec_k = run_path(scene, cfg, dev, label)
     launches = dict(kernels.launches)
     log(f"[{label}] kernel launches {launches}")
@@ -627,7 +683,7 @@ def check_path(sc, scene, cfg, dev, label, path_kernels):
         "total_s": sec_k, "views_per_s": N_VIEWS / sec_k,
         "plain_total_s": sec_p, "depth_acc_2pct": acc_k,
         "plain_depth_acc_2pct": acc_p, "agree_1pct": agree,
-        "volume_lookup_by_width": widths}, failed
+        "launches_by_width": widths}, failed
 
 
 def _densify_run(scene_path, img_dir, out_dir, plain: bool):
@@ -675,7 +731,7 @@ def check_densify(sc, root):
         f"{time.perf_counter() - t0:.3f} s")
     out_k = str(root / "kernels")
     kernels.reset_launches()
-    with b_widths() as widths:
+    with field_widths() as widths:
         st_k, rep_k, sec_k, peak_k = _densify_run(scene_path, img_dir,
                                                   out_k, plain=False)
     launches = dict(kernels.launches)
@@ -750,7 +806,7 @@ def check_densify(sc, root):
         "cloud_distance": cloud, "plain_total_s": sec_p,
         "plain_stage_s": {k: v["total_s"] for k, v in rep_p.items()},
         "plain_depth_acc_2pct": acc_p, "plain_n_points": st_p["n_points"],
-        "agree_1pct": agree, "volume_lookup_by_width": widths}, failed
+        "agree_1pct": agree, "launches_by_width": widths}, failed
 
 
 def main() -> int:
@@ -776,15 +832,20 @@ def main() -> int:
     log(f"[device] torch {torch.__version__}, CUDA {torch.version.cuda}, "
         f"{torch.cuda.get_device_name(0)} x {torch.cuda.device_count()}")
 
-    # 2. build
+    # 2. build: the library and the earlier designs, side by side
     t0 = time.perf_counter()
-    lib_path = kernels.build()
+    with concurrent.futures.ThreadPoolExecutor(2) as pool:
+        lib_paths = list(pool.map(kernels.build,
+                                  (kernels.CSRC, kernels.EARLIER)))
     kernels.library()
-    log(f"[build] {lib_path.name} ready in {time.perf_counter() - t0:.1f} s "
-        f"(nvcc {kernels.build_seconds()} s)")
-    for line in (lib_path.parent / "build.log").read_text().splitlines():
-        if "registers" in line or "spill" in line:
-            print(f"[build] {line.strip()}", file=sys.stderr)
+    kernels.earlier_library()
+    log(f"[build] {lib_paths[0].name} and the earlier designs of B and D "
+        f"ready in {time.perf_counter() - t0:.1f} s")
+    for path in lib_paths:
+        for line in (path.parent / "build.log").read_text().splitlines():
+            if "registers" in line or "spill" in line:
+                print(f"[build] {path.parent.name} {line.strip()}",
+                      file=sys.stderr)
 
     # 3. kernel parity at the paths' shapes
     sc, scene = make_scene(dev)
@@ -820,12 +881,12 @@ def main() -> int:
                     for p, (launches, _, _) in paths.items()}
         r.update(route="cuda", launches=sum(per_path.values()),
                  launches_per_path=per_path)
-    b_row = next(r for r in rows if r["name"] == "volume_lookup")
-    for x in b_row["shapes"]:             # B's launches at each width
-        x["launches_per_path"] = {
-            p: summary["volume_lookup_by_width"].get(x["shape"][1], 0)
-            for p, (_, summary, _) in paths.items()}
-        x["launches"] = sum(x["launches_per_path"].values())
+        for x in r.get("shapes", []):     # B's and D's at each width
+            x["launches_per_path"] = {
+                p: summary["launches_by_width"][r["name"]].get(
+                    x["shape"][1], 0)
+                for p, (_, summary, _) in paths.items()}
+            x["launches"] = sum(x["launches_per_path"].values())
     keys = ("name", "route", "source", "replaces", "launches",
             "launches_per_path", "max_abs_err", "ms", "plain_ms", "bound_ms",
             "bound_by", "library_ms", "shapes")

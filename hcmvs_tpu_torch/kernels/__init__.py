@@ -11,6 +11,11 @@ Each launcher below checks device, dtype, shape and contiguity, allocates
 its output with ``torch.empty``, launches on the current stream, raises if
 the launch was refused, and adds one to its entry of ``launches``.
 
+``csrc/earlier/`` keeps the designs that kernels B and D had before their
+redesign.  They are built into a library of their own and taken only
+inside ``earlier_designs()``, so that the two designs can be timed
+against each other on the card; no path calls them.
+
 The callers in ``hcmvs_tpu_torch.ops`` choose between a launcher and the
 kernel's plain PyTorch version with ``use_kernel``: CPU tensors take the
 plain version, CUDA tensors the kernel.  ``plain_versions()`` is the one
@@ -27,13 +32,13 @@ import hashlib
 import os
 import shutil
 import subprocess
-import time
 from pathlib import Path
 from typing import Dict
 
 import torch
 
 CSRC = Path(__file__).resolve().parent / "csrc"
+EARLIER = CSRC / "earlier"
 BUILD_ROOT = Path(__file__).resolve().parent / "_build"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "--fmad=false", "-Xptxas", "-v", "-Xcompiler", "-fPIC")
@@ -44,7 +49,11 @@ launches: Dict[str, int] = {"rect_build": 0, "volume_lookup": 0,
                             "rect_lookup": 0, "volume_lookup_multi": 0,
                             "zncc_warped": 0}
 
-_state = {"lib": None, "plain": False, "build_seconds": None}
+_state = {"lib": None, "earlier_lib": None, "earlier": False, "plain": False}
+
+# kernels B and D: items (P x C) and table entries (P x D) a launch, at
+# most (32-bit index work)
+MAX_ITEMS = 2 ** 31 - 1
 
 # kernel E keeps every view's sums in registers: views per launch, at most
 # (zncc_warped.cu kMaxViews; covers the 10-neighbour operating point)
@@ -68,6 +77,19 @@ def plain_versions():
         _state["plain"] = old
 
 
+@contextlib.contextmanager
+def earlier_designs():
+    """Inside this block kernels B and D launch their earlier designs
+    (``csrc/earlier/``, built on first use), for timing them against the
+    current ones; the launchers and their checks are the same."""
+    old = _state["earlier"]
+    _state["earlier"] = True
+    try:
+        yield
+    finally:
+        _state["earlier"] = old
+
+
 def use_kernel(t: torch.Tensor) -> bool:
     """Whether a tensor goes to the kernel (True) or to the plain version
     (False): the kernel for a CUDA tensor, the plain version for a CPU
@@ -79,8 +101,9 @@ def use_kernel(t: torch.Tensor) -> bool:
     raise ValueError(f"no kernel or plain version for device {t.device}")
 
 
-def _sources():
-    return sorted(list(CSRC.glob("*.cu")) + list(CSRC.glob("*.cuh")))
+def _sources(src_dir: Path = CSRC):
+    """The translation units of ``src_dir`` and the shared headers."""
+    return sorted(list(src_dir.glob("*.cu")) + list(CSRC.glob("*.cuh")))
 
 
 def _nvcc() -> str:
@@ -109,12 +132,14 @@ def _run_all(cmds, log: Path) -> None:
                                f"{' '.join(cmd)}\n{out}")
 
 
-def build() -> Path:
-    """Compile the kernels unless this exact build exists; returns the
-    library's path.  One nvcc per source, all started together, then one
-    link.  Raises with nvcc's output if a compile fails."""
+def build(src_dir: Path = CSRC) -> Path:
+    """Compile the kernels of ``src_dir`` (the library by default,
+    ``EARLIER`` for the earlier designs) unless this exact build exists;
+    returns the library's path.  One nvcc per source, all started
+    together, then one link.  Raises with nvcc's output if a compile
+    fails."""
     digest = hashlib.sha256()
-    for src in _sources():
+    for src in _sources(src_dir):
         digest.update(src.name.encode())
         digest.update(src.read_bytes())
     digest.update(" ".join(NVCC_FLAGS).encode())
@@ -127,48 +152,52 @@ def build() -> Path:
     log = out_dir / "build.log"
     log.write_text("")
     nvcc = _nvcc()
-    units = [s for s in _sources() if s.suffix == ".cu"]
+    units = [s for s in _sources(src_dir) if s.suffix == ".cu"]
     objs = [out_dir / f"{s.stem}.{tag}.o" for s in units]
     tmp = out_dir / f"{LIB_NAME}.{tag}.tmp"
-    t0 = time.perf_counter()
     _run_all([[nvcc, *NVCC_FLAGS, "-c", "-o", str(o), str(s)]
               for s, o in zip(units, objs)], log)
     _run_all([[nvcc, *NVCC_FLAGS, "-shared", "-o", str(tmp),
                *map(str, objs)]], log)
     os.replace(tmp, lib)
-    _state["build_seconds"] = time.perf_counter() - t0
     return lib
 
 
-def build_seconds():
-    """Seconds the last ``build()`` in this process spent in nvcc (None if
-    the library was already built)."""
-    return _state["build_seconds"]
+def _load(path: Path) -> ctypes.CDLL:
+    """Load a kernel library and declare the C entry points it has."""
+    lib = ctypes.CDLL(str(path))
+    p, i, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+    signatures = {
+        "volume_lookup": [p, p, p, i64, i, p],
+        "rect_build": [p, p, p, p, p, p, p, i, i, i, i, i64, p],
+        "rect_lookup": [p, p, p, p, p, p, p, i, i, i, i, i, i, p],
+        "volume_lookup_multi": [p, p, p, p, i64, i, i, i, p],
+        "zncc_warped": [p, p, p, p, p, p, p, p, p,
+                        ctypes.POINTER(ctypes.c_int), i, i, i, i, i, p]}
+    for name, argtypes in signatures.items():
+        if hasattr(lib, f"hcmvs_{name}"):
+            fn = getattr(lib, f"hcmvs_{name}")
+            fn.argtypes = argtypes
+            fn.restype = ctypes.c_int
+    if hasattr(lib, "hcmvs_error_string"):
+        lib.hcmvs_error_string.argtypes = [i]
+        lib.hcmvs_error_string.restype = ctypes.c_char_p
+    return lib
 
 
 def library() -> ctypes.CDLL:
     """The loaded kernel library (built on first use)."""
     if _state["lib"] is None:
-        lib = ctypes.CDLL(str(build()))
-        p, i, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-        lib.hcmvs_volume_lookup.argtypes = [p, p, p, i64, i, p]
-        lib.hcmvs_rect_build.argtypes = [p, p, p, p, p, p, p, i, i, i, i,
-                                         i64, p]
-        lib.hcmvs_rect_lookup.argtypes = [p, p, p, p, p, p, p, i, i, i, i,
-                                          i, i, p]
-        lib.hcmvs_volume_lookup_multi.argtypes = [p, p, p, p, i64, i, i, i,
-                                                  p]
-        lib.hcmvs_zncc_warped.argtypes = [p, p, p, p, p, p, p, p, p,
-                                          ctypes.POINTER(ctypes.c_int), i, i,
-                                          i, i, i, p]
-        for fn in (lib.hcmvs_volume_lookup, lib.hcmvs_rect_build,
-                   lib.hcmvs_rect_lookup, lib.hcmvs_volume_lookup_multi,
-                   lib.hcmvs_zncc_warped):
-            fn.restype = ctypes.c_int
-        lib.hcmvs_error_string.argtypes = [i]
-        lib.hcmvs_error_string.restype = ctypes.c_char_p
-        _state["lib"] = lib
+        _state["lib"] = _load(build())
     return _state["lib"]
+
+
+def earlier_library() -> ctypes.CDLL:
+    """The library of the earlier designs of kernels B and D (built on
+    first use)."""
+    if _state["earlier_lib"] is None:
+        _state["earlier_lib"] = _load(build(EARLIER))
+    return _state["earlier_lib"]
 
 
 def _check_tensor(name: str, t: torch.Tensor, dtype: torch.dtype,
@@ -184,8 +213,23 @@ def _check_tensor(name: str, t: torch.Tensor, dtype: torch.dtype,
         raise ValueError(f"{name} is not contiguous")
 
 
-def _launch(name: str, fn, device: torch.device, *args) -> None:
+def _check_items(kernel: str, p: int, c: int, d: int) -> None:
+    """Kernels B and D index their (P, C) items and (P, D) tables with
+    32-bit integers."""
+    if p * max(c, d) > MAX_ITEMS:
+        raise ValueError(f"{kernel} takes at most {MAX_ITEMS} items and "
+                         f"table entries, got {p} x {c} and {p} x {d}")
+
+
+def _launch(name: str, device: torch.device, *args) -> None:
+    """Launch kernel ``name`` (the earlier design inside
+    ``earlier_designs()``, where it has one) on the current stream."""
     lib = library()
+    entry = f"hcmvs_{name}"
+    if _state["earlier"] and hasattr(earlier_library(), entry):
+        fn = getattr(earlier_library(), entry)
+    else:
+        fn = getattr(lib, entry)
     with torch.cuda.device(device):
         stream = torch.cuda.current_stream(device).cuda_stream
         rc = fn(*args, stream)
@@ -205,9 +249,9 @@ def volume_lookup(tab: torch.Tensor, f: torch.Tensor) -> torch.Tensor:
     p, s = f.shape
     _check_tensor("tab", tab, torch.uint16, (p, 128), tab.device)
     _check_tensor("f", f, torch.float32, (p, s), tab.device)
+    _check_items("kernel B", p, s, 128)
     out = torch.empty((p, s), dtype=torch.float32, device=tab.device)
-    lib = library()
-    _launch("volume_lookup", lib.hcmvs_volume_lookup, tab.device,
+    _launch("volume_lookup", tab.device,
             tab.data_ptr(), f.data_ptr(), out.data_ptr(), p, s)
     return out
 
@@ -231,8 +275,7 @@ def rect_build(rect_src: torch.Tensor, rb: torch.Tensor, cb: torch.Tensor,
     if p_pad < n_tiles * 1024:
         raise ValueError(f"p_pad {p_pad} < {n_tiles * 1024} pixels")
     tab = torch.empty((v, p_pad, 128), dtype=torch.uint16, device=dev)
-    lib = library()
-    _launch("rect_build", lib.hcmvs_rect_build, dev,
+    _launch("rect_build", dev,
             rect_src.data_ptr(), rb.data_ptr(), cb.data_ptr(),
             rowf.data_ptr(), c0w.data_ptr(), kp.data_ptr(), tab.data_ptr(),
             v, h_r, w_r, n_tiles, p_pad)
@@ -256,8 +299,7 @@ def rect_lookup(maps: torch.Tensor, row_int: torch.Tensor,
     _check_tensor("rb", rb, torch.int32, (v, -(-h // 8), -(-w // 128)), dev)
     _check_tensor("sigma", sigma, torch.float32, (h, w), dev)
     out = torch.empty((v, c, h, w), dtype=torch.float32, device=dev)
-    lib = library()
-    _launch("rect_lookup", lib.hcmvs_rect_lookup, dev,
+    _launch("rect_lookup", dev,
             maps.data_ptr(), row_int.data_ptr(), c0.data_ptr(),
             k.data_ptr(), rb.data_ptr(), sigma.data_ptr(), out.data_ptr(),
             v, c, h, w, h_r, w_r)
@@ -279,7 +321,7 @@ def volume_lookup_multi(tab: torch.Tensor, f: torch.Tensor,
     p, c = f.shape
     dev = tab.device
     _check_tensor("tab", tab, torch.uint16, (p, tab.shape[1]), dev)
-    if tab.data_ptr() % 16:
+    if tab.data_ptr() % 16:       # the earlier design stages 16 B words
         raise ValueError("tab is not 16-byte aligned")
     if f.dtype not in (torch.uint16, torch.float32):
         raise TypeError(f"f has dtype {f.dtype}, expected uint16 or float32")
@@ -290,11 +332,11 @@ def volume_lookup_multi(tab: torch.Tensor, f: torch.Tensor,
     else:
         mode = 0
     _check_tensor("f", f, f.dtype, (p, c), dev)
+    _check_items("kernel D", p, c, tab.shape[1])
     if bounds is not None:
         _check_tensor("bounds", bounds, torch.uint16, (p, 128), dev)
     out = torch.empty((p, c), dtype=f.dtype, device=dev)
-    lib = library()
-    _launch("volume_lookup_multi", lib.hcmvs_volume_lookup_multi, dev,
+    _launch("volume_lookup_multi", dev,
             tab.data_ptr(), f.data_ptr(),
             None if bounds is None else bounds.data_ptr(), out.data_ptr(),
             p, c, tab.shape[1], mode)
@@ -330,8 +372,7 @@ def zncc_warped(ref_pad: torch.Tensor, tm: torch.Tensor, nsq0: torch.Tensor,
     offs_c = (ctypes.c_int * max(len(offs), 1))(*offs)
     score = torch.empty((v, h, w), dtype=torch.float32, device=dev)
     var1 = torch.empty((v, h, w), dtype=torch.float32, device=dev)
-    lib = library()
-    _launch("zncc_warped", lib.hcmvs_zncc_warped, dev,
+    _launch("zncc_warped", dev,
             ref_pad.data_ptr(), tm.data_ptr(), nsq0.data_ptr(),
             warped_pad.data_ptr(), valid_pad.data_ptr(), hw.data_ptr(),
             acc.data_ptr(), score.data_ptr(), var1.data_ptr(), offs_c,

@@ -5,50 +5,43 @@
 //   out[q, s] = lerp(dec(tab[q, i0]), dec(tab[q, i0 + 1]), f[q, s] - i0)
 //   i0 = clip(floor(f[q, s]), 0, D - 2),   dec(u) = u * (1 / 65535).
 // The TPU kernel packed both taps of 64 samples into one 128-lane vreg
-// gather; on Hopper a thread simply reads its two u16 values.
+// gather; on Hopper a thread reads its two u16 values.
 //
-// What bounds it on the H100: bytes.  Per (q, s) it reads 4 B of f and
-// two u16 of table row q and writes 4 B; rows are 256 B (D = 128), so the
-// S samples of one pixel hit the same two or three 128 B lines.  The
-// simple design here is one thread per (q, s), q-major: reads of f and
-// writes of out are coalesced, and the table row of a pixel is fetched
-// from device memory once and served to its S threads from L1/L2.  At
-// the slice's shapes (P = 1.23 M rows, S = 36) that is about 0.5 GB per
-// call, ~0.15 ms at the H100's 3.35 TB/s.
-#include "common.cuh"
+// What bounds it on the H100: bytes.  Per (q, s) it streams 4 B of f in
+// and 4 B out, and needs the 32 B table sectors its taps fall in: at P =
+// 1.23 M rows and S = 64, 629 MB of field and output against 84 MB of
+// table.  It is table_lookup.cuh's flat kernel in f32 mode at D = 128: a
+// 16 B vector of f (4 samples) a thread, its 8 taps issued before any is
+// used, no staging.  S is a template parameter at the paths' widths (36
+// and 9 in the exact and hybrid paths, 64 and 16 in the densify path), so
+// the row q = i / S is a multiply-shift; any other S takes the generic
+// instance, whose divider is fixed at launch.
+#include "table_lookup.cuh"
 
 namespace {
 
 constexpr int kPlanes = 128;   // D: the slice's table depth
 
-__global__ void volume_lookup_kernel(const uint16_t* __restrict__ tab,
-                                     const float* __restrict__ f,
-                                     float* __restrict__ out,
-                                     long long n, int s) {
-  long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= n) return;
-  long long q = i / s;
-  float fi = f[i];
-  float i0 = hcmvs::clampf(floorf(fi), 0.0f, (float)(kPlanes - 2));
-  float t = fi - i0;
-  int i0i = (int)i0;
-  const uint16_t* row = tab + q * kPlanes;
-  const float scale = (float)(1.0 / 65535.0);
-  float g0 = (float)row[i0i] * scale;
-  float g1 = (float)row[i0i + 1] * scale;
-  out[i] = g0 + (g1 - g0) * t;
+template <int S>
+int launch(const void* tab, const void* f, void* out, unsigned n, int s,
+           cudaStream_t stream) {
+  return hcmvs::launch_table_lookup<hcmvs::kF32, S, kPlanes>(
+      (const uint16_t*)tab, f, nullptr, out, n, s, kPlanes, stream);
 }
 
 }  // namespace
 
-// tab (p, 128) u16, f (p, s) f32, out (p, s) f32; all contiguous.
+// tab (p, 128) u16, f (p, s) f32, out (p, s) f32; all contiguous,
+// p * s < 2^31.
 HCMVS_API int hcmvs_volume_lookup(const void* tab, const void* f, void* out,
                                   long long p, int s, void* stream) {
-  long long n = p * s;
-  if (n > 0) {
-    volume_lookup_kernel<<<hcmvs::flat_blocks(n), hcmvs::kFlatThreads, 0,
-                           (cudaStream_t)stream>>>(
-        (const uint16_t*)tab, (const float*)f, (float*)out, n, s);
+  const unsigned n = (unsigned)(p * s);
+  cudaStream_t st = (cudaStream_t)stream;
+  switch (s) {
+    case 9: return launch<9>(tab, f, out, n, s, st);
+    case 16: return launch<16>(tab, f, out, n, s, st);
+    case 36: return launch<36>(tab, f, out, n, s, st);
+    case 64: return launch<64>(tab, f, out, n, s, st);
+    default: return launch<0>(tab, f, out, n, s, st);
   }
-  return (int)cudaGetLastError();
 }

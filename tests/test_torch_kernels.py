@@ -7,11 +7,12 @@ the JAX package (``--noconftest`` skips tests/conftest.py, which does):
     python -m pytest --noconftest -q tests/test_torch_kernels.py
 
 Tests marked ``gpu`` skip without a CUDA device.  Tolerances on the card:
-kernel A bit-exact, kernel B at atol 1e-6, kernel C bit-exact, kernel D
-bit-exact in its packed and bounded modes and at atol 1e-6 in its f32
-mode, kernel E exact: it keeps the plain version's arithmetic order op by
-op (built with --fmad=false) and both call the card's expf.
+kernels A to D bit-exact, kernel E exact: each keeps its plain version's
+arithmetic order op by op (built with --fmad=false), and E and its plain
+version both call the card's expf.
 """
+
+from pathlib import Path
 
 import numpy as np
 import pytest
@@ -79,6 +80,32 @@ def test_failed_build_raises_with_compiler_output(tmp_path, monkeypatch):
     monkeypatch.setattr(kernels, "BUILD_ROOT", tmp_path / "build")
     with pytest.raises(RuntimeError, match="no such target"):
         kernels.build()
+
+
+def test_earlier_designs_build_apart(tmp_path, monkeypatch):
+    """The earlier designs of kernels B and D build into a library of
+    their own, from csrc/earlier/*.cu alone (with the shared headers),
+    and each build is found again by its hash."""
+    log = tmp_path / "nvcc.log"
+    fake = tmp_path / "nvcc"
+    fake.write_text(f'#!/bin/sh\necho "$@" >> {log}\n'
+                    'while [ "$1" != "-o" ]; do shift; done\ntouch "$2"\n')
+    fake.chmod(0o755)
+    monkeypatch.setattr(kernels, "_nvcc", lambda: str(fake))
+    monkeypatch.setattr(kernels, "BUILD_ROOT", tmp_path / "build")
+    lib = kernels.build()
+    earlier = kernels.build(kernels.EARLIER)
+    assert lib.exists() and earlier.exists()
+    assert lib.parent != earlier.parent
+    units = [Path(line.split()[-1]) for line in log.read_text().splitlines()
+             if " -c " in line]
+    assert sorted(u.name for u in units if u.parent == kernels.EARLIER) == [
+        "volume_lookup.cu", "volume_lookup_multi.cu"]
+    assert sorted(u for u in units if u.parent == kernels.CSRC) == sorted(
+        kernels.CSRC.glob("*.cu"))
+    n_lines = len(log.read_text().splitlines())
+    assert kernels.build(kernels.EARLIER) == earlier
+    assert len(log.read_text().splitlines()) == n_lines
 
 
 def test_plain_rect_build_chunking_is_invariant(monkeypatch):
@@ -170,18 +197,35 @@ def test_kernel_a_edges_match_plain():
     assert (cb * 512 + 1023 >= w_r).any() and (cb * 512 + 1023 < w_r).any()
 
 
+def _field(rng, shape, lo, hi, device="cpu", offset=0):
+    """A float32 field on ``lo..hi`` with every seventh entry an exact
+    integer (the taps' edges: floor f == f), starting ``offset`` floats
+    past its allocation on ``device`` (offset 1 is not 16 B aligned)."""
+    n = int(np.prod(shape))
+    f = rng.uniform(lo, hi, n + offset).astype(np.float32)
+    f[::7] = rng.integers(int(lo), int(hi) + 1, f[::7].shape)
+    return torch.from_numpy(f).to(device)[offset:].view(*shape)
+
+
 @pytest.mark.gpu
-def test_kernel_b_matches_plain():
+@pytest.mark.parametrize("offset", [0, 1])
+@pytest.mark.parametrize("s", [9, 16, 36, 64, 5])
+def test_kernel_b_matches_plain(s, offset, monkeypatch):
+    """Kernel B at the paths' widths and a generic one (5), on a row count
+    that is a multiple of no tile, with fields below 0, above 126 and at
+    exact integers; ``offset`` 1 takes the unaligned, scalar walk."""
     dev = _cuda()
     rng = np.random.default_rng(2)
-    for s in (9, 36):
-        tab = _u16(rng.integers(0, 65536, (4096, 128))).to(dev)
-        f = torch.from_numpy(rng.uniform(-3, 130, (4096, s)).astype(
-            np.float32)).to(dev)
-        out = vol.volume_lookup(tab, f)
-        with kernels.plain_versions():
-            ref = vol.volume_lookup(tab, f)
-        torch.testing.assert_close(out, ref, rtol=0, atol=1e-6)
+    p = 4099
+    tab = _u16(rng.integers(0, 65536, (p, 128))).to(dev)
+    f = _field(rng, (p, s), -3, 130, dev, offset)
+    assert (f.data_ptr() % 16 != 0) == bool(offset)
+    before = kernels.launches["volume_lookup"]
+    out = vol.volume_lookup(tab, f)
+    assert kernels.launches["volume_lookup"] == before + 1
+    with kernels.plain_versions():
+        ref = vol.volume_lookup(tab, f)
+    assert torch.equal(out, ref)
     with pytest.raises(ValueError):
         kernels.volume_lookup(tab, f[:, ::2])          # not contiguous
     with pytest.raises(ValueError):
@@ -189,6 +233,9 @@ def test_kernel_b_matches_plain():
                               torch.zeros(8, 9, device=dev))
     with pytest.raises(TypeError):
         kernels.volume_lookup(tab.to(torch.int32), f)
+    monkeypatch.setattr(kernels, "MAX_ITEMS", p * s - 1)
+    with pytest.raises(ValueError, match="items"):
+        kernels.volume_lookup(tab, f)
 
 
 @pytest.mark.gpu
@@ -249,42 +296,72 @@ def test_launchers_d_and_e_refuse_cpu_tensors():
 
 
 @pytest.mark.gpu
-def test_kernel_d_matches_plain():
+@pytest.mark.parametrize("c", [81, 324, 7])
+@pytest.mark.parametrize("d", [128, 256, 512])
+@pytest.mark.parametrize("mode", ["f32", "packed", "bounded"])
+def test_kernel_d_matches_plain(mode, d, c, monkeypatch):
+    """Kernel D in each mode, at each table depth, at the paths' column
+    counts and a small one (7, whose field starts one element past the
+    allocation: the unaligned, scalar walk), on a row count that is a
+    multiple of no tile; bounded rows whose interval holds none of the
+    field read no tap and give the sentinel throughout."""
     dev = _cuda()
     rng = np.random.default_rng(12)
-    p = 4096
-    for d in (128, 256):
-        tab = _u16(rng.integers(0, 65536, (p, d))).to(dev)
-        for c in (81, 324):
-            f32 = torch.from_numpy(rng.uniform(-3, d + 2, (p, c)).astype(
-                np.float32)).to(dev)
-            out = vol.volume_lookup_multi(tab, f32)
-            with kernels.plain_versions():
-                ref = vol.volume_lookup_multi(tab, f32)
-            torch.testing.assert_close(out, ref, rtol=0, atol=1e-6)
-            enc = rng.integers(0, (d - 1) * vol.F_PACK_SCALE + 1, (p, c))
-            enc[:, 0] = 65535                         # beyond-grid sentinel
-            f16 = _u16(enc).to(dev)
-            lo = rng.integers(0, 40 * vol.F_PACK_SCALE, p)
-            hi = rng.integers(60 * vol.F_PACK_SCALE, 65535, p)
-            bounds = _u16(np.concatenate(
-                [np.repeat(lo[:, None], 64, 1), np.repeat(hi[:, None], 64, 1)],
-                axis=1)).to(dev)
-            for b in (None, bounds):
-                out = vol.volume_lookup_multi(tab, f16, b)
-                with kernels.plain_versions():
-                    ref = vol.volume_lookup_multi(tab, f16, b)
-                # beyond the grid the unbounded lerp extrapolates, rounded
-                # as the plain version rounds it op by op (--fmad=false)
-                assert torch.equal(vol.u16_as_int32(out),
-                                   vol.u16_as_int32(ref))
+    p = 4099
+    offset = 1 if c == 7 else 0
+    tab = _u16(rng.integers(0, 65536, (p, d))).to(dev)
+    bounds = None
+    if mode == "f32":
+        f = _field(rng, (p, c), -3, d + 2, dev, offset)
+    else:
+        enc = rng.integers(0, (d - 1) * vol.F_PACK_SCALE + 1, p * c + offset)
+        enc[::c] = 65535                          # beyond-grid sentinel
+        f = _u16(enc).to(dev)[offset:].view(p, c)
+    if mode == "bounded":
+        lo = rng.integers(0, 40 * vol.F_PACK_SCALE, p)
+        hi = rng.integers(60 * vol.F_PACK_SCALE, 65535, p)
+        lo[::5], hi[::5] = 65535, 65534           # empty: every item out
+        lo[1::5], hi[1::5] = 0, 0
+        bounds = _u16(np.concatenate(
+            [np.repeat(lo[:, None], 64, 1), np.repeat(hi[:, None], 64, 1)],
+            axis=1)).to(dev)
     before = kernels.launches["volume_lookup_multi"]
-    vol.volume_lookup_multi(tab, f16, bounds)
+    out = vol.volume_lookup_multi(tab, f, bounds)
     assert kernels.launches["volume_lookup_multi"] == before + 1
-    with pytest.raises(ValueError):
-        kernels.volume_lookup_multi(tab, f32, bounds)   # bounds need u16
-    with pytest.raises(ValueError):
-        kernels.volume_lookup_multi(tab, f16[:, ::2])   # not contiguous
+    with kernels.plain_versions():
+        ref = vol.volume_lookup_multi(tab, f, bounds)
+    if mode == "f32":
+        assert torch.equal(out, ref)
+    else:
+        # beyond the grid the unbounded lerp extrapolates, rounded as the
+        # plain version rounds it op by op (--fmad=false)
+        assert torch.equal(vol.u16_as_int32(out), vol.u16_as_int32(ref))
+    if mode == "bounded":
+        assert bool((vol.u16_as_int32(out[::5]) == 65535).all())
+        with pytest.raises(ValueError):           # bounds need u16
+            kernels.volume_lookup_multi(tab, f.to(torch.float32), bounds)
+    with pytest.raises(ValueError):               # not contiguous
+        kernels.volume_lookup_multi(tab, f[:, ::2])
+    monkeypatch.setattr(kernels, "MAX_ITEMS", p * c - 1)
+    with pytest.raises(ValueError, match="items"):
+        kernels.volume_lookup_multi(tab, f, bounds)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("kernel", ["volume_lookup", "volume_lookup_multi"])
+def test_earlier_designs_match_current(kernel):
+    """Inside ``earlier_designs()`` kernels B and D launch the designs
+    they replaced, which compute the same values."""
+    dev = _cuda()
+    rng = np.random.default_rng(5)
+    tab = _u16(rng.integers(0, 65536, (1000, 128))).to(dev)
+    f = _field(rng, (1000, 36), -3, 130, dev)
+    launch = getattr(kernels, kernel)
+    out = launch(tab, f)
+    with kernels.earlier_designs():
+        earlier = launch(tab, f)
+    assert kernels.earlier_library() is not kernels.library()
+    assert torch.equal(out, earlier)
 
 
 @pytest.mark.gpu
