@@ -12,7 +12,8 @@ Phases, each fatal on failure:
      version on the card, at the 1280x960 shapes the paths give it (B
      at every index-field width: 36 and 9 offsets, and the densify
      path's 64 and 16 on a table at its depth range; D at 324 and 81
-     columns), with its device time (``cuda_ms``: launches queued
+     columns), A, B (64, 16) and C also at the hierarchy's 640x480 ones,
+     and E also at 12 views (two launches), with its device time (``cuda_ms``: launches queued
      behind a spin kernel, so the host's launch work is not counted;
      checked against torch.profiler on kernel A), B's and D's earlier
      designs timed on the same inputs (``earlier_ms``), and the least
@@ -35,12 +36,24 @@ Phases, each fatal on failure:
      2, LK flow, 3 neighbours); kernels A, B and C must have launched, the
      ``.dmap`` / ``.ply`` / ``.mvs`` files must read back, view 0 must
      reach its accuracy floor and the fused cloud must lie on the plane;
-  9. the same ``densify`` through the plain versions, compared with 8.
-Then a JSON line per path, one for the kernels, the nvidia-smi line, and
+  9. the same ``densify`` through the plain versions, compared with 8;
+ 10. the hierarchy path through the kernels: the hierarchical-cross
+     schedule's entry point (``hcmvs_tpu_torch.pipeline.hierarchy.main``)
+     on a 4-view ridge scene written as ``scene.mvs`` + four 2560x1920
+     PNGs at DenseConfig(): the five default stages (levels 3 / 2 / 2 /
+     1 / 1, variants A / B / A / B / A) at 640 / 640 / 640 / 1280 / 1280
+     wide, with the cross-scale injection in the B stages; kernels A, B
+     and C must have launched (C in every A stage), each stage's launches,
+     seconds and view 0 accuracy against the ground truth at its size are
+     printed, the ``.dmap`` / ``.ply`` files must read back, view 0 must
+     reach its floor and the fused cloud must lie on the ridge;
+ 11. the same hierarchy through the plain versions, compared with 10.
+Launches are counted by kernel and output shape.  Then a JSON line per
+path, one for the kernels, the nvidia-smi line, and
 a last line ``{"ok": true, "device": {...}}``.  Exits non-zero, with no
 result line, without a CUDA device or without the package beside this
-script.  The densify outputs go to a temporary directory beside this
-script, removed at the end.
+script.  The densify and hierarchy outputs go to temporary directories
+beside this script, removed at the end.
 """
 
 from __future__ import annotations
@@ -248,7 +261,8 @@ HYBRID_KERNELS = EXACT_KERNELS + ("volume_lookup_multi", "zncc_warped")
 # lower the larger the image (tests/test_torch_batched.py, run as a
 # script, compares the two packages at a given size; PERF.md has the
 # numbers); the random init scores about 0.05.
-MIN_ACC = {"exact": 0.5, "hybrid_batched": 0.15, "densify": 0.85}
+MIN_ACC = {"exact": 0.5, "hybrid_batched": 0.15, "densify": 0.85,
+           "hierarchy": 0.85}
 # the densify path: DenseConfig() defaults plus these reference flags; the
 # fused cloud's median distance to the scene's plane, at most this share
 # of the median depth (the JAX package's own CPU runs of this config at
@@ -261,6 +275,30 @@ MAX_CLOUD_DISTANCE = 0.01
 DENSIFY_PNG_FILTER = 4
 
 
+# the hierarchy path: a 4-view ridge scene written as HIER_IMAGE_HW PNGs,
+# through the hierarchy CLI at DenseConfig(); the default schedule's levels
+# 3 / 2 / 2 / 1 / 1 run at 640 / 640 / 640 / 1280 / 1280 wide (its
+# min_resolution of 640 clamps levels 3 and 2 to HIER_LEVEL_HW).  Its
+# floor is the densify app's (the JAX package's own hierarchy on this
+# scene at 144x192 and 240x320 reads above 0.90 on the CPU; PERF.md)
+HIER_IMAGE_HW = (1920, 2560)
+HIER_LEVEL_HW = (480, 640)
+
+
+def hierarchy_scene(h: int, w: int, textured: bool = True):
+    """The hierarchy path's ridge scene at h x w (focal length scaled with
+    width as hcmvs_tpu/eval/golden.py does, the plane scene's sinusoid
+    texture); untextured it only renders the ground truth."""
+    import numpy as np
+    from hcmvs_tpu_torch.utils.synth import (make_ridge_scene,
+                                             sinusoid_texture_fn)
+    tex = (sinusoid_texture_fn(np.random.default_rng(12345)) if textured
+           else lambda xy: np.zeros(xy.shape[:-1], np.float32))
+    return make_ridge_scene(np.random.default_rng(0), h=h, w=w,
+                            n_views=N_VIEWS, fx=180.0 * w / 192.0,
+                            texture_fn=tex)
+
+
 def densify_cfg():
     """DenseConfig() defaults plus DENSIFY_FLAGS, as the densify path
     runs them."""
@@ -269,28 +307,42 @@ def densify_cfg():
                                       for f in DENSIFY_FLAGS))
 
 
-# the kernels whose launches are counted by index-field width: B by its
-# S, D by its C
-WIDTH_KERNELS = ("volume_lookup", "volume_lookup_multi")
+# each kernel's launches are counted by the shape of its output, read
+# from its arguments: A (V, P_pad, 128), B (P, S), C (V, 2, H, W),
+# D (P, C), E (V, H, W)
+SHAPE_OF = {
+    "rect_build": lambda a: (a[0].shape[0], a[6], 128),
+    "volume_lookup": lambda a: tuple(a[1].shape),
+    "rect_lookup": lambda a: tuple(a[0].shape[:2]) + tuple(a[5].shape),
+    "volume_lookup_multi": lambda a: tuple(a[1].shape),
+    "zncc_warped": lambda a: (a[3].shape[0],) + tuple(a[1].shape)}
+
+
+def shape_key(shape) -> str:
+    return "x".join(str(int(x)) for x in shape)
 
 
 @contextlib.contextmanager
-def field_widths():
-    """Counts kernel B's and D's launches by index-field width inside the
-    block: recorders around ``kernels.volume_lookup`` and
-    ``kernels.volume_lookup_multi``, which the ops call through the module
-    (``kernels.launches`` is unchanged).  Yields {kernel: Counter}."""
+def launch_shapes():
+    """Counts each kernel's launches by output shape inside the block:
+    recorders around the launchers in ``kernels``, which the ops call
+    through the module; each adds what the launcher added to
+    ``kernels.launches`` (which is unchanged).  Yields {kernel: Counter
+    of shape keys}."""
     from hcmvs_tpu_torch import kernels
-    counts = {name: collections.Counter() for name in WIDTH_KERNELS}
-    launchers = {name: getattr(kernels, name) for name in WIDTH_KERNELS}
+    counts = {name: collections.Counter() for name in SHAPE_OF}
+    launchers = {name: getattr(kernels, name) for name in SHAPE_OF}
 
     def recorder(name):
-        def recorded(tab, f, *args):
-            counts[name][f.shape[1]] += 1
-            return launchers[name](tab, f, *args)
+        def recorded(*args):
+            before = kernels.launches[name]
+            out = launchers[name](*args)
+            counts[name][shape_key(SHAPE_OF[name](args))] += (
+                kernels.launches[name] - before)
+            return out
         return recorded
 
-    for name in WIDTH_KERNELS:
+    for name in SHAPE_OF:
         setattr(kernels, name, recorder(name))
     try:
         yield counts
@@ -299,14 +351,14 @@ def field_widths():
             setattr(kernels, name, launch)
 
 
-def check_widths(label, launches, widths, failed) -> dict:
-    """B's and D's launches by width; a failed check unless each kernel's
-    add up to its launch count."""
+def check_shapes(label, launches, shapes, failed) -> dict:
+    """Launches by output shape; a failed check unless each kernel's add
+    up to its launch count."""
     out = {}
-    for name, counts in widths.items():
-        log(f"[{label}] {name} launches by field width {dict(counts)}")
+    for name, counts in shapes.items():
+        log(f"[{label}] {name} launches by shape {dict(counts)}")
         if sum(counts.values()) != launches[name]:
-            failed.append(f"{label}: {name} launches by width "
+            failed.append(f"{label}: {name} launches by shape "
                           f"{dict(counts)} do not add up to "
                           f"{launches[name]}")
         out[name] = dict(counts)
@@ -389,13 +441,65 @@ def lookup_cases(sc, scene, cfg, geom, st, rays):
     return b_cases, d_cases
 
 
+def hierarchy_level(dev):
+    """The hierarchy path's scene at its coarse levels' size (HIER_LEVEL_HW,
+    where levels 3 and 2 run): the ridge scene of ``hierarchy_scene`` as
+    scene tensors, 3 neighbours a view, the depth range that
+    ``build_scene_tensors`` takes from the sparse points."""
+    import numpy as np
+    import torch
+    from hcmvs_tpu_torch.core.camera import Camera
+    from hcmvs_tpu_torch.dense.scene_driver import SceneTensors
+    from hcmvs_tpu_torch.dense.view_selection import depth_range_from_points
+    from hcmvs_tpu_torch.utils.synth import ridge_sparse_points
+    h, w = HIER_LEVEL_HW
+    sc = hierarchy_scene(h, w)
+    pts = ridge_sparse_points(sc)
+    d_lo, d_hi = depth_range_from_points(
+        pts, np.full(len(pts), N_VIEWS), np.tile(np.arange(N_VIEWS),
+                                                 len(pts)),
+        np.eye(3), np.zeros(3), 0)
+    cams = Camera(*(torch.stack([getattr(c, f) for c in sc.cameras])
+                    for f in "KRC")).to(dev)
+    nbr = [[j for j in range(N_VIEWS) if j != i][:N_NBR]
+           for i in range(N_VIEWS)]
+    return SceneTensors(
+        gray=torch.stack([torch.from_numpy(im) for im in sc.images]).to(dev),
+        cams=cams, nbr_idx=torch.tensor(nbr, device=dev),
+        nbr_valid=torch.ones(N_VIEWS, N_NBR, dtype=torch.bool, device=dev),
+        d_min=torch.full((N_VIEWS,), d_lo, device=dev),
+        d_max=torch.full((N_VIEWS,), d_hi, device=dev))
+
+
+def hierarchy_lookup_cases(scene, nbr, geom, st):
+    """Kernel B's inputs at the hierarchy's coarse levels: view 0's first
+    pair's table and the index fields of the random init ``st`` at the
+    final (64) and explore (16) offsets of DenseConfig(), which every
+    stage of the default schedule samples with."""
+    from hcmvs_tpu_torch.core.config import window_cfg_for_width
+    from hcmvs_tpu_torch.dense import score as S
+    from hcmvs_tpu_torch.dense.scene_driver import phase_cfg
+    from hcmvs_tpu_torch.dense.types import pixel_rays
+    from hcmvs_tpu_torch.ops import volume as vol
+    h, w = scene.gray.shape[1:]
+    rays = pixel_rays(geom.K_inv_ref, h, w)
+    vt = vol.build_volume_tables_rect(geom, scene.gray[nbr], scene.d_min[0],
+                                      scene.d_max[0])
+    cfg = window_cfg_for_width(densify_cfg(), w)
+    return [("hierarchy, init", vt.tab[0], S.volume_fields(
+        geom, vt, st.depth[0], st.normal[0], rays,
+        S.patch_offsets(phase_cfg(cfg, 0, final)))[2])
+        for final in (True, False)]
+
+
 def kernel_parity(sc, scene, cfg, dev):
     """Phase 3: each kernel vs its plain version at the paths' shapes.
     Returns one row per kernel (name, source, replaces, max_abs_err, ms,
-    plain_ms, bound_ms, bound_by, library_ms, and for B and D ``shapes``:
-    the same numbers at each shape the paths give the kernel, with the
-    earlier design's time ``earlier_ms``; the row's own are its first
-    shape's)."""
+    plain_ms, bound_ms, bound_by, library_ms, and for A-D ``shapes``: the
+    same numbers at each shape the paths give the kernel, with, for B and
+    D, the earlier design's time ``earlier_ms``; the row's own are its
+    first shape's).  A, B and C are held at the slice's 1280x960 shapes
+    and at the hierarchy's 640x480 ones."""
     import torch
     from hcmvs_tpu_torch import kernels
     from hcmvs_tpu_torch.dense import score as S
@@ -424,37 +528,49 @@ def kernel_parity(sc, scene, cfg, dev):
             # no single PyTorch call computes any of these functions
             library_ms=None))
 
-    nbr = scene.nbr_idx[0]
-    geom = make_view_geometry(scene.cams[0], scene.cams[nbr])
+    # view 0 of the slice's scene and of the hierarchy's coarse levels,
+    # each with a random init
+    levels = []
+    for label, sc_ in (("slice", scene), ("hierarchy", hierarchy_level(dev))):
+        nbr = sc_.nbr_idx[0]
+        geom = make_view_geometry(sc_.cams[0], sc_.cams[nbr])
+        st = init_scene_state(torch.Generator(device=dev).manual_seed(2), sc_)
+        levels.append((label, sc_, nbr, geom, st))
 
     # A: the rect-frame table build of view 0's three pairs
-    s = vol.rect_build_setup(geom, scene.gray[nbr], scene.d_min[0],
-                             scene.d_max[0])
-    a_args = (s.rect_src, s.rb, s.cb, s.rowf_g, s.c0w_g, s.kp_g, s.p_pad)
-    tab = kernels.rect_build(*a_args)
-    plain = vol._rect_build_plain(*a_args)
-    d = (tab.to(torch.int32) - plain.to(torch.int32)).abs()
-    log(f"[parity] A rect_build: tab {tuple(tab.shape)} u16, max "
-        f"|kernel - plain| {int(d.max())} LSB")
-    if int(d.max()) != 0:
-        raise AssertionError(f"kernel A differs from its plain version by "
-                             f"up to {int(d.max())} LSB")
-    row("rect_build", "hcmvs_tpu/ops/volume.py:569",
-        float(d.max()) / 65535.0,
-        cuda_ms(lambda: kernels.rect_build(*a_args), 10),
-        cuda_ms(lambda: vol._rect_build_plain(*a_args), 3, 1,
-                host_bound_ok=True),
-        nbytes(*a_args[:-1], tab), tab.numel())
-    del plain, d
+    shapes = []
+    for label, sc_, nbr, geom, _ in levels:
+        s = vol.rect_build_setup(geom, sc_.gray[nbr], sc_.d_min[0],
+                                 sc_.d_max[0])
+        args = (s.rect_src, s.rb, s.cb, s.rowf_g, s.c0w_g, s.kp_g, s.p_pad)
+        tab = kernels.rect_build(*args)
+        plain = vol._rect_build_plain(*args)
+        d = (tab.to(torch.int32) - plain.to(torch.int32)).abs()
+        log(f"[parity] A rect_build ({label}): tab {tuple(tab.shape)} u16, "
+            f"max |kernel - plain| {int(d.max())} LSB")
+        if int(d.max()) != 0:
+            raise AssertionError(f"kernel A differs from its plain version "
+                                 f"by up to {int(d.max())} LSB")
+        shapes.append(measured(
+            "rect_build", float(d.max()) / 65535.0,
+            cuda_ms(lambda: kernels.rect_build(*args), 10),
+            cuda_ms(lambda: vol._rect_build_plain(*args), 3, 1,
+                    host_bound_ok=True),
+            nbytes(*args[:-1], tab), tab.numel(), shape=list(tab.shape),
+            field=label))
+        if label == "slice":
+            a_args = args
+        del plain, d, tab
+    row("rect_build", "hcmvs_tpu/ops/volume.py:569", shapes=shapes)
 
     # B: one pair's table against index fields of each width the paths
     # give it; D: the same table against the packed, bounded fields of
     # the propagation candidates (see lookup_cases)
+    _, _, nbr, geom, st = levels[0]
     h, w = scene.gray.shape[1:]
     rays = pixel_rays(geom.K_inv_ref, h, w)
-    st = init_scene_state(torch.Generator(device=dev).manual_seed(2), scene)
-    del tab
     b_cases, d_cases = lookup_cases(sc, scene, cfg, geom, st, rays)
+    b_cases += hierarchy_lookup_cases(*levels[1][1:])
     shapes = []
     for field, tab0, f in b_cases:
         out = kernels.volume_lookup(tab0, f)
@@ -485,27 +601,35 @@ def kernel_parity(sc, scene, cfg, dev):
     del b_cases, tab0, f, out, plain, earlier
 
     # C: the neighbour maps of view 0 (random init) at the init depths
-    ctx = rg.build_rect_context(geom, rg.pack_depth_normals(
-        st.depth[nbr], st.normal[nbr]))
-    sigma = (1.0 / st.depth[0]).contiguous()
-    out = rg.rect_lookup(ctx, sigma)
-    plain = rg.rect_lookup_plain(ctx, sigma)
-    same = torch.equal(out.view(torch.int32), plain.view(torch.int32))
-    hit = float((out[:, 0] != 0).float().mean())
-    # the words are bit-packed: compare the depths and normals they carry
-    err = float((rg.unpack_taps(out)[0] - rg.unpack_taps(plain)[0])
-                .abs().max())
-    log(f"[parity] C rect_lookup: out {tuple(out.shape)}, bit-equal {same}, "
-        f"max |taps kernel - plain| {err:.3g}, reads hit {hit:.4f}")
-    if not same:
-        raise AssertionError("kernel C differs from its plain version")
-    c_args = (ctx.maps, ctx.row_int, ctx.c0, ctx.k, ctx.rb, sigma)
-    row("rect_lookup", "hcmvs_tpu/ops/rect_gather.py:322", err,
-        cuda_ms(lambda: kernels.rect_lookup(*c_args), 20),
-        cuda_ms(lambda: rg.rect_lookup_plain(ctx, sigma), 10,
-                host_bound_ok=True),
-        nbytes(*c_args, out), out[:, 0].numel())
-    del ctx, out, plain
+    shapes = []
+    for label, _, nbr_, geom_, st_ in levels:
+        ctx = rg.build_rect_context(geom_, rg.pack_depth_normals(
+            st_.depth[nbr_], st_.normal[nbr_]))
+        sigma = (1.0 / st_.depth[0]).contiguous()
+        out = rg.rect_lookup(ctx, sigma)
+        plain = rg.rect_lookup_plain(ctx, sigma)
+        same = torch.equal(out.view(torch.int32), plain.view(torch.int32))
+        hit = float((out[:, 0] != 0).float().mean())
+        # the words are bit-packed: compare the depths and normals they
+        # carry
+        err = float((rg.unpack_taps(out)[0] - rg.unpack_taps(plain)[0])
+                    .abs().max())
+        log(f"[parity] C rect_lookup ({label}): out {tuple(out.shape)}, "
+            f"bit-equal {same}, max |taps kernel - plain| {err:.3g}, reads "
+            f"hit {hit:.4f}")
+        if not same:
+            raise AssertionError("kernel C differs from its plain version")
+        c_args = (ctx.maps, ctx.row_int, ctx.c0, ctx.k, ctx.rb, sigma)
+        shapes.append(measured(
+            "rect_lookup", err,
+            cuda_ms(lambda: kernels.rect_lookup(*c_args), 20),
+            cuda_ms(lambda: rg.rect_lookup_plain(ctx, sigma), 10,
+                    host_bound_ok=True),
+            nbytes(*c_args, out), out[:, 0].numel(), shape=list(out.shape),
+            field=label))
+        del ctx, out, plain
+    row("rect_lookup", "hcmvs_tpu/ops/rect_gather.py:322", shapes=shapes)
+    del levels
 
     # D: view 0's table against the packed, bounded fields of its nine
     # propagation candidates at C = 324 and 81
@@ -551,29 +675,40 @@ def kernel_parity(sc, scene, cfg, dev):
     del d_cases, bounds0, tab0
 
     # E: view 0's random init scored warped against its three neighbours
-    # with the photometric phase's explore sampling (pad 5, 8 offsets)
+    # with the photometric phase's explore sampling (pad 5, 8 offsets), and
+    # against twelve (the three, four times over): more views than one
+    # launch holds, so two launches
     cfg_x = cfg.replace(patch_step=cfg.explore_patch_step)
     offsets = S.patch_offsets(cfg_x)
     hw = S.halfwin_map(sobel_magnitude(scene.gray[0]), cfg_x)
     stats = S.ref_patch_stats(scene.gray[0], hw, offsets)
-    x = S.warped_inputs(geom, scene.gray[nbr], stats, hw, st.depth[0],
-                        st.normal[0], rays, offsets)
-    e_args = x[:9]
-    out_s, out_v = kernels.zncc_warped(*e_args)
-    plain_s, plain_v = zw.zncc_warped_plain(*e_args)
-    err = max(float((out_s - plain_s).abs().max()),
-              float((out_v - plain_v).abs().max()))
-    log(f"[parity] E zncc_warped: out {tuple(out_s.shape)} x 2, "
-        f"{len(x.scan_offsets)} offsets, pad {x.pad}, max |kernel - plain| "
-        f"{err:.3g}")
-    if err != 0:
-        raise AssertionError(f"kernel E: max abs err {err}")
-    row("zncc_warped", "hcmvs_tpu/ops/pallas_zncc.py:43", err,
-        cuda_ms(lambda: kernels.zncc_warped(*e_args), 20),
-        cuda_ms(lambda: zw.zncc_warped_plain(*e_args), 10,
-                host_bound_ok=True),
-        nbytes(*(t for t in e_args if torch.is_tensor(t)), out_s, out_v),
-        out_s.numel() * len(x.scan_offsets))
+    shapes = []
+    for label, nbr_ in (("3 views", nbr), ("12 views", nbr.repeat(4))):
+        geom_ = make_view_geometry(scene.cams[0], scene.cams[nbr_])
+        x = S.warped_inputs(geom_, scene.gray[nbr_], stats, hw, st.depth[0],
+                            st.normal[0], rays, offsets)
+        e_args = x[:9]
+        before = kernels.launches["zncc_warped"]
+        out_s, out_v = kernels.zncc_warped(*e_args)
+        n_launch = kernels.launches["zncc_warped"] - before
+        plain_s, plain_v = zw.zncc_warped_plain(*e_args)
+        err = max(float((out_s - plain_s).abs().max()),
+                  float((out_v - plain_v).abs().max()))
+        log(f"[parity] E zncc_warped ({label}): out {tuple(out_s.shape)} x "
+            f"2 in {n_launch} launch(es), {len(x.scan_offsets)} offsets, pad "
+            f"{x.pad}, max |kernel - plain| {err:.3g}")
+        if err != 0:
+            raise AssertionError(f"kernel E ({label}): max abs err {err}")
+        shapes.append(measured(
+            "zncc_warped", err,
+            cuda_ms(lambda: kernels.zncc_warped(*e_args), 20),
+            cuda_ms(lambda: zw.zncc_warped_plain(*e_args), 10,
+                    host_bound_ok=True),
+            nbytes(*(t for t in e_args if torch.is_tensor(t)), out_s, out_v),
+            out_s.numel() * len(x.scan_offsets), shape=list(out_s.shape),
+            field=label))
+        del x, e_args, out_s, out_v, plain_s, plain_v
+    row("zncc_warped", "hcmvs_tpu/ops/pallas_zncc.py:43", shapes=shapes)
     for r in rows:
         for x in r.get("shapes", [r]):
             at = f" {x['shape']}" if "shape" in x else ""
@@ -644,11 +779,11 @@ def check_path(sc, scene, cfg, dev, label, path_kernels):
 
     failed = []
     kernels.reset_launches()
-    with field_widths() as widths:
+    with launch_shapes() as shapes:
         depth_k, keep_k, t_k, sec_k = run_path(scene, cfg, dev, label)
     launches = dict(kernels.launches)
     log(f"[{label}] kernel launches {launches}")
-    widths = check_widths(label, launches, widths, failed)
+    shapes = check_shapes(label, launches, shapes, failed)
     if min(launches[k] for k in path_kernels) <= 0:
         failed.append(f"{label}: a kernel of the path never launched: "
                       f"{launches}")
@@ -683,7 +818,7 @@ def check_path(sc, scene, cfg, dev, label, path_kernels):
         "total_s": sec_k, "views_per_s": N_VIEWS / sec_k,
         "plain_total_s": sec_p, "depth_acc_2pct": acc_k,
         "plain_depth_acc_2pct": acc_p, "agree_1pct": agree,
-        "launches_by_width": widths}, failed
+        "launches_by_shape": shapes}, failed
 
 
 def _densify_run(scene_path, img_dir, out_dir, plain: bool):
@@ -731,12 +866,12 @@ def check_densify(sc, root):
         f"{time.perf_counter() - t0:.3f} s")
     out_k = str(root / "kernels")
     kernels.reset_launches()
-    with field_widths() as widths:
+    with launch_shapes() as shapes:
         st_k, rep_k, sec_k, peak_k = _densify_run(scene_path, img_dir,
                                                   out_k, plain=False)
     launches = dict(kernels.launches)
     log(f"[{label}] kernel launches {launches}")
-    widths = check_widths(label, launches, widths, failed)
+    shapes = check_shapes(label, launches, shapes, failed)
     if min(launches[k] for k in EXACT_KERNELS) <= 0:
         failed.append(f"{label}: a kernel of the path never launched: "
                       f"{launches}")
@@ -806,7 +941,195 @@ def check_densify(sc, root):
         "cloud_distance": cloud, "plain_total_s": sec_p,
         "plain_stage_s": {k: v["total_s"] for k, v in rep_p.items()},
         "plain_depth_acc_2pct": acc_p, "plain_n_points": st_p["n_points"],
-        "agree_1pct": agree, "launches_by_width": widths}, failed
+        "agree_1pct": agree, "launches_by_shape": shapes}, failed
+
+
+@contextlib.contextmanager
+def stage_records():
+    """Records each hierarchy stage inside the block: a recorder around
+    the stage's schedule, ``estimate_scene`` as ``pipeline.hierarchy``
+    calls it, that keeps each stage's kernel launches and view 0's depth.
+    Yields the list of records."""
+    from hcmvs_tpu_torch import kernels
+    from hcmvs_tpu_torch.pipeline import hierarchy
+    records = []
+    run_stage = hierarchy.estimate_scene
+
+    def recorded(gen, tensors, *args, **kw):
+        before = dict(kernels.launches)
+        out = run_stage(gen, tensors, *args, **kw)
+        records.append(dict(
+            hw=tuple(tensors.gray.shape[1:]),
+            launches={k: kernels.launches[k] - before[k] for k in before},
+            depth0=out.depth[0].cpu().numpy()))
+        return out
+
+    hierarchy.estimate_scene = recorded
+    try:
+        yield records
+    finally:
+        hierarchy.estimate_scene = run_stage
+
+
+def _hierarchy_run(scene_path, img_dir, out_dir, plain: bool):
+    """One hierarchy run on the card, the kernel pass through the CLI entry
+    point, the plain pass through ``densify_hierarchical`` with the same
+    work; returns (stats, stage report, seconds, peak GiB, stage
+    records)."""
+    import torch
+    from hcmvs_tpu_torch import kernels
+    from hcmvs_tpu_torch.core.config import DenseConfig
+    from hcmvs_tpu_torch.pipeline import hierarchy
+    from hcmvs_tpu_torch.utils import profiling
+    profiling.reset_report()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    with stage_records() as records:
+        t0 = time.perf_counter()
+        if plain:
+            with kernels.plain_versions():
+                stats = hierarchy.densify_hierarchical(
+                    scene_path, img_dir, out_dir, DenseConfig())
+        else:
+            stats = hierarchy.main(["--input-file", scene_path,
+                                    "--images-dir", img_dir, "-w", out_dir])
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+    return (stats, profiling.report(), seconds,
+            torch.cuda.max_memory_allocated() / 2 ** 30, records)
+
+
+def check_hierarchy(root):
+    """Phases 10-11: the hierarchical-cross path through the kernels
+    (counts reset just before, read just after), per stage and in all,
+    its files read back and checked against the ground truth, then
+    through the plain versions, compared.  Returns (launches, JSON
+    summary, the checks that failed)."""
+    import numpy as np
+    from hcmvs_tpu_torch import kernels
+    from hcmvs_tpu_torch.core.config import DenseConfig
+    from hcmvs_tpu_torch.io.dmap import read_dmap
+    from hcmvs_tpu_torch.io.ply import read_ply
+    from hcmvs_tpu_torch.pipeline.hierarchy import default_schedule
+    from hcmvs_tpu_torch.utils.synth import write_ridge_scene
+
+    label = "hierarchy"
+    failed = []
+    t0 = time.perf_counter()
+    sc = hierarchy_scene(*HIER_IMAGE_HW)
+    scene_path, img_dir = write_ridge_scene(str(root), sc,
+                                            png_filter=DENSIFY_PNG_FILTER)
+    sc.images = None                   # on disk now; the planes stay
+    log(f"[{label}] ridge scene.mvs + {N_VIEWS} {HIER_IMAGE_HW[1]}x"
+        f"{HIER_IMAGE_HW[0]} PNGs (row filter {DENSIFY_PNG_FILTER}) written "
+        f"in {time.perf_counter() - t0:.3f} s")
+    schedule = default_schedule(DenseConfig())
+    gts = {}
+
+    def stage_acc(rec):
+        if rec["hw"] not in gts:
+            gts[rec["hw"]] = hierarchy_scene(*rec["hw"],
+                                             textured=False).depth_gt
+        return depth_acc_2pct(rec["depth0"], gts[rec["hw"]])
+
+    out_k = root / "kernels"
+    kernels.reset_launches()
+    with launch_shapes() as shapes:
+        st_k, rep_k, sec_k, peak_k, rec_k = _hierarchy_run(
+            scene_path, img_dir, str(out_k), plain=False)
+    launches = dict(kernels.launches)
+    log(f"[{label}] kernel launches {launches}")
+    shapes = check_shapes(label, launches, shapes, failed)
+    if min(launches[k] for k in EXACT_KERNELS) <= 0:
+        failed.append(f"{label}: a kernel of the path never launched: "
+                      f"{launches}")
+    if len(rec_k) != len(schedule):
+        failed.append(f"{label}: {len(rec_k)} stages ran, not "
+                      f"{len(schedule)}")
+    stages = []
+    for si, (stage, rec) in enumerate(zip(schedule, rec_k)):
+        stages.append(dict(
+            level=stage.level, variant=stage.variant, h=rec["hw"][0],
+            w=rec["hw"][1], seconds=rep_k[f"hierarchy.stage{si}"]["total_s"],
+            launches=rec["launches"], depth_acc_2pct=stage_acc(rec)))
+        log(f"[{label}] stage {si} (level {stage.level}, variant "
+            f"{stage.variant}) {rec['hw'][1]}x{rec['hw'][0]}: "
+            f"{stages[-1]['seconds']:.3f} s, launches {rec['launches']}, "
+            f"view 0 depth_acc_2pct {stages[-1]['depth_acc_2pct']:.4f}")
+        if stage.variant == "A" and rec["launches"]["rect_lookup"] <= 0:
+            failed.append(f"{label}: stage {si} launched no kernel C")
+    for name, s in sorted(rep_k.items(), key=lambda kv: -kv[1]["total_s"]):
+        log(f"[{label}] report {name:<24} {s['total_s']:9.3f} s "
+            f"x{int(s['calls'])}")
+    final_hw = (H, W)
+    if rec_k and rec_k[-1]["hw"] != final_hw:
+        failed.append(f"{label}: the last stage ran at {rec_k[-1]['hw']}, "
+                      f"not {final_hw}")
+    log(f"[{label}] total {sec_k:.3f} s, peak memory {peak_k:.2f} GiB, "
+        f"valid {st_k['valid_frac']:.4f}, points {st_k['n_points']}")
+    for i in range(N_VIEWS):
+        dm = read_dmap(str(out_k / "depthmap" / f"depth{i:04d}.dmap"))
+        if dm.depth.shape != final_hw or not np.array_equal(
+                dm.depth, st_k["depth"][i]):
+            failed.append(f"{label}: depth{i:04d}.dmap reads back "
+                          f"{dm.depth.shape}, not the run's map")
+    pts, _ = read_ply(str(out_k / "scene_dense.ply"))
+    if not len(pts) == st_k["n_points"] > 0:
+        failed.append(f"{label}: scene_dense.ply has {len(pts)} points, "
+                      f"stats {st_k['n_points']}")
+    gt = hierarchy_scene(*final_hw, textured=False).depth_gt
+    acc_k = depth_acc_2pct(st_k["depth"][0], gt)
+    cloud = float(np.median(sc.surface_dist(pts.astype(np.float64)))
+                  / np.median(gt))
+    log(f"[{label}] view 0 interior depth_acc_2pct {acc_k:.4f}; fused "
+        f"cloud median distance to the ridge / median depth {cloud:.6f}")
+    if acc_k < MIN_ACC[label]:
+        failed.append(f"{label}: depth accuracy {acc_k} < {MIN_ACC[label]}")
+    if cloud > MAX_CLOUD_DISTANCE:
+        failed.append(f"{label}: cloud distance {cloud} > "
+                      f"{MAX_CLOUD_DISTANCE}")
+    del pts
+
+    kernels.reset_launches()
+    st_p, rep_p, sec_p, peak_p, rec_p = _hierarchy_run(
+        scene_path, img_dir, str(root / "plain"), plain=True)
+    if any(kernels.launches.values()):
+        failed.append(f"{label} plain run launched kernels: "
+                      f"{kernels.launches}")
+    for si, rec in enumerate(rec_p):
+        stages[si].update(
+            plain_seconds=rep_p[f"hierarchy.stage{si}"]["total_s"],
+            plain_depth_acc_2pct=stage_acc(rec))
+    acc_p = depth_acc_2pct(st_p["depth"][0], gt)
+    agree = float((np.abs(st_k["depth"] - st_p["depth"])
+                   <= 0.01 * np.abs(st_p["depth"])).mean())
+    n_rel = abs(st_k["n_points"] - st_p["n_points"]) / max(st_p["n_points"],
+                                                             1)
+    log(f"[{label} plain] total {sec_p:.3f} s (stages "
+        f"{[round(x['plain_seconds'], 3) for x in stages]} against "
+        f"{[round(x['seconds'], 3) for x in stages]}), peak memory "
+        f"{peak_p:.2f} GiB, view 0 interior depth_acc_2pct {acc_p:.4f} "
+        f"(stages {[round(x['plain_depth_acc_2pct'], 4) for x in stages]}), "
+        f"points {st_p['n_points']}; depth within 1% of the kernel run on "
+        f"{agree:.5f} of pixels")
+    if agree < 0.98:
+        failed.append(f"{label}: kernel and plain runs agree on {agree}")
+    if abs(acc_k - acc_p) > 0.01:
+        failed.append(f"{label}: accuracy {acc_k} (kernels) vs {acc_p} "
+                      f"(plain)")
+    if n_rel > 0.01:
+        failed.append(f"{label}: point counts {st_k['n_points']} (kernels) "
+                      f"vs {st_p['n_points']} (plain)")
+    return launches, {
+        "views": N_VIEWS, "image_h": HIER_IMAGE_HW[0],
+        "image_w": HIER_IMAGE_HW[1], "stages": stages, "total_s": sec_k,
+        "stage_s": {k: v["total_s"] for k, v in rep_k.items()},
+        "peak_gib": peak_k, "valid_frac": st_k["valid_frac"],
+        "n_points": st_k["n_points"], "depth_acc_2pct": acc_k,
+        "cloud_distance": cloud, "plain_total_s": sec_p,
+        "plain_stage_s": {k: v["total_s"] for k, v in rep_p.items()},
+        "plain_depth_acc_2pct": acc_p, "plain_n_points": st_p["n_points"],
+        "agree_1pct": agree, "launches_by_shape": shapes}, failed
 
 
 def main() -> int:
@@ -870,6 +1193,16 @@ def main() -> int:
         paths["densify"] = check_densify(sc, root)
     finally:
         shutil.rmtree(root, ignore_errors=True)
+    torch.cuda.empty_cache()
+
+    # 10-11. the hierarchy path, each through the kernels and the plain
+    # versions
+    root = Path(tempfile.mkdtemp(prefix="_hierarchy_smoke_",
+                                 dir=Path(__file__).resolve().parent))
+    try:
+        paths["hierarchy"] = check_hierarchy(root)
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
     failed = [f for _, _, fs in paths.values() for f in fs]
     if failed:
         for f in failed:
@@ -881,10 +1214,10 @@ def main() -> int:
                     for p, (launches, _, _) in paths.items()}
         r.update(route="cuda", launches=sum(per_path.values()),
                  launches_per_path=per_path)
-        for x in r.get("shapes", []):     # B's and D's at each width
+        for x in r.get("shapes", []):     # at each shape
             x["launches_per_path"] = {
-                p: summary["launches_by_width"][r["name"]].get(
-                    x["shape"][1], 0)
+                p: summary["launches_by_shape"][r["name"]].get(
+                    shape_key(x["shape"]), 0)
                 for p, (_, summary, _) in paths.items()}
             x["launches"] = sum(x["launches_per_path"].values())
     keys = ("name", "route", "source", "replaces", "launches",

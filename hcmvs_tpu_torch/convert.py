@@ -33,8 +33,8 @@ def _t(x, device, dtype=None) -> torch.Tensor:
 
 def scene_from_numpy(scene, device="cuda") -> SceneTensors:
     """The JAX ``SceneTensors``: cameras, neighbours, depth ranges, and the
-    seed depths and flows when present (no other optional channel, no
-    tables)."""
+    seed depths, flows and cross-scale maps (prior, injected depth and
+    normals) when present (no other optional channel, no tables)."""
     cams = Camera(K=_t(scene.cams.K, device, torch.float32),
                   R=_t(scene.cams.R, device, torch.float32),
                   C=_t(scene.cams.C, device, torch.float32))
@@ -48,7 +48,10 @@ def scene_from_numpy(scene, device="cuda") -> SceneTensors:
         nbr_valid=_t(scene.nbr_valid, device, torch.bool),
         d_min=_t(scene.d_min, device, torch.float32),
         d_max=_t(scene.d_max, device, torch.float32),
-        seed_depth=opt(scene.seed_depth), flows=opt(scene.flows))
+        seed_depth=opt(scene.seed_depth), flows=opt(scene.flows),
+        prior_depth=opt(scene.prior_depth),
+        inject_depth=opt(scene.inject_depth),
+        inject_normal=opt(scene.inject_normal))
 
 
 def state_from_numpy(state, device="cuda") -> SceneState:

@@ -12,6 +12,13 @@ photometric term of all propagation candidates comes from one batched
 table lookup per view (``_batched_best``); ``refine_batched`` perturbs
 the post-propagation best at every refinement scale and scores the set
 together instead of one scale after another.
+
+Cross-scale channels (the hierarchical schedule's restore stages): a
+prior depth map enters the cost in the geometric phase (``finish_cost``,
+``score.prior_blend``), and ``half_sweep(..., inject=True)`` scores the
+upsampled previous-stage hypothesis after the refinement, accepted with a
+0.1 bonus against the incumbent's raw cost, the raw cost stored (ref:
+restore/libs/MVS/DepthMap.cpp:1527-1549), in each refinement branch.
 """
 
 from __future__ import annotations
@@ -50,6 +57,9 @@ class ScoreContext:
                                           # sweep call
     rect: Optional[object] = None         # ops.rect_gather.RectContext
     flow: Optional[torch.Tensor] = None   # (2, H, W) flow to neighbour 0
+    prior_depth: Optional[torch.Tensor] = None    # (H, W), 0 = no prior
+    inject_depth: Optional[torch.Tensor] = None   # (H, W) cross-scale
+    inject_normal: Optional[torch.Tensor] = None  # (3, H, W) hypothesis
 
 
 def propagation_offsets(cfg: DenseConfig) -> list:
@@ -71,9 +81,9 @@ def finish_cost(ctx: ScoreContext, ncc: torch.Tensor, bad: torch.Tensor,
                 cur_depth_map: torch.Tensor, cur_normal_map: torch.Tensor,
                 delta_c2pmax: torch.Tensor, cfg: DenseConfig,
                 phase: int) -> torch.Tensor:
-    """Smoothness bonus, geometric, local-smoothness and flow blends and
-    view aggregation (ref: DepthMap.cpp:890-958, :987-1046).  ``ncc``/``bad``
-    are (V, H, W)."""
+    """Smoothness bonus, geometric, local-smoothness and flow blends, view
+    aggregation and the prior (ref: DepthMap.cpp:890-958, :987-1046).
+    ``ncc``/``bad`` are (V, H, W)."""
     bonus = S.smoothness_bonus(cur_depth_map, cur_normal_map, ctx.rays,
                                depth, normal, cfg)
     # thRobust placeholders of OOB/textureless views stay flat
@@ -98,7 +108,10 @@ def finish_cost(ctx: ScoreContext, ncc: torch.Tensor, bad: torch.Tensor,
         wt = cfg.photometric_flow
         per_view = torch.cat([((1.0 - wt) * per_view[0] + wt * fs)[None],
                               per_view[1:]])
-    return S.aggregate_scores(per_view, cfg)
+    agg = S.aggregate_scores(per_view, cfg)
+    if phase >= 1 and ctx.prior_depth is not None:
+        agg = S.prior_blend(agg, depth, ctx.prior_depth, cfg)
+    return agg
 
 
 def compute_cost(ctx: ScoreContext, depth: torch.Tensor,
@@ -181,12 +194,14 @@ def _batched_best(ctx: ScoreContext, cd: torch.Tensor, cn: torch.Tensor,
                   cv: torch.Tensor, init_cost: Optional[torch.Tensor],
                   cur_d: torch.Tensor, cur_n: torch.Tensor,
                   delta_c2pmax: torch.Tensor, cfg: DenseConfig, phase: int,
-                  offsets):
+                  offsets, biases=None):
     """Score a (K, ...) candidate stack with its photometric term from one
     batched lookup per view (kernel D) and fold to (best cost, best
     index).  The fold starts from ``init_cost`` (inf when None) with index
     -1, which callers read as "keep the incumbent"; a candidate wins only
-    with a strictly lower cost, so ties keep the earlier one."""
+    with a strictly lower cost, so ties keep the earlier one.  ``biases``
+    (K floats) are acceptance bonuses: candidate k wins when its cost less
+    its bias beats the running best, and its raw cost is kept."""
     ncc_all, bad_all = S.photometric_scores_volume_batched(
         ctx.geom, ctx.vol, ctx.stats, ctx.hw, cd, cn, ctx.rays, offsets,
         cfg, bounds_all=ctx.vol_bounds)
@@ -197,7 +212,7 @@ def _batched_best(ctx: ScoreContext, cd: torch.Tensor, cn: torch.Tensor,
         c_k = finish_cost(ctx, ncc_all[k], bad_all[k], cd[k], cn[k], cur_d,
                           cur_n, delta_c2pmax, cfg, phase)
         c_k = torch.where(cv[k], c_k, float("inf"))
-        better = c_k < bc
+        better = (c_k - (biases[k] if biases else 0.0)) < bc
         bc = torch.where(better, c_k, bc)
         bk = torch.where(better, k, bk)
     return bc, bk
@@ -205,10 +220,12 @@ def _batched_best(ctx: ScoreContext, cd: torch.Tensor, cn: torch.Tensor,
 
 def half_sweep(state: PatchMatchState, ctx: ScoreContext, cfg: DenseConfig,
                phase: int, parity: int, offsets, prop_offsets: list,
-               gen: torch.Generator) -> PatchMatchState:
+               gen: torch.Generator, inject: bool = False
+               ) -> PatchMatchState:
     """One sweep: with ``sweep_mode == "jacobi"`` every pixel updates from
     the previous full state; with "redblack" only pixels with
-    (y + x) % 2 == parity do.  ``gen`` drives the random refinement."""
+    (y + x) % 2 == parity do.  ``gen`` drives the random refinement.
+    ``inject`` scores the context's cross-scale hypothesis too."""
     h, w = state.depth.shape
     delta_c2pmax = ((state.normal[0] * ctx.rays[0]
                      + state.normal[1] * ctx.rays[1]
@@ -247,11 +264,22 @@ def half_sweep(state: PatchMatchState, ctx: ScoreContext, cfg: DenseConfig,
     bd = _select_by_index(cd, k)
     bn = _select_by_index(cn, k)
 
+    # cross-scale hypothesis: the upsampled previous-stage maps, turned to
+    # face the camera, inside the depth window
+    inj = None
+    if inject and ctx.inject_depth is not None:
+        d_i = ctx.inject_depth
+        n_i = torch.stack(face_camera_t(
+            (ctx.inject_normal[0], ctx.inject_normal[1],
+             ctx.inject_normal[2]), (ctx.rays[0], ctx.rays[1], ctx.rays[2])))
+        inj = (d_i, n_i, (d_i > 0) & (d_i >= lo_ok) & (d_i <= hi_ok))
+
     # annealed random refinement
-    if cfg.refine_batched and cfg.random_iters:
-        # every scale perturbs the post-propagation best; the set is
-        # scored together and the winner kept if it beats the incumbent
-        r_d, r_n, r_v = [], [], []
+    if cfg.refine_batched:
+        # every scale perturbs the post-propagation best; the set (with the
+        # injected hypothesis and its 0.1 bonus) is scored together and the
+        # winner kept if it beats the incumbent
+        r_d, r_n, r_v, r_b = [], [], [], []
         for r in range(cfg.random_iters):
             scale = 0.5 ** r
             draws = _perturb_draws(gen, h, w, scale, cfg, cur_d.device)
@@ -259,22 +287,32 @@ def half_sweep(state: PatchMatchState, ctx: ScoreContext, cfg: DenseConfig,
             r_d.append(d_r)
             r_n.append(n_r)
             r_v.append((d_r >= lo_ok) & (d_r <= hi_ok))
-        rd, rn = torch.stack(r_d), torch.stack(r_n)
-        if use_batch:
-            bc, k2 = _batched_best(ctx, rd, rn, torch.stack(r_v), bc, cur_d,
-                                   cur_n, delta_c2pmax, cfg, phase, offsets)
-            upd = k2 >= 0
-            k2 = torch.clamp_min(k2, 0)
-            bd = torch.where(upd, _select_by_index(rd, k2), bd)
-            bn = torch.where(upd[None], _select_by_index(rn, k2), bn)
-        else:
-            all_c = torch.stack([bc] + [
-                torch.where(v_r, cost_of(d_r, n_r), float("inf"))
-                for d_r, n_r, v_r in zip(r_d, r_n, r_v)])
-            k2 = torch.argmin(all_c, dim=0)
-            bd = _select_by_index(torch.cat([bd[None], rd]), k2)
-            bn = _select_by_index(torch.cat([bn[None], rn]), k2)
-            bc = all_c.amin(dim=0)
+            r_b.append(0.0)
+        if inj is not None:
+            r_d.append(inj[0])
+            r_n.append(inj[1])
+            r_v.append(inj[2])
+            r_b.append(0.1)
+        if r_d:
+            rd, rn = torch.stack(r_d), torch.stack(r_n)
+            if use_batch:
+                bc, k2 = _batched_best(ctx, rd, rn, torch.stack(r_v), bc,
+                                       cur_d, cur_n, delta_c2pmax, cfg,
+                                       phase, offsets, biases=r_b)
+                upd = k2 >= 0
+                k2 = torch.clamp_min(k2, 0)
+                bd = torch.where(upd, _select_by_index(rd, k2), bd)
+                bn = torch.where(upd[None], _select_by_index(rn, k2), bn)
+            else:
+                raw = torch.stack([bc] + [
+                    torch.where(v_r, cost_of(d_r, n_r), float("inf"))
+                    for d_r, n_r, v_r in zip(r_d, r_n, r_v)])
+                eff = torch.cat([raw[:1], raw[1:] - torch.tensor(
+                    r_b, device=raw.device)[:, None, None]])
+                k2 = torch.argmin(eff, dim=0)
+                bd = _select_by_index(torch.cat([bd[None], rd]), k2)
+                bn = _select_by_index(torch.cat([bn[None], rn]), k2)
+                bc = _select_by_index(raw, k2)
     else:
         # each step perturbs the running best and is accepted against it
         for r in range(cfg.random_iters):
@@ -287,6 +325,13 @@ def half_sweep(state: PatchMatchState, ctx: ScoreContext, cfg: DenseConfig,
             bd = torch.where(better, d_r, bd)
             bn = torch.where(better[None], n_r, bn)
             bc = torch.where(better, c, bc)
+        if inj is not None:
+            d_i, n_i, ok_i = inj
+            c_i = torch.where(ok_i, cost_of(d_i, n_i), float("inf"))
+            better = (c_i - 0.1) < bc
+            bd = torch.where(better, d_i, bd)
+            bn = torch.where(better[None], n_i, bn)
+            bc = torch.where(better, c_i, bc)
 
     if cfg.sweep_mode == "jacobi":
         return PatchMatchState(depth=bd, normal=bn, cost=bc)

@@ -10,8 +10,12 @@ Schedule (ref: SceneDensify.cpp:3684-3713, :3914-3958):
       if it_ext in {1, 2} and cfg.optimize: cross-view filter + gap fill
   final: confidence threshold (``finalize``)
 
-Views are processed one after another.  Inputs and knobs whose code the
-port does not have yet (priors, cross-scale injection, view-spread,
+Views are processed one after another.  The cross-scale channels of the
+hierarchical schedule's restore stages act as in the JAX package: an
+attached ``prior_depth`` enters the geometric phase's cost, and attached
+``inject_depth`` / ``inject_normal`` are scored in the last sweep of the
+last external iteration (``cross_scale_inject``).  Inputs and knobs whose
+code the port does not have yet (the planar-prior pass, view-spread,
 streamed tables, the retired ``batch_candidates``) raise
 NotImplementedError instead of being skipped.  Every stage of
 ``estimate_scene`` is timed into ``utils.profiling``'s report, the device
@@ -57,11 +61,12 @@ class SceneTensors:
     seed_depth: Optional[torch.Tensor] = None      # (N, H, W) sparse init
     flows: Optional[torch.Tensor] = None           # (N, 2, H, W) ref->best
                                                    # neighbour (dense/flow)
-    prior_depth: Optional[torch.Tensor] = None     # not ported: raises
+    prior_depth: Optional[torch.Tensor] = None     # (N, H, W) cross-scale
+                                                   # prior (0 = none)
     ext_prior_depth: Optional[torch.Tensor] = None  # not ported: raises
     semantic: Optional[torch.Tensor] = None        # not ported: raises
-    inject_depth: Optional[torch.Tensor] = None    # not ported: raises
-    inject_normal: Optional[torch.Tensor] = None
+    inject_depth: Optional[torch.Tensor] = None    # (N, H, W) cross-scale
+    inject_normal: Optional[torch.Tensor] = None   # (N, 3, H, W) hypothesis
     vols: Optional[VolumeTables] = None  # leading (N, V) dims; built once
                                          # per stage by attach_volumes
 
@@ -84,11 +89,9 @@ def _check_ported(scene: SceneTensors, cfg: DenseConfig) -> None:
     """Raise for inputs and knobs whose code paths are not ported."""
     if cfg.view_spread:
         raise NotImplementedError("view_spread (not ported)")
-    if scene.prior_depth is not None or want_prior_pass(scene, cfg):
+    if want_prior_pass(scene, cfg):
         raise NotImplementedError("planar priors (dense/priors.py, not "
                                   "ported)")
-    if cfg.cross_scale_inject and scene.inject_depth is not None:
-        raise NotImplementedError("cross-scale injection (not ported)")
 
 
 def _per_view_context(scene: SceneTensors, i: int,
@@ -108,21 +111,32 @@ def _per_view_context(scene: SceneTensors, i: int,
     # kernel D's bounds panels depend only on the tables: once per call
     vb = (S.volume_bounds(vol_i)
           if vol_i is not None and S.use_candidate_batch(cfg) else None)
+
+    def view(x):
+        return None if x is None else x[i]
+
     return ScoreContext(
         geom=geom, src_grays=scene.gray[nbr], stats=stats, hw=hw,
         rays=rays, gra=gra, d_min=scene.d_min[i], d_max=scene.d_max[i],
         nbr_depth=nbr_depth, nbr_normal=nbr_normal, vol=vol_i,
-        vol_bounds=vb, flow=None if scene.flows is None else scene.flows[i])
+        vol_bounds=vb, flow=view(scene.flows),
+        prior_depth=view(scene.prior_depth),
+        inject_depth=view(scene.inject_depth),
+        inject_normal=view(scene.inject_normal))
 
 
 def scene_sweeps(state: SceneState, scene: SceneTensors, cfg: DenseConfig,
                  phase: int, n_iters: int, use_nbr: bool,
-                 gen: torch.Generator) -> SceneState:
+                 gen: torch.Generator, inject: bool = False) -> SceneState:
     """``n_iters`` sweeps on every view.  Neighbour depth/normal snapshots
     are taken once at entry.  Within a full-sampling call all but the last
     inner sweep may use the coarse explore sampling (see
-    ``explore_until_last``)."""
+    ``explore_until_last``).  With ``inject`` (set by the caller at the
+    last external iteration when cross-scale maps are attached) the last
+    inner sweep scores the upsampled previous-stage hypothesis with a 0.1
+    bonus (ref: restore/libs/MVS/DepthMap.cpp:1527-1549)."""
     _check_ported(scene, cfg)
+    inject = inject and scene.inject_depth is not None
     offsets = S.patch_offsets(cfg)
     prop_offsets = propagation_offsets(cfg)
     split = bool(cfg.explore_until_last and cfg.explore_patch_step
@@ -136,10 +150,12 @@ def scene_sweeps(state: SceneState, scene: SceneTensors, cfg: DenseConfig,
     use_rect = (use_nbr and bool(cfg.use_geo_consistency)
                 and S.use_rect_backend(cfg, h, w))
 
-    def one_iter(st, c_, ctx_, off_):
-        st = half_sweep(st, ctx_, c_, phase, 0, off_, prop_offsets, gen)
+    def one_iter(st, c_, ctx_, off_, inj=False):
+        st = half_sweep(st, ctx_, c_, phase, 0, off_, prop_offsets, gen,
+                        inject=inj)
         if cfg.sweep_mode != "jacobi":
-            st = half_sweep(st, ctx_, c_, phase, 1, off_, prop_offsets, gen)
+            st = half_sweep(st, ctx_, c_, phase, 1, off_, prop_offsets, gen,
+                            inject=inj)
         return st
 
     outs = []
@@ -161,7 +177,7 @@ def scene_sweeps(state: SceneState, scene: SceneTensors, cfg: DenseConfig,
             scene.gray[i], ctx.hw, offsets_x)) if split else ctx)
         for _ in range(n_iters - 1):
             st = one_iter(st, cfg_x, ctx_x, offsets_x)
-        st = one_iter(st, cfg, ctx, offsets)
+        st = one_iter(st, cfg, ctx, offsets, inject)
         outs.append(st)
     return SceneState(depth=torch.stack([s.depth for s in outs]),
                       normal=torch.stack([s.normal for s in outs]),
@@ -238,12 +254,14 @@ def estimate_scene(gen: torch.Generator, scene: SceneTensors,
         scene = attach_volumes(scene, cfg)
     for it_ext in range(n_ext):
         phase = 1 if it_ext >= cfg.photo2geo else 0
+        inject = (bool(cfg.cross_scale_inject) and it_ext == n_ext - 1
+                  and scene.inject_depth is not None)
         with stage_timer(f"estimate.sweeps.ext{it_ext}.phase{phase}",
                          block_on=dev):
             state = scene_sweeps(state, scene,
                                  phase_cfg(cfg, phase, it_ext == n_ext - 1),
                                  phase, cfg.estimation_iters, phase >= 1,
-                                 gen)
+                                 gen, inject=inject)
         if cfg.optimize and it_ext in (1, 2):
             with stage_timer(f"estimate.optimize.ext{it_ext}", block_on=dev):
                 state = optimize_maps(state, scene, cfg)

@@ -6,7 +6,8 @@ geometric phase:    s = (1-para_tapa) * score_ncc + para_tapa * score_geo
                     s = (1-para_part) * s + para_part * score_gra
 with para_tapa / para_part chosen per pixel from the texture-gradient
 thresholds (ref: DepthMap.cpp:900-930), then min-mean aggregation over
-views.
+views and, in the geometric phase where a prior map is attached, the
+prior term (``prior_blend``).
 
 Exact ZNCC is scored through the sigma tables (``ops/volume.py``), one
 candidate at a time (kernel B) or, with ``candidate_kernel="on"``, all
@@ -728,6 +729,17 @@ def smoothness_bonus(depth_map: torch.Tensor, normal_map: torch.Tensor,
         factor = factor * (1.0 - bonus_d * f_d * ok) \
             * (1.0 - bonus_n * f_n * ok)
     return factor
+
+
+def prior_blend(score: torch.Tensor, depth: torch.Tensor,
+                prior_depth: torch.Tensor, cfg: DenseConfig) -> torch.Tensor:
+    """Prior term (ref: DepthMap.cpp:940-955): pull the score toward
+    agreement with the prior depth where a prior exists (> 0)."""
+    dd = (prior_depth - depth) / torch.clamp_min(prior_depth.abs(), 1e-9)
+    w_prior = torch.exp(-(dd ** 2) / (2.0 * cfg.sigma_prior ** 2))
+    blended = (score * (1.0 - cfg.para_prior)
+               + 2.0 * (1.0 - w_prior) * cfg.para_prior)
+    return torch.where(prior_depth > 0, blended, score)
 
 
 def texture_weights(gra: torch.Tensor, cfg: DenseConfig

@@ -56,7 +56,8 @@ _state = {"lib": None, "earlier_lib": None, "earlier": False, "plain": False}
 MAX_ITEMS = 2 ** 31 - 1
 
 # kernel E keeps every view's sums in registers: views per launch, at most
-# (zncc_warped.cu kMaxViews; covers the 10-neighbour operating point)
+# (zncc_warped.cu kMaxViews; covers the 10-neighbour operating point).
+# More views are launched in chunks of this many.
 ZNCC_MAX_VIEWS = 10
 
 
@@ -349,10 +350,20 @@ def zncc_warped(ref_pad: torch.Tensor, tm: torch.Tensor, nsq0: torch.Tensor,
                 pad: int):
     """Kernel E: (score, var1), both (V, H, W), from the padded reference
     (H+2p, W+2p), tm/nsq0/hw (H, W), the padded warped sources and their
-    validity (V, H+2p, W+2p) and the corner sums acc (V, 4, H, W)."""
+    validity (V, H+2p, W+2p) and the corner sums acc (V, 4, H, W).  Each
+    view's output depends on that view's inputs only, so more than
+    ``ZNCC_MAX_VIEWS`` views go in launches of that many, exactly."""
     if tm.device.type != "cuda":
         raise ValueError("zncc_warped kernel needs CUDA tensors")
     v = warped_pad.shape[0]
+    if v > ZNCC_MAX_VIEWS:
+        parts = [zncc_warped(ref_pad, tm, nsq0,
+                             warped_pad[s:s + ZNCC_MAX_VIEWS],
+                             valid_pad[s:s + ZNCC_MAX_VIEWS], hw,
+                             acc[s:s + ZNCC_MAX_VIEWS], scan_offsets, pad)
+                 for s in range(0, v, ZNCC_MAX_VIEWS)]
+        return (torch.cat([p[0] for p in parts]),
+                torch.cat([p[1] for p in parts]))
     h, w = tm.shape
     dev = tm.device
     padded = (h + 2 * pad, w + 2 * pad)
@@ -362,9 +373,8 @@ def zncc_warped(ref_pad: torch.Tensor, tm: torch.Tensor, nsq0: torch.Tensor,
     for name, t in (("warped_pad", warped_pad), ("valid_pad", valid_pad)):
         _check_tensor(name, t, torch.float32, (v, *padded), dev)
     _check_tensor("acc", acc, torch.float32, (v, 4, h, w), dev)
-    if not 1 <= v <= ZNCC_MAX_VIEWS:
-        raise ValueError(f"kernel E takes 1 to {ZNCC_MAX_VIEWS} views, "
-                         f"got {v}")
+    if v < 1:
+        raise ValueError("kernel E takes at least one view")
     offs = [int(x) for o in scan_offsets for x in o]
     if len(offs) > 2 * 128 or any(abs(x) > pad for x in offs):
         raise ValueError(f"kernel E takes at most 128 offsets within the "

@@ -120,7 +120,7 @@ def make_rect_geometry(geom, h: int, w: int,
             torch.stack([zero, zero, one])])
         KQ = K_rect @ Q
         bxs.append((KQ @ t_rel)[0])
-        H_srs.append(torch.linalg.inv(KQ @ K_inv_src))
+        H_srs.append(torch.linalg.inv_ex(KQ @ K_inv_src)[0])
         KQs.append(KQ)
         scales.append(s)
     KQ = torch.stack(KQs)

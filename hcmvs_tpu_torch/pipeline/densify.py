@@ -15,8 +15,8 @@ SceneDensify.cpp:3532).  CLI flags map 1:1 to the reference's through
 Everything runs on the card unless ``device="cpu"`` is asked for; without
 a card that request is required (no quiet fallback).  Modes and options
 whose modules are not ported raise NotImplementedError naming the module:
-SGM (``fusion_mode`` -1/-2), semantic masks, external priors, mesh
-sampling, label projection and the viewer export.
+SGM (``fusion_mode`` -1/-2), semantic masks under ``use_semantic``,
+external priors, mesh sampling, label projection and the viewer export.
 """
 
 from __future__ import annotations
@@ -32,6 +32,7 @@ import torch
 from hcmvs_tpu_torch.core.camera import Camera
 from hcmvs_tpu_torch.core.config import DenseConfig, config_from_cli_flags
 from hcmvs_tpu_torch.dense.fusion import compact_point_cloud, fuse_point_cloud
+from hcmvs_tpu_torch.dense.init_tri import scene_triangulated_seeds
 from hcmvs_tpu_torch.dense.scene_driver import (SceneState, SceneTensors,
                                                 estimate_scene, finalize,
                                                 splat_sparse_depths)
@@ -56,12 +57,15 @@ def resolve_device(device) -> torch.device:
     return dev
 
 
-def find_scene_masks(scene: SceneMVS, images_dir: str
+def find_scene_masks(scene: SceneMVS, images_dir: str,
+                     masks_dir: Optional[str] = None
                      ) -> Optional[List[Optional[str]]]:
     """Per-image semantic-mask paths, or None when no image has one (ref:
     Image::maskName, frame_main/libs/MVS/Image.h:75-99): the scene's
-    recorded ``mask_name``, then ``<image-stem>.mask.png`` beside the
-    image."""
+    recorded ``mask_name``, then ``<masks_dir>/<image-stem>.<ext>`` (or the
+    image's own name there) when a masks directory is given, then
+    ``<image-stem>.mask.png`` beside the image."""
+    exts = (".png", ".pgm", ".tif", ".tiff", ".bmp", ".jpg")
     paths: List[Optional[str]] = []
     for im in scene.images:
         stem = os.path.splitext(os.path.basename(im.name))[0]
@@ -73,6 +77,9 @@ def find_scene_masks(scene: SceneMVS, images_dir: str
             else:
                 cand.append(os.path.join(images_dir, m))
                 cand.append(os.path.join(images_dir, os.path.basename(m)))
+        if masks_dir:
+            cand += [os.path.join(masks_dir, stem + e) for e in exts]
+            cand.append(os.path.join(masks_dir, os.path.basename(im.name)))
         cand.append(os.path.join(images_dir, stem + ".mask.png"))
         paths.append(next((c for c in cand if os.path.exists(c)), None))
     return paths if any(p is not None for p in paths) else None
@@ -83,11 +90,9 @@ def build_scene_tensors(scene: SceneMVS, images_gray: List[np.ndarray],
                         flows: Optional[torch.Tensor] = None,
                         device="cuda") -> SceneTensors:
     """Scene tensors on ``device`` from a host scene (uniform image
-    sizes): cameras, neighbours (covisibility top-k), depth ranges and
-    the splatted sparse seeds."""
-    if cfg.init_triangulate:
-        raise NotImplementedError("init_triangulate (dense/init_tri.py, "
-                                  "not ported)")
+    sizes): cameras, neighbours (covisibility top-k), depth ranges and the
+    sparse seeds, splatted or, with ``init_triangulate``, interpolated
+    over a Delaunay triangulation (``dense/init_tri.py``)."""
     dev = resolve_device(device)
     n = len(scene.images)
     h, w = images_gray[0].shape
@@ -114,10 +119,15 @@ def build_scene_tensors(scene: SceneMVS, images_gray: List[np.ndarray],
         depth_range_from_points(scene.points, scene.point_view_counts,
                                 scene.point_view_ids, Rs[i], Cs[i], i)
         for i in range(n)])
-    seeds = splat_sparse_depths(scene.points, scene.point_view_counts,
-                                scene.point_view_ids,
-                                [(Ks[i], Rs[i], Cs[i]) for i in range(n)],
-                                n, h, w)
+    cams_np = [(Ks[i], Rs[i], Cs[i]) for i in range(n)]
+    if cfg.init_triangulate:
+        # ref: InitDepthMap initTriangulate=1 -> TriangulatePoints2DepthMap
+        seeds = scene_triangulated_seeds(
+            scene.points, scene.point_view_counts, scene.point_view_ids,
+            cams_np, n, h, w, add_corners=cfg.add_corners)
+    else:
+        seeds = splat_sparse_depths(scene.points, scene.point_view_counts,
+                                    scene.point_view_ids, cams_np, n, h, w)
     return SceneTensors(
         gray=f32(np.stack(images_gray)), cams=cams,
         nbr_idx=torch.as_tensor(nbr_idx, dtype=torch.int64, device=dev),
@@ -160,8 +170,9 @@ def _unported_options(scene: SceneMVS, images_dir: str, cfg: DenseConfig,
     if priors_dir is not None:
         raise NotImplementedError("--priors-dir: external prior maps "
                                   "(dense/priors.py, not ported)")
-    if masks_dir is not None or (
-            cfg.use_semantic and find_scene_masks(scene, images_dir)):
+    # masks are read only for use_semantic, as in the JAX package; then
+    # they feed the planar priors
+    if cfg.use_semantic and find_scene_masks(scene, images_dir, masks_dir):
         raise NotImplementedError("semantic masks: the RANSAC planar "
                                   "priors (dense/priors.py, not ported)")
 
@@ -326,7 +337,8 @@ def main(argv=None):
     ap.add_argument("--no-resume", action="store_true",
                     help="re-estimate even if depth*.dmap files exist")
     ap.add_argument("--masks-dir", default=None,
-                    help="per-image semantic masks (not ported)")
+                    help="per-image semantic masks, read with "
+                         "use-semantic=1 (then not ported)")
     ap.add_argument("--priors-dir", default=None,
                     help="external prior depth maps (not ported)")
     ap.add_argument("--export-viewer", action="store_true",

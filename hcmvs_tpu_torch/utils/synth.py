@@ -1,9 +1,11 @@
-"""Synthetic textured-plane scenes with analytic ground truth (numpy port
-of ``hcmvs_tpu/utils/synth.py``'s plane scene).
+"""Synthetic scenes with analytic ground truth (numpy port of
+``hcmvs_tpu/utils/synth.py``'s plane and ridge scenes).
 
 The arithmetic is the JAX package's, in numpy float64 until the end, so
 the same arguments give bit-identical images and cameras.  Cameras come
-back as the port's ``Camera`` with float32 CPU tensors.
+back as the port's ``Camera`` with float32 CPU tensors.  The writers
+store a scene as ``scene.mvs`` plus gray PNGs, the input of the
+pipeline's entry points.
 """
 
 from __future__ import annotations
@@ -125,6 +127,140 @@ def make_plane_scene(rng: np.random.Generator, h: int = 64, w: int = 80,
                       d_min=d_min, d_max=d_max)
 
 
+def blob_texture_fn(rng: np.random.Generator, n_blobs: int = 1200,
+                    extent: float = 3.5):
+    """A world-(x, y) -> intensity function rich in Gaussian blobs; blob
+    sigmas span ~2-9 px at the default scene geometry (z ~ 4, fx ~ 180).
+    Costs n_blobs ``exp`` per pixel."""
+    centers = rng.uniform(-extent, extent, (n_blobs, 2))
+    sigmas = rng.uniform(0.03, 0.08, n_blobs)
+    amps = rng.uniform(0.25, 0.6, n_blobs) * rng.choice([-1, 1], n_blobs)
+
+    def fn(xy: np.ndarray) -> np.ndarray:
+        val = np.full(xy.shape[:-1], 0.5)
+        for c, s, a in zip(centers, sigmas, amps):
+            d2 = ((xy[..., 0] - c[0]) ** 2 + (xy[..., 1] - c[1]) ** 2)
+            val = val + a * np.exp(-d2 / (2 * s * s))
+        return np.clip(val, 0.0, 1.0).astype(np.float32)
+
+    return fn
+
+
+def sinusoid_texture_fn(rng: np.random.Generator):
+    """The plane scene's texture (a random sum of 24 sinusoids over world
+    x, y at twice the plane scene's coordinates' scale, normalised per
+    image) as a world-(x, y) -> intensity function: 24 ``sin`` per pixel,
+    cheap enough for multi-megapixel ridge scenes."""
+    params = _texture_params(rng)
+
+    def fn(xy: np.ndarray) -> np.ndarray:
+        return _texture(xy * 2.0, params)
+
+    return fn
+
+
+@dataclasses.dataclass
+class RidgeScene:
+    cameras: List[Camera]
+    images: List[np.ndarray]
+    depth_gt: np.ndarray              # ref-view depth
+    planes: List[Tuple[np.ndarray, float]]   # [(n_w, c_w)] two planes
+
+    def surface_dist(self, pts: np.ndarray) -> np.ndarray:
+        """Distance of world points to the ridge surface (the plane of the
+        point's side of x = 0)."""
+        (n1, c1), (n2, c2) = self.planes
+        d1 = np.abs(pts @ n1 - c1)
+        d2 = np.abs(pts @ n2 - c2)
+        return np.where(pts[:, 0] < 0, d1, d2)
+
+
+def make_ridge_scene(rng: np.random.Generator, h: int = 96, w: int = 128,
+                     n_views: int = 4, fx: float = 180.0,
+                     z0: float = 4.0, slopes: Tuple[float, float] =
+                     (0.5, -0.35), spacing: float = 0.5,
+                     texture_fn=None) -> RidgeScene:
+    """Two planes meeting at x = 0 (a ridge): non-planar structure seen by
+    ``n_views`` cameras, camera 0 the reference at the origin, the others
+    translated sideways by ``spacing`` steps with a small rotation.
+    ``texture_fn`` maps world (x, y) to intensity (default:
+    ``blob_texture_fn(rng)``)."""
+    a1, a2 = slopes
+    planes = []
+    for a in (a1, a2):
+        n = np.array([-a, 0.0, 1.0])
+        nn = np.linalg.norm(n)
+        planes.append((n / nn, z0 / nn))
+
+    K = np.array([[fx, 0, w / 2], [0, fx, h / 2], [0, 0, 1.0]])
+    cams_np = []
+    for i in range(n_views):
+        if i == 0:
+            R = np.eye(3)
+            C = np.zeros(3)
+        else:
+            side = 1 if i % 2 else -1
+            k = (i + 1) // 2
+            R = _rotation(0.01 * side * k, -0.02 * side * k, 0.005 * k)
+            C = np.array([spacing * side * k, 0.1 * spacing * k, 0.0])
+        cams_np.append((K, R, C))
+
+    tex = texture_fn or blob_texture_fn(rng)
+
+    def render(cam_np):
+        Kn, Rn, Cn = cam_np
+        Kinv = np.linalg.inv(Kn)
+        v, u = np.meshgrid(np.arange(h, dtype=np.float64),
+                           np.arange(w, dtype=np.float64), indexing="ij")
+        p = np.stack([u, v, np.ones_like(u)], axis=-1)
+        ray_w = (p @ Kinv.T) @ Rn
+        ts, valids = [], []
+        for k, (n_w, c_w) in enumerate(planes):
+            t = (c_w - n_w @ Cn) / (ray_w @ n_w)
+            X = Cn + ray_w * t[..., None]
+            want_neg = (k == 0)
+            ok = (t > 0) & ((X[..., 0] < 0) == want_neg)
+            ts.append(t)
+            valids.append(ok)
+        t = np.where(valids[0], ts[0],
+                     np.where(valids[1], ts[1],
+                              np.minimum(ts[0], ts[1])))
+        X = Cn + ray_w * t[..., None]
+        img = tex(X[..., :2])
+        return img.astype(np.float32), t.astype(np.float32)
+
+    images = []
+    depth_ref = None
+    for i, cam_np in enumerate(cams_np):
+        img, depth = render(cam_np)
+        images.append(img)
+        if i == 0:
+            depth_ref = depth
+    cams = [Camera(K=torch.as_tensor(Kn, dtype=torch.float32),
+                   R=torch.as_tensor(Rn, dtype=torch.float32),
+                   C=torch.as_tensor(Cn, dtype=torch.float32))
+            for Kn, Rn, Cn in cams_np]
+    return RidgeScene(cameras=cams, images=images, depth_gt=depth_ref,
+                      planes=planes)
+
+
+def ridge_sparse_points(scene: RidgeScene, n_sparse: int = 100,
+                        seed: int = 0) -> np.ndarray:
+    """(n_sparse, 3) float32 world points: view 0's ground-truth depth at
+    pixels drawn from ``seed``, back-projected."""
+    cam = scene.cameras[0]
+    K, R, C = (cam.K.cpu().numpy().astype(np.float64),
+               cam.R.cpu().numpy().astype(np.float64),
+               cam.C.cpu().numpy().astype(np.float64))
+    h, w = scene.depth_gt.shape
+    rng = np.random.default_rng(seed)
+    u = rng.integers(0, w, n_sparse)
+    v = rng.integers(0, h, n_sparse)
+    d = scene.depth_gt[v, u].astype(np.float64)
+    rays = np.stack([u, v, np.ones(n_sparse)], 1) @ np.linalg.inv(K).T
+    return ((rays * d[:, None]) @ R + C).astype(np.float32)
+
+
 def plane_depth_of_view(scene: PlaneScene, view: int) -> np.ndarray:
     """Ground-truth depth of any view from the world plane n_w . X = c_w."""
     cam = scene.cameras[view]
@@ -157,6 +293,20 @@ def write_plane_scene(root: str, scene: PlaneScene, n_sparse: int = 60,
     PNGs ``root/images/im%04d.png`` (every row with the PNG row filter
     ``png_filter``); returns (scene path, images dir), the inputs of
     ``pipeline.densify``."""
+    return _write_scene(root, scene, plane_sparse_points(scene, n_sparse,
+                                                         seed), png_filter)
+
+
+def write_ridge_scene(root: str, scene: RidgeScene, n_sparse: int = 100,
+                      seed: int = 0, png_filter: int = 2) -> Tuple[str, str]:
+    """``write_plane_scene`` for a ridge scene: the sparse points are
+    ``ridge_sparse_points``, listed as seen by every view."""
+    return _write_scene(root, scene, ridge_sparse_points(scene, n_sparse,
+                                                         seed), png_filter)
+
+
+def _write_scene(root: str, scene, points: np.ndarray,
+                 png_filter: int) -> Tuple[str, str]:
     from hcmvs_tpu_torch.io.images import write_png
     from hcmvs_tpu_torch.io.mvs import (CameraIntrinsic, ImageRecord,
                                         Platform, Pose, SceneMVS, write_mvs)
@@ -178,7 +328,8 @@ def write_plane_scene(root: str, scene: PlaneScene, n_sparse: int = 60,
                   (scene.images[i] * 255).astype(np.uint8), png_filter)
         mvs.images.append(ImageRecord(name=name, platform_id=0,
                                       camera_id=0, pose_id=i, id=i))
-    mvs.points = plane_sparse_points(scene, n_sparse, seed)
+    n_sparse = len(points)
+    mvs.points = points
     mvs.point_view_counts = np.full(n_sparse, n, np.int32)
     mvs.point_view_ids = np.tile(np.arange(n, dtype=np.uint32), n_sparse)
     mvs.point_view_confs = np.ones(n_sparse * n, np.float32)

@@ -273,10 +273,17 @@ def test_densify_needs_a_device_and_raises_for_unported(world, tmp_path):
         with pytest.raises(RuntimeError):
             densify(*args, world["tcfg"], verbose=False)
     for kw in (dict(fusion_mode=-1), dict(fusion_mode=-2),
-               dict(priors_dir=str(tmp_path)),
-               dict(masks_dir=str(tmp_path))):
+               dict(priors_dir=str(tmp_path))):
         with pytest.raises(NotImplementedError):
             densify(*args, world["tcfg"], verbose=False, device="cpu", **kw)
+    # masks are read under use_semantic only (without it they are ignored,
+    # tests/test_torch_repairs.py); then they need the planar priors
+    masks = tmp_path / "masks"
+    masks.mkdir()
+    (masks / "im0000.png").write_bytes(b"")
+    with pytest.raises(NotImplementedError, match="dense/priors.py"):
+        densify(*args, world["tcfg"].replace(use_semantic=True),
+                verbose=False, device="cpu", masks_dir=str(masks))
     for extra in (["--sample-mesh", "-100"], ["--project-labels"],
                   ["--export-viewer"]):
         with pytest.raises(NotImplementedError):

@@ -255,6 +255,25 @@ _NO_JAX_SCRIPT = textwrap.dedent("""
                   "n-EstimationIters=1", "n-EstimationIters-external=3",
                   "n-adapthalfwin=3"])
     assert stats["n_points"] > 0 and os.path.exists("out/scene_dense.mvs")
+    # the hierarchical-cross schedule on the CPU: a ridge scene through
+    # the five default stages (levels 3, 2, 2, 1, 1)
+    from hcmvs_tpu_torch.pipeline import hierarchy
+    from hcmvs_tpu_torch.utils.synth import (make_ridge_scene,
+                                             sinusoid_texture_fn,
+                                             write_ridge_scene)
+    ridge = make_ridge_scene(np.random.default_rng(0), h=h, w=w, n_views=3,
+                             fx=180.0 * w / 192.0,
+                             texture_fn=sinusoid_texture_fn(
+                                 np.random.default_rng(1)))
+    path, img_dir = write_ridge_scene("ridge", ridge)
+    stats = hierarchy.main(["--input-file", path, "--images-dir", img_dir,
+                            "-w", "hc", "--device", "cpu", "--flags",
+                            "min-resolution=0", "n-EstimationIters=1",
+                            "n-EstimationIters-external=2",
+                            "n-adapthalfwin=3"])
+    assert stats["depth"].shape == (3, h // 2, w // 2)
+    assert os.path.exists("hc/scene_dense.ply")
+    assert len(os.listdir("hc/stage_ckpt")) == 5
     assert not any(m.split(".")[0] in BLOCKED
                    for m in sys.modules if sys.modules[m] is not None)
     print("OK", float((depth > 0).float().mean()))
