@@ -47,7 +47,21 @@ Phases, each fatal on failure:
      seconds and view 0 accuracy against the ground truth at its size are
      printed, the ``.dmap`` / ``.ply`` files must read back, view 0 must
      reach its floor and the fused cloud must lie on the ridge;
- 11. the same hierarchy through the plain versions, compared with 10.
+ 11. the same hierarchy through the plain versions, compared with 10;
+ 12. the masked densify path through the kernels: the DensifyPointCloud
+     entry point on a 4-view ridge scene written as ``scene.mvs`` + four
+     1280x960 PNGs (phase 10's texture) with a 16-bit face mask
+     (``<stem>.mask.png``, labels 1000 / 2000) and a colour label image
+     beside each image, and ``--priors-dir`` holding view 1's ground
+     truth at 320x240, at DenseConfig() plus ``resolution-level=0`` and
+     ``use-semantic=1``: the planar-prior pass (superpixel planes, RANSAC
+     planes per mask region, the a-contrario gate, the external channel
+     merged in on view 1) must run exactly once and cover part of view 0,
+     kernels A, B and C must have launched, the files must read back and
+     view 0 must reach its floor; then ``--project-labels`` colours the
+     dense cloud from the label images;
+ 13. the same masked densify through the plain versions, compared with 12
+     (view 0's prior maps included).
 Launches are counted by kernel and output shape.  Then a JSON line per
 path, one for the kernels, the nvidia-smi line, and
 a last line ``{"ok": true, "device": {...}}``.  Exits non-zero, with no
@@ -262,7 +276,7 @@ HYBRID_KERNELS = EXACT_KERNELS + ("volume_lookup_multi", "zncc_warped")
 # script, compares the two packages at a given size; PERF.md has the
 # numbers); the random init scores about 0.05.
 MIN_ACC = {"exact": 0.5, "hybrid_batched": 0.15, "densify": 0.85,
-           "hierarchy": 0.85}
+           "hierarchy": 0.85, "densify_masks": 0.85}
 # the densify path: DenseConfig() defaults plus these reference flags; the
 # fused cloud's median distance to the scene's plane, at most this share
 # of the median depth (the JAX package's own CPU runs of this config at
@@ -299,12 +313,25 @@ def hierarchy_scene(h: int, w: int, textured: bool = True):
                             texture_fn=tex)
 
 
-def densify_cfg():
-    """DenseConfig() defaults plus DENSIFY_FLAGS, as the densify path
-    runs them."""
+# the masked densify path: the densify flags plus use-semantic=1 on the
+# ridge scene at H x W with face masks, label images and view 1's ground
+# truth at MASKS_PRIOR_HW as an external prior map.  Its floor is the
+# densify app's (the JAX package's own densify of this scene with masks
+# reads 0.9754 at 240x320 on the CPU; PERF.md); kernel and plain runs'
+# view 0 prior maps must agree (both 0, or within MASKS_PRIOR_RTOL) on
+# MASKS_PRIOR_AGREE of the pixels: the prior pass's float sums on the card
+# add in a varying order, which may flip an inlier threshold
+MASKS_FLAGS = DENSIFY_FLAGS + ("use-semantic=1",)
+MASKS_PRIOR_HW = (240, 320)
+MASKS_PRIOR_RTOL = 1e-3
+MASKS_PRIOR_AGREE = 0.99
+
+
+def densify_cfg(flags=DENSIFY_FLAGS):
+    """DenseConfig() defaults plus ``flags``, as a densify path runs
+    them."""
     from hcmvs_tpu_torch.core.config import config_from_cli_flags
-    return config_from_cli_flags(dict(f.split("=", 1)
-                                      for f in DENSIFY_FLAGS))
+    return config_from_cli_flags(dict(f.split("=", 1) for f in flags))
 
 
 # each kernel's launches are counted by the shape of its output, read
@@ -1132,6 +1159,268 @@ def check_hierarchy(root):
         "agree_1pct": agree, "launches_by_shape": shapes}, failed
 
 
+@contextlib.contextmanager
+def prior_records():
+    """Records each planar-prior pass inside the block: a recorder around
+    ``scene_driver.compute_scene_priors`` (as ``estimate_scene`` calls it)
+    that keeps view 0's prior map and the number of mask labels.  Yields
+    the list of records."""
+    from hcmvs_tpu_torch.dense import scene_driver
+    records = []
+    run = scene_driver.compute_scene_priors
+
+    def recorded(state, scene, *args, **kw):
+        out = run(state, scene, *args, **kw)
+        records.append(dict(
+            prior0=out.prior_depth[0].cpu().numpy(),
+            labels=(0 if scene.semantic is None
+                    else int(scene.semantic.max()) + 1),
+            inputs0=dict(gray=scene.gray[0].cpu(),
+                         depth=state.depth[0].cpu(),
+                         semantic=(None if scene.semantic is None
+                                   else scene.semantic[0].cpu()))))
+        return out
+
+    scene_driver.compute_scene_priors = recorded
+    try:
+        yield records
+    finally:
+        scene_driver.compute_scene_priors = run
+
+
+def prior_parts(inputs, n_labels, dev, reps: int = 3) -> dict:
+    """Each part of one view's prior pass (``dense/priors.py``, the
+    superpixel and the semantic channels) on its inputs as the pass got
+    them: {part: {"wall_ms": synchronised host time, median of ``reps``,
+    "ms": device time (``cuda_ms``, host waits included where the part
+    makes the host wait)}}."""
+    import torch
+    from hcmvs_tpu_torch.dense import priors as P
+    gray = inputs["gray"].to(dev)
+    depth = inputs["depth"].to(dev)
+    sem = inputs["semantic"].to(dev)
+    h, w = gray.shape
+    n_sp = (h // 16) * (w // 16)
+    spacing = P.inv_depth_spacing(depth)
+    eps = spacing * 1.4
+    labels = P.slic_superpixels(gray)
+    planes = P.fit_segment_planes(labels, depth, n_sp, tukey_c=eps)[0]
+    draws = P.ransac_draws(torch.Generator(device=dev).manual_seed(0), h, w,
+                           P.hyps_from_probability(0.005))
+    s_planes = P.ransac_segment_planes(draws, sem, depth, n_labels,
+                                       epsilon=eps)[0]
+    parts = {
+        "spacing": lambda: P.inv_depth_spacing(depth),
+        "slic": lambda: P.slic_superpixels(gray),
+        "fit_planes": lambda: P.fit_segment_planes(labels, depth, n_sp,
+                                                   tukey_c=eps),
+        "nfa_superpixels": lambda: P.segment_plane_nfa(
+            labels, depth, planes, n_sp, spacing),
+        "ransac": lambda: P.ransac_segment_planes(draws, sem, depth,
+                                                  n_labels, epsilon=eps),
+        "nfa_semantic": lambda: P.segment_plane_nfa(
+            sem, depth, s_planes, n_labels, spacing),
+        "generate_priors": lambda: P.generate_priors(
+            gray, depth, semantic=sem, n_semantic_labels=n_labels,
+            draws=draws)}
+    out = {}
+    for name, fn in parts.items():
+        walls = []
+        for _ in range(reps + 1):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            walls.append((time.perf_counter() - t0) * 1e3)
+        walls = sorted(walls[1:])
+        out[name] = {"wall_ms": walls[len(walls) // 2],
+                     "ms": cuda_ms(fn, 2, warmup=1, rounds=reps,
+                                   host_bound_ok=True)}
+    return out
+
+
+def _masks_run(scene_path, img_dir, priors_dir, out_dir, plain: bool):
+    """One masked densify run on the card, the kernel pass through the CLI
+    entry point, the plain pass through ``densify``; returns (stats, stage
+    report, seconds, peak GiB, prior records)."""
+    import torch
+    from hcmvs_tpu_torch import kernels
+    from hcmvs_tpu_torch.pipeline import densify as D
+    from hcmvs_tpu_torch.utils import profiling
+    profiling.reset_report()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    with prior_records() as records:
+        t0 = time.perf_counter()
+        if plain:
+            with kernels.plain_versions():
+                stats = D.densify(scene_path, img_dir, out_dir,
+                                  densify_cfg(MASKS_FLAGS),
+                                  priors_dir=priors_dir)
+        else:
+            stats = D.main(["--input-file", scene_path, "--images-dir",
+                            img_dir, "-w", out_dir, "--priors-dir",
+                            priors_dir, "--flags", *MASKS_FLAGS])
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+    return (stats, profiling.report(), seconds,
+            torch.cuda.max_memory_allocated() / 2 ** 30, records)
+
+
+def check_masks(root):
+    """Phases 12-13: the masked densify path through the kernels (counts
+    reset just before, read just after), its prior pass, files and labels
+    checked, then through the plain versions, compared.  Returns
+    (launches, JSON summary, the checks that failed)."""
+    import numpy as np
+    from hcmvs_tpu_torch import kernels
+    from hcmvs_tpu_torch.io.dmap import read_dmap
+    from hcmvs_tpu_torch.io.mvs import read_mvs
+    from hcmvs_tpu_torch.io.ply import read_ply
+    from hcmvs_tpu_torch.pipeline import densify as D
+    from hcmvs_tpu_torch.utils.synth import (write_ridge_masks,
+                                             write_ridge_prior,
+                                             write_ridge_scene)
+
+    label = "densify_masks"
+    failed = []
+    t0 = time.perf_counter()
+    sc = hierarchy_scene(H, W)
+    scene_path, img_dir = write_ridge_scene(str(root), sc,
+                                            png_filter=DENSIFY_PNG_FILTER)
+    write_ridge_masks(img_dir, sc)
+    priors_dir = str(root / "priors")
+    write_ridge_prior(priors_dir, hierarchy_scene(*MASKS_PRIOR_HW,
+                                                  textured=False), 1)
+    sc.images = sc.depths = None           # on disk now
+    log(f"[{label}] ridge scene.mvs + {N_VIEWS} {W}x{H} PNGs, 16-bit face "
+        f"masks, label images and view 1's {MASKS_PRIOR_HW[1]}x"
+        f"{MASKS_PRIOR_HW[0]} prior map written in "
+        f"{time.perf_counter() - t0:.3f} s")
+    out_k = root / "kernels"
+    kernels.reset_launches()
+    with launch_shapes() as shapes:
+        st_k, rep_k, sec_k, peak_k, pri_k = _masks_run(
+            scene_path, img_dir, priors_dir, str(out_k), plain=False)
+    launches = dict(kernels.launches)
+    log(f"[{label}] kernel launches {launches}")
+    shapes = check_shapes(label, launches, shapes, failed)
+    if min(launches[k] for k in EXACT_KERNELS) <= 0:
+        failed.append(f"{label}: a kernel of the path never launched: "
+                      f"{launches}")
+    for name, s in sorted(rep_k.items(), key=lambda kv: -kv[1]["total_s"]):
+        log(f"[{label}] stage {name:<26} {s['total_s']:9.3f} s "
+            f"x{int(s['calls'])}")
+    prior_s = rep_k.get("estimate.priors", {}).get("total_s", 0.0)
+    if len(pri_k) != 1 or rep_k.get("estimate.priors", {}).get(
+            "calls") != 1:
+        failed.append(f"{label}: the prior pass ran {len(pri_k)} times, "
+                      f"not once")
+    cover = float((pri_k[0]["prior0"] > 0).mean()) if pri_k else 0.0
+    n_labels = pri_k[0]["labels"] if pri_k else 0
+    if cover <= 0 or n_labels < 2:
+        failed.append(f"{label}: view 0's prior covers {cover} of its "
+                      f"pixels, {n_labels} mask labels")
+    acc_k = depth_acc_2pct(st_k["depth"][0], sc.depth_gt)
+    log(f"[{label}] total {sec_k:.3f} s, prior pass {prior_s:.3f} s "
+        f"({prior_s / sec_k:.4f} of the wall), view 0 prior coverage "
+        f"{cover:.4f}, {n_labels} mask labels, peak memory {peak_k:.2f} "
+        f"GiB, valid {st_k['valid_frac']:.4f}, points {st_k['n_points']}, "
+        f"view 0 interior depth_acc_2pct {acc_k:.4f}")
+    if acc_k < MIN_ACC[label]:
+        failed.append(f"{label}: depth accuracy {acc_k} < {MIN_ACC[label]}")
+    parts = {}
+    if pri_k:
+        import torch
+        parts = prior_parts(pri_k[0]["inputs0"], n_labels,
+                            torch.device("cuda", 0))
+        log(f"[{label}] view 0's prior pass by part, ms (synchronised "
+            f"wall / device): " + ", ".join(
+                f"{k} {v['wall_ms']:.3f} / {v['ms']:.3f}"
+                for k, v in parts.items()))
+        for r in pri_k:
+            del r["inputs0"]
+    for i in range(N_VIEWS):
+        dm = read_dmap(str(out_k / "depthmap" / f"depth{i:04d}.dmap"))
+        if dm.depth.shape != (H, W) or not np.array_equal(dm.depth,
+                                                         st_k["depth"][i]):
+            failed.append(f"{label}: depth{i:04d}.dmap reads back "
+                          f"{dm.depth.shape}, not the run's map")
+    dense_path = str(out_k / "scene_dense.mvs")
+    dense = read_mvs(dense_path)
+    pts, _ = read_ply(str(out_k / "scene_dense.ply"))
+    if not len(dense.points) == len(pts) == st_k["n_points"] > 0:
+        failed.append(f"{label}: scene_dense.mvs / .ply have "
+                      f"{len(dense.points)} / {len(pts)} points, stats "
+                      f"{st_k['n_points']}")
+    del dense, pts
+    t0 = time.perf_counter()
+    lab = D.main(["--input-file", dense_path, "--images-dir", img_dir,
+                  "-w", str(root / "labels"), "--project-labels"])
+    labelled = float((lab["colors"] != 255).any(1).mean())
+    back = read_mvs(str(root / "labels" / "scene_labelled.mvs"))
+    log(f"[{label}] --project-labels {time.perf_counter() - t0:.3f} s: "
+        f"{lab['n_label_images']} label images, {labelled:.5f} of "
+        f"{lab['n_points']} points labelled")
+    if lab["n_label_images"] != N_VIEWS or labelled <= 0 or not \
+            np.array_equal(back.point_colors, lab["colors"]):
+        failed.append(f"{label}: --project-labels read "
+                      f"{lab['n_label_images']} label images, labelled "
+                      f"{labelled} of the points")
+    del lab, back
+
+    kernels.reset_launches()
+    st_p, rep_p, sec_p, peak_p, pri_p = _masks_run(
+        scene_path, img_dir, priors_dir, str(root / "plain"), plain=True)
+    if any(kernels.launches.values()):
+        failed.append(f"{label} plain run launched kernels: "
+                      f"{kernels.launches}")
+    acc_p = depth_acc_2pct(st_p["depth"][0], sc.depth_gt)
+    agree = float((np.abs(st_k["depth"] - st_p["depth"])
+                   <= 0.01 * np.abs(st_p["depth"])).mean())
+    n_rel = abs(st_k["n_points"] - st_p["n_points"]) / max(st_p["n_points"],
+                                                             1)
+    prior_agree = 0.0
+    if len(pri_p) == 1 and pri_k:
+        a, b = pri_k[0]["prior0"], pri_p[0]["prior0"]
+        prior_agree = float((((a > 0) == (b > 0))
+                             & (np.abs(a - b) <= MASKS_PRIOR_RTOL
+                                * np.abs(b))).mean())
+    log(f"[{label} plain] total {sec_p:.3f} s (estimate "
+        f"{rep_p['densify.estimate']['total_s']:.3f} s against "
+        f"{rep_k['densify.estimate']['total_s']:.3f} s, prior pass "
+        f"{rep_p.get('estimate.priors', {}).get('total_s', 0.0):.3f} s), "
+        f"peak memory {peak_p:.2f} GiB, view 0 interior depth_acc_2pct "
+        f"{acc_p:.4f}, points {st_p['n_points']}; depth within 1% of the "
+        f"kernel run on {agree:.5f} of pixels; view 0 prior maps agree on "
+        f"{prior_agree:.5f}")
+    if agree < 0.98:
+        failed.append(f"{label}: kernel and plain runs agree on {agree}")
+    if abs(acc_k - acc_p) > 0.01:
+        failed.append(f"{label}: accuracy {acc_k} (kernels) vs {acc_p} "
+                      f"(plain)")
+    if n_rel > 0.01:
+        failed.append(f"{label}: point counts {st_k['n_points']} (kernels) "
+                      f"vs {st_p['n_points']} (plain)")
+    if prior_agree < MASKS_PRIOR_AGREE:
+        failed.append(f"{label}: view 0's prior maps agree on "
+                      f"{prior_agree} of the pixels")
+    return launches, {
+        "views": N_VIEWS, "h": H, "w": W, "flags": list(MASKS_FLAGS),
+        "total_s": sec_k, "views_per_s": N_VIEWS / sec_k,
+        "prior_s": prior_s, "prior_share": prior_s / sec_k,
+        "prior_coverage0": cover, "mask_labels": n_labels,
+        "prior_parts0": parts,
+        "stage_s": {k: v["total_s"] for k, v in rep_k.items()},
+        "peak_gib": peak_k, "valid_frac": st_k["valid_frac"],
+        "n_points": st_k["n_points"], "labelled_share": labelled,
+        "depth_acc_2pct": acc_k, "plain_total_s": sec_p,
+        "plain_stage_s": {k: v["total_s"] for k, v in rep_p.items()},
+        "plain_depth_acc_2pct": acc_p, "plain_n_points": st_p["n_points"],
+        "agree_1pct": agree, "prior_agree": prior_agree,
+        "launches_by_shape": shapes}, failed
+
+
 def main() -> int:
     try:
         import torch
@@ -1201,6 +1490,16 @@ def main() -> int:
                                  dir=Path(__file__).resolve().parent))
     try:
         paths["hierarchy"] = check_hierarchy(root)
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    torch.cuda.empty_cache()
+
+    # 12-13. the masked densify path, each through the kernels and the
+    # plain versions
+    root = Path(tempfile.mkdtemp(prefix="_masks_smoke_",
+                                 dir=Path(__file__).resolve().parent))
+    try:
+        paths["densify_masks"] = check_masks(root)
     finally:
         shutil.rmtree(root, ignore_errors=True)
     failed = [f for _, _, fs in paths.values() for f in fs]

@@ -33,8 +33,9 @@ def _t(x, device, dtype=None) -> torch.Tensor:
 
 def scene_from_numpy(scene, device="cuda") -> SceneTensors:
     """The JAX ``SceneTensors``: cameras, neighbours, depth ranges, and the
-    seed depths, flows and cross-scale maps (prior, injected depth and
-    normals) when present (no other optional channel, no tables)."""
+    seed depths, flows, cross-scale maps (prior, injected depth and
+    normals), external prior maps and semantic labels when present (no
+    tables)."""
     cams = Camera(K=_t(scene.cams.K, device, torch.float32),
                   R=_t(scene.cams.R, device, torch.float32),
                   C=_t(scene.cams.C, device, torch.float32))
@@ -50,6 +51,9 @@ def scene_from_numpy(scene, device="cuda") -> SceneTensors:
         d_max=_t(scene.d_max, device, torch.float32),
         seed_depth=opt(scene.seed_depth), flows=opt(scene.flows),
         prior_depth=opt(scene.prior_depth),
+        ext_prior_depth=opt(scene.ext_prior_depth),
+        semantic=(None if scene.semantic is None
+                  else _t(scene.semantic, device, torch.int64)),
         inject_depth=opt(scene.inject_depth),
         inject_normal=opt(scene.inject_normal))
 

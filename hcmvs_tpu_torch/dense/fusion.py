@@ -428,3 +428,35 @@ def compact_point_cloud(fused: dict, nbr_idx=None, confs=None) -> dict:
         out["view_ids"] = ids
         out["view_confs"] = cfs
     return out
+
+
+def estimate_point_labels(points: np.ndarray, owner_view: np.ndarray,
+                          semantic: torch.Tensor, cams: Camera
+                          ) -> np.ndarray:
+    """Per-point semantic labels: each fused point projected into its
+    owner view's label map (ref: EstimatePointLabels,
+    frame_main/libs/MVS/DepthMap.cpp:2165), on the label maps' device.
+
+    Args:
+      points: (P, 3) world points (a compacted cloud's ``points``).
+      owner_view: (P,) index of the view that fused each point.
+      semantic: (N, H, W) integer label maps.
+      cams: batched Camera of the N views.
+    Returns (P,) int32 labels (-1 where the projection misses).
+    """
+    dev = semantic.device
+    n, h, w = semantic.shape
+    pts = torch.as_tensor(np.asarray(points), device=dev)
+    view = torch.as_tensor(np.asarray(owner_view).astype(np.int64),
+                           device=dev)
+    Xc = ((pts - cams.C.to(pts.dtype)[view])[:, None, :]
+          * cams.R.to(pts.dtype)[view]).sum(-1)               # R (X - C)
+    uv = (Xc[:, None, :] * cams.K.to(pts.dtype)[view]).sum(-1)
+    x = torch.round(uv[:, 0] / uv[:, 2])
+    y = torch.round(uv[:, 1] / uv[:, 2])
+    ok = ((Xc[:, 2] > 0) & (x >= 0) & (x < w) & (y >= 0) & (y < h)
+          & (view >= 0) & (view < n))
+    xi = torch.where(ok, x, 0).long()
+    yi = torch.where(ok, y, 0).long()
+    lab = semantic[torch.clamp(view, 0, n - 1), yi, xi].to(torch.int32)
+    return torch.where(ok, lab, -1).cpu().numpy()

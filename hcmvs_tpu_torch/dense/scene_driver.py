@@ -14,9 +14,13 @@ Views are processed one after another.  The cross-scale channels of the
 hierarchical schedule's restore stages act as in the JAX package: an
 attached ``prior_depth`` enters the geometric phase's cost, and attached
 ``inject_depth`` / ``inject_normal`` are scored in the last sweep of the
-last external iteration (``cross_scale_inject``).  Inputs and knobs whose
-code the port does not have yet (the planar-prior pass, view-spread,
-streamed tables, the retired ``batch_candidates``) raise
+last external iteration (``cross_scale_inject``).  With semantic masks
+under ``use_semantic`` (or ``self_priors``), or an external prior channel
+(``ext_prior_depth``), the planar-prior pass (``dense/priors.py``) runs
+once, before external iteration max(n - 2, 1), and its maps become the
+prior (ref: GenerateDepthPrior at it_external == n - 2,
+SceneDensify.cpp:983-1031).  Knobs whose code the port does not have yet
+(view-spread, streamed tables, the retired ``batch_candidates``) raise
 NotImplementedError instead of being skipped.  Every stage of
 ``estimate_scene`` is timed into ``utils.profiling``'s report, the device
 synchronised at its end.
@@ -37,6 +41,9 @@ from hcmvs_tpu_torch.dense.fusion import (cross_view_filter, gap_interpolate,
                                           gap_repropagate)
 from hcmvs_tpu_torch.dense.patchmatch import (ScoreContext, half_sweep,
                                               propagation_offsets)
+from hcmvs_tpu_torch.dense.priors import (generate_priors,
+                                          hyps_from_probability,
+                                          merge_final_prior, ransac_draws)
 from hcmvs_tpu_torch.dense.types import (PatchMatchState, init_state,
                                          make_view_geometry, pixel_rays)
 from hcmvs_tpu_torch.ops.gradients import sobel_magnitude
@@ -63,8 +70,12 @@ class SceneTensors:
                                                    # neighbour (dense/flow)
     prior_depth: Optional[torch.Tensor] = None     # (N, H, W) cross-scale
                                                    # prior (0 = none)
-    ext_prior_depth: Optional[torch.Tensor] = None  # not ported: raises
-    semantic: Optional[torch.Tensor] = None        # not ported: raises
+    ext_prior_depth: Optional[torch.Tensor] = None  # (N, H, W) external
+                                    # prior maps (--priors-dir, the
+                                    # meanshift channel), merged by
+                                    # compute_scene_priors
+    semantic: Optional[torch.Tensor] = None        # (N, H, W) int64 mask
+                                                   # labels
     inject_depth: Optional[torch.Tensor] = None    # (N, H, W) cross-scale
     inject_normal: Optional[torch.Tensor] = None   # (N, 3, H, W) hypothesis
     vols: Optional[VolumeTables] = None  # leading (N, V) dims; built once
@@ -79,19 +90,20 @@ class SceneState:
 
 
 def want_prior_pass(scene: SceneTensors, cfg: DenseConfig) -> bool:
-    """Whether the superpixel/semantic prior pass would run."""
+    """Whether the superpixel/semantic prior pass runs: with masks under
+    ``use_semantic`` (SLIC self-priors without masks only when
+    ``self_priors`` forces them: they cost 0.21 depth accuracy on
+    wide-FOV geometry in the JAX package's ablation, BASELINE.md r4), or
+    with an external prior channel."""
     return ((cfg.use_semantic and (scene.semantic is not None
                                    or bool(cfg.self_priors)))
             or scene.ext_prior_depth is not None)
 
 
-def _check_ported(scene: SceneTensors, cfg: DenseConfig) -> None:
-    """Raise for inputs and knobs whose code paths are not ported."""
+def _check_ported(cfg: DenseConfig) -> None:
+    """Raise for knobs whose code paths are not ported."""
     if cfg.view_spread:
         raise NotImplementedError("view_spread (not ported)")
-    if want_prior_pass(scene, cfg):
-        raise NotImplementedError("planar priors (dense/priors.py, not "
-                                  "ported)")
 
 
 def _per_view_context(scene: SceneTensors, i: int,
@@ -135,7 +147,7 @@ def scene_sweeps(state: SceneState, scene: SceneTensors, cfg: DenseConfig,
     last external iteration when cross-scale maps are attached) the last
     inner sweep scores the upsampled previous-stage hypothesis with a 0.1
     bonus (ref: restore/libs/MVS/DepthMap.cpp:1527-1549)."""
-    _check_ported(scene, cfg)
+    _check_ported(cfg)
     inject = inject and scene.inject_depth is not None
     offsets = S.patch_offsets(cfg)
     prop_offsets = propagation_offsets(cfg)
@@ -236,17 +248,24 @@ def phase_cfg(cfg: DenseConfig, phase: int,
 
 def estimate_scene(gen: torch.Generator, scene: SceneTensors,
                    cfg: DenseConfig, verbose: bool = False,
-                   init: Optional[SceneState] = None) -> SceneState:
+                   init: Optional[SceneState] = None,
+                   replace_prior: bool = False) -> SceneState:
     """Full multi-view estimation with the HC-MVS external schedule.
 
     ``gen`` drives the random init and refinement (on the scene's
-    device); ``init`` replaces the random init.  The stages are timed into
-    ``utils.profiling``'s report (device synchronised at each end):
-    ``estimate.tables``, ``estimate.sweeps.ext{i}.phase{p}`` per external
-    iteration and ``estimate.optimize.ext{i}`` per filter pass.
+    device); ``init`` replaces the random init.  The planar-prior pass
+    (``want_prior_pass``) runs before external iteration max(n - 2, 1)
+    when no prior is attached; with ``replace_prior`` (a hierarchy
+    stage's schedule, as the JAX package's ``_run_stage``) it runs even
+    then, and its maps replace the attached (cross-scale) prior.  The
+    stages are timed into ``utils.profiling``'s report (device
+    synchronised at each end): ``estimate.tables``,
+    ``estimate.sweeps.ext{i}.phase{p}`` per external iteration,
+    ``estimate.optimize.ext{i}`` per filter pass, and the prior pass as
+    ``estimate.priors`` (``stage.priors`` with ``replace_prior``).
     """
     cfg = window_cfg_for_width(cfg, scene.gray.shape[2])
-    _check_ported(scene, cfg)
+    _check_ported(cfg)
     n_ext = cfg.estimation_iters_external
     dev = scene.gray.device
     state = init if init is not None else init_scene_state(gen, scene)
@@ -254,6 +273,19 @@ def estimate_scene(gen: torch.Generator, scene: SceneTensors,
         scene = attach_volumes(scene, cfg)
     for it_ext in range(n_ext):
         phase = 1 if it_ext >= cfg.photo2geo else 0
+        # the planar priors, computed one iteration before the last, feed
+        # the final sweeps (ref: GenerateDepthPrior at it_external == n-2,
+        # SceneDensify.cpp:983-1031); an external channel alone also
+        # starts the pass (GenerateFinalPrior, :1079-1161)
+        if (want_prior_pass(scene, cfg) and it_ext == max(n_ext - 2, 1)
+                and (replace_prior or scene.prior_depth is None)):
+            with stage_timer("stage.priors" if replace_prior
+                             else "estimate.priors", block_on=dev):
+                scene = compute_scene_priors(
+                    state, dataclasses.replace(scene, prior_depth=None),
+                    cfg=cfg, with_super=cfg.use_semantic and (
+                        scene.semantic is not None
+                        or bool(cfg.self_priors)))
         inject = (bool(cfg.cross_scale_inject) and it_ext == n_ext - 1
                   and scene.inject_depth is not None)
         with stage_timer(f"estimate.sweeps.ext{it_ext}.phase{phase}",
@@ -269,6 +301,68 @@ def estimate_scene(gen: torch.Generator, scene: SceneTensors,
             print(f"[dense] it_ext={it_ext} phase={phase} "
                   f"mean_cost={float(state.cost.mean()):.4f}")
     return state
+
+
+def prior_generator(view: int, device) -> torch.Generator:
+    """View ``view``'s generator of the prior pass's RANSAC draws, seeded
+    from (7, view) alone (7: the JAX package's ``PRNGKey(7)``)."""
+    seed = np.random.SeedSequence([7, view]).generate_state(1, np.uint64)
+    return torch.Generator(device=device).manual_seed(
+        int(seed[0]) & (2 ** 63 - 1))
+
+
+def _priors_batched(gray: torch.Tensor, depth: torch.Tensor,
+                    semantic: Optional[torch.Tensor], n_semantic: int,
+                    cfg: Optional[DenseConfig] = None,
+                    draws: Optional[list] = None) -> torch.Tensor:
+    """``generate_priors`` of every view: (N, H, W) prior depths.  The
+    RANSAC draws of view i come from ``prior_generator(i)`` unless
+    ``draws`` gives each view's (anchor, offsets).  The fransac* knobs of
+    ``cfg`` set every prior-plane threshold (ref: DensifyPointCloud.cpp:
+    195-198 -> SceneDensify.cpp:1350-1375)."""
+    kw = {}
+    if cfg is not None:
+        kw = dict(epsilon_mul=cfg.ransac_epsilon_mul,
+                  min_points_div=cfg.ransac_min_points_div,
+                  probability=cfg.ransac_probability)
+    n, h, w = gray.shape
+    outs = []
+    for i in range(n):
+        view_draws = None
+        if semantic is not None:
+            view_draws = (draws[i] if draws is not None else ransac_draws(
+                prior_generator(i, gray.device), h, w,
+                hyps_from_probability(kw.get("probability", 0.005))))
+        outs.append(generate_priors(
+            gray[i], depth[i],
+            semantic=None if semantic is None else semantic[i],
+            n_semantic_labels=n_semantic if semantic is not None else 0,
+            draws=view_draws, **kw))
+    return torch.stack(outs)
+
+
+def compute_scene_priors(state: SceneState, scene: SceneTensors,
+                         with_super: bool = True,
+                         cfg: Optional[DenseConfig] = None,
+                         draws: Optional[list] = None) -> SceneTensors:
+    """The scene with per-view planar-prior depth maps attached as
+    ``prior_depth`` (with RANSAC planes per mask region where masks are
+    attached: nUseSemantic).  An external channel (``ext_prior_depth``,
+    the --priors-dir maps) merges in per pixel as GenerateFinalPrior
+    merges it: external wins where nonzero, the superpixel/semantic prior
+    fills the rest (ref: SceneDensify.cpp:1079-1161).
+    ``with_super=False`` skips the superpixel pass and attaches the
+    external channel alone.  ``draws``: see ``_priors_batched``."""
+    if with_super:
+        n_sem = (int(scene.semantic.max()) + 1
+                 if scene.semantic is not None else 0)
+        priors = _priors_batched(scene.gray, state.depth, scene.semantic,
+                                 n_sem, cfg, draws)
+        if scene.ext_prior_depth is not None:
+            priors = merge_final_prior(scene.ext_prior_depth, priors)
+    else:
+        priors = scene.ext_prior_depth
+    return dataclasses.replace(scene, prior_depth=priors)
 
 
 def optimize_maps(state: SceneState, scene: SceneTensors,

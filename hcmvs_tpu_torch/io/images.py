@@ -3,13 +3,17 @@ the main-path functions of ``hcmvs_tpu/io/images.py``).
 
 The JAX package decodes with ``cv2``; the machine the port runs on has no
 OpenCV, PIL or imageio, so this module decodes the formats itself with
-numpy and ``zlib``: binary PGM/PPM (``P5``/``P6``, maxval 255) and 8-bit,
-non-interlaced PNG (gray, gray + alpha, RGB, RGBA) with all five row
-filters.  Results are laid out as the JAX package's: (H, W, 3) RGB
-float32 in [0, 1] (gray files replicated to three channels and alpha
-dropped, as ``cv2.IMREAD_COLOR`` does), or (H, W) with ``gray=True``.
-Any other format (JPEG, 16-bit or palette or interlaced PNG, ASCII PNM)
-raises NotImplementedError naming it.
+numpy and ``zlib``: binary PGM/PPM (``P5``/``P6``, maxval 255) and
+non-interlaced PNG of every colour type and bit depth (gray at 1/2/4/8/16
+bits, gray + alpha, RGB and RGBA at 8/16, palette at 1/2/4/8 with its
+``tRNS`` alpha) with all five row filters.  ``load_image`` lays results
+out as the JAX package's: (H, W, 3) RGB float32 in [0, 1] (gray files
+replicated to three channels and alpha dropped, 16-bit samples cut to
+their high byte, as ``cv2.IMREAD_COLOR`` does), or (H, W) with
+``gray=True``.  ``load_semantic_mask`` reads label images unchanged, as
+``cv2.IMREAD_UNCHANGED`` does (16-bit labels stay 16-bit).  Any other
+format (JPEG, interlaced PNG, ASCII PNM) raises NotImplementedError
+naming it.
 
 PNG row filters: when every row uses None, Sub or Up, rows are decoded
 one after another, each vectorised over the whole row (Sub is a
@@ -17,13 +21,16 @@ per-channel running sum modulo 256).  Average and Paeth depend on the
 reconstructed pixel to their left as well as on the row above, so an
 image that uses them (OpenCV's encoder picks them for smooth images) is
 decoded as a wavefront: all pixels of one anti-diagonal y + x at once,
-H + W numpy steps whatever the row filters.  The writer takes the row
-filter(s) to use (Up by default).
+H + W numpy steps whatever the row filters.  Filters act on bytes, so a
+16-bit sample is two byte channels and a row of sub-byte samples one
+byte channel until the filters are undone.  The writer takes the row
+filter(s) to use (Up by default) and writes 8- or 16-bit samples.
 
 ``resize_image`` follows ``cv2.resize``: INTER_AREA when shrinking, as
 exact area-overlap weights (cv2's ``computeResizeAreaTab``, right for
 non-integer ratios too), INTER_LINEAR when enlarging (half-pixel centres,
-clamped edges); each is two separable weight matrices.
+clamped edges); each is two separable weight matrices.  ``resize_mask``
+is INTER_NEAREST's index rule.
 """
 
 from __future__ import annotations
@@ -37,7 +44,9 @@ from typing import Tuple
 import numpy as np
 
 _PNG_SIGNATURE = b"\x89PNG\r\n\x1a\n"
-_PNG_CHANNELS = {0: 1, 2: 3, 4: 2, 6: 4}   # colour type -> samples/pixel
+# colour type -> (samples per pixel, the bit depths the PNG spec allows)
+_PNG_TYPES = {0: (1, (1, 2, 4, 8, 16)), 2: (3, (8, 16)), 3: (1, (1, 2, 4, 8)),
+              4: (2, (8, 16)), 6: (4, (8, 16))}
 # cv2's gray conversions of 8-bit colour files with IMREAD_GRAYSCALE:
 # PNM through its BT.601 fixed point (R, G, B scaled by 2**14, rounded),
 # PNG through libpng's rgb_to_gray(0.299, 0.587) (scaled by 2**15,
@@ -91,39 +100,17 @@ def _unfilter_wavefront(raw: np.ndarray, kinds: np.ndarray) -> np.ndarray:
     return out[diag, rows].astype(np.uint8)
 
 
-def _decode_png(data: bytes, path: str) -> np.ndarray:
-    """(H, W, C) uint8 samples of an 8-bit non-interlaced PNG."""
-    pos, idat, header = 8, [], None
-    while pos + 8 <= len(data):
-        (length,) = struct.unpack_from(">I", data, pos)
-        kind = data[pos + 4:pos + 8]
-        body = data[pos + 8:pos + 8 + length]
-        pos += 12 + length
-        if kind == b"IHDR":
-            header = struct.unpack(">IIBBBBB", body)
-        elif kind == b"IDAT":
-            idat.append(body)
-        elif kind == b"IEND":
-            break
-    if header is None:
-        raise ValueError(f"{path}: PNG without IHDR")
-    w, h, depth, color, _, _, interlace = header
-    if depth != 8:
-        raise NotImplementedError(f"{path}: {depth}-bit PNG (8-bit only)")
-    if interlace:
-        raise NotImplementedError(f"{path}: interlaced (Adam7) PNG")
-    if color not in _PNG_CHANNELS:
-        raise NotImplementedError(f"{path}: PNG colour type {color} "
-                                  f"(palette images are not decoded)")
-    bpp = _PNG_CHANNELS[color]
-    stride = w * bpp
-    rows = np.frombuffer(zlib.decompress(b"".join(idat)), np.uint8)
-    rows = rows[:h * (stride + 1)].reshape(h, stride + 1)
+def _unfilter(rows: np.ndarray, bpp: int) -> np.ndarray:
+    """(H, stride) bytes from the (H, 1 + stride) filtered scanlines
+    ``rows``, with ``bpp`` bytes a filter unit."""
+    h, stride = rows.shape[0], rows.shape[1] - 1
     kinds = rows[:, 0]
     if kinds.max(initial=0) > 4:
-        raise ValueError(f"{path}: PNG row filter {int(kinds.max())}")
+        raise ValueError(f"PNG row filter {int(kinds.max())}")
+    units = stride // bpp
     if (kinds >= 3).any():
-        return _unfilter_wavefront(rows[:, 1:].reshape(h, w, bpp), kinds)
+        return _unfilter_wavefront(rows[:, 1:].reshape(h, units, bpp),
+                                   kinds).reshape(h, stride)
     out = np.empty((h, stride), np.uint8)
     prev = np.zeros(stride, np.uint8)
     for y in range(h):
@@ -131,13 +118,86 @@ def _decode_png(data: bytes, path: str) -> np.ndarray:
         if kind == 0:
             cur = line
         elif kind == 1:
-            cur = np.cumsum(line.reshape(w, bpp), axis=0,
+            cur = np.cumsum(line.reshape(units, bpp), axis=0,
                             dtype=np.uint8).reshape(-1)
         else:
             cur = line + prev
         out[y] = cur
         prev = out[y]
-    return out.reshape(h, w, bpp)
+    return out
+
+
+def _decode_png(data: bytes, path: str) -> np.ndarray:
+    """(H, W, C) samples of a non-interlaced PNG as ``cv2.imread(path,
+    IMREAD_UNCHANGED)`` returns them, but in RGB(A) channel order: uint16
+    for 16-bit files, else uint8; gray below 8 bits scaled to 0-255; gray
+    + alpha as four channels (gray three times); palette images expanded
+    to RGB, or RGBA when a ``tRNS`` chunk gives alpha; an RGB image with
+    a ``tRNS`` colour gains alpha (0 on that colour, else opaque)."""
+    pos, idat, header, plte, trns = 8, [], None, None, None
+    while pos + 8 <= len(data):
+        (length,) = struct.unpack_from(">I", data, pos)
+        kind = data[pos + 4:pos + 8]
+        body = data[pos + 8:pos + 8 + length]
+        pos += 12 + length
+        if kind == b"IHDR":
+            header = struct.unpack(">IIBBBBB", body)
+        elif kind == b"PLTE":
+            plte = np.frombuffer(body, np.uint8).reshape(-1, 3)
+        elif kind == b"tRNS":
+            trns = body
+        elif kind == b"IDAT":
+            idat.append(body)
+        elif kind == b"IEND":
+            break
+    if header is None:
+        raise ValueError(f"{path}: PNG without IHDR")
+    w, h, depth, color, _, _, interlace = header
+    if interlace:
+        raise NotImplementedError(f"{path}: interlaced (Adam7) PNG")
+    if color not in _PNG_TYPES:
+        raise NotImplementedError(f"{path}: PNG colour type {color}")
+    ch, depths = _PNG_TYPES[color]
+    if depth not in depths:
+        raise ValueError(f"{path}: {depth}-bit PNG of colour type {color}")
+    if color == 3 and plte is None:
+        raise ValueError(f"{path}: palette PNG without PLTE")
+    bits = depth * ch
+    stride = (w * bits + 7) // 8
+    rows = np.frombuffer(zlib.decompress(b"".join(idat)), np.uint8)
+    rows = rows[:h * (stride + 1)].reshape(h, stride + 1)
+    try:
+        raw = _unfilter(rows, max(bits // 8, 1))
+    except ValueError as exc:
+        raise ValueError(f"{path}: {exc}") from None
+    if depth == 16:                      # big-endian samples
+        pairs = raw.reshape(h, w, ch, 2).astype(np.uint16)
+        out = (pairs[..., 0] << 8) | pairs[..., 1]
+    elif depth < 8:
+        vals = np.unpackbits(raw, axis=1).reshape(h, -1, depth)
+        vals = (vals * (1 << np.arange(depth - 1, -1, -1))).sum(-1)
+        out = vals[:, :w, None].astype(np.uint8)
+        if color == 0:
+            out = out * np.uint8(255 // ((1 << depth) - 1))
+    else:
+        out = raw.reshape(h, w, ch)
+    if color == 3:
+        idx = out[..., 0]
+        if int(idx.max(initial=0)) >= len(plte):
+            raise ValueError(f"{path}: palette index beyond PLTE")
+        out = plte[idx]
+        if trns is not None:
+            alpha = np.full(len(plte), 255, np.uint8)
+            t = np.frombuffer(trns, np.uint8)[:len(plte)]
+            alpha[:len(t)] = t
+            out = np.concatenate([out, alpha[idx][..., None]], -1)
+    elif color == 4:
+        out = out[..., [0, 0, 0, 1]]
+    elif color == 2 and trns is not None and len(trns) >= 6:
+        key = np.frombuffer(trns[:6], ">u2").astype(out.dtype)
+        alpha = np.where((out == key).all(-1), 0, np.iinfo(out.dtype).max)
+        out = np.concatenate([out, alpha[..., None].astype(out.dtype)], -1)
+    return np.ascontiguousarray(out)
 
 
 def _pnm_tokens(data: bytes, n: int) -> Tuple[list, int]:
@@ -171,40 +231,88 @@ def _decode_pnm(data: bytes, path: str) -> np.ndarray:
     return np.frombuffer(data, np.uint8, h * w * c, pos).reshape(h, w, c)
 
 
-def _gray_u8(rgb: np.ndarray, png: bool) -> np.ndarray:
-    """cv2's 8-bit RGB -> gray conversion for the file type."""
-    r, g, b = (rgb[..., k].astype(np.int32) for k in range(3))
+def _gray(rgb: np.ndarray, png: bool) -> np.ndarray:
+    """cv2's RGB -> gray conversion for the file type and sample depth
+    (16-bit PNG samples through libpng's 16-bit path, which rounds)."""
+    r, g, b = (rgb[..., k].astype(np.int64) for k in range(3))
     cr, cg, cb, shift, rnd = _GRAY_PNG if png else _GRAY_PNM
+    if rgb.dtype == np.uint16:
+        rnd = 1 << 14
     y = (r * cr + g * cg + b * cb + rnd) >> shift
     if png:
         y = np.where((r == g) & (r == b), r, y)
-    return y.astype(np.uint8)
+    return y.astype(rgb.dtype)
 
 
-def load_image(path: str, gray: bool = False) -> np.ndarray:
-    """Load an image as float32 in [0, 1]; RGB (H, W, 3) or gray (H, W)."""
+def _read_samples(path: str) -> Tuple[np.ndarray, bool]:
+    """(H, W, C) samples of an image file (RGB(A) order; see
+    ``_decode_png``) and whether it is a PNG."""
     if not os.path.exists(path):
         raise FileNotFoundError(path)
     with open(path, "rb") as f:
         data = f.read()
-    png = data[:8] == _PNG_SIGNATURE
-    if png:
-        raw = _decode_png(data, path)
-    elif data[:1] == b"P" and data[1:2] in b"123456":
-        raw = _decode_pnm(data, path)
-    elif data[:2] == b"\xff\xd8":
+    if data[:8] == _PNG_SIGNATURE:
+        return _decode_png(data, path), True
+    if data[:1] == b"P" and data[1:2] in b"123456":
+        return _decode_pnm(data, path), False
+    if data[:2] == b"\xff\xd8":
         raise NotImplementedError(f"{path}: JPEG is not decoded without "
                                   f"OpenCV (PNG, PGM, PPM only)")
-    else:
-        raise NotImplementedError(f"{path}: unknown image format (PNG, PGM, "
-                                  f"PPM only)")
+    raise NotImplementedError(f"{path}: unknown image format (PNG, PGM, "
+                              f"PPM only)")
+
+
+def load_image(path: str, gray: bool = False) -> np.ndarray:
+    """Load an image as float32 in [0, 1]; RGB (H, W, 3) or gray (H, W)."""
+    raw, png = _read_samples(path)
     if raw.shape[2] in (2, 4):
         raw = raw[..., :-1]                    # drop alpha, as cv2 does
     if gray:
-        img = raw[..., 0] if raw.shape[2] == 1 else _gray_u8(raw, png)
+        img = raw[..., 0] if raw.shape[2] == 1 else _gray(raw, png)
     else:
         img = np.repeat(raw, 3, axis=2) if raw.shape[2] == 1 else raw
+    if img.dtype == np.uint16:
+        img = img >> 8                         # the high byte, as cv2
     return img.astype(np.float32) / 255.0
+
+
+def load_semantic_mask(path: str) -> np.ndarray:
+    """A semantic-segmentation mask as an (H, W) int32 label map (ref:
+    Image::maskName, frame_main/libs/MVS/Image.h:75-99, read by
+    GenerateDepthPrior, SceneDensify.cpp:1550-1950).  8/16-bit
+    single-channel files are their own labels; in a colour-coded mask each
+    distinct colour becomes one label, numbered in the order of a code
+    built from the channels in cv2's BGR(A) order, as the JAX package
+    numbers them."""
+    raw, _ = _read_samples(path)
+    if raw.shape[2] == 1:
+        return raw[..., 0].astype(np.int32)
+    bgr = raw[..., [2, 1, 0, 3][:raw.shape[2]]]
+    flat = bgr.reshape(-1, raw.shape[2]).astype(np.int64)
+    code = flat[:, 0]
+    for c in range(1, raw.shape[2]):
+        code = code * 256 + flat[:, c]
+    _, labels = np.unique(code, return_inverse=True)
+    return labels.reshape(raw.shape[:2]).astype(np.int32)
+
+
+def _nearest_index(n_src: int, n_dst: int) -> np.ndarray:
+    """cv2 INTER_NEAREST's source index of each output cell:
+    floor(dst * n_src / n_dst) in cv2's double arithmetic, clamped."""
+    inv = 1.0 / (n_dst / n_src)
+    return np.minimum(np.floor(np.arange(n_dst) * inv).astype(np.int64),
+                      n_src - 1)
+
+
+def resize_mask(mask: np.ndarray, shape_hw: Tuple[int, int]) -> np.ndarray:
+    """Nearest-neighbour resize of a label map to ``shape_hw`` (labels
+    must not blend), as ``cv2.resize(..., INTER_NEAREST)``."""
+    h, w = shape_hw
+    if mask.shape == (h, w):
+        return mask
+    ys = _nearest_index(mask.shape[0], h)
+    xs = _nearest_index(mask.shape[1], w)
+    return mask.astype(np.int32)[ys[:, None], xs[None, :]]
 
 
 def to_gray(img: np.ndarray) -> np.ndarray:
@@ -286,15 +394,18 @@ def resize_image(img: np.ndarray, scale: float) -> np.ndarray:
 
 
 def write_png(path: str, img: np.ndarray, filters=2) -> None:
-    """Write (H, W) gray, (H, W, 3) RGB or (H, W, 4) RGBA uint8 as an
-    8-bit PNG (zlib level 6).  ``filters`` is the row filter type (0 None,
-    1 Sub, 2 Up, 3 Average, 4 Paeth) of every row, or a sequence of one
-    per row."""
-    img = np.ascontiguousarray(img, np.uint8)
+    """Write (H, W) gray, (H, W, 3) RGB or (H, W, 4) RGBA samples as a PNG
+    (zlib level 6): 16-bit for a uint16 array, else 8-bit.  ``filters`` is
+    the row filter type (0 None, 1 Sub, 2 Up, 3 Average, 4 Paeth) of every
+    row, or a sequence of one per row."""
+    depth = 16 if np.asarray(img).dtype == np.uint16 else 8
+    img = np.ascontiguousarray(img, np.uint16 if depth == 16 else np.uint8)
     h, w = img.shape[:2]
     c = 1 if img.ndim == 2 else img.shape[2]
     color = {1: 0, 3: 2, 4: 6}[c]
-    x = img.reshape(h, w, c).astype(np.int16)
+    # filters act on bytes: a 16-bit sample is two (big-endian) channels
+    x = img.reshape(h, w, c).astype(">u2" if depth == 16 else np.uint8)
+    x = x.view(np.uint8).reshape(h, w, -1).astype(np.int16)
     a = np.pad(x, ((0, 0), (1, 0), (0, 0)))[:, :-1]
     b = np.pad(x, ((1, 0), (0, 0), (0, 0)))[:-1]
     ul = np.pad(x, ((1, 0), (1, 0), (0, 0)))[:-1, :-1]
@@ -302,7 +413,7 @@ def write_png(path: str, img: np.ndarray, filters=2) -> None:
     pred = _predict(kinds, a, b, ul)
     raw = np.concatenate([kinds[:, :, 0].astype(np.uint8),
                           ((x - pred) & 0xFF).astype(np.uint8)
-                          .reshape(h, w * c)], axis=1)
+                          .reshape(h, -1)], axis=1)
 
     def chunk(kind: bytes, body: bytes) -> bytes:
         return (struct.pack(">I", len(body)) + kind + body
@@ -310,8 +421,8 @@ def write_png(path: str, img: np.ndarray, filters=2) -> None:
 
     with open(path, "wb") as f:
         f.write(_PNG_SIGNATURE)
-        f.write(chunk(b"IHDR", struct.pack(">IIBBBBB", w, h, 8, color, 0, 0,
-                                           0)))
+        f.write(chunk(b"IHDR", struct.pack(">IIBBBBB", w, h, depth, color, 0,
+                                           0, 0)))
         f.write(chunk(b"IDAT", zlib.compress(raw.tobytes(), 6)))
         f.write(chunk(b"IEND", b""))
 

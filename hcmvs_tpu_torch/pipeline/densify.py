@@ -3,25 +3,33 @@ port of ``hcmvs_tpu/pipeline/densify.py``).
 
 Loads a `.mvs` scene and its images, selects neighbours, computes the
 optical flows, runs the PatchMatch schedule (with the mid-schedule
-filter), fuses a point cloud, and writes the per-view ``.dmap`` files,
-``scene_dense.ply`` and ``scene_dense.mvs`` (ref: apps/DensifyPointCloud/
-DensifyPointCloud.cpp:373-458 main + Scene::DenseReconstruction,
-SceneDensify.cpp:3532).  CLI flags map 1:1 to the reference's through
-``core.config.CLI_FLAG_MAP``.
+filter and, with semantic masks under ``use_semantic`` or external prior
+maps, the planar-prior pass), fuses a point cloud, and writes the
+per-view ``.dmap`` files, ``scene_dense.ply`` and ``scene_dense.mvs``
+(ref: apps/DensifyPointCloud/DensifyPointCloud.cpp:373-458 main +
+Scene::DenseReconstruction, SceneDensify.cpp:3532).  CLI flags map 1:1
+to the reference's through ``core.config.CLI_FLAG_MAP``.
 
     python -m hcmvs_tpu_torch.pipeline.densify --input-file scene.mvs \\
-        -w out --flags resolution-level=0 [--device cpu]
+        -w out --flags resolution-level=0 use-semantic=1 \\
+        [--masks-dir masks] [--priors-dir priors] [--device cpu]
+    python -m hcmvs_tpu_torch.pipeline.densify --input-file scene.mvs \\
+        -w out --project-labels
 
-Everything runs on the card unless ``device="cpu"`` is asked for; without
-a card that request is required (no quiet fallback).  Modes and options
-whose modules are not ported raise NotImplementedError naming the module:
-SGM (``fusion_mode`` -1/-2), semantic masks under ``use_semantic``,
-external priors, mesh sampling, label projection and the viewer export.
+Masks are found per image as ``find_scene_masks`` says (``<stem>.mask.png``
+beside the image by default); ``--priors-dir`` holds ``depth%04d.dmap``
+or ``<stem>.dmap`` prior maps; ``--project-labels`` colours the scene's
+points from ``<stem>_l_colored.png`` label images.  Everything runs on
+the card unless ``device="cpu"`` is asked for; without a card that
+request is required (no quiet fallback).  Modes whose modules are not
+ported raise NotImplementedError naming the module: SGM (``fusion_mode``
+-1/-2), mesh sampling and the viewer export.
 """
 
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import os
 import time
 from typing import Dict, List, Optional
@@ -41,7 +49,8 @@ from hcmvs_tpu_torch.dense.view_selection import (depth_range_from_points,
                                                   select_neighbors)
 from hcmvs_tpu_torch.io.dmap import DepthMapData, read_dmap, write_dmap
 from hcmvs_tpu_torch.io.images import (compute_resolution_scale, load_image,
-                                       resize_image, save_depth_png, to_gray)
+                                       load_semantic_mask, resize_image,
+                                       resize_mask, save_depth_png, to_gray)
 from hcmvs_tpu_torch.io.mvs import SceneMVS, read_mvs, write_mvs
 from hcmvs_tpu_torch.io.ply import write_ply_points
 from hcmvs_tpu_torch.utils.profiling import log_report, stage_timer
@@ -85,14 +94,160 @@ def find_scene_masks(scene: SceneMVS, images_dir: str,
     return paths if any(p is not None for p in paths) else None
 
 
+def load_scene_masks(mask_paths: List[Optional[str]],
+                     shape_hw) -> np.ndarray:
+    """Masks read and nearest-resized to the working resolution, their
+    labels remapped to one dense id space for the whole scene ((N, H, W)
+    int32; an image without a mask is one all-zero region).  Identical
+    raw ids mean the same class in every view (the usual segmentation
+    export), so the remap is joint."""
+    masks = [np.zeros(shape_hw, np.int32) if p is None
+             else resize_mask(load_semantic_mask(p), shape_hw)
+             for p in mask_paths]
+    stack = np.stack(masks)
+    _, inv = np.unique(stack, return_inverse=True)
+    return inv.reshape(stack.shape).astype(np.int32)
+
+
+def load_prior_maps(priors_dir: str, scene: SceneMVS,
+                    shape_hw) -> Optional[np.ndarray]:
+    """Externally produced prior depth maps, the reference's meanshift
+    prior channel (ref: GenerateFinalPrior's LoadDepthMap of
+    ComposeMeanshiftDepthPriorsPath, SceneDensify.cpp:1088-1100; channel
+    DepthMap.h:294-297): per image ``depth%04d.dmap`` (the stage-handoff
+    name) or ``<image-stem>.dmap`` in ``priors_dir``, resized to the
+    working resolution by nearest neighbour (a 0 hole must not bleed).
+    Returns (N, H, W) float32, 0 where no map exists, or None when no
+    image has one."""
+    h, w = shape_hw
+    out = np.zeros((len(scene.images), h, w), np.float32)
+    found = False
+    for i, im in enumerate(scene.images):
+        stem = os.path.splitext(os.path.basename(im.name))[0]
+        cand = [os.path.join(priors_dir, f"depth{i:04d}.dmap"),
+                os.path.join(priors_dir, stem + ".dmap")]
+        path = next((c for c in cand if os.path.exists(c)), None)
+        if path is None:
+            continue
+        d = read_dmap(path).depth
+        ys = (np.arange(h) * (d.shape[0] / h)).astype(np.int64)
+        xs = (np.arange(w) * (d.shape[1] / w)).astype(np.int64)
+        out[i] = d[ys[:, None], xs[None, :]]
+        found = True
+    return out if found else None
+
+
+def find_label_masks(scene: SceneMVS, images_dir: str,
+                     masks_dir: Optional[str] = None
+                     ) -> List[Optional[str]]:
+    """Per-image coloured label images of ``--project-labels`` (ref: the
+    coloredMaskName convention ``<image-stem>_l_colored.png`` beside the
+    image, DensifyPointCloud.cpp:418-424); ``masks_dir`` is looked in
+    first (``<stem>_l_colored.png``, then ``<stem>.png``)."""
+    paths: List[Optional[str]] = []
+    for im in scene.images:
+        stem = os.path.splitext(os.path.basename(im.name))[0]
+        cand = []
+        if masks_dir:
+            cand += [os.path.join(masks_dir, stem + "_l_colored.png"),
+                     os.path.join(masks_dir, stem + ".png")]
+        cand.append(os.path.join(images_dir, stem + "_l_colored.png"))
+        paths.append(next((c for c in cand if os.path.exists(c)), None))
+    return paths
+
+
+def estimate_point_labels(scene: SceneMVS,
+                          label_paths: List[Optional[str]]) -> np.ndarray:
+    """Each point's colour from the label image of its closest view (the
+    least depth among the point's views that have a label image), sampled
+    at the point's projection (the EstimatePointLabels analog, ref:
+    frame_main/libs/MVS/DepthMap.cpp:2165-2217), vectorised over the
+    cloud on the host.  Returns (P, 3) uint8 BGR colours, white where no
+    view has a label image or the projection falls outside."""
+    pts = scene.points.astype(np.float64)
+    counts = scene.point_view_counts.astype(np.int64)
+    ids = scene.point_view_ids.astype(np.int64)
+    n_img = len(scene.images)
+    pt_of = np.repeat(np.arange(len(pts)), counts)             # (T,)
+    labels = []
+    sizes = np.zeros((n_img, 2), np.int64)
+    for i, p in enumerate(label_paths):
+        if p is None:
+            labels.append(None)
+            continue
+        img = load_image(p)
+        labels.append(np.clip(img * 255.0, 0, 255).astype(np.uint8))
+        sizes[i] = img.shape[:2]
+    Rs = np.zeros((n_img, 3, 3))
+    Cs = np.zeros((n_img, 3))
+    Ks = np.zeros((n_img, 3, 3))
+    for i in range(n_img):
+        Rs[i], Cs[i] = scene.pose_of(i)
+        if labels[i] is not None:
+            Ks[i] = scene.intrinsics_of(i, int(sizes[i][1]),
+                                        int(sizes[i][0]))
+    # each (point, view) pair's depth; the least per point wins
+    Xc = np.einsum("tij,tj->ti", Rs[ids], pts[pt_of] - Cs[ids])  # (T, 3)
+    depth = np.where(Xc[:, 2] > 0, Xc[:, 2], np.inf)
+    has_lbl = np.array([lbl is not None for lbl in labels])[ids]
+    depth = np.where(has_lbl, depth, np.inf)
+    order = np.lexsort((depth, pt_of))
+    first = np.searchsorted(pt_of[order], np.arange(len(pts)))
+    best_t = order[np.clip(first, 0, len(order) - 1)]          # (P,)
+    colors = np.full((len(pts), 3), 255, np.uint8)
+    best_view = ids[best_t]
+    best_ok = np.isfinite(depth[best_t]) & (counts > 0)
+    for i in range(n_img):
+        if labels[i] is None:
+            continue
+        sel = best_ok & (best_view == i)
+        if not sel.any():
+            continue
+        uvw = np.einsum("ij,pj->pi", Ks[i], Xc[best_t[sel]])
+        x = uvw[:, 0] / np.maximum(uvw[:, 2], 1e-12)
+        y = uvw[:, 1] / np.maximum(uvw[:, 2], 1e-12)
+        h_i, w_i = int(sizes[i][0]), int(sizes[i][1])
+        xi = np.clip(np.round(x).astype(np.int64), 0, w_i - 1)
+        yi = np.clip(np.round(y).astype(np.int64), 0, h_i - 1)
+        inside = (x >= -0.5) & (x < w_i - 0.5) & (y >= -0.5) \
+            & (y < h_i - 0.5)
+        rgb = labels[i][yi, xi]
+        colors[np.nonzero(sel)[0][inside]] = rgb[inside][:, ::-1]  # BGR
+    return colors
+
+
+def project_labels(scene_path: str, images_dir: str, out_base: str,
+                   masks_dir: Optional[str] = None,
+                   verbose: bool = True) -> dict:
+    """The ProjectLabels side mode (ref: DensifyPointCloud.cpp:416-433):
+    colour the scene's points from per-image coloured label images and
+    save ``<out_base>_labelled.mvs`` and ``.ply``.  Host work only."""
+    scene = read_mvs(scene_path)
+    label_paths = find_label_masks(scene, images_dir, masks_dir)
+    n_found = sum(p is not None for p in label_paths)
+    colors = estimate_point_labels(scene, label_paths)
+    scene.point_colors = colors
+    write_mvs(out_base + "_labelled.mvs", scene)
+    write_ply_points(out_base + "_labelled.ply", scene.points,
+                     colors=colors[:, ::-1])            # PLY wants RGB
+    if verbose:
+        print(f"[densify] projected labels from {n_found}/"
+              f"{len(scene.images)} label images -> "
+              f"{out_base}_labelled.mvs/.ply")
+    return {"n_points": len(scene.points), "n_label_images": n_found,
+            "colors": colors}
+
+
 def build_scene_tensors(scene: SceneMVS, images_gray: List[np.ndarray],
                         cfg: DenseConfig,
                         flows: Optional[torch.Tensor] = None,
+                        semantic: Optional[np.ndarray] = None,
                         device="cuda") -> SceneTensors:
     """Scene tensors on ``device`` from a host scene (uniform image
-    sizes): cameras, neighbours (covisibility top-k), depth ranges and the
+    sizes): cameras, neighbours (covisibility top-k), depth ranges, the
     sparse seeds, splatted or, with ``init_triangulate``, interpolated
-    over a Delaunay triangulation (``dense/init_tri.py``)."""
+    over a Delaunay triangulation (``dense/init_tri.py``), and the
+    semantic labels when given."""
     dev = resolve_device(device)
     n = len(scene.images)
     h, w = images_gray[0].shape
@@ -133,7 +288,9 @@ def build_scene_tensors(scene: SceneMVS, images_gray: List[np.ndarray],
         nbr_idx=torch.as_tensor(nbr_idx, dtype=torch.int64, device=dev),
         nbr_valid=torch.as_tensor(nbr_valid, device=dev),
         d_min=f32(d_ranges[:, 0]), d_max=f32(d_ranges[:, 1]),
-        seed_depth=f32(seeds), flows=flows)
+        seed_depth=f32(seeds), flows=flows,
+        semantic=(None if semantic is None else torch.as_tensor(
+            semantic, dtype=torch.int64, device=dev)))
 
 
 def _load_images(scene: SceneMVS, images_dir: str, cfg: DenseConfig):
@@ -162,21 +319,6 @@ def _load_images(scene: SceneMVS, images_dir: str, cfg: DenseConfig):
     return grays, colors
 
 
-def _unported_options(scene: SceneMVS, images_dir: str, cfg: DenseConfig,
-                      masks_dir, fusion_mode: int, priors_dir) -> None:
-    if fusion_mode < 0:
-        raise NotImplementedError(f"fusion_mode {fusion_mode}: SGM stereo "
-                                  f"maps (dense/sgm.py, not ported)")
-    if priors_dir is not None:
-        raise NotImplementedError("--priors-dir: external prior maps "
-                                  "(dense/priors.py, not ported)")
-    # masks are read only for use_semantic, as in the JAX package; then
-    # they feed the planar priors
-    if cfg.use_semantic and find_scene_masks(scene, images_dir, masks_dir):
-        raise NotImplementedError("semantic masks: the RANSAC planar "
-                                  "priors (dense/priors.py, not ported)")
-
-
 def densify(scene_path: str, images_dir: str, out_dir: str,
             cfg: Optional[DenseConfig] = None, verbose: bool = True,
             resume: bool = True,
@@ -195,15 +337,19 @@ def densify(scene_path: str, images_dir: str, out_dir: str,
     PatchMatch depth maps + fusion; 1 = depth maps only.  ``device``:
     where the tensors live ("cuda" by default; "cpu" must be asked for).
     ``init`` replaces the random initial state (as in ``estimate_scene``).
-    Every stage is timed into ``utils.profiling``'s report.
+    ``masks_dir``: where semantic masks are looked for (with
+    ``use_semantic``; ``find_scene_masks``); ``priors_dir``: external
+    prior maps (``load_prior_maps``).  Either starts the planar-prior
+    pass.  Every stage is timed into ``utils.profiling``'s report.
     """
     cfg = cfg or DenseConfig()
     dev = resolve_device(device)
+    if fusion_mode < 0:
+        raise NotImplementedError(f"fusion_mode {fusion_mode}: SGM stereo "
+                                  f"maps (dense/sgm.py, not ported)")
     os.makedirs(out_dir, exist_ok=True)
     scene = read_mvs(scene_path)
     n = len(scene.images)
-    _unported_options(scene, images_dir, cfg, masks_dir, fusion_mode,
-                      priors_dir)
     with stage_timer("densify.load_images", log=verbose):
         grays, colors = _load_images(scene, images_dir, cfg)
     h, w = grays[0].shape
@@ -219,8 +365,29 @@ def densify(scene_path: str, images_dir: str, out_dir: str,
             flows = scene_flows(torch.as_tensor(np.stack(grays),
                                                 device=dev), nbr1)
 
+    # masks only under use_semantic (the reference's final stage runs
+    # --use-semantic 1 with mask files, data/frame_main/resize1/run.py)
+    semantic = None
+    mask_paths = (find_scene_masks(scene, images_dir, masks_dir)
+                  if cfg.use_semantic else None)
+    if mask_paths is not None:
+        with stage_timer("densify.masks", log=verbose):
+            semantic = load_scene_masks(mask_paths, (h, w))
+        if verbose:
+            print(f"[densify] semantic masks: "
+                  f"{sum(p is not None for p in mask_paths)}/{n} images, "
+                  f"{int(semantic.max()) + 1} labels")
     with stage_timer("densify.scene_tensors", block_on=dev, log=verbose):
-        tensors = build_scene_tensors(scene, grays, cfg, flows, device=dev)
+        tensors = build_scene_tensors(scene, grays, cfg, flows,
+                                      semantic=semantic, device=dev)
+        ext = (None if priors_dir is None
+               else load_prior_maps(priors_dir, scene, (h, w)))
+        if ext is not None:
+            tensors = dataclasses.replace(
+                tensors, ext_prior_depth=torch.as_tensor(ext, device=dev))
+    if ext is not None and verbose:
+        print(f"[densify] external prior maps: "
+              f"{int((ext.reshape(n, -1) > 0).any(1).sum())}/{n} views")
     dmap_dir = os.path.join(out_dir, "depthmap")
     dmap_path = lambda i: os.path.join(dmap_dir, f"depth{i:04d}.dmap")  # noqa: E731
     t0 = time.time()
@@ -337,16 +504,25 @@ def main(argv=None):
     ap.add_argument("--no-resume", action="store_true",
                     help="re-estimate even if depth*.dmap files exist")
     ap.add_argument("--masks-dir", default=None,
-                    help="per-image semantic masks, read with "
-                         "use-semantic=1 (then not ported)")
+                    help="directory of per-image semantic masks "
+                         "(<image-stem>.png); with use-semantic=1 they "
+                         "feed the RANSAC planar priors (ref: Image "
+                         "maskName + GenerateDepthPrior)")
     ap.add_argument("--priors-dir", default=None,
-                    help="external prior depth maps (not ported)")
+                    help="directory of externally produced prior depth "
+                         "maps (depth%%04d.dmap or <image-stem>.dmap), "
+                         "merged per pixel with the superpixel prior "
+                         "(ref: GenerateFinalPrior, "
+                         "SceneDensify.cpp:1079-1161)")
     ap.add_argument("--export-viewer", action="store_true",
                     help="offline WebGL viewer (not ported)")
     ap.add_argument("--sample-mesh", type=float, default=0.0,
                     help="mesh sampling side mode (not ported)")
     ap.add_argument("--project-labels", action="store_true",
-                    help="label projection side mode (not ported)")
+                    help="side mode (ref: DensifyPointCloud.cpp:416-433): "
+                         "colour the scene's points from per-image "
+                         "'<stem>_l_colored.png' label images (or "
+                         "--masks-dir) and save *_labelled.mvs/.ply")
     ap.add_argument("--device", default="cuda",
                     help="torch device of the run (default cuda; cpu must "
                          "be asked for)")
@@ -354,15 +530,20 @@ def main(argv=None):
     if args.sample_mesh != 0.0:
         raise NotImplementedError("--sample-mesh (mesh/mesh_ops.py, not "
                                   "ported)")
-    if args.project_labels:
-        raise NotImplementedError("--project-labels (pipeline/densify.py "
-                                  "estimate_point_labels, not ported)")
     if args.export_viewer:
         raise NotImplementedError("--export-viewer (io/viewer.py, not "
                                   "ported)")
     flags = dict(f.split("=", 1) for f in args.flags)
     cfg = config_from_cli_flags(flags)
     images_dir = args.images_dir or os.path.dirname(args.input_file)
+    if args.project_labels:
+        os.makedirs(args.working_dir, exist_ok=True)
+        stats = project_labels(args.input_file, images_dir,
+                               os.path.join(args.working_dir, "scene"),
+                               masks_dir=args.masks_dir)
+        print({"mode": "project-labels",
+               **{k: v for k, v in stats.items() if k != "colors"}})
+        return stats
     stats = densify(args.input_file, images_dir, args.working_dir, cfg,
                     resume=not args.no_resume,
                     filter_point_cloud=args.filter_point_cloud,

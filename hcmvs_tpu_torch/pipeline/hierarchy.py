@@ -17,11 +17,17 @@ last iteration (ref: restore/DepthMap.cpp:1527-1549).
 
 Every level's scene tensors are built from the base configuration, as in
 the JAX package, so a stage's own ``init_triangulate`` does not change
-its seeds; only ``--flags n-initTriangulate=1`` does.  Stage results are
-checkpointed as ``torch.save`` files under ``<out>/stage_ckpt/`` and a
-rerun resumes after the last completed stage.  Semantic masks for a
-``use_semantic`` stage and ``--priors-dir`` need the planar priors
-(``dense/priors.py``, not ported) and raise.
+its seeds; only ``--flags n-initTriangulate=1`` does.  Semantic masks
+(found as the densify app finds them, when a stage runs ``use_semantic``:
+the default's restore stages and last stage) and ``--priors-dir`` maps
+are read at every level's size; in each stage they start the planar-prior
+pass once, before external iteration max(n - 2, 1), whose maps replace
+the stage's cross-scale prior (the JAX package's ``_run_stage``).  The
+prior acts only in a geometric phase, so in the default's restore stages
+(``photo2geo=99``) it is computed and has no effect, as in the JAX
+package; it acts in the last stage.  Stage results are checkpointed as
+``torch.save`` files under ``<out>/stage_ckpt/`` and a rerun resumes
+after the last completed stage.
 """
 
 from __future__ import annotations
@@ -49,6 +55,8 @@ from hcmvs_tpu_torch.io.mvs import read_mvs
 from hcmvs_tpu_torch.io.ply import write_ply_points
 from hcmvs_tpu_torch.pipeline.densify import (build_scene_tensors,
                                               find_scene_masks,
+                                              load_prior_maps,
+                                              load_scene_masks,
                                               resolve_device)
 from hcmvs_tpu_torch.utils.profiling import log_report, stage_timer
 
@@ -128,10 +136,10 @@ def run_hierarchy(tensors_per_level: Dict[int, SceneTensors],
     normal, cost) is saved there, and ``resume`` restarts after the last
     saved stage (without it, earlier files are removed first).  Each stage
     runs ``estimate_scene``'s external schedule from its initial state
-    (with the cross-scale injection at the last iteration of a restore
-    stage; the JAX package's ``_run_stage`` adds the planar-prior pass,
-    which ``estimate_scene`` refuses), timed into ``utils.profiling``'s
-    report as ``hierarchy.stage{si}``.
+    (the JAX package's ``_run_stage``: the cross-scale injection at the
+    last iteration of a restore stage, and the planar-prior pass, timed
+    as ``stage.priors``, whose maps replace the cross-scale prior), timed
+    into ``utils.profiling``'s report as ``hierarchy.stage{si}``.
     """
     schedule = schedule or default_schedule(base_cfg)
     state = None
@@ -188,7 +196,7 @@ def run_hierarchy(tensors_per_level: Dict[int, SceneTensors],
                     tensors = dataclasses.replace(tensors, **updates)
                     state = init_scene_state(gen, tensors)
             state = estimate_scene(gen, tensors, stage.cfg, verbose,
-                                   init=state)
+                                   init=state, replace_prior=True)
         prev_maps = (state.depth, state.normal)
         if checkpoint_dir is not None:
             path = _checkpoint_path(checkpoint_dir, si)
@@ -212,7 +220,9 @@ def densify_hierarchical(scene_path: str, images_dir: str, out_dir: str,
     top-level entry (ref: run.sh:1-20): builds the
     per-level scene tensors from resized images, runs the schedule with
     stage checkpoints, and writes the final ``depthmap/depth%04d.dmap``
-    maps and the fused ``scene_dense.ply``.  ``device``: where the tensors
+    maps and the fused ``scene_dense.ply``.  ``masks_dir`` and
+    ``priors_dir`` as in ``pipeline.densify.densify`` (masks are read
+    when a stage runs ``use_semantic``).  ``device``: where the tensors
     live ("cuda" by default; "cpu" must be asked for)."""
     base_cfg = base_cfg or DenseConfig()
     schedule = schedule or default_schedule(base_cfg)
@@ -220,14 +230,14 @@ def densify_hierarchical(scene_path: str, images_dir: str, out_dir: str,
     os.makedirs(out_dir, exist_ok=True)
     scene = read_mvs(scene_path)
     n = len(scene.images)
-    if priors_dir is not None:
-        raise NotImplementedError("--priors-dir: external prior maps "
-                                  "(dense/priors.py, not ported)")
-    # masks feed the RANSAC planar priors of the use_semantic stages
-    if any(s.cfg.use_semantic for s in schedule) \
-            and find_scene_masks(scene, images_dir, masks_dir):
-        raise NotImplementedError("semantic masks: the RANSAC planar "
-                                  "priors (dense/priors.py, not ported)")
+    # masks feed the RANSAC planar priors of the use_semantic stages (the
+    # reference's last stage: --use-semantic 1, data/frame_main/resize1/
+    # run.py)
+    mask_paths = (find_scene_masks(scene, images_dir, masks_dir)
+                  if any(s.cfg.use_semantic for s in schedule) else None)
+    if verbose and mask_paths is not None:
+        print(f"[hierarchy] semantic masks on "
+              f"{sum(p is not None for p in mask_paths)}/{n} images")
     raw = []
     for im in scene.images:
         path = im.name if os.path.isabs(im.name) else os.path.join(
@@ -255,8 +265,20 @@ def densify_hierarchical(scene_path: str, images_dir: str, out_dir: str,
                 nbr1, _ = select_neighbors(score, 1)
                 flows = scene_flows(torch.as_tensor(np.stack(grays),
                                                     device=dev), nbr1)
+            semantic = (None if mask_paths is None
+                        else load_scene_masks(mask_paths, grays[0].shape))
             tensors_per_level[lvl] = build_scene_tensors(
-                scene, grays, base_cfg, flows, device=dev)
+                scene, grays, base_cfg, flows, semantic=semantic,
+                device=dev)
+            ext = (None if priors_dir is None
+                   else load_prior_maps(priors_dir, scene, grays[0].shape))
+            if ext is not None:
+                # the external channel at every level's size (ref:
+                # GenerateFinalPrior's resize + merge,
+                # SceneDensify.cpp:1088-1161)
+                tensors_per_level[lvl] = dataclasses.replace(
+                    tensors_per_level[lvl],
+                    ext_prior_depth=torch.as_tensor(ext, device=dev))
 
     with stage_timer("hierarchy.schedule", block_on=dev, log=verbose):
         state = run_hierarchy(
@@ -315,9 +337,12 @@ def main(argv=None):
     ap.add_argument("--no-resume", action="store_true")
     ap.add_argument("--masks-dir", default=None,
                     help="per-image semantic masks for the use-semantic "
-                         "stages (not ported: found masks raise)")
+                         "stages (<image-stem>.png; <stem>.mask.png beside "
+                         "the images is found without it)")
     ap.add_argument("--priors-dir", default=None,
-                    help="external prior depth maps (not ported)")
+                    help="external prior depth maps (depth%%04d.dmap or "
+                         "<image-stem>.dmap), merged per pixel with the "
+                         "superpixel prior")
     ap.add_argument("--device", default="cuda",
                     help="torch device of the run (default cuda; cpu must "
                          "be asked for)")

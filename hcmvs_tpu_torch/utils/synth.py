@@ -165,6 +165,9 @@ class RidgeScene:
     images: List[np.ndarray]
     depth_gt: np.ndarray              # ref-view depth
     planes: List[Tuple[np.ndarray, float]]   # [(n_w, c_w)] two planes
+    depths: List[np.ndarray] = None   # every view's ground-truth depth
+    faces: List[np.ndarray] = None    # every view's (H, W) uint8 face:
+                                      # 0 the plane at x < 0, 1 the other
 
     def surface_dist(self, pts: np.ndarray) -> np.ndarray:
         """Distance of world points to the ridge surface (the plane of the
@@ -225,23 +228,25 @@ def make_ridge_scene(rng: np.random.Generator, h: int = 96, w: int = 128,
         t = np.where(valids[0], ts[0],
                      np.where(valids[1], ts[1],
                               np.minimum(ts[0], ts[1])))
+        face = np.where(valids[0], 0, np.where(valids[1], 1,
+                                               ts[1] < ts[0]))
         X = Cn + ray_w * t[..., None]
         img = tex(X[..., :2])
-        return img.astype(np.float32), t.astype(np.float32)
+        return (img.astype(np.float32), t.astype(np.float32),
+                face.astype(np.uint8))
 
-    images = []
-    depth_ref = None
-    for i, cam_np in enumerate(cams_np):
-        img, depth = render(cam_np)
+    images, depths, faces = [], [], []
+    for cam_np in cams_np:
+        img, depth, face = render(cam_np)
         images.append(img)
-        if i == 0:
-            depth_ref = depth
+        depths.append(depth)
+        faces.append(face)
     cams = [Camera(K=torch.as_tensor(Kn, dtype=torch.float32),
                    R=torch.as_tensor(Rn, dtype=torch.float32),
                    C=torch.as_tensor(Cn, dtype=torch.float32))
             for Kn, Rn, Cn in cams_np]
-    return RidgeScene(cameras=cams, images=images, depth_gt=depth_ref,
-                      planes=planes)
+    return RidgeScene(cameras=cams, images=images, depth_gt=depths[0],
+                      planes=planes, depths=depths, faces=faces)
 
 
 def ridge_sparse_points(scene: RidgeScene, n_sparse: int = 100,
@@ -303,6 +308,51 @@ def write_ridge_scene(root: str, scene: RidgeScene, n_sparse: int = 100,
     ``ridge_sparse_points``, listed as seen by every view."""
     return _write_scene(root, scene, ridge_sparse_points(scene, n_sparse,
                                                          seed), png_filter)
+
+
+# the ridge's face labels in its masks: above 255, so a mask is a 16-bit
+# PNG; and the faces' colours in the label images of --project-labels
+RIDGE_MASK_LABELS = (1000, 2000)
+RIDGE_LABEL_COLOURS = ((230, 60, 20), (20, 120, 230))
+
+
+def write_ridge_masks(img_dir: str, scene: RidgeScene) -> List[str]:
+    """Write each view's semantic mask beside its image, as the densify
+    app finds masks: ``im%04d.mask.png``, a 16-bit gray PNG labelling
+    each pixel by the ridge face it sees (``RIDGE_MASK_LABELS``), and
+    the colour label image of ``--project-labels``,
+    ``im%04d_l_colored.png`` (RGB, ``RIDGE_LABEL_COLOURS``).  Returns the
+    mask paths."""
+    from hcmvs_tpu_torch.io.images import write_png
+    labels = np.asarray(RIDGE_MASK_LABELS, np.uint16)
+    colours = np.asarray(RIDGE_LABEL_COLOURS, np.uint8)
+    paths = []
+    for i, face in enumerate(scene.faces):
+        paths.append(os.path.join(img_dir, f"im{i:04d}.mask.png"))
+        write_png(paths[-1], labels[face])
+        write_png(os.path.join(img_dir, f"im{i:04d}_l_colored.png"),
+                  colours[face])
+    return paths
+
+
+def write_ridge_prior(priors_dir: str, scene: RidgeScene, view: int) -> str:
+    """Write view ``view``'s ground-truth depth of ``scene`` (at its own
+    size) as ``priors_dir/depth%04d.dmap``, an external prior map of the
+    densify app's ``--priors-dir``; returns the path."""
+    from hcmvs_tpu_torch.io.dmap import DepthMapData, write_dmap
+    os.makedirs(priors_dir, exist_ok=True)
+    cam = scene.cameras[view]
+    h, w = scene.depths[view].shape
+    path = os.path.join(priors_dir, f"depth{view:04d}.dmap")
+    write_dmap(path, DepthMapData(
+        depth=scene.depths[view], normal=None, conf=None,
+        K=cam.K.cpu().numpy().astype(np.float64),
+        R=cam.R.cpu().numpy().astype(np.float64),
+        C=cam.C.cpu().numpy().astype(np.float64),
+        d_min=float(scene.depths[view].min()),
+        d_max=float(scene.depths[view].max()), image_size=(w, h),
+        image_name=f"im{view:04d}.png", view_ids=[view]))
+    return path
 
 
 def _write_scene(root: str, scene, points: np.ndarray,

@@ -267,25 +267,46 @@ def test_densify_export_only_resume_and_cli(world):
 
 
 def test_densify_needs_a_device_and_raises_for_unported(world, tmp_path):
+    """Without a card the default device raises; masks (under
+    use_semantic), --priors-dir and --project-labels run; SGM, mesh
+    sampling and the viewer export raise naming their modules."""
+    from hcmvs_tpu_torch.io.dmap import DepthMapData, write_dmap
+    from hcmvs_tpu_torch.io.images import write_png
     from hcmvs_tpu_torch.pipeline.densify import densify, main
+    from hcmvs_tpu_torch.utils.profiling import report, reset_report
     args = (world["scene_path"], world["img_dir"], str(tmp_path))
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError):
             densify(*args, world["tcfg"], verbose=False)
-    for kw in (dict(fusion_mode=-1), dict(fusion_mode=-2),
-               dict(priors_dir=str(tmp_path))):
-        with pytest.raises(NotImplementedError):
+    for kw in (dict(fusion_mode=-1), dict(fusion_mode=-2)):
+        with pytest.raises(NotImplementedError, match="dense/sgm.py"):
             densify(*args, world["tcfg"], verbose=False, device="cpu", **kw)
     # masks are read under use_semantic only (without it they are ignored,
-    # tests/test_torch_repairs.py); then they need the planar priors
+    # tests/test_torch_repairs.py); then they feed the planar priors, as
+    # an external prior map does
     masks = tmp_path / "masks"
     masks.mkdir()
-    (masks / "im0000.png").write_bytes(b"")
-    with pytest.raises(NotImplementedError, match="dense/priors.py"):
-        densify(*args, world["tcfg"].replace(use_semantic=True),
-                verbose=False, device="cpu", masks_dir=str(masks))
-    for extra in (["--sample-mesh", "-100"], ["--project-labels"],
-                  ["--export-viewer"]):
+    write_png(str(masks / "im0000.png"),
+              np.where(np.arange(W) < W // 2, 300, 700).astype(np.uint16)
+              [None].repeat(H, 0))
+    priors = tmp_path / "priors"
+    priors.mkdir()
+    write_dmap(str(priors / "depth0000.dmap"), DepthMapData(
+        depth=np.ascontiguousarray(world["sc"].depth_gt[::2, ::2]),
+        K=np.eye(3), R=np.eye(3), C=np.zeros(3)))
+    priors = str(priors)
+    for kw in (dict(masks_dir=str(masks)), dict(priors_dir=priors)):
+        reset_report()
+        st = densify(*args, world["tcfg"].replace(use_semantic=True),
+                     verbose=False, device="cpu", fusion_mode=1,
+                     resume=False, **kw)
+        assert report()["estimate.priors"]["calls"] == 1, kw
+        assert st["valid_frac"] > 0.5
+    labels = main(["--input-file", world["scene_path"], "--images-dir",
+                   world["img_dir"], "-w", str(tmp_path / "lab"),
+                   "--masks-dir", str(masks), "--project-labels"])
+    assert labels["n_label_images"] == 1
+    for extra in (["--sample-mesh", "-100"], ["--export-viewer"]):
         with pytest.raises(NotImplementedError):
             main(["--input-file", world["scene_path"], "--device", "cpu",
                   *extra])

@@ -274,6 +274,26 @@ _NO_JAX_SCRIPT = textwrap.dedent("""
     assert stats["depth"].shape == (3, h // 2, w // 2)
     assert os.path.exists("hc/scene_dense.ply")
     assert len(os.listdir("hc/stage_ckpt")) == 5
+    # densify with 16-bit face masks beside the images and an external
+    # prior map: the planar-prior pass runs once; then the labels
+    from hcmvs_tpu_torch.utils.profiling import report, reset_report
+    from hcmvs_tpu_torch.utils.synth import (write_ridge_masks,
+                                             write_ridge_prior)
+    write_ridge_masks(img_dir, ridge)
+    write_ridge_prior("priors", ridge, 1)
+    reset_report()
+    stats = main(["--input-file", path, "--images-dir", img_dir,
+                  "-w", "masked", "--device", "cpu", "--priors-dir",
+                  "priors", "--flags", "resolution-level=0",
+                  "min-resolution=0", "use-semantic=1",
+                  "n-EstimationIters=1", "n-EstimationIters-external=3",
+                  "n-adapthalfwin=3"])
+    assert report()["estimate.priors"]["calls"] == 1
+    assert stats["n_points"] > 0
+    labels = main(["--input-file", "masked/scene_dense.mvs", "--images-dir",
+                   img_dir, "-w", "labels", "--project-labels"])
+    assert labels["n_label_images"] == 3
+    assert (labels["colors"] != 255).any(1).mean() > 0.9
     assert not any(m.split(".")[0] in BLOCKED
                    for m in sys.modules if sys.modules[m] is not None)
     print("OK", float((depth > 0).float().mean()))

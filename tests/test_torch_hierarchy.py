@@ -292,18 +292,36 @@ def test_densify_hierarchical_matches_jax(written, monkeypatch):
 
 
 def test_densify_hierarchical_raises_for_unported(written, tmp_path):
-    """Masks for a use_semantic stage and --priors-dir need the planar
-    priors; without a card the default device raises."""
+    """Masks for a use_semantic stage and --priors-dir run the planar
+    priors (once in each stage they reach; tests/test_torch_masks.py holds
+    them against JAX); without a card the default device raises."""
+    from hcmvs_tpu_torch.io.images import write_png
     from hcmvs_tpu_torch.pipeline.hierarchy import densify_hierarchical, main
+    from hcmvs_tpu_torch.utils.profiling import report, reset_report
+    from hcmvs_tpu_torch.utils.synth import write_ridge_prior
     args = (written["scene_path"], written["img_dir"], str(tmp_path / "o"))
     masks = tmp_path / "masks"
     masks.mkdir()
-    (masks / "im0000.png").write_bytes(b"")
-    with pytest.raises(NotImplementedError, match="dense/priors.py"):
-        main(["--input-file", args[0], "--images-dir", args[1], "-w",
-              args[2], "--device", "cpu", "--masks-dir", str(masks)])
-    with pytest.raises(NotImplementedError, match="dense/priors.py"):
-        densify_hierarchical(*args, priors_dir=str(tmp_path), device="cpu")
+    for i, face in enumerate(written["sc"].faces):
+        write_png(str(masks / f"im{i:04d}.png"),
+                  (face.astype(np.uint16) + 1) * 500)
+    quick = ["--flags", "min-resolution=0", "n-EstimationIters=1",
+             "n-EstimationIters-external=2", "n-adapthalfwin=3"]
+    reset_report()
+    stats = main(["--input-file", args[0], "--images-dir", args[1], "-w",
+                  args[2], "--device", "cpu", "--no-resume", "--masks-dir",
+                  str(masks), *quick])
+    # the default schedule's restore stages and last stage use the masks
+    assert report()["stage.priors"]["calls"] == 3
+    assert stats["valid_frac"] > 0.3
+    write_ridge_prior(str(tmp_path / "priors"), written["sc"], 1)
+    reset_report()
+    stats = main(["--input-file", args[0], "--images-dir", args[1], "-w",
+                  args[2], "--device", "cpu", "--no-resume", "--priors-dir",
+                  str(tmp_path / "priors"), *quick])
+    # the external channel starts the pass in every stage
+    assert report()["stage.priors"]["calls"] == 5
+    assert stats["valid_frac"] > 0.3
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError):
             densify_hierarchical(*args)

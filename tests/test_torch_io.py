@@ -269,8 +269,8 @@ def test_png_writer_row_filters(tmp_path, filters):
 
 
 @pytest.mark.parametrize("data,what", [
-    (_png(0, 16), "16-bit"), (_png(2, 8, 1), "interlaced"),
-    (_png(3, 8), "colour type 3"), (b"\xff\xd8\xff\xe0" + bytes(16), "JPEG"),
+    (_png(0, 16, 1), "interlaced"), (_png(2, 8, 1), "interlaced"),
+    (_png(3, 8, 1), "interlaced"), (b"\xff\xd8\xff\xe0" + bytes(16), "JPEG"),
     (b"P2\n2 2\n255\n0 0 0 0\n", "P2"), (b"P5\n2 2\n65535\n" + bytes(8),
                                           "maxval"),
     (b"GIF89a" + bytes(16), "unknown")])
@@ -282,6 +282,20 @@ def test_unsupported_images_raise(tmp_path, data, what):
         timg.load_image(path)
     with pytest.raises(FileNotFoundError):
         timg.load_image(str(tmp_path / "missing.png"))
+
+
+def test_png_depths_and_palette_decode(tmp_path):
+    """16-bit and palette PNGs decode (tests/test_torch_masks.py holds
+    every colour type and depth against OpenCV); a palette image without
+    its PLTE chunk is malformed."""
+    path = str(tmp_path / "x.png")
+    with open(path, "wb") as f:
+        f.write(_png(0, 16))
+    raw = timg._decode_png(_png(0, 16), path)
+    assert raw.dtype == np.uint16 and raw.shape == (2, 2, 1) and not raw.any()
+    assert np.array_equal(timg.load_image(path), np.zeros((2, 2, 3)))
+    with pytest.raises(ValueError, match="PLTE"):
+        timg._decode_png(_png(3, 8), path)
 
 
 @pytest.mark.parametrize("scale", [2.0, 0.8, 1.5, 0.5, 0.37])

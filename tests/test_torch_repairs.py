@@ -8,8 +8,8 @@
   view isolated: every map finite, each view's kept share within 0.03 of
   the JAX package's, and the isolated view keeps nothing in either.
 - ``--masks-dir`` is read only under ``use-semantic``, as in the JAX
-  package: without it, densify runs; with it and a mask present, it
-  raises naming the unported module (tests/test_torch_densify.py).
+  package: without it, densify runs and ignores the masks (with it they
+  feed the planar priors: tests/test_torch_masks.py).
 """
 
 import numpy as np

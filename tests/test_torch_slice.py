@@ -260,14 +260,13 @@ def test_unported_knobs_raise(world, tmp_path):
                dict(view_spread=1), dict(volume_streaming=True)):
         with pytest.raises(NotImplementedError):
             tsd.estimate_scene(gen, scene_t, world["tcfg"].replace(**kw))
-    # the densify options whose modules are not ported: SGM fusion modes
-    # and external prior maps
+    # the densify options whose modules are not ported: the SGM fusion
+    # modes (external prior maps run: tests/test_torch_masks.py)
     from hcmvs_tpu_torch.io.mvs import SceneMVS, write_mvs
     from hcmvs_tpu_torch.pipeline.densify import densify
     path = str(tmp_path / "scene.mvs")
     write_mvs(path, SceneMVS())
-    for kw in (dict(fusion_mode=-1), dict(fusion_mode=-2),
-               dict(priors_dir=str(tmp_path))):
+    for kw in (dict(fusion_mode=-1), dict(fusion_mode=-2)):
         with pytest.raises(NotImplementedError):
             densify(path, str(tmp_path), str(tmp_path / "out"),
                     world["tcfg"], verbose=False, device="cpu", **kw)
