@@ -61,7 +61,20 @@ Phases, each fatal on failure:
      view 0 must reach its floor; then ``--project-labels`` colours the
      dense cloud from the label images;
  13. the same masked densify through the plain versions, compared with 12
-     (view 0's prior maps included).
+     (view 0's prior maps included);
+ 14. the mesh path: a 60,000-point subsample of phase 12's dense cloud
+     (with its view lists) through the three mesh apps
+     (``hcmvs_tpu_torch.pipeline.mesh_apps.main``) at their defaults:
+     reconstruct (graph cut, remove-spurious 20, close-holes 30, smooth
+     2), refine (3 scales, 10 iterations each, on the four 1280x960
+     images) and texture (LBP, seam leveling, 1024 atlas); the PLY, OBJ,
+     MTL and PNG files must read back, the mesh must reach its F-score
+     floor and refine must not lower it by more than 0.01; each stage's
+     seconds, refine's gradient device time and device operations per
+     iteration and the peak memory are printed (no kernel of the port is
+     on this path: the reference's mesh stages reach no Pallas kernel);
+ 15. the same mesh again: refine and the labelling give equal vertices and
+     labels, and one refine gradient on the card agrees with the CPU's.
 Launches are counted by kernel and output shape.  Then a JSON line per
 path, one for the kernels, the nvidia-smi line, and
 a last line ``{"ok": true, "device": {...}}``.  Exits non-zero, with no
@@ -201,6 +214,25 @@ def timer_check(fn, kernel: str, reps: int):
     return ms, sum(e.device_time_total for e in evs) / n / 1e3
 
 
+def device_busy(fn):
+    """(ms, count): the summed device time and the number of the device
+    operations (kernels, copies, fills) of one call of ``fn``, from
+    torch.profiler, after one warm-up call."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    evs = [e for e in prof.key_averages()
+           if e.device_type == DeviceType.CUDA]
+    return (sum(e.device_time_total for e in evs) / 1e3,
+            sum(e.count for e in evs))
+
+
 def bound(name: str, n_bytes: float, n_elements: float):
     """(ms, "bytes" or "operations"): the least time of the work, the
     larger of its bytes over the memory rate and its operations over the
@@ -325,6 +357,28 @@ MASKS_FLAGS = DENSIFY_FLAGS + ("use-semantic=1",)
 MASKS_PRIOR_HW = (240, 320)
 MASKS_PRIOR_RTOL = 1e-3
 MASKS_PRIOR_AGREE = 0.99
+
+# the mesh path: the three mesh apps (hcmvs_tpu_torch.pipeline.mesh_apps)
+# at their defaults on phase 12's dense output, cut to a MESH_POINTS
+# subsample of its cloud (default_rng(1), as hcmvs_tpu/eval/full_run.py:
+# 198).  Floors: the mesh F-score at 1% of view 0's median ground-truth
+# depth (MESH_SAMPLES samples each side, as full_run.py:221-233) at or
+# above MESH_FSCORE_FLOOR, the lowest of the JAX package's own chain on
+# this scene on the CPU less 0.05: 0.8488 / 0.8292 / 0.7849 at 240x320 /
+# 480x640 / 720x960 (tests/test_torch_mesh.py H W; it falls with size,
+# so the largest size that ends sets it), and refine lowering it by no
+# more than MESH_REFINE_DROP; at least
+# MESH_MIN_FACES faces and MESH_MIN_LABELLED of them labelled.  Phase 15:
+# refine and the labelling again give equal vertices and labels (fixed-
+# order sums), and one gradient on the card is within MESH_GRAD_RTOL
+# (relative L2) of the CPU's
+MESH_POINTS = 60000
+MESH_SAMPLES = 12000
+MESH_FSCORE_FLOOR = 0.7349
+MESH_REFINE_DROP = 0.01
+MESH_MIN_FACES = 10000
+MESH_MIN_LABELLED = 0.5
+MESH_GRAD_RTOL = 1e-4
 
 
 def densify_cfg(flags=DENSIFY_FLAGS):
@@ -1421,7 +1475,252 @@ def check_masks(root):
         "launches_by_shape": shapes}, failed
 
 
+def subsample_mvs(src: str, dst: str, n_points: int, seed: int = 1):
+    """Write the scene of ``src`` with a ``default_rng(seed)`` subsample of
+    ``n_points`` of its points, in the permutation's order, each with its
+    view lists (ids and confidences), to ``dst`` (as
+    hcmvs_tpu/eval/full_run.py:198-205); returns (points before, points
+    after)."""
+    import numpy as np
+    from hcmvs_tpu_torch.io.mvs import read_mvs, write_mvs
+    scene = read_mvs(src)
+    n = len(scene.points)
+    sub = np.random.default_rng(seed).permutation(n)[:n_points]
+    counts = np.asarray(scene.point_view_counts, np.int64)
+    start = np.concatenate([[0], np.cumsum(counts)])[:-1][sub]
+    cnt = counts[sub]
+    rows = (np.repeat(start - np.cumsum(cnt) + cnt, cnt)
+            + np.arange(int(cnt.sum())))
+    scene.points = scene.points[sub]
+    scene.point_view_counts = scene.point_view_counts[sub]
+    scene.point_view_ids = scene.point_view_ids[rows]
+    scene.point_view_confs = scene.point_view_confs[rows]
+    for f in ("point_normals", "point_colors"):
+        arr = getattr(scene, f)
+        if arr is not None and len(arr):
+            setattr(scene, f, arr[sub])
+    write_mvs(dst, scene)
+    return n, len(sub)
+
+
+def mesh_fscore(vertices, faces, sc, n_samples: int = MESH_SAMPLES) -> dict:
+    """F-score of a mesh against view 0's ground-truth surface of the
+    synthetic scene ``sc`` at 1% of its median depth: ``n_samples`` area-
+    weighted samples of the mesh (``sample_points``' default rng) against
+    as many pixels of view 0 (``default_rng(2)``) back-projected at their
+    true depth through view 0's pose (hcmvs_tpu/eval/full_run.py:221-233,
+    which has view 0 at the origin)."""
+    import numpy as np
+    from hcmvs_tpu_torch.eval.compare import point_cloud_fscore
+    from hcmvs_tpu_torch.mesh.mesh_ops import sample_points
+    samples, _ = sample_points(vertices, faces, n_samples)
+    gt = sc.depth_gt
+    h, w = gt.shape
+    vv, uu = np.meshgrid(np.arange(h), np.arange(w), indexing="ij")
+    sel = np.random.default_rng(2).permutation(h * w)[:n_samples]
+    K, R, C = (np.asarray(getattr(sc.cameras[0], f), np.float64)
+               for f in "KRC")
+    rays = np.linalg.inv(K) @ np.stack([uu.ravel()[sel], vv.ravel()[sel],
+                                        np.ones(len(sel))])
+    gt_pts = (R.T @ (rays * gt.ravel()[sel])).T + C
+    tol = 0.01 * float(np.median(gt[gt > 0]))
+    return dict(point_cloud_fscore(samples, gt_pts, tol), tol=tol)
+
+
+def check_mesh(root, dev):
+    """Phases 14-15: the mesh apps on phase 12's dense output under
+    ``root`` (reconstruct -> refine -> texture through
+    ``mesh_apps.main``), the files read back and the mesh held to its
+    floors; refine's gradient timed and its device operations counted;
+    then refine and the labelling again, and one gradient on the card
+    against the CPU's.  Returns (launches, JSON summary, the checks that
+    failed)."""
+    import numpy as np
+    import torch
+    from hcmvs_tpu_torch import kernels
+    from hcmvs_tpu_torch.io.images import _read_samples
+    from hcmvs_tpu_torch.io.mvs import read_mvs
+    from hcmvs_tpu_torch.io.obj import read_obj
+    from hcmvs_tpu_torch.io.ply import read_ply
+    from hcmvs_tpu_torch.mesh import refine as R
+    from hcmvs_tpu_torch.mesh import texture as T
+    from hcmvs_tpu_torch.mesh.mesh_ops import compute_vertex_normals
+    from hcmvs_tpu_torch.pipeline import mesh_apps
+    from hcmvs_tpu_torch.utils import profiling
+
+    label = "mesh"
+    failed = []
+    out = root / "mesh"
+    out.mkdir()
+    img_dir = str(root / "images")
+    mvs = str(out / "scene_mesh_input.mvs")
+    t0 = time.perf_counter()
+    n_cloud, n_sub = subsample_mvs(str(root / "kernels" / "scene_dense.mvs"),
+                                   mvs, MESH_POINTS)
+    sc = hierarchy_scene(H, W, textured=False)          # the ground truth
+    log(f"[{label}] {n_sub} of phase 12's {n_cloud} points with their view "
+        f"lists in {time.perf_counter() - t0:.3f} s")
+
+    # 14. the three apps on the card, counts reset just before
+    mesh_ply, refine_ply = str(out / "mesh.ply"), str(out / "mesh_refine.ply")
+    obj_path = str(out / "mesh_refine_texture.obj")
+    kernels.reset_launches()
+    profiling.reset_report()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    rec = mesh_apps.main(["reconstruct", "-i", mvs, "-o", mesh_ply])
+    ref = mesh_apps.main(["refine", "-i", mvs, "-m", mesh_ply,
+                          "--images-dir", img_dir])
+    tex = mesh_apps.main(["texture", "-i", mvs, "-m", refine_ply,
+                          "--images-dir", img_dir])
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    launches = dict(kernels.launches)
+    rep = profiling.report()
+    if any(launches.values()):
+        failed.append(f"{label}: the mesh path launched kernels {launches}")
+    tm = tex["textured"]
+    V0, F = rec["vertices"], rec["faces"]
+    V1 = ref["vertices"]
+
+    # the files read back
+    v, e = read_ply(mesh_ply)
+    vr, er = read_ply(refine_ply)
+    obj = read_obj(obj_path)
+    mtl = (out / "mesh_refine_texture.mtl").read_text()
+    atlas, _ = _read_samples(str(out / "mesh_refine_texture.png"))
+    back = {"ply": np.array_equal(v, V0) and np.array_equal(e["faces"], F),
+            "refined_ply": (np.array_equal(vr, V1)
+                            and np.array_equal(er["faces"], F)),
+            "obj": (np.array_equal(obj.vertices, tm.vertices)
+                    and np.array_equal(obj.faces, F)
+                    and obj.mtllib == "mesh_refine_texture.mtl"
+                    and np.array_equal(obj.texcoords,
+                                       tm.uvs.reshape(-1, 2))),
+            "mtl": "map_Kd mesh_refine_texture.png" in mtl,
+            "png": np.array_equal(atlas, tm.atlas)}
+    if not all(back.values()):
+        failed.append(f"{label}: files read back: {back}")
+    labelled = tm.labels >= 0
+    uv_ok = bool(((tm.uvs[labelled] >= 0) & (tm.uvs[labelled] <= 1)).all())
+    fs0 = mesh_fscore(V0, F, sc)
+    fs1 = mesh_fscore(V1, F, sc)
+    log(f"[{label}] {len(V0)} vertices, {len(F)} faces (graph cut "
+        f"{rec['graph_cut_faces']}), labelled {labelled.mean():.4f}, UVs in "
+        f"[0, 1]: {uv_ok}, atlas max {int(tm.atlas.max())}, utilization "
+        f"{tm.utilization:.4f}; F-score at {fs0['tol']:.5f}: "
+        f"{fs0['fscore']:.4f} "
+        f"(precision {fs0['precision']:.4f}, recall {fs0['recall']:.4f}) "
+        f"-> refined {fs1['fscore']:.4f} (precision {fs1['precision']:.4f}, "
+        f"recall {fs1['recall']:.4f}); total {seconds:.3f} s, peak memory "
+        f"{peak:.2f} GiB")
+    if len(F) < MESH_MIN_FACES:
+        failed.append(f"{label}: {len(F)} faces < {MESH_MIN_FACES}")
+    if labelled.mean() < MESH_MIN_LABELLED or not uv_ok or \
+            tm.atlas.max() == 0:
+        failed.append(f"{label}: labelled {labelled.mean()}, UVs in [0, 1] "
+                      f"{uv_ok}, atlas max {tm.atlas.max()}")
+    if fs0["fscore"] < MESH_FSCORE_FLOOR:
+        failed.append(f"{label}: F-score {fs0['fscore']} < "
+                      f"{MESH_FSCORE_FLOOR}")
+    if fs1["fscore"] < fs0["fscore"] - MESH_REFINE_DROP:
+        failed.append(f"{label}: refine lowered the F-score "
+                      f"{fs0['fscore']} -> {fs1['fscore']}")
+    stages = {k: {"total_s": r["total_s"], "calls": r["calls"],
+                  "share": r["total_s"] / seconds, "each_s": r["each_s"]}
+              for k, r in rep.items()}
+    for name, st in sorted(stages.items(), key=lambda kv: -kv[1]["total_s"]):
+        each = (" (" + ", ".join(f"{x:.3f}" for x in st["each_s"]) + ")"
+                if 1 < st["calls"] <= 3 else "")
+        log(f"[{label}] stage {name:<24} {st['total_s']:9.3f} s "
+            f"x{int(st['calls'])} share {st['share']:.4f}{each}")
+
+    # refine's gradient at the first scale's inputs: device time and the
+    # device operations of one iteration
+    scene = read_mvs(mvs)
+    images = mesh_apps._load_images(scene, img_dir)
+    h, w = images[0].shape
+    Ks, Rs, Cs = mesh_apps._scene_cams(scene, w, h)
+    n = len(images)
+    pairs = np.array([(i, (i + 1) % n) for i in range(n)], np.int32)
+    rr = R.RasterRefine(F, np.stack(images), Ks, Rs, Cs, pairs, len(V0), dev)
+    rasters = rr.rasterize(V0)
+    Vd = torch.as_tensor(V0, device=dev)
+    normals = torch.as_tensor(compute_vertex_normals(V0, F), device=dev)
+    base_step = 0.5 * float(np.median(np.linalg.norm(
+        V0[F[:, 0]] - V0[F[:, 1]], axis=1)))
+    # ~10^3 launches a call fill the launch queue behind cuda_ms's spin, so
+    # the host cannot queue ahead: the events' span is the host-bound wall
+    # of a call, and the profiler's sum of device times its busy time
+    grad_span = cuda_ms(lambda: rr.grad(Vd, rasters), reps=3,
+                        host_bound_ok=True)
+    step_span = cuda_ms(lambda: rr.step(Vd, normals, rasters, base_step,
+                                        0.2), reps=3, host_bound_ok=True)
+    grad_ms, grad_ops = device_busy(lambda: rr.grad(Vd, rasters))
+    step_ms, ops = device_busy(lambda: rr.step(Vd, normals, rasters,
+                                               base_step, 0.2))
+    grad_wall = rep.get("refine.grad", {}).get("each_s", [0.0])
+    log(f"[{label}] raster_refine_grad at {w}x{h} x {len(pairs)} pairs, "
+        f"{len(F)} faces: {grad_ms:.3f} ms of device time (profiler), "
+        f"{grad_span:.3f} ms between events (cuda_ms, host-bound), "
+        f"{grad_ops} device operations; a whole iteration {step_ms:.3f} ms "
+        f"of device time, {step_span:.3f} ms between events, {ops} device "
+        f"operations; refine.grad wall {np.median(grad_wall) * 1e3:.3f} ms "
+        f"(median of {len(grad_wall)})")
+
+    # 15. the same mesh again: refine and the labelling, then the gradient
+    # on the card against the CPU's
+    t0 = time.perf_counter()
+    verts_in, _ = read_ply(mesh_ply)
+    V2 = R.refine_mesh(verts_in, F, np.stack(images), Ks, Rs, Cs, pairs,
+                       device=dev)
+    refine_equal = bool(np.array_equal(V2, V1))
+    qual = T.face_view_quality(V1, F, Ks, Rs, Cs, [(w, h)] * n)
+    qual = T.reject_outlier_views(V1, F, qual, images, Ks, Rs, Cs)
+    labels2 = T.label_faces_lbp(F, qual, device=dev)
+    labels_equal = bool(np.array_equal(labels2, tm.labels))
+    g_c, w_c = (x.cpu().numpy() for x in rr.grad(Vd, rasters))
+    rr_cpu = R.RasterRefine(F, np.stack(images), Ks, Rs, Cs, pairs, len(V0),
+                            "cpu")
+    cpu_rasters = R.ScaleRasters(rasters.face_ids.cpu(),
+                                 rasters.barys.cpu(), rasters.depth.cpu(),
+                                 len(F))
+    g_h, w_h = (x.numpy() for x in rr_cpu.grad(torch.as_tensor(V0),
+                                                cpu_rasters))
+    g_err = float(np.linalg.norm(g_c - g_h) / np.linalg.norm(g_h))
+    w_err = float(np.linalg.norm(w_c - w_h) / np.linalg.norm(w_h))
+    log(f"[{label} again] refined vertices equal: {refine_equal} (max "
+        f"|diff| {np.abs(V2 - V1).max():.3g}), labels equal: {labels_equal} "
+        f"({(labels2 == tm.labels).mean():.6f}); gradient card vs CPU "
+        f"relative L2: grad {g_err:.3g}, wsum {w_err:.3g} "
+        f"({time.perf_counter() - t0:.3f} s)")
+    if not (refine_equal and labels_equal):
+        failed.append(f"{label}: the second run differs (vertices equal "
+                      f"{refine_equal}, labels equal {labels_equal})")
+    if max(g_err, w_err) > MESH_GRAD_RTOL:
+        failed.append(f"{label}: gradient card vs CPU {g_err}, {w_err} > "
+                      f"{MESH_GRAD_RTOL}")
+    return launches, {
+        "views": n, "h": h, "w": w, "cloud_points": n_cloud,
+        "mesh_points": n_sub, "vertices": len(V0), "faces": len(F),
+        "graph_cut_faces": rec["graph_cut_faces"],
+        "total_s": seconds, "stages": stages, "peak_gib": peak,
+        "fscore": fs0, "fscore_refined": fs1,
+        "labelled_share": float(labelled.mean()),
+        "atlas_utilization": tm.utilization, "files_read_back": back,
+        "grad_device_ms": grad_ms, "grad_span_ms": grad_span,
+        "grad_device_ops": grad_ops, "iteration_device_ms": step_ms,
+        "iteration_span_ms": step_span, "device_ops_per_iteration": ops,
+        "again_vertices_equal": refine_equal,
+        "again_labels_equal": labels_equal,
+        "grad_rel_l2_card_vs_cpu": g_err, "wsum_rel_l2_card_vs_cpu": w_err,
+        "launches_by_shape": {k: {} for k in launches}}, failed
+
+
 def main() -> int:
+    t_start = time.perf_counter()
     try:
         import torch
     except ImportError:
@@ -1495,11 +1794,13 @@ def main() -> int:
     torch.cuda.empty_cache()
 
     # 12-13. the masked densify path, each through the kernels and the
-    # plain versions
+    # plain versions; 14-15. the mesh path on its dense output
     root = Path(tempfile.mkdtemp(prefix="_masks_smoke_",
                                  dir=Path(__file__).resolve().parent))
     try:
         paths["densify_masks"] = check_masks(root)
+        torch.cuda.empty_cache()
+        paths["mesh"] = check_mesh(root, dev)
     finally:
         shutil.rmtree(root, ignore_errors=True)
     failed = [f for _, _, fs in paths.values() for f in fs]
@@ -1519,6 +1820,7 @@ def main() -> int:
                     shape_key(x["shape"]), 0)
                 for p, (_, summary, _) in paths.items()}
             x["launches"] = sum(x["launches_per_path"].values())
+    log(f"[total] all phases in {time.perf_counter() - t_start:.1f} s")
     keys = ("name", "route", "source", "replaces", "launches",
             "launches_per_path", "max_abs_err", "ms", "plain_ms", "bound_ms",
             "bound_by", "library_ms", "shapes")

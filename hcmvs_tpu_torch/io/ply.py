@@ -1,12 +1,12 @@
-"""Minimal PLY point-cloud I/O (binary little-endian + ascii; port
+"""Minimal PLY point-cloud / mesh I/O (binary little-endian + ascii; port
 of ``hcmvs_tpu/io/ply.py``, a copy: the port imports nothing of the JAX
 package).
 
 Replaces the reference's vendored PLY codec (ref: frame_main/libs/IO/PLY.cpp,
 2.4k LoC of C) with a numpy structured-array implementation; writes the same
 element/property layout the reference emits for dense point clouds
-(x y z [nx ny nz] [red green blue]) so outputs open in the same
-downstream tools.
+(x y z [nx ny nz] [red green blue]) and triangle meshes so outputs open in
+the same downstream tools.
 """
 
 from __future__ import annotations
@@ -46,12 +46,62 @@ def write_ply_points(path: str, points: np.ndarray,
         f.write(rec.tobytes())
 
 
+def write_ply_mesh(path: str, vertices: np.ndarray, faces: np.ndarray,
+                   colors: Optional[np.ndarray] = None) -> None:
+    n, m = len(vertices), len(faces)
+    fields = [("x", "<f4"), ("y", "<f4"), ("z", "<f4")]
+    props = ["property float x", "property float y", "property float z"]
+    if colors is not None:
+        fields += [("red", "u1"), ("green", "u1"), ("blue", "u1")]
+        props += ["property uchar red", "property uchar green",
+                  "property uchar blue"]
+    rec = np.empty(n, dtype=fields)
+    rec["x"], rec["y"], rec["z"] = (vertices[:, 0], vertices[:, 1],
+                                    vertices[:, 2])
+    if colors is not None:
+        rec["red"], rec["green"], rec["blue"] = (colors[:, 0], colors[:, 1],
+                                                 colors[:, 2])
+    frec = np.empty(m, dtype=[("n", "u1"), ("v", "<i4", 3)])
+    frec["n"] = 3
+    frec["v"] = faces
+    header = "\n".join(
+        ["ply", "format binary_little_endian 1.0",
+         f"element vertex {n}"] + props +
+        [f"element face {m}", "property list uchar int vertex_indices",
+         "end_header", ""])
+    with open(path, "wb") as f:
+        f.write(header.encode())
+        f.write(rec.tobytes())
+        f.write(frec.tobytes())
+
+
+def _read_faces(body: bytes, off: int, count: int, cnt_t: str,
+                idx_t: str):
+    """(count, 3) int32 faces of a binary face list at ``off`` (the first
+    three indices of each polygon) and the offset after the list."""
+    tri = np.dtype([("n", cnt_t), ("v", idx_t, 3)])
+    if len(body) >= off + tri.itemsize * count:
+        rec = np.frombuffer(body, tri, count, off)
+        if (rec["n"] == 3).all():              # triangles: one read
+            return (rec["v"].astype(np.int32),
+                    off + tri.itemsize * count)
+    faces = np.empty((count, 3), np.int32)
+    cnt_size = np.dtype(cnt_t).itemsize
+    idx_size = np.dtype(idx_t).itemsize
+    for i in range(count):
+        k = int(np.frombuffer(body, cnt_t, 1, off)[0])
+        off += cnt_size
+        faces[i] = np.frombuffer(body, idx_t, k, off)[:3]
+        off += idx_size * k
+    return faces, off
+
+
 def read_ply(path: str) -> Tuple[np.ndarray, dict]:
     """Read a PLY file; returns (vertex xyz array, extras dict).
 
-    ``extras`` may contain 'normals' and 'colors' when present.
-    Handles binary_little_endian and ascii vertex elements with scalar
-    properties (meshes are not ported).
+    ``extras`` may contain 'normals', 'colors', 'faces' when present.
+    Handles binary_little_endian and ascii, scalar properties plus one
+    face list property (binary only, as the JAX package).
     """
     with open(path, "rb") as f:
         data = f.read()
@@ -104,4 +154,8 @@ def read_ply(path: str) -> Tuple[np.ndarray, dict]:
                 extras["colors"] = np.stack(
                     [rec["red"], rec["green"], rec["blue"]], -1).astype(
                         np.uint8)
+        elif name == "face" and fmt != "ascii":
+            extras["faces"], off = _read_faces(
+                body, off, count, typemap[props[0][1]],
+                typemap[props[0][2]])
     return verts, extras

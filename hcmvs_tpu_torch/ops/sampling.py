@@ -103,3 +103,16 @@ def nearest_sample_planes_batched(planes: torch.Tensor, x: torch.Tensor,
     taps = torch.gather(planes.reshape(v, c, h * w), 2, idx)
     out = taps.reshape((v, c) + tuple(x.shape[1:]))
     return torch.where(valid[:, None], out, oob_value), valid
+
+
+def nearest_sample_xy(img: torch.Tensor, x: torch.Tensor, y: torch.Tensor,
+                      oob_value: float = 0.0
+                      ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Nearest sampling of (H, W) ``img`` at x (column), y (row), truncated
+    toward zero (pass pre-rounded coordinates); returns (values, in-bounds
+    mask)."""
+    h, w = img.shape[:2]
+    xi = torch.clamp(x.to(torch.int64), 0, w - 1)
+    yi = torch.clamp(y.to(torch.int64), 0, h - 1)
+    valid = (x >= 0) & (y >= 0) & (x <= w - 1) & (y <= h - 1)
+    return torch.where(valid, img[yi, xi], oob_value), valid

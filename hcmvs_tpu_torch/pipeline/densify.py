@@ -15,15 +15,19 @@ to the reference's through ``core.config.CLI_FLAG_MAP``.
         [--masks-dir masks] [--priors-dir priors] [--device cpu]
     python -m hcmvs_tpu_torch.pipeline.densify --input-file scene.mvs \\
         -w out --project-labels
+    python -m hcmvs_tpu_torch.pipeline.densify --input-file mesh.ply \\
+        -w out --sample-mesh -100000
 
 Masks are found per image as ``find_scene_masks`` says (``<stem>.mask.png``
 beside the image by default); ``--priors-dir`` holds ``depth%04d.dmap``
 or ``<stem>.dmap`` prior maps; ``--project-labels`` colours the scene's
-points from ``<stem>_l_colored.png`` label images.  Everything runs on
+points from ``<stem>_l_colored.png`` label images; ``--sample-mesh``
+writes an area-weighted sampling of a ``.ply`` / ``.obj`` mesh as
+``scene_sampled.ply``.  Everything runs on
 the card unless ``device="cpu"`` is asked for; without a card that
 request is required (no quiet fallback).  Modes whose modules are not
 ported raise NotImplementedError naming the module: SGM (``fusion_mode``
--1/-2), mesh sampling and the viewer export.
+-1/-2) and the viewer export.
 """
 
 from __future__ import annotations
@@ -52,7 +56,9 @@ from hcmvs_tpu_torch.io.images import (compute_resolution_scale, load_image,
                                        load_semantic_mask, resize_image,
                                        resize_mask, save_depth_png, to_gray)
 from hcmvs_tpu_torch.io.mvs import SceneMVS, read_mvs, write_mvs
-from hcmvs_tpu_torch.io.ply import write_ply_points
+from hcmvs_tpu_torch.io.obj import read_obj
+from hcmvs_tpu_torch.io.ply import read_ply, write_ply_points
+from hcmvs_tpu_torch.mesh.mesh_ops import sample_points
 from hcmvs_tpu_torch.utils.profiling import log_report, stage_timer
 
 
@@ -135,6 +141,43 @@ def load_prior_maps(priors_dir: str, scene: SceneMVS,
         out[i] = d[ys[:, None], xs[None, :]]
         found = True
     return out if found else None
+
+
+def load_mesh_any(path: str):
+    """Load a mesh from .obj or .ply -> (vertices (V,3), faces (F,3))."""
+    if path.lower().endswith(".obj"):
+        m = read_obj(path)
+        return m.vertices, m.faces
+    verts, extras = read_ply(path)
+    faces = extras.get("faces")
+    if faces is None:
+        raise ValueError(f"{path}: no faces — not a mesh")
+    return verts, faces
+
+
+def sample_mesh(input_path: str, out_path: str, f_sample: float,
+                verbose: bool = True) -> int:
+    """The --sample-mesh side mode (ref: DensifyPointCloud.cpp:383-397):
+    load a mesh and export an area-weighted surface sampling as a point
+    cloud.  ``f_sample`` > 0 is a sampling density (points per unit
+    area, Mesh::SamplePoints(REAL) Mesh.cpp:3455-3461); < 0 is a total
+    point count (Mesh::SamplePoints(unsigned), :3444-3454).  Returns the
+    number of points written."""
+    verts, faces = load_mesh_any(input_path)
+    a, b, c = (verts[faces[:, 0]], verts[faces[:, 1]], verts[faces[:, 2]])
+    area = float(0.5 * np.linalg.norm(np.cross(b - a, c - a),
+                                      axis=1).sum())
+    if f_sample > 0:
+        n_pts = int(np.ceil(area * f_sample))
+    else:
+        n_pts = int(round(-f_sample))
+    n_pts = max(n_pts, 1)
+    pts, nrm = sample_points(verts, faces, n_pts)
+    write_ply_points(out_path, pts, nrm)
+    if verbose:
+        print(f"[densify] sampled mesh ({len(faces)} faces, area "
+              f"{area:.3g}) -> {n_pts} points -> {out_path}")
+    return n_pts
 
 
 def find_label_masks(scene: SceneMVS, images_dir: str,
@@ -517,7 +560,9 @@ def main(argv=None):
     ap.add_argument("--export-viewer", action="store_true",
                     help="offline WebGL viewer (not ported)")
     ap.add_argument("--sample-mesh", type=float, default=0.0,
-                    help="mesh sampling side mode (not ported)")
+                    help="side mode: sample the --input-file mesh (.ply / "
+                         ".obj), > 0 points per unit area, < 0 a point "
+                         "count, into scene_sampled.ply")
     ap.add_argument("--project-labels", action="store_true",
                     help="side mode (ref: DensifyPointCloud.cpp:416-433): "
                          "colour the scene's points from per-image "
@@ -528,8 +573,12 @@ def main(argv=None):
                          "be asked for)")
     args = ap.parse_args(argv)
     if args.sample_mesh != 0.0:
-        raise NotImplementedError("--sample-mesh (mesh/mesh_ops.py, not "
-                                  "ported)")
+        os.makedirs(args.working_dir, exist_ok=True)
+        n = sample_mesh(args.input_file,
+                        os.path.join(args.working_dir, "scene_sampled.ply"),
+                        args.sample_mesh)
+        print({"mode": "sample-mesh", "n_points": n})
+        return {"mode": "sample-mesh", "n_points": n}
     if args.export_viewer:
         raise NotImplementedError("--export-viewer (io/viewer.py, not "
                                   "ported)")

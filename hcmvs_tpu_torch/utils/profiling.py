@@ -5,9 +5,10 @@ timers, e.g. frame_main/libs/MVS/SceneDensify.cpp:760,3008,3267, and
 Util::LogMemoryInfo at shutdown, DensifyPointCloud.cpp:362).
 
 ``stage_timer`` accumulates wall seconds per stage name into one report
-for the process.  Its ``block_on`` takes a device (or a tensor, whose
-device is used): on a CUDA device the timer synchronises it before
-reading the clock, so the span covers the work queued inside the block.
+for the process (total, calls, max, and each call's seconds in order).
+Its ``block_on`` takes a device (or a tensor, whose device is used): on a
+CUDA device the timer synchronises it before reading the clock, so the
+span covers the work queued inside the block.
 The report's memory line is ``torch.cuda.max_memory_allocated``.
 """
 
@@ -21,8 +22,8 @@ from typing import Dict, Optional
 
 import torch
 
-_STAGES: Dict[str, Dict[str, float]] = defaultdict(
-    lambda: {"total_s": 0.0, "calls": 0, "max_s": 0.0})
+_STAGES: Dict[str, dict] = defaultdict(
+    lambda: {"total_s": 0.0, "calls": 0, "max_s": 0.0, "each_s": []})
 
 _LOGGER: Optional[logging.Logger] = None
 
@@ -70,6 +71,7 @@ def stage_timer(name: str, block_on=None, log: bool = False):
         s["total_s"] += dt
         s["calls"] += 1
         s["max_s"] = max(s["max_s"], dt)
+        s["each_s"].append(dt)
         if log:
             get_logger().info("%s: %.3fs", name, dt)
 
@@ -78,9 +80,9 @@ def reset_report() -> None:
     _STAGES.clear()
 
 
-def report() -> Dict[str, Dict[str, float]]:
+def report() -> Dict[str, dict]:
     """Snapshot of accumulated stage timings."""
-    return {k: dict(v) for k, v in _STAGES.items()}
+    return {k: dict(v, each_s=list(v["each_s"])) for k, v in _STAGES.items()}
 
 
 def device_memory_stats() -> Dict[str, int]:

@@ -268,8 +268,8 @@ def test_densify_export_only_resume_and_cli(world):
 
 def test_densify_needs_a_device_and_raises_for_unported(world, tmp_path):
     """Without a card the default device raises; masks (under
-    use_semantic), --priors-dir and --project-labels run; SGM, mesh
-    sampling and the viewer export raise naming their modules."""
+    use_semantic), --priors-dir, --project-labels and mesh sampling run;
+    SGM and the viewer export raise naming their modules."""
     from hcmvs_tpu_torch.io.dmap import DepthMapData, write_dmap
     from hcmvs_tpu_torch.io.images import write_png
     from hcmvs_tpu_torch.pipeline.densify import densify, main
@@ -306,10 +306,18 @@ def test_densify_needs_a_device_and_raises_for_unported(world, tmp_path):
                    world["img_dir"], "-w", str(tmp_path / "lab"),
                    "--masks-dir", str(masks), "--project-labels"])
     assert labels["n_label_images"] == 1
-    for extra in (["--sample-mesh", "-100"], ["--export-viewer"]):
-        with pytest.raises(NotImplementedError):
-            main(["--input-file", world["scene_path"], "--device", "cpu",
-                  *extra])
+    from hcmvs_tpu_torch.io.ply import read_ply, write_ply_mesh
+    write_ply_mesh(str(tmp_path / "quad.ply"),
+                   np.array([[0, 0, 4], [1, 0, 4], [1, 1, 4], [0, 1, 4]],
+                            np.float32), np.array([[0, 1, 2], [0, 2, 3]]))
+    sampled = main(["--input-file", str(tmp_path / "quad.ply"), "-w",
+                    str(tmp_path / "sampled"), "--sample-mesh", "-100"])
+    pts, _ = read_ply(str(tmp_path / "sampled" / "scene_sampled.ply"))
+    assert sampled["n_points"] == len(pts) == 100
+    assert (pts[:, 2] == 4).all()
+    with pytest.raises(NotImplementedError, match="io/viewer.py"):
+        main(["--input-file", world["scene_path"], "--device", "cpu",
+              "--export-viewer"])
 
 
 def compare_at(h: int, w: int) -> None:

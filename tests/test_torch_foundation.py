@@ -294,6 +294,27 @@ _NO_JAX_SCRIPT = textwrap.dedent("""
                    img_dir, "-w", "labels", "--project-labels"])
     assert labels["n_label_images"] == 3
     assert (labels["colors"] != 255).any(1).mean() > 0.9
+    # the mesh apps on the masked run's cloud: graph cut and clean-up on
+    # the host (native max-flow and rasterizer built with g++), refine and
+    # texture on the CPU; then densify's --sample-mesh of the result (the
+    # walk above imported native, mesh.* and eval.compare)
+    from hcmvs_tpu_torch.eval.compare import point_cloud_fscore
+    from hcmvs_tpu_torch.pipeline import mesh_apps
+    mvs = "masked/scene_dense.mvs"
+    rec = mesh_apps.main(["reconstruct", "-i", mvs, "-o", "mesh.ply"])
+    assert len(rec["faces"]) > 0
+    ref = mesh_apps.main(["refine", "-i", mvs, "-m", "mesh.ply",
+                          "--images-dir", img_dir, "--device", "cpu"])
+    assert np.isfinite(ref["vertices"]).all()
+    tex = mesh_apps.main(["texture", "-i", mvs, "-m", "mesh_refine.ply",
+                          "--images-dir", img_dir, "--device", "cpu"])
+    assert (tex["textured"].labels >= 0).any()
+    assert os.path.exists("mesh_refine_texture.png")
+    assert point_cloud_fscore(ref["vertices"], rec["vertices"],
+                              1.0)["fscore"] > 0.5
+    sampled = main(["--input-file", "mesh_refine_texture.obj", "-w",
+                    "sampled", "--sample-mesh", "-500"])
+    assert sampled["n_points"] == 500
     assert not any(m.split(".")[0] in BLOCKED
                    for m in sys.modules if sys.modules[m] is not None)
     print("OK", float((depth > 0).float().mean()))

@@ -445,3 +445,73 @@ def test_zero_baseline_pair_matches_plain():
         assert torch.isfinite(x).all()
     close = (out.depth - ref.depth).abs() <= 1e-3 * ref.depth.abs()
     assert close.float().mean() >= 0.99
+
+
+def _refine_setup():
+    """A ridge seen by 4 views and a noisy 14x14 grid on it (the setup of
+    tests/test_torch_refine.py)."""
+    from hcmvs_tpu_torch.utils.synth import make_ridge_scene
+    sc = make_ridge_scene(np.random.default_rng(7), h=96, w=128,
+                          n_views=4, spacing=0.3)
+    n = 14
+    X, Y = np.meshgrid(np.linspace(-1.3, 1.3, n), np.linspace(-1.0, 1.0, n))
+    Z = np.where(X < 0, 4.0 + 0.5 * X, 4.0 - 0.35 * X)
+    verts = np.stack([X.ravel(), Y.ravel(), Z.ravel()], 1).astype(np.float32)
+    verts[:, 2] += np.random.default_rng(0).uniform(
+        -0.06, 0.06, len(verts)).astype(np.float32)
+    faces = np.asarray([f for j in range(n - 1) for i in range(n - 1)
+                        for f in ([j * n + i, j * n + i + 1, j * n + i + n],
+                                  [j * n + i + 1, j * n + i + n + 1,
+                                   j * n + i + n])], np.int32)
+    Ks, Rs, Cs = (np.stack([np.asarray(getattr(c, f)) for c in sc.cameras])
+                  for f in "KRC")
+    return (verts, faces, np.stack(sc.images), Ks, Rs, Cs,
+            np.array([[0, 1], [0, 2], [0, 3], [1, 2]]))
+
+
+@pytest.mark.gpu
+def test_refine_on_cuda_is_reproducible_and_matches_cpu():
+    """Refine's sums run in a fixed order on CUDA: two runs give equal
+    vertices.  One gradient on the card agrees with the CPU's within 1e-4
+    (relative L2), the bar of chip_smoke.py's phase 15."""
+    from hcmvs_tpu_torch.mesh import refine as R
+    from hcmvs_tpu_torch.mesh.mesh_ops import rasterize_attributes
+    dev = _cuda()
+    args = _refine_setup()
+    kw = dict(scales=2, iters_per_scale=3, reg_weight=0.1)
+    a = R.refine_mesh(*args, device=dev, **kw)
+    b = R.refine_mesh(*args, device=dev, **kw)
+    assert np.array_equal(a, b) and np.isfinite(a).all()
+    verts, faces, images, Ks, Rs, Cs, pairs = args
+    h, w = images.shape[1:]
+    out = [rasterize_attributes(verts.astype(np.float64), faces, Ks[i],
+                                Rs[i], Cs[i], h, w) for i in range(4)]
+    dep, fid, bar = (np.stack(x) for x in zip(*out))
+    grads = []
+    for d in (torch.device("cpu"), dev):
+        t = lambda x: torch.as_tensor(np.asarray(x, np.float32),  # noqa
+                                      device=d)
+        imgs = t(images)
+        gx, gy = R.image_gradients(imgs)
+        F = torch.as_tensor(faces.astype(np.int64), device=d)
+        ras = R.ScaleRasters(torch.as_tensor(fid, device=d).long(), t(bar),
+                             t(dep), len(faces))
+        g, ws = R.raster_refine_grad(t(verts), F, ras, imgs, gx, gy, t(Ks),
+                                     t(Rs), t(Cs), pairs,
+                                     R.VertexSum(F, len(verts), len(pairs)))
+        grads.append((g.cpu().numpy(), ws.cpu().numpy()))
+    (g0, w0), (g1, w1) = grads
+    assert np.linalg.norm(g1 - g0) <= 1e-4 * np.linalg.norm(g0)
+    assert np.linalg.norm(w1 - w0) <= 1e-4 * np.linalg.norm(w0)
+
+
+@pytest.mark.gpu
+def test_lbp_labels_on_cuda_match_cpu():
+    from hcmvs_tpu_torch.mesh.texture import label_faces_lbp
+    dev = _cuda()
+    _, faces, *_ = _refine_setup()
+    rng = np.random.default_rng(0)
+    qual = rng.uniform(0, 1, (len(faces), 4)).astype(np.float32)
+    a = label_faces_lbp(faces, qual, device=dev)
+    assert np.array_equal(a, label_faces_lbp(faces, qual, device=dev))
+    assert (a == label_faces_lbp(faces, qual, device="cpu")).mean() >= 0.999
