@@ -74,13 +74,41 @@ Phases, each fatal on failure:
      iteration and the peak memory are printed (no kernel of the port is
      on this path: the reference's mesh stages reach no Pallas kernel);
  15. the same mesh again: refine and the labelling give equal vertices and
-     labels, and one refine gradient on the card agrees with the CPU's.
+     labels, and one refine gradient on the card agrees with the CPU's;
+ 16. photos -> SfM -> dense: the MvgMvsPipeline entry point
+     (``hcmvs_tpu_torch.pipeline.mvgmvs.main``, SEQUENTIAL, distortion
+     estimated, ``--no-mesh``, ``resolution-level=0``) on 8 ridge photos at
+     1280x960 (focal 1200 px) put through a radial distortion k1 = -0.15
+     and written as PNGs whose EXIF holds FocalLengthIn35mmFilm = 33.75:
+     K from EXIF exactly 1200, 8 of 8 views registered, k1 in (-0.25,
+     -0.08), the refined rms below the unrefined one and within 0.05 px
+     of the JAX package's on these photos, ATE below 0.025 after
+     similarity alignment, kernels A, B and C launched,
+     ``scene.mvs`` / ``scene_dense.ply`` read back, view 0's depth (times
+     the median ratio to the ground truth) at its floor; each stage's
+     seconds and the peak memory are printed; then the dense step again
+     from the same SfM result through the plain versions (no launch),
+     compared;
+ 17. SfM again on those photos, library calls only: ``incremental_sfm``
+     twice (poses, points and tracks equal), the GLOBAL preset's
+     ``global_sfm`` + ``refine_with_distortion`` (8 of 8 with finite poses
+     and points, its ATE at most a margin above the JAX package's on
+     these photos);
+ 18. bundle adjustment at scale: ``eval.ba_bench`` at 200 cameras, 200,000
+     points, ~1 M observations, 8 LM iterations on the PCG solver: the
+     final rms within 0.01 px of the JAX package's on the same problem
+     and at most 0.6 px, seconds per step, the PCG budget, peak memory; a
+     second run equal;
+ 19. the whole chain, small: ``mvgmvs.main`` with mesh and texture on 4
+     pinhole ridge photos at 320x240 at ``DenseConfig()``; the PLY mesh,
+     OBJ, MTL and PNG atlas read back with at least one face; then its
+     dense step again through the plain versions, compared.
 Launches are counted by kernel and output shape.  Then a JSON line per
 path, one for the kernels, the nvidia-smi line, and
 a last line ``{"ok": true, "device": {...}}``.  Exits non-zero, with no
 result line, without a CUDA device or without the package beside this
-script.  The densify and hierarchy outputs go to temporary directories
-beside this script, removed at the end.
+script.  The densify, hierarchy, mesh and photo outputs go to temporary
+directories beside this script, removed at the end.
 """
 
 from __future__ import annotations
@@ -1719,6 +1747,461 @@ def check_mesh(root, dev):
         "launches_by_shape": {k: {} for k in launches}}, failed
 
 
+# phases 16-19: the SfM front end through pipeline.mvgmvs.  Phase 16's
+# scene: the golden's fixed-FOV ridge (focal 1200 px at 1280 wide, 8
+# views 0.25 apart) through k1 = -0.15, as 8-bit PNGs whose eXIf chunk
+# holds FocalLengthIn35mmFilm = 33.75 (-> 1200 px)
+PHOTO_HW = (960, 1280)
+PHOTO_VIEWS = 8
+PHOTO_FX = 1200.0
+PHOTO_K1 = -0.15
+PHOTO_FLAGS = ("resolution-level=0",)
+# k1's window and the ATE bound (10% of the spacing) of the JAX package's
+# distortion golden (tests/test_distortion.py:121, :134)
+PHOTO_K1_WINDOW = (-0.25, -0.08)
+PHOTO_ATE_MAX = 0.025
+# the refined rms must fall below the unrefined one and stay within
+# PHOTO_RMS_TOL of the JAX package's own on these photos (its
+# incremental_sfm + refine_with_distortion on the CPU, tests/
+# test_torch_mvgmvs.py 960 1280 jax sfm): at 1280x960 the JAX golden's
+# 1 px bar (set at 144x192) is above what the JAX package reaches
+PHOTO_JAX_RMS = 1.1658747822928535
+PHOTO_RMS_TOL = 0.05
+# view 0's depth_acc_2pct floor, its depth scaled by the median ratio to
+# the ground truth over its valid pixels (eval/golden.py --hierarchy's
+# alignment): the JAX package's own run_pipeline_photos on this scene on
+# the CPU reads 0.9835 / 0.7041 at 240x320 / 480x640 (tests/
+# test_torch_mvgmvs.py H W jax); the lower less 0.05.  Scaled by the
+# similarity (Umeyama) scale of the camera centres instead, it is printed,
+# not gated: the JAX package's own reads 0.0011 / 0.0000 there (SfM's
+# depth-to-baseline ratio is a few per cent off, which the centres on a
+# line do not show, and that puts nearly every pixel past 2%)
+PHOTO_ACC_MEDIAN_FLOOR = 0.6541
+# phase 17's GLOBAL preset: the cameras lie on a line, so every pairwise
+# direction is nearly the same and translation averaging places them
+# along it poorly, at an ATE that moves with the RANSAC draws.  Its ATE
+# at most GLOBAL_ATE_TOL above the JAX package's own global_sfm +
+# refine_with_distortion on these photos on the CPU, 0.1497 (tests/
+# test_torch_global_photos.py 960 1280 jax; that run has the port's
+# rotation_to_rvec, as the JAX package's own returns NaN for the gauge
+# camera there).  The margin covers the port's own spread over draws: a
+# CPU generator seeded 0-8 gives 0.123-0.372 (the same script, port
+# seed=S)
+GLOBAL_JAX_ATE = 0.14974088374337752
+GLOBAL_ATE_TOL = 0.25
+# phase 18: eval.ba_bench at the benchmark's size; the JAX package's final
+# rms on the same problem on the CPU (tests/test_torch_ba.py 200 200000
+# jax)
+BA_SIZE = (200, 200_000)
+BA_ITERS = 8
+BA_JAX_RMS = 0.5910669642688551
+BA_RMS_TOL = 0.01
+BA_RMS_MAX = 0.6
+# phase 19: the whole chain, small: 4 pinhole ridge photos, same FOV
+CHAIN_HW = (240, 320)
+CHAIN_VIEWS = 4
+
+
+def photo_scene(h: int, w: int, n_views: int):
+    """``make_ridge_scene(default_rng(0), ...)`` with its blob texture
+    (1,200 exp a pixel) summed on the card: the same blobs, the card's
+    float64 exp."""
+    import numpy as np
+    from hcmvs_tpu_torch.utils.synth import blob_texture_fn, make_ridge_scene
+    return make_ridge_scene(np.random.default_rng(0), h=h, w=w,
+                            n_views=n_views, fx=PHOTO_FX * w / 1280,
+                            spacing=0.25, texture_fn=blob_texture_fn(
+                                np.random.default_rng(0), device="cuda"))
+
+
+def _centres(result):
+    import numpy as np
+    reg = sorted(result.poses)
+    return reg, np.stack([result.poses[i][1] for i in reg])
+
+
+def _stage_lines(label, rep, names):
+    """Logs each named stage's seconds (every call's, for a few calls);
+    returns {name: total seconds} of the stages that ran."""
+    out = {}
+    for name in names:
+        if name not in rep:
+            continue
+        s = rep[name]
+        each = (" (" + ", ".join(f"{x:.3f}" for x in s["each_s"]) + ")"
+                if 1 < s["calls"] <= 12 else "")
+        log(f"[{label}] stage {name:<24} {s['total_s']:9.3f} s "
+            f"x{int(s['calls'])}{each}")
+        out[name] = s["total_s"]
+    return out
+
+
+SFM_STAGES = ("photos.load", "sfm.features", "sfm.matching",
+              "sfm.init_pair", "sfm.registration", "sfm.ba",
+              "sfm.relative_poses", "sfm.averaging", "sfm.tracks",
+              "photos.distortion", "photos.undistort",
+              "dense.scene_tensors", "estimate.tables", "dense.estimate",
+              "dense.fuse", "mesh.reconstruct", "mesh.texture")
+
+
+def check_plain_dense(label, photos, flags, out, out_dir, sc, med, failed):
+    """The dense step of ``mvgmvs.main``'s run ``out`` again, from the same
+    SfM result through the plain versions (the photos read and undistorted
+    as ``run_pipeline_photos`` does them), compared with the kernel run as
+    the densify path compares its two: no launch, depth within 1% on >= 98%
+    of the pixels, view 0's accuracy (at the kernel run's median scale)
+    within 0.01, points within 1%.  Returns the JSON summary's entries."""
+    import os
+    import numpy as np
+    import torch
+    from hcmvs_tpu_torch import kernels
+    from hcmvs_tpu_torch.core.config import config_from_cli_flags
+    from hcmvs_tpu_torch.io.images import list_images, load_image, to_gray
+    from hcmvs_tpu_torch.pipeline import mvgmvs
+    from hcmvs_tpu_torch.sfm.distortion import undistort_image
+    from hcmvs_tpu_torch.sfm.incremental import sfm_to_scene
+
+    dev = mvgmvs.resolve_device("cuda")
+    paths = list_images(photos)
+    grays = [to_gray(load_image(p)).astype(np.float32) for p in paths]
+    K, k = out["K"], out["distortion"]
+    if np.abs(k).max() > 1e-4:
+        grays = [undistort_image(g, K, k, device=dev) for g in grays]
+    h, w = grays[0].shape
+    scene = sfm_to_scene(out["sfm"], K, [os.path.basename(p) for p in paths],
+                         w, h)
+    cfg = config_from_cli_flags(dict(f.split("=", 1) for f in flags))
+    os.makedirs(out_dir, exist_ok=True)
+    kernels.reset_launches()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with kernels.plain_versions():
+        plain = mvgmvs._dense_mesh_texture(out["sfm"], scene, grays, K,
+                                           out_dir, cfg, False, False,
+                                           False, dev)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    if any(kernels.launches.values()):
+        failed.append(f"{label} plain run launched kernels: "
+                      f"{kernels.launches}")
+    dk, dp = out["depth"], plain["depth"]
+    agree = float((np.abs(dk - dp) <= 0.01 * np.abs(dp)).mean())
+    acc_k = depth_acc_2pct(dk[0] * med, sc.depth_gt)
+    acc_p = depth_acc_2pct(dp[0] * med, sc.depth_gt)
+    n_k, n_p = len(out["cloud"]["points"]), len(plain["cloud"]["points"])
+    log(f"[{label} plain] dense step {seconds:.3f} s, view 0 interior "
+        f"depth_acc_2pct {acc_p:.4f} (kernels {acc_k:.4f}) at the median "
+        f"scale, points {n_p} (kernels {n_k}); depth within 1% of the "
+        f"kernel run on {agree:.5f} of pixels")
+    if agree < 0.98:
+        failed.append(f"{label}: kernel and plain runs agree on {agree}")
+    if abs(acc_k - acc_p) > 0.01:
+        failed.append(f"{label}: accuracy {acc_k} (kernels) vs {acc_p} "
+                      f"(plain)")
+    if abs(n_k - n_p) > 0.01 * max(n_p, 1):
+        failed.append(f"{label}: point counts {n_k} (kernels) vs {n_p} "
+                      f"(plain)")
+    return {"plain_dense_s": seconds, "plain_depth_acc_2pct": acc_p,
+            "plain_n_points": n_p, "agree_1pct": agree}
+
+
+def check_photos(root):
+    """Phase 16: the photo directory through ``pipeline.mvgmvs.main``
+    (SEQUENTIAL, distortion estimated, ``--no-mesh``) on the card, counts
+    reset just before, read just after; then its dense step through the
+    plain versions.  Returns (launches, JSON summary, the checks that
+    failed, the scene)."""
+    import numpy as np
+    import torch
+    from hcmvs_tpu_torch import kernels
+    from hcmvs_tpu_torch.eval.pose_eval import ate, umeyama_align
+    from hcmvs_tpu_torch.io.mvs import read_mvs
+    from hcmvs_tpu_torch.io.ply import read_ply
+    from hcmvs_tpu_torch.pipeline import mvgmvs
+    from hcmvs_tpu_torch.utils import profiling
+    from hcmvs_tpu_torch.utils.synth import distort_images, write_photos
+
+    label = "photos"
+    failed = []
+    h, w = PHOTO_HW
+    t0 = time.perf_counter()
+    sc = photo_scene(h, w, PHOTO_VIEWS)
+    K_gt = sc.cameras[0].K.numpy()
+    photos = str(root / "photos")
+    write_photos(photos, distort_images(sc.images, K_gt,
+                                        np.array([PHOTO_K1, 0.0, 0.0])),
+                 PHOTO_FX * 36.0 / 1280)
+    log(f"[{label}] {PHOTO_VIEWS} ridge photos {w}x{h} through k1 = "
+        f"{PHOTO_K1} written as PNGs with EXIF in "
+        f"{time.perf_counter() - t0:.3f} s")
+    out_dir = str(root / "out")
+    profiling.reset_report()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    kernels.reset_launches()
+    with launch_shapes() as shapes:
+        t0 = time.perf_counter()
+        out = mvgmvs.main([photos, out_dir, "--flags", *PHOTO_FLAGS,
+                           "--no-mesh"])
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+    launches = dict(kernels.launches)
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    log(f"[{label}] kernel launches {launches}")
+    shapes = check_shapes(label, launches, shapes, failed)
+    if min(launches[k] for k in EXACT_KERNELS) <= 0:
+        failed.append(f"{label}: a kernel of the path never launched: "
+                      f"{launches}")
+    rep = profiling.report()
+    stages = _stage_lines(label, rep, SFM_STAGES)
+    res = out["sfm"]
+    reg, est = _centres(res)
+    gt = np.stack([sc.cameras[i].C.numpy() for i in reg])
+    a = ate(est, gt)
+    scale = umeyama_align(est, gt)[0]
+    k = [float(x) for x in out["distortion"]]
+    d0 = out["depth"][0]
+    acc = depth_acc_2pct(d0 * scale, sc.depth_gt)
+    med = float(np.median(sc.depth_gt[d0 > 0] / d0[d0 > 0]))
+    acc_med = depth_acc_2pct(d0 * med, sc.depth_gt)
+    scene = read_mvs(str(root / "out" / "scene.mvs"))
+    cloud, _ = read_ply(str(root / "out" / "scene_dense.ply"))
+    back = {"mvs": (len(scene.images) == len(reg)
+                    and len(scene.points) > 0),
+            "ply": len(cloud) == len(out["cloud"]["points"]) > 0}
+    log(f"[{label}] f = {out['K'][0, 0]!r} px from EXIF; {len(reg)} of "
+        f"{PHOTO_VIEWS} registered; k = {k}; rms {out['rms_unrefined']:.4f}"
+        f" -> {res.reproj_rms:.4f} px refined (JAX on the CPU "
+        f"{PHOTO_JAX_RMS:.4f}); ATE rmse {a['rmse']:.5f} "
+        f"(max {a['max']:.5f}, scale {scale:.5f}); view 0 interior "
+        f"depth_acc_2pct {acc_med:.4f} at the median scale {med:.5f} "
+        f"(floor {PHOTO_ACC_MEDIAN_FLOOR}), {acc:.4f} at the similarity "
+        f"scale; valid {(d0 > 0).mean():.4f}; "
+        f"{len(out['cloud']['points'])} points; files read back {back}; "
+        f"total {seconds:.3f} s, peak memory {peak:.2f} GiB")
+    if out["K"][0, 0] != PHOTO_FX:
+        failed.append(f"{label}: K from EXIF {out['K'][0, 0]!r} != "
+                      f"{PHOTO_FX}")
+    if len(reg) != PHOTO_VIEWS:
+        failed.append(f"{label}: registered {reg}")
+    if not PHOTO_K1_WINDOW[0] < k[0] < PHOTO_K1_WINDOW[1]:
+        failed.append(f"{label}: k1 {k[0]} outside {PHOTO_K1_WINDOW}")
+    if not (res.reproj_rms < out["rms_unrefined"] and
+            res.reproj_rms <= PHOTO_JAX_RMS + PHOTO_RMS_TOL):
+        failed.append(f"{label}: rms {out['rms_unrefined']} -> "
+                      f"{res.reproj_rms} (JAX {PHOTO_JAX_RMS})")
+    if a["rmse"] >= PHOTO_ATE_MAX:
+        failed.append(f"{label}: ATE {a['rmse']} >= {PHOTO_ATE_MAX}")
+    if acc_med < PHOTO_ACC_MEDIAN_FLOOR:
+        failed.append(f"{label}: depth accuracy {acc_med} (median scale) "
+                      f"< {PHOTO_ACC_MEDIAN_FLOOR}")
+    if not all(back.values()):
+        failed.append(f"{label}: files read back {back}")
+    plain = check_plain_dense(label, photos, PHOTO_FLAGS, out,
+                              str(root / "plain"), sc, med, failed)
+    return launches, {
+        "views": PHOTO_VIEWS, "h": h, "w": w, "flags": list(PHOTO_FLAGS),
+        "f_px": float(out["K"][0, 0]), "registered": len(reg), "k": k,
+        "rms_unrefined_px": out["rms_unrefined"],
+        "rms_px": res.reproj_rms, "ate_rmse": a["rmse"], "ate_max": a["max"],
+        "scale": scale, "depth_acc_2pct": acc,
+        "median_scale": med, "depth_acc_2pct_median_scale": acc_med,
+        "median_floor": PHOTO_ACC_MEDIAN_FLOOR, **plain,
+        "valid_frac": float((d0 > 0).mean()),
+        "n_points": len(out["cloud"]["points"]),
+        "sparse_points": len(res.points), "total_s": seconds,
+        "stage_s": stages, "ba_each_s": rep.get("sfm.ba", {}).get("each_s"),
+        "peak_gib": peak, "files_read_back": back,
+        "launches_by_shape": shapes}, failed, sc
+
+
+def check_sfm_again(root, sc, dev):
+    """Phase 17: ``incremental_sfm`` twice on phase 16's photos (equal
+    poses and points: fixed-order sums, a seeded generator), then the
+    GLOBAL preset's ``global_sfm`` + ``refine_with_distortion``: all
+    views registered with finite poses and points, the ATE at most
+    GLOBAL_ATE_TOL above the JAX package's on the same photos."""
+    import numpy as np
+    import torch
+    from hcmvs_tpu_torch import kernels
+    from hcmvs_tpu_torch.eval.pose_eval import ate
+    from hcmvs_tpu_torch.io.exif import scene_intrinsics_from_photos
+    from hcmvs_tpu_torch.io.images import list_images, load_image, to_gray
+    from hcmvs_tpu_torch.sfm.distortion import refine_with_distortion
+    from hcmvs_tpu_torch.sfm.global_sfm import global_sfm
+    from hcmvs_tpu_torch.sfm.incremental import incremental_sfm
+    from hcmvs_tpu_torch.utils import profiling
+
+    label = "sfm_again"
+    failed = []
+    paths = list_images(str(root / "photos"))
+    grays = [to_gray(load_image(p)).astype(np.float32) for p in paths]
+    h, w = grays[0].shape
+    K, _ = scene_intrinsics_from_photos(paths, [w] * len(paths),
+                                        [h] * len(paths))
+    kernels.reset_launches()
+    runs, secs = [], []
+    for _ in range(2):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        runs.append(incremental_sfm(grays, K, device=dev))
+        torch.cuda.synchronize()
+        secs.append(time.perf_counter() - t0)
+    a, b = runs
+    equal = (list(a.poses) == list(b.poses)
+             and all(np.array_equal(a.poses[i][0], b.poses[i][0])
+                     and np.array_equal(a.poses[i][1], b.poses[i][1])
+                     for i in a.poses)
+             and np.array_equal(a.points, b.points)
+             and a.track_obs == b.track_obs)
+    profiling.reset_report()
+    t0 = time.perf_counter()
+    g = global_sfm(grays, K, device=dev)
+    g, k = refine_with_distortion(g, K, device=dev)
+    torch.cuda.synchronize()
+    g_s = time.perf_counter() - t0
+    stages = _stage_lines(label, profiling.report(), SFM_STAGES)
+    reg, est = _centres(g)
+    gt = np.stack([sc.cameras[i].C.numpy() for i in reg])
+    ga = ate(est, gt)
+    launches = dict(kernels.launches)
+    log(f"[{label}] incremental_sfm twice {secs[0]:.3f} / {secs[1]:.3f} s: "
+        f"poses, points and tracks equal {equal} ({len(a.poses)} views, "
+        f"{len(a.points)} points, rms {a.reproj_rms:.4f} px); global_sfm + "
+        f"distortion {g_s:.3f} s: {len(reg)} registered, k = "
+        f"{[float(x) for x in k]}, rms {g.reproj_rms:.4f} px, ATE rmse "
+        f"{ga['rmse']:.5f} (JAX on the CPU {GLOBAL_JAX_ATE:.5f}); kernel "
+        f"launches {launches}")
+    if not equal:
+        failed.append(f"{label}: two incremental_sfm runs differ")
+    finite = bool(np.isfinite(est).all() and np.isfinite(g.points).all())
+    if len(reg) != PHOTO_VIEWS or not finite:
+        failed.append(f"{label}: global_sfm registered {reg}, poses and "
+                      f"points finite {finite}")
+    if not ga["rmse"] <= GLOBAL_JAX_ATE + GLOBAL_ATE_TOL:
+        failed.append(f"{label}: global ATE {ga['rmse']} > JAX "
+                      f"{GLOBAL_JAX_ATE} + {GLOBAL_ATE_TOL}")
+    return launches, {
+        "incremental_s": secs, "again_equal": equal,
+        "incremental_rms_px": a.reproj_rms, "global_s": g_s,
+        "global_registered": len(reg), "global_k": [float(x) for x in k],
+        "global_rms_px": g.reproj_rms, "global_ate_rmse": ga["rmse"],
+        "global_jax_cpu_ate": GLOBAL_JAX_ATE,
+        "global_finite": finite,
+        "global_stage_s": stages,
+        "launches_by_shape": {n: {} for n in launches}}, failed
+
+
+def check_ba(dev):
+    """Phase 18: ``eval.ba_bench`` at 200 cameras / 200,000 points / ~1 M
+    observations, 8 LM iterations on the PCG solver, twice."""
+    import torch
+    from hcmvs_tpu_torch import kernels
+    from hcmvs_tpu_torch.eval import ba_bench
+
+    label = "ba"
+    failed = []
+    kernels.reset_launches()
+    torch.cuda.reset_peak_memory_stats()
+    runs = [ba_bench.run(*BA_SIZE, BA_ITERS, device=dev) for _ in range(2)]
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    a, b = runs
+    equal = all(torch.equal(x, y) for x, y in zip(a["state"], b["state"]))
+    launches = dict(kernels.launches)
+    for r in runs:
+        log(f"[{label}] {r['cams']} cameras, {r['points']} points, "
+            f"{r['observations']} observations: rms {r['rms_px_before']!r} "
+            f"-> {r['rms_px_after']!r} px in {r['iters']} LM iterations "
+            f"({r['total_seconds']:.3f} s, "
+            f"{r['total_seconds'] / r['iters']:.4f} s an iteration); one "
+            f"trial step {r['step_seconds']:.4f} s (device synchronised), "
+            f"PCG budget {r['cg_iters']}")
+    log(f"[{label}] JAX package on the CPU {BA_JAX_RMS!r} px; the two runs "
+        f"equal {equal}; peak memory {peak:.2f} GiB")
+    if abs(a["rms_px_after"] - BA_JAX_RMS) > BA_RMS_TOL or \
+            a["rms_px_after"] > BA_RMS_MAX:
+        failed.append(f"{label}: final rms {a['rms_px_after']} (JAX "
+                      f"{BA_JAX_RMS}, max {BA_RMS_MAX})")
+    if not equal:
+        failed.append(f"{label}: the second run differs")
+    return launches, {
+        **{k: v for k, v in a.items() if k != "state"},
+        "second_total_seconds": b["total_seconds"],
+        "second_step_seconds": b["step_seconds"], "again_equal": equal,
+        "jax_cpu_rms_px": BA_JAX_RMS, "peak_gib": peak,
+        "launches_by_shape": {n: {} for n in launches}}, failed
+
+
+def check_chain(root):
+    """Phase 19: ``pipeline.mvgmvs.main`` with mesh and texture on 4
+    pinhole ridge photos at 320x240, ``DenseConfig()``, counts reset just
+    before, read just after; then its dense step through the plain
+    versions."""
+    import numpy as np
+    import torch
+    from hcmvs_tpu_torch import kernels
+    from hcmvs_tpu_torch.io.images import _read_samples
+    from hcmvs_tpu_torch.io.obj import read_obj
+    from hcmvs_tpu_torch.io.ply import read_ply
+    from hcmvs_tpu_torch.pipeline import mvgmvs
+    from hcmvs_tpu_torch.utils import profiling
+    from hcmvs_tpu_torch.utils.synth import write_photos
+
+    label = "chain"
+    failed = []
+    h, w = CHAIN_HW
+    sc = photo_scene(h, w, CHAIN_VIEWS)
+    photos = str(root / "photos")
+    write_photos(photos, sc.images, PHOTO_FX * 36.0 / 1280)
+    out_dir = root / "out"
+    profiling.reset_report()
+    kernels.reset_launches()
+    with launch_shapes() as shapes:
+        t0 = time.perf_counter()
+        out = mvgmvs.main([photos, str(out_dir)])
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+    launches = dict(kernels.launches)
+    shapes = check_shapes(label, launches, shapes, failed)
+    stages = _stage_lines(label, profiling.report(), SFM_STAGES)
+    mv, mf = out.get("mesh", (np.zeros((0, 3)), np.zeros((0, 3))))
+    back = {}
+    if (out_dir / "scene_mesh.ply").exists():
+        v, e = read_ply(str(out_dir / "scene_mesh.ply"))
+        back["ply"] = (np.array_equal(v, mv)
+                       and np.array_equal(e["faces"], mf))
+    if (out_dir / "scene_textured.obj").exists():
+        tm = out["textured"]
+        obj = read_obj(str(out_dir / "scene_textured.obj"))
+        back["obj"] = (np.array_equal(obj.faces, tm.faces)
+                       and obj.mtllib == "scene_textured.mtl")
+        back["mtl"] = ("map_Kd scene_textured.png"
+                       in (out_dir / "scene_textured.mtl").read_text())
+        atlas, _ = _read_samples(str(out_dir / "scene_textured.png"))
+        back["png"] = np.array_equal(atlas, tm.atlas)
+    log(f"[{label}] {len(out['sfm'].poses)} of {CHAIN_VIEWS} registered, "
+        f"k = {[float(x) for x in out['distortion']]}, "
+        f"{len(out['cloud']['points'])} points, {len(mv)} vertices, "
+        f"{len(mf)} faces; files read back {back}; kernel launches "
+        f"{launches}; total {seconds:.3f} s")
+    if len(mf) < 1 or set(back) != {"ply", "obj", "mtl", "png"} or \
+            not all(back.values()):
+        failed.append(f"{label}: {len(mf)} faces, files read back {back}")
+    if min(launches[k] for k in EXACT_KERNELS) <= 0:
+        failed.append(f"{label}: a kernel of the path never launched: "
+                      f"{launches}")
+    d0 = out["depth"][0]
+    med = float(np.median(sc.depth_gt[d0 > 0] / d0[d0 > 0]))
+    plain = check_plain_dense(label, photos, (), out, str(root / "plain"),
+                              sc, med, failed)
+    return launches, {
+        "views": CHAIN_VIEWS, "h": h, "w": w,
+        "registered": len(out["sfm"].poses),
+        "n_points": len(out["cloud"]["points"]), "faces": len(mf),
+        "total_s": seconds, "stage_s": stages, "files_read_back": back,
+        **plain, "launches_by_shape": shapes}, failed
+
+
 def main() -> int:
     t_start = time.perf_counter()
     try:
@@ -1801,6 +2284,28 @@ def main() -> int:
         paths["densify_masks"] = check_masks(root)
         torch.cuda.empty_cache()
         paths["mesh"] = check_mesh(root, dev)
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    torch.cuda.empty_cache()
+
+    # 16. photos -> SfM -> dense; 17. SfM again on its photos (library
+    # calls); 18. bundle adjustment at scale; 19. the whole chain, small
+    root = Path(tempfile.mkdtemp(prefix="_photos_smoke_",
+                                 dir=Path(__file__).resolve().parent))
+    try:
+        launches, summary, failed, photo_sc = check_photos(root)
+        paths["photos"] = (launches, summary, failed)
+        torch.cuda.empty_cache()
+        paths["sfm_again"] = check_sfm_again(root, photo_sc, dev)
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    torch.cuda.empty_cache()
+    paths["ba"] = check_ba(dev)
+    torch.cuda.empty_cache()
+    root = Path(tempfile.mkdtemp(prefix="_chain_smoke_",
+                                 dir=Path(__file__).resolve().parent))
+    try:
+        paths["chain"] = check_chain(root)
     finally:
         shutil.rmtree(root, ignore_errors=True)
     failed = [f for _, _, fs in paths.values() for f in fs]

@@ -2,7 +2,8 @@
 
 Each function takes an object with the fields of the JAX package's
 container (``SceneTensors``, ``SceneState``, ``ViewGeometry``,
-``VolumeTables``, ``RectContext``) and reads every array through
+``VolumeTables``, ``RectContext``, ``Keypoints``, ``BAProblem``,
+``BAState``, ``SfMResult``) and reads every array through
 ``np.asarray``, so this module needs no JAX.  The tests use them to run
 both packages on identical scenes, states, tables and rect contexts.
 Like the port's other entry points they put the tensors on the card
@@ -20,6 +21,9 @@ from hcmvs_tpu_torch.dense.scene_driver import SceneState, SceneTensors
 from hcmvs_tpu_torch.dense.types import ViewGeometry
 from hcmvs_tpu_torch.ops.rect_gather import RectContext
 from hcmvs_tpu_torch.ops.volume import VolumeTables
+from hcmvs_tpu_torch.sfm.ba import BAProblem, BAState
+from hcmvs_tpu_torch.sfm.features import Keypoints
+from hcmvs_tpu_torch.sfm.incremental import SfMResult
 
 
 def _t(x, device, dtype=None) -> torch.Tensor:
@@ -91,3 +95,40 @@ def rect_context_from_numpy(ctx, device="cuda") -> RectContext:
                        c0=_t(ctx.c0, device, torch.float32),
                        k=_t(ctx.k, device, torch.float32),
                        rb=_t(ctx.rb, device, torch.int32))
+
+
+def keypoints_from_numpy(kps, device="cuda") -> Keypoints:
+    """The JAX ``Keypoints`` (xy, score, scale, angle, desc)."""
+    return Keypoints(*(_t(getattr(kps, f), device, torch.float32)
+                       for f in Keypoints._fields))
+
+
+def ba_problem_from_numpy(problem, device="cuda") -> BAProblem:
+    """The JAX ``BAProblem`` (observations already sorted by point)."""
+    return BAProblem(
+        K=_t(problem.K, device, torch.float32),
+        obs_cam=_t(problem.obs_cam, device, torch.int64),
+        obs_pt=_t(problem.obs_pt, device, torch.int64),
+        obs_uv=_t(problem.obs_uv, device, torch.float32),
+        obs_valid=_t(problem.obs_valid, device, torch.bool),
+        fixed_cams=_t(problem.fixed_cams, device, torch.bool),
+        dist=_t(problem.dist, device, torch.float32))
+
+
+def ba_state_from_numpy(state, device="cuda") -> BAState:
+    """The JAX ``BAState`` (rvecs, tvecs, points)."""
+    return BAState(*(_t(getattr(state, f), device, torch.float32)
+                     for f in BAState._fields))
+
+
+def sfm_result_from_numpy(result) -> SfMResult:
+    """The JAX ``SfMResult`` with its arrays as numpy (an SfM result lives
+    on the host in both packages)."""
+    return SfMResult(
+        poses={int(i): (np.array(np.asarray(R)), np.array(np.asarray(C)))
+               for i, (R, C) in result.poses.items()},
+        points=np.array(np.asarray(result.points)),
+        track_obs=[[(int(i), int(k)) for i, k in obs]
+                   for obs in result.track_obs],
+        keypoints=[np.array(np.asarray(x)) for x in result.keypoints],
+        reproj_rms=float(result.reproj_rms))

@@ -39,7 +39,7 @@ import math
 import os
 import struct
 import zlib
-from typing import Tuple
+from typing import List, Optional, Tuple
 
 import numpy as np
 
@@ -393,11 +393,13 @@ def resize_image(img: np.ndarray, scale: float) -> np.ndarray:
     return out.astype(img.dtype)
 
 
-def write_png(path: str, img: np.ndarray, filters=2) -> None:
+def write_png(path: str, img: np.ndarray, filters=2,
+              exif: Optional[bytes] = None) -> None:
     """Write (H, W) gray, (H, W, 3) RGB or (H, W, 4) RGBA samples as a PNG
     (zlib level 6): 16-bit for a uint16 array, else 8-bit.  ``filters`` is
     the row filter type (0 None, 1 Sub, 2 Up, 3 Average, 4 Paeth) of every
-    row, or a sequence of one per row."""
+    row, or a sequence of one per row.  ``exif``: a TIFF EXIF block
+    (``io.exif.exif_bytes``) written as an ``eXIf`` chunk."""
     depth = 16 if np.asarray(img).dtype == np.uint16 else 8
     img = np.ascontiguousarray(img, np.uint16 if depth == 16 else np.uint8)
     h, w = img.shape[:2]
@@ -423,8 +425,18 @@ def write_png(path: str, img: np.ndarray, filters=2) -> None:
         f.write(_PNG_SIGNATURE)
         f.write(chunk(b"IHDR", struct.pack(">IIBBBBB", w, h, depth, color, 0,
                                            0, 0)))
+        if exif:
+            f.write(chunk(b"eXIf", exif))
         f.write(chunk(b"IDAT", zlib.compress(raw.tobytes(), 6)))
         f.write(chunk(b"IEND", b""))
+
+
+def list_images(directory: str) -> List[str]:
+    """The image files of a directory (by extension), sorted by name."""
+    exts = {".jpg", ".jpeg", ".png", ".bmp", ".tif", ".tiff", ".ppm"}
+    names = sorted(n for n in os.listdir(directory)
+                   if os.path.splitext(n)[1].lower() in exts)
+    return [os.path.join(directory, n) for n in names]
 
 
 def jet_colormap(x: np.ndarray) -> np.ndarray:

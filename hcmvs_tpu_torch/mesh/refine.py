@@ -45,33 +45,8 @@ import numpy as np
 import torch
 
 from hcmvs_tpu_torch.ops.sampling import bilinear_sample_xy, nearest_sample_xy
+from hcmvs_tpu_torch.ops.segments import FixedSum
 from hcmvs_tpu_torch.utils.profiling import stage_timer
-
-
-class FixedSum:
-    """Sums of the rows of ``x`` (N, C) into ``n`` targets by the fixed
-    ids (N,).  On the CPU ``index_add_`` in row order; on CUDA (or with
-    ``fixed_order=True``) the rows sorted by target, stable, and each
-    target's rows reduced in that order, so the sums do not depend on the
-    run."""
-
-    def __init__(self, ids: torch.Tensor, n: int,
-                 fixed_order: Optional[bool] = None):
-        self.ids, self.n = ids, n
-        self.fixed_order = (ids.is_cuda if fixed_order is None
-                            else fixed_order)
-        if self.fixed_order:
-            self.order = torch.argsort(ids, stable=True)
-            self.lengths = torch.bincount(ids, minlength=n)
-
-    def sum(self, x: torch.Tensor) -> torch.Tensor:
-        if not self.fixed_order:
-            out = torch.zeros((self.n,) + tuple(x.shape[1:]), dtype=x.dtype,
-                              device=x.device)
-            return out.index_add_(0, self.ids, x)
-        return torch.segment_reduce(x[self.order], "sum",
-                                    lengths=self.lengths, axis=0,
-                                    unsafe=True)
 
 
 class Laplacian:

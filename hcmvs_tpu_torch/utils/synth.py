@@ -128,19 +128,29 @@ def make_plane_scene(rng: np.random.Generator, h: int = 64, w: int = 80,
 
 
 def blob_texture_fn(rng: np.random.Generator, n_blobs: int = 1200,
-                    extent: float = 3.5):
+                    extent: float = 3.5, device=None):
     """A world-(x, y) -> intensity function rich in Gaussian blobs; blob
     sigmas span ~2-9 px at the default scene geometry (z ~ 4, fx ~ 180).
-    Costs n_blobs ``exp`` per pixel."""
+    Costs n_blobs ``exp`` per pixel: numpy (bit-identical to the JAX
+    package's) unless ``device`` is given, where the same float64 sums run
+    in torch on that device (the exp's last bits are the device's)."""
     centers = rng.uniform(-extent, extent, (n_blobs, 2))
     sigmas = rng.uniform(0.03, 0.08, n_blobs)
     amps = rng.uniform(0.25, 0.6, n_blobs) * rng.choice([-1, 1], n_blobs)
 
     def fn(xy: np.ndarray) -> np.ndarray:
-        val = np.full(xy.shape[:-1], 0.5)
+        if device is None:
+            x, y, exp = xy[..., 0], xy[..., 1], np.exp
+        else:
+            x, y = (torch.as_tensor(xy[..., i], dtype=torch.float64,
+                                    device=device) for i in (0, 1))
+            exp = torch.exp
+        val = x * 0 + 0.5
         for c, s, a in zip(centers, sigmas, amps):
-            d2 = ((xy[..., 0] - c[0]) ** 2 + (xy[..., 1] - c[1]) ** 2)
-            val = val + a * np.exp(-d2 / (2 * s * s))
+            d2 = ((x - c[0]) ** 2 + (y - c[1]) ** 2)
+            val = val + a * exp(-d2 / (2 * s * s))
+        if device is not None:
+            val = val.cpu().numpy()
         return np.clip(val, 0.0, 1.0).astype(np.float32)
 
     return fn
@@ -386,3 +396,47 @@ def _write_scene(root: str, scene, points: np.ndarray,
     path = os.path.join(root, "scene.mvs")
     write_mvs(path, mvs)
     return path, img_dir
+
+
+def distort_images(images: List[np.ndarray], K: np.ndarray,
+                   k: np.ndarray) -> List[np.ndarray]:
+    """Distorted photos from ideal pinhole renders: D(p) = I(undistort(p))
+    (bilinear, float32), so that ``sfm.distortion.undistort_image(D)``
+    gives I back; the synthetic photos of the JAX package's distortion
+    golden (tests/test_distortion.py)."""
+    from hcmvs_tpu_torch.sfm.distortion import undistort_points_px
+    h, w = images[0].shape
+    yy, xx = np.meshgrid(np.arange(h, dtype=np.float32),
+                         np.arange(w, dtype=np.float32), indexing="ij")
+    uv = np.stack([xx, yy], -1).reshape(-1, 2)
+    src = undistort_points_px(
+        torch.from_numpy(uv), torch.from_numpy(np.array(K, np.float32)),
+        torch.from_numpy(np.array(k, np.float32))).numpy().reshape(h, w, 2)
+    x = np.clip(src[..., 0], 0, w - 1.001)
+    y = np.clip(src[..., 1], 0, h - 1.001)
+    x0 = x.astype(np.int64)
+    y0 = y.astype(np.int64)
+    fx = x - x0
+    fy = y - y0
+    return [((im[y0, x0] * (1 - fx) + im[y0, x0 + 1] * fx) * (1 - fy)
+             + (im[y0 + 1, x0] * (1 - fx) + im[y0 + 1, x0 + 1] * fx) * fy
+             ).astype(np.float32) for im in images]
+
+
+def write_photos(photo_dir: str, images: List[np.ndarray],
+                 focal_35mm=None) -> List[str]:
+    """Write (H, W) images in [0, 1] as 8-bit gray PNGs
+    ``photo_dir/p%02d.png``, each with an ``eXIf`` chunk holding
+    FocalLengthIn35mmFilm when ``focal_35mm`` is given (the photo
+    directory of ``pipeline.mvgmvs``); returns the paths."""
+    from hcmvs_tpu_torch.io.exif import exif_bytes
+    from hcmvs_tpu_torch.io.images import write_png
+    os.makedirs(photo_dir, exist_ok=True)
+    blob = (None if focal_35mm is None
+            else exif_bytes(FocalLengthIn35mmFilm=float(focal_35mm)))
+    paths = []
+    for i, im in enumerate(images):
+        paths.append(os.path.join(photo_dir, f"p{i:02d}.png"))
+        write_png(paths[-1], (np.clip(im, 0, 1) * 255).astype(np.uint8),
+                  exif=blob)
+    return paths

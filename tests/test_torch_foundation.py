@@ -209,7 +209,7 @@ def test_init_state_apply_matches_with_jax_draws(scenes):
 
 _NO_JAX_SCRIPT = textwrap.dedent("""
     import importlib, os, pkgutil, sys
-    BLOCKED = ("jax", "jaxlib", "hcmvs_tpu", "cv2")
+    BLOCKED = ("jax", "jaxlib", "hcmvs_tpu", "cv2", "PIL")
     for name in list(sys.modules):
         if name.split(".")[0] in BLOCKED:
             del sys.modules[name]
@@ -315,6 +315,19 @@ _NO_JAX_SCRIPT = textwrap.dedent("""
     sampled = main(["--input-file", "mesh_refine_texture.obj", "-w",
                     "sampled", "--sample-mesh", "-500"])
     assert sampled["n_points"] == 500
+    # the SfM front end's EXIF bootstrap (its own TIFF parser, no imaging
+    # library) and one bundle-adjustment step
+    from hcmvs_tpu_torch.eval.ba_bench import make_problem
+    from hcmvs_tpu_torch.io.exif import exif_bytes, focal_from_exif
+    from hcmvs_tpu_torch.io.images import write_png
+    from hcmvs_tpu_torch.sfm.ba import ba_cost, ba_step
+    write_png("exif.png", np.zeros((48, 64), np.uint8),
+              exif=exif_bytes(FocalLengthIn35mmFilm=33.75))
+    assert focal_from_exif("exif.png", 64, 48) == (33.75 * 64 / 36.0,
+                                                   "exif35")
+    problem, state, _ = make_problem(12, 300, device="cpu")
+    stepped = ba_step(problem, state, 1e-3)
+    assert float(ba_cost(problem, stepped)) < float(ba_cost(problem, state))
     assert not any(m.split(".")[0] in BLOCKED
                    for m in sys.modules if sys.modules[m] is not None)
     print("OK", float((depth > 0).float().mean()))

@@ -515,3 +515,58 @@ def test_lbp_labels_on_cuda_match_cpu():
     a = label_faces_lbp(faces, qual, device=dev)
     assert np.array_equal(a, label_faces_lbp(faces, qual, device=dev))
     assert (a == label_faces_lbp(faces, qual, device="cpu")).mean() >= 0.999
+
+
+@pytest.mark.gpu
+def test_bundle_adjustment_on_cuda_is_reproducible_and_matches_cpu():
+    """BA's segment sums run in a fixed order on CUDA: two LM runs give
+    equal states.  One PCG step on the card agrees with the CPU's within
+    1e-4 (relative to the step)."""
+    from hcmvs_tpu_torch.eval.ba_bench import make_problem
+    from hcmvs_tpu_torch.sfm.ba import ba_step, run_ba
+    dev = _cuda()
+    pc, sc, _ = make_problem(30, 1500, device="cpu")
+    pg, sg, _ = make_problem(30, 1500, device=dev)
+    a, _ = run_ba(pg, sg, n_iters=3)
+    b, _ = run_ba(pg, sg, n_iters=3)
+    assert all(torch.equal(x, y) for x, y in zip(a, b))
+    step_c = ba_step(pc, sc, np.float32(1e-3))
+    step_g = ba_step(pg, sg, np.float32(1e-3))
+    for x0, xc, xg in zip(sc, step_c, step_g):
+        move = (xc - x0).abs().max()
+        assert (xg.cpu() - xc).abs().max() <= 1e-4 * move
+
+
+@pytest.mark.gpu
+def test_sfm_features_and_ransac_on_cuda_match_cpu():
+    """The detector keeps its keypoint slots on the card; the essential
+    RANSAC fed the same draws finds the same inliers and pose."""
+    from hcmvs_tpu_torch.sfm import two_view as tv
+    from hcmvs_tpu_torch.sfm.features import detect_and_describe_pyramid
+    from hcmvs_tpu_torch.utils.synth import make_ridge_scene
+    dev = _cuda()
+    img = make_ridge_scene(np.random.default_rng(1), h=192, w=256,
+                           n_views=1).images[0]
+    kc = detect_and_describe_pyramid(torch.from_numpy(img), 512)
+    kg = detect_and_describe_pyramid(torch.from_numpy(img).to(dev), 512)
+    valid = kc.score > 0
+    assert valid.sum() > 50
+    assert torch.equal(kg.score.cpu() > 0, valid)
+    assert (kg.xy.cpu() - kc.xy).abs().max() <= 1e-3
+    assert (kg.desc.cpu() - kc.desc)[valid].abs().max() <= 1e-4
+    rng = np.random.default_rng(1)
+    X = rng.uniform(-1, 1, (200, 3)) + [0, 0, 4.0]
+    t = np.array([0.5, 0.05, 0.02]) / np.linalg.norm([0.5, 0.05, 0.02])
+    p0 = X[:, :2] / X[:, 2:3] + rng.normal(0, 1e-3, (200, 2))
+    X1 = X + t
+    p1 = X1[:, :2] / X1[:, 2:3] + rng.normal(0, 1e-3, (200, 2))
+    p1[:40] = rng.uniform(-0.5, 0.5, (40, 2))
+    p0, p1 = (torch.from_numpy(p.astype(np.float32)) for p in (p0, p1))
+    ok = torch.ones(200, dtype=torch.bool)
+    idx = tv.draw_samples(torch.Generator().manual_seed(0), ok, 512, 8)
+    rc = tv.ransac_essential(idx, p0, p1, ok, 2e-5)
+    rg_ = tv.ransac_essential(idx.to(dev), p0.to(dev), p1.to(dev),
+                              ok.to(dev), 2e-5)
+    assert int(rg_.n_inliers) == int(rc.n_inliers) >= 150
+    assert (rg_.R.cpu() - rc.R).abs().max() <= 1e-4
+    assert (rg_.t.cpu() - rc.t).abs().max() <= 1e-4
