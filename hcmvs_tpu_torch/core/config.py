@@ -5,9 +5,13 @@ every default, the same ``replace``.  It is a copy and not an import,
 because importing ``hcmvs_tpu.core`` pulls in JAX.  A test holds the two
 classes field for field.
 
-Knobs whose code paths the port does not have yet raise
-``NotImplementedError`` where they would take effect (see ``dense/score.py``
-and ``dense/scene_driver.py``); none of them is silently rerouted.
+Routing (the accelerator knobs below): the port's "auto" means the sigma
+tables, the rect-frame build and the rect engine on every device (kernels
+on CUDA, plain versions on the CPU); the direct paths, the per-plane build
+and streaming are taken when the config names them, as in the JAX package.
+The retired ``batch_candidates`` raises ``NotImplementedError``, and so
+does a ``volume_planes`` that is not a multiple of 128 or is above 512;
+nothing is silently rerouted.
 """
 
 from __future__ import annotations
@@ -64,7 +68,9 @@ class DenseConfig:
     use_geo_consistency: int = 1
     use_part_consistency: int = 0
     use_optical_flow: int = 1
-    view_spread: int = 0               # not ported: raises when set
+    view_spread: int = 0               # 1: neighbours' hypotheses join
+                                       # the propagation candidates
+                                       # (score.view_spread_candidates)
     init_triangulate: int = 0
     tx_threshold: float = 150.0
     tx_threshold2: float = 175.0
@@ -105,24 +111,36 @@ class DenseConfig:
     cross_scale_prior: int = 1
     geo_max_neighbors: int = 4
     agg_top_k: int = 0
-    use_pallas: bool = True            # False selects the direct-gather
-                                       # paths, which are not ported
+    use_pallas: bool = True            # False: "auto" backends and
+                                       # builds resolve to the direct
+                                       # paths and the per-plane build
     sweep_mode: str = "jacobi"         # "jacobi" | "redblack"
     batch_candidates: bool = False     # retired path, not carried over:
                                        # raises when set
     score_mode: str = "exact"          # "exact" | "warped" | "hybrid"
     exact_backend: str = "auto"        # "auto"/"volume": sigma tables on
-                                       # every device; "bilinear" not ported
+                                       # every device (kernels B / D);
+                                       # "bilinear": direct bilinear ZNCC,
+                                       # one sample per view and offset
     geo_backend: str = "auto"          # "auto"/"rect": rect engine on every
-                                       # device; "direct" not ported
-    volume_planes: int = 128           # > 128 not ported
+                                       # device (kernel C); "direct":
+                                       # nearest gathers of the maps
+    volume_planes: int = 128           # 128 / 256 / 384 / 512 sigma
+                                       # planes; above 128 the tables are
+                                       # built plane by plane
     candidate_kernel: str = "auto"     # "on": batched candidate scoring
                                        # (kernel D); "auto" is off
     refine_batched: bool = False
     window_ref_width: int = 0
-    volume_streaming: bool = False     # not ported
-    volume_build: str = "auto"         # "auto"/"rect": rect-frame build on
-                                       # every device; "planes" not ported
+    volume_streaming: bool = False     # build view i's tables inside its
+                                       # sweep, dropped before view i + 1:
+                                       # one view's tables live at a time
+                                       # (the 10-neighbour operating point)
+    volume_build: str = "auto"         # "auto"/"rect": rect-frame build
+                                       # (kernel A, tile-major rows) on
+                                       # every device; "planes": per-plane
+                                       # bilinear warps + Catmull-Rom
+                                       # (image-order rows)
 
     @property
     def num_patch_samples(self) -> int:

@@ -13,6 +13,11 @@ table lookup per view (``_batched_best``); ``refine_batched`` perturbs
 the post-propagation best at every refinement scale and scores the set
 together instead of one scale after another.
 
+With ``view_spread`` (and neighbour maps attached) every neighbour's
+hypothesis at the pixel's projection joins the propagation candidates,
+after the cross-pattern ones (``score.view_spread_candidates``; ref:
+OPTDENSE::viewspread, DepthMap.cpp:1504-1608).
+
 Cross-scale channels (the hierarchical schedule's restore stages): a
 prior depth map enters the cost in the geometric phase (``finish_cost``,
 ``score.prior_blend``), and ``half_sweep(..., inject=True)`` scores the
@@ -32,7 +37,8 @@ import torch
 from hcmvs_tpu_torch.core.config import DenseConfig
 from hcmvs_tpu_torch.dense import score as S
 from hcmvs_tpu_torch.dense.types import (PatchMatchState, ViewGeometry,
-                                         face_camera_t, normalize3,
+                                         face_camera_t, init_state,
+                                         normalize3, pixel_rays,
                                          tangent_frame)
 from hcmvs_tpu_torch.ops.sampling import pad_edge
 
@@ -249,6 +255,19 @@ def half_sweep(state: PatchMatchState, ctx: ScoreContext, cfg: DenseConfig,
         cand_d.append(d_p)
         cand_n.append(n_p)
         cand_v.append((d_p >= lo_ok) & (d_p <= hi_ok))
+    # view spread: each neighbour's hypothesis at this pixel's projection,
+    # turned to face the camera, inside the depth window
+    if cfg.view_spread and ctx.nbr_depth is not None:
+        vs_d, vs_n, vs_ok = S.view_spread_candidates(
+            ctx.geom, cur_d, ctx.rays, ctx.nbr_depth, ctx.nbr_normal,
+            rect=ctx.rect)
+        for v in range(vs_d.shape[0]):
+            cand_d.append(vs_d[v])
+            cand_n.append(torch.stack(face_camera_t(
+                (vs_n[v, 0], vs_n[v, 1], vs_n[v, 2]),
+                (ctx.rays[0], ctx.rays[1], ctx.rays[2]))))
+            cand_v.append(vs_ok[v] & (vs_d[v] >= lo_ok)
+                          & (vs_d[v] <= hi_ok))
     cd, cn = torch.stack(cand_d), torch.stack(cand_n)
     if use_batch:
         bc, k = _batched_best(ctx, cd, cn, torch.stack(cand_v), None, cur_d,
@@ -341,3 +360,90 @@ def half_sweep(state: PatchMatchState, ctx: ScoreContext, cfg: DenseConfig,
     return PatchMatchState(depth=torch.where(mask, bd, state.depth),
                            normal=torch.where(mask[None], bn, state.normal),
                            cost=torch.where(mask, bc, state.cost))
+
+
+def run_sweeps(state: PatchMatchState, ctx: ScoreContext, cfg: DenseConfig,
+               phase: int, n_iters: int,
+               gen: torch.Generator) -> PatchMatchState:
+    """``n_iters`` full sweeps (two checkerboard half sweeps each with
+    ``sweep_mode="redblack"``) at a fixed phase."""
+    offsets = S.patch_offsets(cfg)
+    prop_offsets = propagation_offsets(cfg)
+    for _ in range(n_iters):
+        state = half_sweep(state, ctx, cfg, phase, 0, offsets, prop_offsets,
+                           gen)
+        if cfg.sweep_mode != "jacobi":
+            state = half_sweep(state, ctx, cfg, phase, 1, offsets,
+                               prop_offsets, gen)
+    return state
+
+
+def make_context(geom: ViewGeometry, ref_gray: torch.Tensor,
+                 src_grays: torch.Tensor, d_min, d_max, cfg: DenseConfig,
+                 flow: Optional[torch.Tensor] = None,
+                 prior_depth: Optional[torch.Tensor] = None,
+                 nbr_depth: Optional[torch.Tensor] = None,
+                 nbr_normal: Optional[torch.Tensor] = None) -> ScoreContext:
+    """The ScoreContext of one reference view (``ref_gray`` (H, W)) against
+    its sources (``src_grays`` (V, H, W), ``geom`` their geometry).  The
+    sigma tables are built here where the config scores through them
+    (``score.use_volume_tables``: "auto" on every device), and, with
+    neighbour maps given, the rect context where the geo term or view
+    spread reads them through the rect engine."""
+    from hcmvs_tpu_torch.ops.gradients import sobel_magnitude
+    from hcmvs_tpu_torch.ops.rect_gather import (build_rect_context,
+                                                 pack_depth_normals)
+    from hcmvs_tpu_torch.ops.volume import build_tables, use_rect_volume_build
+    h, w = ref_gray.shape
+    dev = ref_gray.device
+    d_min = torch.as_tensor(d_min, dtype=torch.float32, device=dev)
+    d_max = torch.as_tensor(d_max, dtype=torch.float32, device=dev)
+    gra = sobel_magnitude(ref_gray)
+    hw = S.halfwin_map(gra, cfg)
+    stats = S.ref_patch_stats(ref_gray, hw, S.patch_offsets(cfg))
+    rays = pixel_rays(geom.K_inv_ref, h, w)
+    vol = vb = rect = None
+    if S.use_volume_tables(cfg):
+        vol = build_tables(geom, src_grays, d_min, d_max, cfg)
+        if S.use_candidate_batch(cfg):
+            vb = S.volume_bounds(vol, use_rect_volume_build(cfg, h, w))
+    if (nbr_depth is not None and S.use_rect_backend(cfg, h, w)
+            and (cfg.use_geo_consistency or cfg.view_spread)):
+        rect = build_rect_context(geom, pack_depth_normals(nbr_depth,
+                                                           nbr_normal))
+    return ScoreContext(
+        geom=geom, src_grays=src_grays, stats=stats, hw=hw, rays=rays,
+        gra=gra, d_min=d_min, d_max=d_max, nbr_depth=nbr_depth,
+        nbr_normal=nbr_normal, vol=vol, vol_bounds=vb, rect=rect, flow=flow,
+        prior_depth=prior_depth)
+
+
+def estimate_depth_map(gen: torch.Generator, geom: ViewGeometry,
+                       ref_gray: torch.Tensor, src_grays: torch.Tensor,
+                       d_min, d_max, cfg: DenseConfig,
+                       init: Optional[PatchMatchState] = None,
+                       **ctx_kwargs) -> PatchMatchState:
+    """Single-view estimation (ref: DepthMapsData::EstimateDepthMap,
+    SceneDensify.cpp:758-1072): ``estimation_iters`` sweeps per external
+    iteration, the geometric phase from external iteration ``photo2geo``
+    on.  ``gen`` drives the random init (unless ``init`` is given) and
+    the refinement; ``ctx_kwargs`` go to ``make_context`` (flow, prior,
+    neighbour maps)."""
+    ctx = make_context(geom, ref_gray, src_grays, d_min, d_max, cfg,
+                       **ctx_kwargs)
+    state = init if init is not None else init_state(gen, ctx.rays,
+                                                     ctx.d_min, ctx.d_max)
+    for it_ext in range(cfg.estimation_iters_external):
+        phase = 1 if it_ext >= cfg.photo2geo else 0
+        state = run_sweeps(state, ctx, cfg, phase, cfg.estimation_iters, gen)
+    return state
+
+
+def confidence_from_cost(state: PatchMatchState, cfg: DenseConfig) -> tuple:
+    """Final thresholding (ref: EndDepthMapTmp, SceneDensify.cpp:688-744):
+    (depth, normal, conf), depth and conf 0 where the cost is above
+    ``ncc_threshold_keep``, conf = 1 - cost elsewhere."""
+    keep = state.cost <= cfg.ncc_threshold_keep
+    depth = torch.where(keep, state.depth, 0.0)
+    conf = torch.where(keep, torch.clamp_min(1.0 - state.cost, 0.0), 0.0)
+    return depth, state.normal, conf

@@ -3,6 +3,8 @@
 
 Schedule (ref: SceneDensify.cpp:3684-3713, :3914-3958):
   build the sigma tables of every (view, neighbour) pair once per stage
+  (with ``volume_streaming``: view i's tables inside its own sweep, so
+  only one view's tables are ever live)
   for it_ext in range(estimation_iters_external):
       phase = geometric if it_ext >= photo2geo else photometric
       neighbour maps <- snapshot of all views' current state
@@ -19,11 +21,14 @@ under ``use_semantic`` (or ``self_priors``), or an external prior channel
 (``ext_prior_depth``), the planar-prior pass (``dense/priors.py``) runs
 once, before external iteration max(n - 2, 1), and its maps become the
 prior (ref: GenerateDepthPrior at it_external == n - 2,
-SceneDensify.cpp:983-1031).  Knobs whose code the port does not have yet
-(view-spread, streamed tables, the retired ``batch_candidates``) raise
-NotImplementedError instead of being skipped.  Every stage of
-``estimate_scene`` is timed into ``utils.profiling``'s report, the device
-synchronised at its end.
+SceneDensify.cpp:983-1031).  The retired ``batch_candidates`` raises
+NotImplementedError instead of being skipped.  ``scene_sweeps`` can sweep
+a chunk of the views (``view_start``, ``view_chunk``) against the
+full-scene snapshot it is given; ``sweep_in_chunks`` chains such chunks
+over a scene, every view exactly once.  Every stage of ``estimate_scene``
+is timed into ``utils.profiling``'s report, the device synchronised at its
+end; streamed table builds are timed inside their sweep stage and apart,
+as ``estimate.tables.streamed``.
 """
 
 from __future__ import annotations
@@ -49,8 +54,7 @@ from hcmvs_tpu_torch.dense.types import (PatchMatchState, init_state,
 from hcmvs_tpu_torch.ops.gradients import sobel_magnitude
 from hcmvs_tpu_torch.ops.rect_gather import (build_rect_context,
                                              pack_depth_normals)
-from hcmvs_tpu_torch.ops.volume import (VolumeTables,
-                                        build_volume_tables_rect,
+from hcmvs_tpu_torch.ops.volume import (VolumeTables, build_tables,
                                         use_rect_volume_build)
 from hcmvs_tpu_torch.utils.profiling import stage_timer
 
@@ -100,17 +104,13 @@ def want_prior_pass(scene: SceneTensors, cfg: DenseConfig) -> bool:
             or scene.ext_prior_depth is not None)
 
 
-def _check_ported(cfg: DenseConfig) -> None:
-    """Raise for knobs whose code paths are not ported."""
-    if cfg.view_spread:
-        raise NotImplementedError("view_spread (not ported)")
-
-
 def _per_view_context(scene: SceneTensors, i: int,
                       nbr_depth: Optional[torch.Tensor],
                       nbr_normal: Optional[torch.Tensor],
                       cfg: DenseConfig) -> ScoreContext:
-    """The ScoreContext of view ``i``."""
+    """The ScoreContext of view ``i``: its slice of the attached tables,
+    or, with ``volume_streaming`` and none attached, its tables built here
+    (by the gate of ``ops.volume.use_rect_volume_build``)."""
     nbr = scene.nbr_idx[i]
     geom = make_view_geometry(scene.cams[i], scene.cams[nbr])
     h, w = scene.gray.shape[1:]
@@ -118,10 +118,17 @@ def _per_view_context(scene: SceneTensors, i: int,
     hw = S.halfwin_map(gra, cfg)
     stats = S.ref_patch_stats(scene.gray[i], hw, S.patch_offsets(cfg))
     rays = pixel_rays(geom.K_inv_ref, h, w)
-    vol_i = (None if scene.vols is None
-             else VolumeTables(*(x[i] for x in scene.vols)))
+    if scene.vols is not None:
+        vol_i = VolumeTables(*(x[i] for x in scene.vols))
+    elif cfg.volume_streaming and S.use_volume_tables(cfg):
+        with stage_timer("estimate.tables.streamed",
+                         block_on=scene.gray.device):
+            vol_i = build_tables(geom, scene.gray[nbr], scene.d_min[i],
+                                 scene.d_max[i], cfg)
+    else:
+        vol_i = None
     # kernel D's bounds panels depend only on the tables: once per call
-    vb = (S.volume_bounds(vol_i)
+    vb = (S.volume_bounds(vol_i, use_rect_volume_build(cfg, h, w))
           if vol_i is not None and S.use_candidate_batch(cfg) else None)
 
     def view(x):
@@ -139,15 +146,21 @@ def _per_view_context(scene: SceneTensors, i: int,
 
 def scene_sweeps(state: SceneState, scene: SceneTensors, cfg: DenseConfig,
                  phase: int, n_iters: int, use_nbr: bool,
-                 gen: torch.Generator, inject: bool = False) -> SceneState:
+                 gen: torch.Generator, inject: bool = False,
+                 view_start: int = 0, view_chunk: int = 0) -> SceneState:
     """``n_iters`` sweeps on every view.  Neighbour depth/normal snapshots
     are taken once at entry.  Within a full-sampling call all but the last
     inner sweep may use the coarse explore sampling (see
     ``explore_until_last``).  With ``inject`` (set by the caller at the
     last external iteration when cross-scale maps are attached) the last
     inner sweep scores the upsampled previous-stage hypothesis with a 0.1
-    bonus (ref: restore/libs/MVS/DepthMap.cpp:1527-1549)."""
-    _check_ported(cfg)
+    bonus (ref: restore/libs/MVS/DepthMap.cpp:1527-1549).
+
+    ``view_chunk`` > 0 sweeps only views ``[view_start, min(view_start +
+    view_chunk, N))`` against the full-scene snapshot ``state``, and
+    returns the other views as they were: a short last chunk sweeps its
+    own views, each once.  (The JAX package's unclamped index writes the
+    wrong contexts over the last views there; see ROADMAP.)"""
     inject = inject and scene.inject_depth is not None
     offsets = S.patch_offsets(cfg)
     prop_offsets = propagation_offsets(cfg)
@@ -158,9 +171,16 @@ def scene_sweeps(state: SceneState, scene: SceneTensors, cfg: DenseConfig,
              else cfg)
     offsets_x = S.patch_offsets(cfg_x)
     depth0, normal0 = state.depth, state.normal
-    h, w = state.depth.shape[1:]
-    use_rect = (use_nbr and bool(cfg.use_geo_consistency)
+    n_views, h, w = state.depth.shape
+    use_rect = (use_nbr and bool(cfg.use_geo_consistency or cfg.view_spread)
                 and S.use_rect_backend(cfg, h, w))
+    if view_chunk:
+        if not 0 <= view_start < n_views:
+            raise ValueError(f"view_start {view_start} outside the scene's "
+                             f"{n_views} views")
+        views = range(view_start, min(view_start + view_chunk, n_views))
+    else:
+        views = range(n_views)
 
     def one_iter(st, c_, ctx_, off_, inj=False):
         st = half_sweep(st, ctx_, c_, phase, 0, off_, prop_offsets, gen,
@@ -170,10 +190,10 @@ def scene_sweeps(state: SceneState, scene: SceneTensors, cfg: DenseConfig,
                             inject=inj)
         return st
 
-    outs = []
-    for i in range(state.depth.shape[0]):
-        st = PatchMatchState(depth=state.depth[i], normal=state.normal[i],
-                             cost=state.cost[i])
+    depth, normal, cost = (list(torch.unbind(x)) for x in
+                           (state.depth, state.normal, state.cost))
+    for i in views:
+        st = PatchMatchState(depth=depth[i], normal=normal[i], cost=cost[i])
         if use_nbr:
             nbr_depth = depth0[scene.nbr_idx[i]]
             nbr_normal = normal0[scene.nbr_idx[i]]
@@ -190,10 +210,34 @@ def scene_sweeps(state: SceneState, scene: SceneTensors, cfg: DenseConfig,
         for _ in range(n_iters - 1):
             st = one_iter(st, cfg_x, ctx_x, offsets_x)
         st = one_iter(st, cfg, ctx, offsets, inject)
-        outs.append(st)
-    return SceneState(depth=torch.stack([s.depth for s in outs]),
-                      normal=torch.stack([s.normal for s in outs]),
-                      cost=torch.stack([s.cost for s in outs]))
+        depth[i], normal[i], cost[i] = st.depth, st.normal, st.cost
+        # a streamed view's tables go before the next view's are built
+        del ctx, ctx_x
+    return SceneState(depth=torch.stack(depth), normal=torch.stack(normal),
+                      cost=torch.stack(cost))
+
+
+def sweep_in_chunks(state: SceneState, scene: SceneTensors,
+                    cfg: DenseConfig, phase: int, n_iters: int,
+                    use_nbr: bool, gen: torch.Generator, view_chunk: int,
+                    inject: bool = False) -> SceneState:
+    """``scene_sweeps`` over the scene in chunks of ``view_chunk`` views
+    (the last one may be short), each against the same entry snapshot
+    ``state``, the swept views merged: the maps of one unchunked call, in
+    calls of bounded length."""
+    n = state.depth.shape[0]
+    depth, normal, cost = state.depth, state.normal, state.cost
+    for start in range(0, n, view_chunk):
+        part = scene_sweeps(state, scene, cfg, phase, n_iters, use_nbr, gen,
+                            inject=inject, view_start=start,
+                            view_chunk=view_chunk)
+        sl = slice(start, min(start + view_chunk, n))
+        depth = torch.cat([depth[:sl.start], part.depth[sl],
+                           depth[sl.stop:]])
+        normal = torch.cat([normal[:sl.start], part.normal[sl],
+                            normal[sl.stop:]])
+        cost = torch.cat([cost[:sl.start], part.cost[sl], cost[sl.stop:]])
+    return SceneState(depth=depth, normal=normal, cost=cost)
 
 
 def init_scene_state(gen: torch.Generator, scene: SceneTensors
@@ -214,26 +258,28 @@ def init_scene_state(gen: torch.Generator, scene: SceneTensors
                       cost=torch.stack([s.cost for s in sts]))
 
 
-def _build_scene_volumes(scene: SceneTensors) -> VolumeTables:
-    """Every view's rect-frame tables, stacked to (N, V, ...)."""
+def _build_scene_volumes(scene: SceneTensors,
+                         cfg: DenseConfig) -> VolumeTables:
+    """Every view's tables (the build ``cfg`` routes to), stacked to
+    (N, V, ...)."""
     outs = []
     for i in range(scene.gray.shape[0]):
         nbr = scene.nbr_idx[i]
         geom = make_view_geometry(scene.cams[i], scene.cams[nbr])
-        outs.append(build_volume_tables_rect(
-            geom, scene.gray[nbr], scene.d_min[i], scene.d_max[i]))
+        outs.append(build_tables(geom, scene.gray[nbr], scene.d_min[i],
+                                 scene.d_max[i], cfg))
     return VolumeTables(*(torch.stack(xs) for xs in zip(*outs)))
 
 
 def attach_volumes(scene: SceneTensors, cfg: DenseConfig) -> SceneTensors:
     """Build the exact-scoring sigma tables (once per stage: they depend
-    only on images, geometry and depth range); none for "warped" scoring,
-    which never reads them."""
-    if scene.vols is not None or not S.use_volume_tables(cfg):
+    only on images, geometry and depth range); none for "warped" or
+    direct scoring, which never read them, and none with
+    ``volume_streaming``, which builds each view's inside its sweep."""
+    if (scene.vols is not None or not S.use_volume_tables(cfg)
+            or cfg.volume_streaming):
         return scene
-    h, w = scene.gray.shape[1:]
-    use_rect_volume_build(cfg, h, w)
-    return dataclasses.replace(scene, vols=_build_scene_volumes(scene))
+    return dataclasses.replace(scene, vols=_build_scene_volumes(scene, cfg))
 
 
 def phase_cfg(cfg: DenseConfig, phase: int,
@@ -265,7 +311,6 @@ def estimate_scene(gen: torch.Generator, scene: SceneTensors,
     ``estimate.priors`` (``stage.priors`` with ``replace_prior``).
     """
     cfg = window_cfg_for_width(cfg, scene.gray.shape[2])
-    _check_ported(cfg)
     n_ext = cfg.estimation_iters_external
     dev = scene.gray.device
     state = init if init is not None else init_scene_state(gen, scene)

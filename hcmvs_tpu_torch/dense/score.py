@@ -12,14 +12,21 @@ prior term (``prior_blend``).
 Exact ZNCC is scored through the sigma tables (``ops/volume.py``), one
 candidate at a time (kernel B) or, with ``candidate_kernel="on"``, all
 propagation candidates in one multi-column lookup per view (kernel D);
-the warped mode scores against centre-warped sources (kernel E,
+with ``exact_backend="bilinear"`` it is scored directly, one bilinear
+sample of each source per patch offset (``photometric_scores``).  The
+warped mode scores against centre-warped sources (kernel E,
 ``ops/zncc_warped.py``), and "hybrid" takes it in the photometric phase
-and exact scoring after.  The geo term reads the neighbour maps through
-the rect engine (``ops/rect_gather.py``).  In the port, "auto" resolves to
-the tables and the rect engine on every device; the branches the port does
-not have (direct bilinear scoring, direct geo gathers) raise
-NotImplementedError.  Per-offset sums are accumulated in the JAX package's
-order, so CPU results agree with it to rounding.
+and exact scoring after.  The geo term and the view-spread candidates
+read the neighbour maps through the rect engine (``ops/rect_gather.py``,
+kernel C) or, with ``geo_backend="direct"``, by nearest gathers.  In the
+port, "auto" resolves to the tables and the rect engine on every device
+(with ``use_pallas=False``, to the direct paths, as the JAX package off
+the TPU); the direct paths are plain PyTorch on every device.  The
+tables' row order follows their build (``ops/volume.
+use_rect_volume_build``: tile-major for the rect build, image order for
+the per-plane one), and every consumer keys on the same gate.  Per-offset
+sums are accumulated in the JAX package's order, so CPU results agree with
+it to rounding.
 """
 
 from __future__ import annotations
@@ -32,7 +39,9 @@ import torch
 from hcmvs_tpu_torch.core.config import DenseConfig
 from hcmvs_tpu_torch.dense.types import (ViewGeometry, mat3_apply,
                                          mat3_apply_t, normalize3)
-from hcmvs_tpu_torch.ops.sampling import bilinear_sample_xy, pad_edge
+from hcmvs_tpu_torch.ops.sampling import (bilinear_sample_xy,
+                                          nearest_sample_planes_batched,
+                                          pad_edge)
 
 _SIGMA_COLOR = 0.2          # ref: DepthMap.h:538 GetWeight sigmaColor
 _GRA_STRONG = 100.0         # ref: DepthMap.cpp:457 hardcoded texture split
@@ -104,6 +113,103 @@ def ref_patch_stats(ref_gray: torch.Tensor, hw: torch.Tensor,
     norm_sq0 = (wts * (v_ds - tm) ** 2).sum(dim=0)
     return RefPatchStats(tm=tm, norm_sq0=norm_sq0, sum_w=sum_w,
                          ref_pad=ref_pad, wts=wts)
+
+
+def _bilinear_views(srcs: torch.Tensor, x: torch.Tensor, y: torch.Tensor
+                    ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """``bilinear_sample_xy`` of V images (V, H, W) at per-view coordinates
+    (V, H', W') in one pass: each view's taps index its own image, with the
+    same clamps and arithmetic."""
+    v, h, w = srcs.shape
+    x0 = torch.floor(x)
+    y0 = torch.floor(y)
+    fx = x - x0
+    fy = y - y0
+    valid = (x >= 0) & (y >= 0) & (x <= w - 1) & (y <= h - 1)
+    x0c = torch.clamp(x0.to(torch.int64), 0, w - 2)
+    y0c = torch.clamp(y0.to(torch.int64), 0, h - 2)
+    voff = (torch.arange(v, device=srcs.device) * (h * w)).reshape(
+        (v,) + (1,) * (x.dim() - 1))
+    flat = srcs.reshape(-1)
+    base = voff + y0c * w + x0c
+    v00 = flat[base]
+    v01 = flat[base + 1]
+    v10 = flat[base + w]
+    v11 = flat[base + w + 1]
+    top = v00 * (1 - fx) + v01 * fx
+    bot = v10 * (1 - fx) + v11 * fx
+    out = top * (1 - fy) + bot * fy
+    return torch.where(valid, out, 0.0), valid
+
+
+def _col(x: torch.Tensor) -> torch.Tensor:
+    """(V,) -> (V, 1, 1), to broadcast a per-view scalar over planes."""
+    return x[:, None, None]
+
+
+def photometric_scores(geom: ViewGeometry, src_grays: torch.Tensor,
+                       stats: RefPatchStats, hw: torch.Tensor,
+                       depth: torch.Tensor, normal: torch.Tensor,
+                       rays: torch.Tensor, offsets, cfg: DenseConfig
+                       ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Direct weighted ZNCC (``exact_backend="bilinear"``; ref:
+    ScorePixelImage, DepthMap.cpp:522-595): every patch sample warped
+    through the pixel's plane homography and sampled bilinearly, one
+    sample of every view per offset.  Returns ``(scores, bad)``, both
+    (V, H, W): ``1 - zncc`` in [0, 2], and the flat thRobust cost where
+    the centre warp leaves the source or lies behind it, or the patch is
+    textureless."""
+    h, w = depth.shape
+    pad = _pad_of(offsets)
+    th_robust = cfg.ncc_threshold_keep * 1.2
+    dev = depth.device
+    n_ray0, inv_dp, nk_x, nk_y = _plane_terms(geom, depth, normal, rays)
+    v_, u_ = torch.meshgrid(torch.arange(h, dtype=torch.float32, device=dev),
+                            torch.arange(w, dtype=torch.float32, device=dev),
+                            indexing="ij")
+    ref_center = _shifted(stats.ref_pad, pad, 0, 0, h, w)
+    A, wv = geom.A, geom.wv                           # (V, 3, 3), (V, 3)
+    # the homogeneous warp of the pixel grid, each view's as a plane
+    p0x = _col(A[:, 0, 0]) * u_ + _col(A[:, 0, 1]) * v_ + _col(A[:, 0, 2])
+    p0y = _col(A[:, 1, 0]) * u_ + _col(A[:, 1, 1]) * v_ + _col(A[:, 1, 2])
+    p0z = _col(A[:, 2, 0]) * u_ + _col(A[:, 2, 1]) * v_ + _col(A[:, 2, 2])
+    zeros = torch.zeros((A.shape[0], h, w), dtype=torch.float32, device=dev)
+    num, s1, sq1, sw = zeros, zeros, zeros, zeros
+    for dy, dx in offsets:
+        dyf, dxf = float(dy), float(dx)
+        v_d = _shifted(stats.ref_pad, pad, dy, dx, h, w)
+        wt = _weights_traced(ref_center, v_d, dyf, dxf, hw)
+        s = (n_ray0 + nk_x * dxf + nk_y * dyf) * inv_dp
+        phx = p0x + _col(A[:, 0, 0]) * dxf + _col(A[:, 0, 1]) * dyf \
+            + _col(wv[:, 0]) * s
+        phy = p0y + _col(A[:, 1, 0]) * dxf + _col(A[:, 1, 1]) * dyf \
+            + _col(wv[:, 1]) * s
+        phz = p0z + _col(A[:, 2, 0]) * dxf + _col(A[:, 2, 1]) * dyf \
+            + _col(wv[:, 2]) * s
+        inv_z = 1.0 / torch.where(phz.abs() < 1e-9, 1e-9, phz)
+        v1, valid = _bilinear_views(src_grays, phx * inv_z, phy * inv_z)
+        wt = wt * valid
+        num = num + wt * (v_d - stats.tm) * v1
+        s1 = s1 + wt * v1
+        sq1 = sq1 + wt * v1 * v1
+        sw = sw + wt
+    var1 = sq1 - s1 * s1 / torch.clamp_min(sw, 1e-12)
+    denom = torch.sqrt(torch.clamp_min(stats.norm_sq0 * var1, 1e-16))
+    score = 1.0 - torch.clamp(num / denom, -1.0, 1.0)
+    # centre visibility: the centre warp must land in the source, in front
+    s_c = n_ray0 * inv_dp
+    cx = p0x + _col(wv[:, 0]) * s_c
+    cy = p0y + _col(wv[:, 1]) * s_c
+    cz = p0z + _col(wv[:, 2]) * s_c
+    inv_cz = 1.0 / torch.where(cz.abs() < 1e-9, 1e-9, cz)
+    ucx = cx * inv_cz
+    ucy = cy * inv_cz
+    hs, ws = src_grays.shape[1:]
+    oob = ((ucx < 0) | (ucx > ws - 1) | (ucy < 0) | (ucy > hs - 1)
+           | (cz <= 0))
+    bad = (oob | (var1 <= 1e-12)
+           | (stats.norm_sq0 <= cfg.min_patch_variance ** 2))
+    return torch.where(bad, th_robust, score), bad
 
 
 class WarpedInputs(NamedTuple):
@@ -207,12 +313,42 @@ def photometric_scores_warped(geom: ViewGeometry, src_grays: torch.Tensor,
     return torch.where(bad, cfg.ncc_threshold_keep * 1.2, score), bad
 
 
-def volume_bounds(vol) -> torch.Tensor:
+def _table_rows(x: torch.Tensor, blocked: bool) -> torch.Tensor:
+    """(..., H, W) -> (..., P_used): a field in the tables' row order,
+    tile-major for the rect build (``blocked``), the image's for the
+    per-plane build."""
+    from hcmvs_tpu_torch.ops.volume import to_volume_order
+    if blocked:
+        return to_volume_order(x)
+    return x.reshape(*x.shape[:-2], x.shape[-2] * x.shape[-1])
+
+
+def _table_rows_multi(x: torch.Tensor, blocked: bool) -> torch.Tensor:
+    """(C, H, W) -> (P_used, C) in the tables' row order."""
+    from hcmvs_tpu_torch.ops.volume import to_volume_order_multi
+    if blocked:
+        return to_volume_order_multi(x)
+    return x.reshape(x.shape[0], -1).T.contiguous()
+
+
+def _image_of_rows(x: torch.Tensor, h: int, w: int,
+                   blocked: bool) -> torch.Tensor:
+    """(P_pad, C) lookup output in the tables' row order -> (C, H, W)."""
+    from hcmvs_tpu_torch.ops.volume import (from_volume_order_multi,
+                                            padded_hw)
+    if blocked:
+        h8, w128 = padded_hw(h, w)
+        return from_volume_order_multi(x[:h8 * w128], h, w)
+    return x[:h * w].T.reshape(x.shape[1], h, w)
+
+
+def volume_bounds(vol, blocked: bool = True) -> torch.Tensor:
     """Per-view bounds panels (V, P_pad, 128) u16 of kernel D's bounded
     mode: each table row's valid-sigma interval on the packed index scale
-    (lo replicated in lanes 0..63, hi in 64..127).  Depends only on the
-    stage's tables, so it is built once per sweep call."""
-    from hcmvs_tpu_torch.ops.volume import F_PACK_SCALE, to_volume_order
+    (lo replicated in lanes 0..63, hi in 64..127), rows in the tables'
+    order (tile-major when ``blocked``, the image's otherwise).  Depends
+    only on the stage's tables, so it is built once per sweep call."""
+    from hcmvs_tpu_torch.ops.volume import F_PACK_SCALE
     p_pad, d_planes = vol.tab.shape[-2], vol.tab.shape[-1]
     out = []
     for vi in range(vol.tab.shape[0]):
@@ -225,8 +361,8 @@ def volume_bounds(vol) -> torch.Tensor:
         # intervals entirely outside the grid stay empty after the clips
         lo_e = torch.where((hi_idx < 0.0) | (lo_idx > 1023.0), 65535.0,
                            lo_e)
-        lo_hi = torch.stack([to_volume_order(lo_e), to_volume_order(hi_e)],
-                            dim=1)                       # (P_used, 2)
+        lo_hi = torch.stack([_table_rows(lo_e, blocked),
+                             _table_rows(hi_e, blocked)], dim=1)  # (P_used, 2)
         lo_hi = torch.nn.functional.pad(
             lo_hi, (0, 0, 0, p_pad - lo_hi.shape[0]))
         out.append(lo_hi[:, :, None].expand(p_pad, 2, 64)
@@ -235,13 +371,15 @@ def volume_bounds(vol) -> torch.Tensor:
 
 
 def packed_fields(geom: ViewGeometry, vol, depths: torch.Tensor,
-                  normals: torch.Tensor, rays: torch.Tensor, offsets
+                  normals: torch.Tensor, rays: torch.Tensor, offsets,
+                  blocked: bool = True
                   ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Kernel D's index field for K hypotheses: (P_pad, K * S) u16 in the
-    tables' row order, column k * S + j holding the packed sigma index
-    (``F_PACK_SCALE`` steps) of candidate k's sample j, and the sentinel
-    0xFFFF beyond the grid; plus the (K, H, W) centre sigmas."""
-    from hcmvs_tpu_torch.ops.volume import F_PACK_SCALE, to_volume_order_multi
+    tables' row order (``blocked``: tile-major), column k * S + j holding
+    the packed sigma index (``F_PACK_SCALE`` steps) of candidate k's sample
+    j, and the sentinel 0xFFFF beyond the table's D planes; plus the
+    (K, H, W) centre sigmas."""
+    from hcmvs_tpu_torch.ops.volume import F_PACK_SCALE
     sig0, inv_dsig = vol.sig0[0], vol.inv_dsig[0]
     d_planes = vol.tab.shape[-1]
     enc, s_cs = [], []
@@ -252,7 +390,7 @@ def packed_fields(geom: ViewGeometry, vol, depths: torch.Tensor,
         enc.append(torch.where(in_grid, torch.round(f * F_PACK_SCALE),
                                65535.0).to(torch.int32).to(torch.int16))
         s_cs.append(s_c)
-    f2 = to_volume_order_multi(torch.cat(enc))           # (P_used, C)
+    f2 = _table_rows_multi(torch.cat(enc), blocked)      # (P_used, C)
     f2 = torch.nn.functional.pad(f2, (0, 0, 0, vol.tab.shape[1]
                                       - f2.shape[0]))
     return f2.view(torch.uint16), torch.stack(s_cs)
@@ -274,19 +412,21 @@ def photometric_scores_volume_batched(geom: ViewGeometry, vol,
     validity mask, bf16-rounded bilateral weights, and a per-candidate
     accumulation straight off the sentinel panel.  ``depths`` (K, H, W),
     ``normals`` (K, 3, H, W); ``bounds_all`` from ``volume_bounds`` (built
-    here when None).  Returns (scores, bad), both (K, V, H, W).
+    here when None).  The tables' row order follows ``cfg``'s build gate
+    (any D the table has).  Returns (scores, bad), both (K, V, H, W).
     """
-    from hcmvs_tpu_torch.ops.volume import (from_volume_order_multi,
-                                            padded_hw, u16_as_int32,
+    from hcmvs_tpu_torch.ops.volume import (u16_as_int32,
+                                            use_rect_volume_build,
                                             volume_lookup_multi)
     k_n, h, w = depths.shape
+    blocked = use_rect_volume_build(cfg, h, w)
     pad = _pad_of(offsets)
     s_count = len(offsets)
     th_robust = cfg.ncc_threshold_keep * 1.2
-    h8, w128 = padded_hw(h, w)
-    f2, s_c_all = packed_fields(geom, vol, depths, normals, rays, offsets)
+    f2, s_c_all = packed_fields(geom, vol, depths, normals, rays, offsets,
+                                blocked)
     if bounds_all is None:
-        bounds_all = volume_bounds(vol)
+        bounds_all = volume_bounds(vol, blocked)
     v_ds = _stacked_shifts(stats.ref_pad, pad, offsets, h, w)
     # the weight panels are rounded to bf16 as on the TPU route (ZNCC is
     # scale-invariant and the weights are smooth Gaussian factors)
@@ -301,8 +441,8 @@ def photometric_scores_volume_batched(geom: ViewGeometry, vol,
     for vi in range(vol.tab.shape[0]):
         lo_v, hi_v = vol.sig_lo[vi], vol.sig_hi[vi]
         out2 = volume_lookup_multi(vol.tab[vi], f2, bounds_all[vi])
-        v3 = from_volume_order_multi(
-            out2[:h8 * w128].view(torch.int16), h, w)   # (C, H, W)
+        v3 = _image_of_rows(out2.view(torch.int16), h, w,
+                            blocked)                     # (C, H, W)
         s_v, b_v = [], []
         for k in range(k_n):
             vp = torch.nn.functional.pad(
@@ -333,23 +473,22 @@ def photometric_scores_volume_batched(geom: ViewGeometry, vol,
 
 
 def use_volume_tables(cfg: DenseConfig) -> bool:
-    """Whether scoring reads the sigma tables in some phase: "exact" does
-    in every phase, "hybrid" in the geometric ones, "warped" never (no
-    tables are built for it).  Raises for the scoring knobs the port does
-    not have."""
+    """Whether exact scoring reads the sigma tables ("exact" in every
+    phase, "hybrid" in the geometric ones; "warped" never, and no tables
+    are built for it): ``exact_backend`` "volume", or "auto" (tables on
+    every device in the port, unless ``use_pallas=False``); "bilinear"
+    scores directly.  Raises for the retired ``batch_candidates``."""
     if cfg.score_mode not in ("exact", "hybrid", "warped"):
         raise ValueError(f"unknown score_mode {cfg.score_mode!r}")
-    if cfg.exact_backend == "bilinear" or not cfg.use_pallas:
-        raise NotImplementedError(
-            "exact_backend='bilinear' / use_pallas=False (direct bilinear "
-            "scoring, not ported)")
     if cfg.batch_candidates:
         raise NotImplementedError(
             "batch_candidates (the retired vmapped candidate path, not "
             "carried over; candidate_kernel='on' batches candidates)")
-    if cfg.volume_streaming:
-        raise NotImplementedError("volume_streaming (not ported)")
-    return cfg.score_mode != "warped"
+    if cfg.exact_backend not in ("auto", "volume", "bilinear"):
+        raise ValueError(f"unknown exact_backend {cfg.exact_backend!r}")
+    if cfg.score_mode == "warped" or cfg.exact_backend == "bilinear":
+        return False
+    return cfg.exact_backend == "volume" or bool(cfg.use_pallas)
 
 
 def exact_scoring(cfg: DenseConfig, phase: int) -> bool:
@@ -367,14 +506,16 @@ def use_candidate_batch(cfg: DenseConfig) -> bool:
 
 
 def use_rect_backend(cfg: DenseConfig, h: int, w: int) -> bool:
-    """Whether neighbour-map lookups use the rect engine: always, in the
-    port; direct gathers are not ported."""
+    """Whether neighbour-map lookups (the geo term, view spread) use the
+    rect engine: ``geo_backend`` "rect", or "auto" (every device in the
+    port, unless ``use_pallas=False``); "direct" gathers nearest samples
+    of the neighbour maps."""
     del h, w
-    if cfg.geo_backend == "direct" or not cfg.use_pallas:
-        raise NotImplementedError(
-            "geo_backend='direct' / use_pallas=False (direct neighbour "
-            "gathers, not ported)")
-    return True
+    if cfg.geo_backend not in ("auto", "rect", "direct"):
+        raise ValueError(f"unknown geo_backend {cfg.geo_backend!r}")
+    if cfg.geo_backend == "direct":
+        return False
+    return cfg.geo_backend == "rect" or bool(cfg.use_pallas)
 
 
 def _plane_terms(geom: ViewGeometry, depth: torch.Tensor,
@@ -416,16 +557,16 @@ def _sample_sigmas(geom: ViewGeometry, depth: torch.Tensor,
 
 
 def volume_fields(geom: ViewGeometry, vol, depth: torch.Tensor,
-                  normal: torch.Tensor, rays: torch.Tensor, offsets
+                  normal: torch.Tensor, rays: torch.Tensor, offsets,
+                  blocked: bool = True
                   ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """(s_c, fwd, f2): ``_sample_sigmas``'s centre parameter (H, W) and
     sample fields (S, H, W), and kernel B's index field (P_pad, S): the
     sample fields as fractional indices of the sigma grid (shared across
-    views), in the rect build's tile-major pixel order, zero rows past
-    the image."""
-    from hcmvs_tpu_torch.ops.volume import to_volume_order
+    views), in the tables' row order (``blocked``: the rect build's
+    tile-major order; else the image's), zero rows past the image."""
     s_c, fwd = _sample_sigmas(geom, depth, normal, rays, offsets)
-    f_flat = to_volume_order((fwd - vol.sig0[0]) * vol.inv_dsig[0])
+    f_flat = _table_rows((fwd - vol.sig0[0]) * vol.inv_dsig[0], blocked)
     f2 = torch.nn.functional.pad(
         f_flat.T, (0, 0, 0, vol.tab.shape[1] - f_flat.shape[1]))
     return s_c, fwd, f2.contiguous()
@@ -444,16 +585,17 @@ def photometric_scores_volume(geom: ViewGeometry, vol, stats: RefPatchStats,
     one (S, H, W) index field feeds every view's table lookup; validity is
     the analytic valid-sigma interval.  Returns ``(scores, bad)``, both
     (V, H, W): ``1 - zncc`` in [0, 2], with the flat thRobust cost where
-    ``bad``.  Tables are in the rect build's tile-major pixel order.
+    ``bad``.  The tables' row order (and D, read from the table) follow
+    ``cfg``'s build gate.
     """
-    from hcmvs_tpu_torch.ops.volume import (from_volume_order, padded_hw,
+    from hcmvs_tpu_torch.ops.volume import (use_rect_volume_build,
                                             volume_lookup)
     h, w = depth.shape
+    blocked = use_rect_volume_build(cfg, h, w)
     pad = _pad_of(offsets)
     th_robust = cfg.ncc_threshold_keep * 1.2
-    s_c, fwd, f2 = volume_fields(geom, vol, depth, normal, rays, offsets)
-    h8, w128 = padded_hw(h, w)
-    p_used = h8 * w128
+    s_c, fwd, f2 = volume_fields(geom, vol, depth, normal, rays, offsets,
+                                 blocked)
     sig0 = vol.sig0[0]
     sig_hi_grid = sig0 + (vol.tab.shape[2] - 1) / vol.inv_dsig[0]
 
@@ -468,7 +610,7 @@ def photometric_scores_volume(geom: ViewGeometry, vol, stats: RefPatchStats,
     for vi in range(vol.tab.shape[0]):
         lo_v, hi_v = vol.sig_lo[vi], vol.sig_hi[vi]
         out2 = volume_lookup(vol.tab[vi], f2)
-        v3 = from_volume_order(out2[:p_used].T, h, w)    # (S, H, W)
+        v3 = _image_of_rows(out2, h, w, blocked)         # (S, H, W)
         # validity: the in-image sigma interval AND the grid's own range
         ok3 = (fwd >= lo_v) & (fwd <= hi_v) & in_grid
         # consumption shift: centre p reads sample row p + delta (zero
@@ -504,18 +646,23 @@ def score_photometric(geom: ViewGeometry, src_grays: torch.Tensor,
                       rays: torch.Tensor, offsets, cfg: DenseConfig,
                       phase: int = 1,
                       vol=None) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Dispatch on cfg.score_mode: exact scoring through the sigma tables,
-    or the warped approximation ("warped", and "hybrid" in the
-    photometric phase)."""
+    """Dispatch on cfg.score_mode, as the JAX package: exact scoring
+    through the sigma tables where they are attached, direct bilinear
+    scoring where the config routes exact scoring there, or the warped
+    approximation ("warped", and "hybrid" in the photometric phase).
+    Tables the config asks for but the caller did not attach raise."""
+    tables = use_volume_tables(cfg)
     if not exact_scoring(cfg, phase):
         return photometric_scores_warped(geom, src_grays, stats, hw, depth,
                                          normal, rays, offsets, cfg)
-    use_volume_tables(cfg)
-    if vol is None:
+    if vol is not None:
+        return photometric_scores_volume(geom, vol, stats, hw, depth,
+                                         normal, rays, offsets, cfg)
+    if tables:
         raise ValueError("exact scoring needs the sigma tables "
                          "(scene_driver.attach_volumes)")
-    return photometric_scores_volume(geom, vol, stats, hw, depth, normal,
-                                     rays, offsets, cfg)
+    return photometric_scores(geom, src_grays, stats, hw, depth, normal,
+                              rays, offsets, cfg)
 
 
 def aggregate_scores(scores: torch.Tensor, cfg: DenseConfig) -> torch.Tensor:
@@ -586,6 +733,33 @@ def _rect_taps(rect, depth: torch.Tensor
     return unpack_taps(rect_lookup(rect, sigma))
 
 
+def _forward_projections(geom: ViewGeometry, depth: torch.Tensor,
+                         rays: torch.Tensor):
+    """Each pixel projected into every neighbour with the hypothesis
+    depth: [(u1, v1, z1)] per view, (H, W) each."""
+    X0 = (rays[0] * depth, rays[1] * depth, rays[2] * depth)
+    out = []
+    for vi in range(geom.R_rel.shape[0]):
+        t_rel = geom.t_rel[vi]
+        X1 = mat3_apply(geom.R_rel[vi], X0)
+        X1 = (X1[0] + t_rel[0], X1[1] + t_rel[1], X1[2] + t_rel[2])
+        p1 = mat3_apply(geom.K_src[vi], X1)
+        z1 = p1[2]
+        inv_z1 = 1.0 / torch.where(z1.abs() < 1e-9, 1e-9, z1)
+        out.append((p1[0] * inv_z1, p1[1] * inv_z1, z1))
+    return out
+
+
+def _direct_taps(nbr_depth: torch.Tensor, nbr_normal: torch.Tensor,
+                 u1_all: torch.Tensor, v1_all: torch.Tensor
+                 ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(V, 4, H, W) neighbour (depth, normal) samples at rounded positions
+    by nearest gathers (the reference's integer-pixel reads,
+    DepthMap.cpp:652-655), and their in-image mask (V, H, W)."""
+    return nearest_sample_planes_batched(
+        torch.cat([nbr_depth[:, None], nbr_normal], dim=1), u1_all, v1_all)
+
+
 def geometric_scores(geom: ViewGeometry, depth: torch.Tensor,
                      normal: torch.Tensor, rays: torch.Tensor,
                      nbr_depth: torch.Tensor, nbr_normal: torch.Tensor,
@@ -593,33 +767,32 @@ def geometric_scores(geom: ViewGeometry, depth: torch.Tensor,
     """Forward-backward reprojection consistency per view: (V, H, W) in
     [0, 2] (ref: DepthMap.cpp:625-732).  Projects each pixel into every
     neighbour with the hypothesis depth, reads the neighbour's (depth,
-    normal) there through the rect engine, back-projects, and scores the
-    reprojection error against the epipolar-distance normaliser plus
-    normal agreement."""
-    del nbr_depth, nbr_normal
+    normal) there (through the rect engine ``rect``, or, with
+    ``geo_backend="direct"``, by nearest gathers of ``nbr_depth`` /
+    ``nbr_normal``), back-projects, and scores the reprojection error
+    against the epipolar-distance normaliser plus normal agreement."""
     h, w = depth.shape
-    use_rect_backend(cfg, h, w)
-    if rect is None:
+    if rect is None and use_rect_backend(cfg, h, w):
         raise ValueError("geometric scoring needs a rect context "
                          "(ops/rect_gather.build_rect_context)")
     dev = depth.device
     v_, u_ = torch.meshgrid(torch.arange(h, dtype=torch.float32, device=dev),
                             torch.arange(w, dtype=torch.float32, device=dev),
                             indexing="ij")
-    X0 = (rays[0] * depth, rays[1] * depth, rays[2] * depth)
     max_dist = float(math.hypot(w / 2, h / 2))
-    taps_all, vd_all = _rect_taps(rect, depth)
+    fwd = _forward_projections(geom, depth, rays)
+    if rect is not None:
+        taps_all, vd_all = _rect_taps(rect, depth)
+    else:
+        taps_all, vd_all = _direct_taps(
+            nbr_depth, nbr_normal,
+            torch.round(torch.stack([f[0] for f in fwd])),
+            torch.round(torch.stack([f[1] for f in fwd])))
 
     out = []
     for vi in range(geom.R_rel.shape[0]):
         R_rel, t_rel = geom.R_rel[vi], geom.t_rel[vi]
-        X1 = mat3_apply(R_rel, X0)
-        X1 = (X1[0] + t_rel[0], X1[1] + t_rel[1], X1[2] + t_rel[2])
-        p1 = mat3_apply(geom.K_src[vi], X1)
-        z1 = p1[2]
-        inv_z1 = 1.0 / torch.where(z1.abs() < 1e-9, 1e-9, z1)
-        u1 = p1[0] * inv_z1
-        v1c = p1[1] * inv_z1
+        u1, v1c, z1 = fwd[vi]
         in1 = ((u1 >= 0) & (u1 <= w - 1) & (v1c >= 0) & (v1c <= h - 1)
                & (z1 > 0))
 
@@ -653,6 +826,44 @@ def geometric_scores(geom: ViewGeometry, depth: torch.Tensor,
         bad = (~in1) | (~in0) | (d1 <= 0) | (~vd) | (err > max_dist)
         out.append(torch.where(bad, 1.0, torch.clamp_max(score, 2.0)))
     return torch.stack(out)
+
+
+def view_spread_candidates(geom: ViewGeometry, depth: torch.Tensor,
+                           rays: torch.Tensor, nbr_depth: torch.Tensor,
+                           nbr_normal: torch.Tensor, rect=None
+                           ) -> Tuple[torch.Tensor, torch.Tensor,
+                                      torch.Tensor]:
+    """Cross-view hypothesis harvesting (ref: OPTDENSE::viewspread,
+    DepthMap.cpp:1504-1608): map each pixel into every neighbour with its
+    current depth, read that view's (depth, normal) there (rect engine, or
+    nearest gathers when ``rect`` is None) and reproject them into the
+    reference frame.  Returns (cand_depth (V, H, W), cand_normal
+    (V, 3, H, W) in the reference frame, valid (V, H, W))."""
+    fwd = [(torch.round(u1), torch.round(v1), z1)
+           for u1, v1, z1 in _forward_projections(geom, depth, rays)]
+    if rect is not None:
+        taps_all, ok_all = _rect_taps(rect, depth)
+    else:
+        taps_all, ok_all = _direct_taps(
+            nbr_depth, nbr_normal, torch.stack([f[0] for f in fwd]),
+            torch.stack([f[1] for f in fwd]))
+    cds, cns, oks = [], [], []
+    for vi in range(geom.R_rel.shape[0]):
+        R_rel, t_rel = geom.R_rel[vi], geom.t_rel[vi]
+        u1, v1, z1 = fwd[vi]
+        taps = taps_all[vi]
+        d1 = taps[0]
+        # back-project the neighbour's hypothesis into the ref frame
+        ray1 = mat3_apply(geom.K_inv_src[vi], (u1, v1, torch.ones_like(u1)))
+        X1b = (ray1[0] * d1, ray1[1] * d1, ray1[2] * d1)
+        X0b = mat3_apply_t(R_rel, (X1b[0] - t_rel[0], X1b[1] - t_rel[1],
+                                   X1b[2] - t_rel[2]))
+        cand_d = X0b[2]
+        n_ref = normalize3(mat3_apply_t(R_rel, (taps[1], taps[2], taps[3])))
+        cds.append(cand_d)
+        cns.append(torch.stack(n_ref))
+        oks.append(ok_all[vi] & (d1 > 0) & (z1 > 0) & (cand_d > 0))
+    return torch.stack(cds), torch.stack(cns), torch.stack(oks)
 
 
 def local_smoothness_score(depth_map: torch.Tensor, normal_map: torch.Tensor,

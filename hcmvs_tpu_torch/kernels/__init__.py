@@ -169,7 +169,7 @@ def _load(path: Path) -> ctypes.CDLL:
     lib = ctypes.CDLL(str(path))
     p, i, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
     signatures = {
-        "volume_lookup": [p, p, p, i64, i, p],
+        "volume_lookup": [p, p, p, i64, i, i, p],
         "rect_build": [p, p, p, p, p, p, p, i, i, i, i, i64, p],
         "rect_lookup": [p, p, p, p, p, p, p, i, i, i, i, i, i, p],
         "volume_lookup_multi": [p, p, p, p, i64, i, i, i, p],
@@ -240,20 +240,36 @@ def _launch(name: str, device: torch.device, *args) -> None:
     launches[name] += 1
 
 
+def _check_depth(kernel: str, tab: torch.Tensor, f: torch.Tensor) -> None:
+    """Kernels B and D take (P, D) u16 tables, D a multiple of 128 up to
+    512 (the rect build's 128 planes, the per-plane build's 256 / 384 /
+    512), and (P, C) fields."""
+    if tab.dim() != 2 or f.dim() != 2 or tab.shape[1] % 128 \
+            or not 128 <= tab.shape[1] <= 512:
+        raise ValueError(f"{kernel} takes (P, D) tables, D a multiple of "
+                         f"128 up to 512, and (P, C) fields, got "
+                         f"{tuple(tab.shape)}, {tuple(f.shape)}")
+
+
 def volume_lookup(tab: torch.Tensor, f: torch.Tensor) -> torch.Tensor:
-    """Kernel B: tab (P, 128) u16, f (P, S) f32 -> (P, S) f32."""
+    """Kernel B: tab (P, D) u16, D a multiple of 128 up to 512, f (P, S)
+    f32 -> (P, S) f32."""
     if tab.device.type != "cuda":
         raise ValueError("volume_lookup kernel needs CUDA tensors")
-    if tab.dim() != 2 or tab.shape[1] != 128 or f.dim() != 2:
-        raise ValueError(f"kernel B takes (P, 128) tables and (P, S) "
-                         f"fields, got {tuple(tab.shape)}, {tuple(f.shape)}")
+    _check_depth("kernel B", tab, f)
     p, s = f.shape
-    _check_tensor("tab", tab, torch.uint16, (p, 128), tab.device)
+    d = tab.shape[1]
+    _check_tensor("tab", tab, torch.uint16, (p, d), tab.device)
+    if tab.data_ptr() % 16:
+        raise ValueError("tab is not 16-byte aligned")
+    if _state["earlier"] and d != 128:
+        raise ValueError("the earlier design of kernel B takes only "
+                         "128-plane tables")
     _check_tensor("f", f, torch.float32, (p, s), tab.device)
-    _check_items("kernel B", p, s, 128)
+    _check_items("kernel B", p, s, d)
     out = torch.empty((p, s), dtype=torch.float32, device=tab.device)
     _launch("volume_lookup", tab.device,
-            tab.data_ptr(), f.data_ptr(), out.data_ptr(), p, s)
+            tab.data_ptr(), f.data_ptr(), out.data_ptr(), p, s, d)
     return out
 
 
@@ -314,11 +330,7 @@ def volume_lookup_multi(tab: torch.Tensor, f: torch.Tensor,
     the per-row interval of ``bounds`` (P, 128) u16 when given."""
     if tab.device.type != "cuda":
         raise ValueError("volume_lookup_multi kernel needs CUDA tensors")
-    if tab.dim() != 2 or f.dim() != 2 or tab.shape[1] % 128 \
-            or not 128 <= tab.shape[1] <= 512:
-        raise ValueError(f"kernel D takes (P, D) tables, D a multiple of "
-                         f"128 up to 512, and (P, C) fields, got "
-                         f"{tuple(tab.shape)}, {tuple(f.shape)}")
+    _check_depth("kernel D", tab, f)
     p, c = f.shape
     dev = tab.device
     _check_tensor("tab", tab, torch.uint16, (p, tab.shape[1]), dev)

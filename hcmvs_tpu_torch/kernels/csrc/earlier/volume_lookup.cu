@@ -53,9 +53,11 @@ __global__ void volume_lookup_kernel(const uint16_t* __restrict__ tab,
 
 }  // namespace
 
-// tab (p, 128) u16, f (p, s) f32, out (p, s) f32; all contiguous.
+// tab (p, 128) u16, f (p, s) f32, out (p, s) f32; all contiguous.  This
+// design takes only d = 128.
 HCMVS_API int hcmvs_volume_lookup(const void* tab, const void* f, void* out,
-                                  long long p, int s, void* stream) {
+                                  long long p, int s, int d, void* stream) {
+  if (d != kPlanes) return (int)cudaErrorInvalidValue;
   long long n = p * s;
   if (n > 0) {
     volume_lookup_kernel<<<flat_blocks(n), kFlatThreads, 0,

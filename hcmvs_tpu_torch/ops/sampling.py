@@ -116,3 +116,63 @@ def nearest_sample_xy(img: torch.Tensor, x: torch.Tensor, y: torch.Tensor,
     yi = torch.clamp(y.to(torch.int64), 0, h - 1)
     valid = (x >= 0) & (y >= 0) & (x <= w - 1) & (y <= h - 1)
     return torch.where(valid, img[yi, xi], oob_value), valid
+
+
+def bilinear_sample(img: torch.Tensor, uv: torch.Tensor,
+                    oob_value: float = 0.0
+                    ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Bilinear sampling of ``img`` (H, W) or (H, W, C) at packed
+    coordinates ``uv`` (..., 2), uv[..., 0] = x (column), uv[..., 1] = y
+    (row); returns (values (...) or (..., C), in-bounds mask (...))."""
+    h, w = img.shape[:2]
+    x = uv[..., 0]
+    y = uv[..., 1]
+    x0 = torch.floor(x)
+    y0 = torch.floor(y)
+    fx = x - x0
+    fy = y - y0
+    valid = (x >= 0) & (y >= 0) & (x <= w - 1) & (y <= h - 1)
+    x0c = torch.clamp(x0.to(torch.int64), 0, w - 2)
+    y0c = torch.clamp(y0.to(torch.int64), 0, h - 2)
+    v00 = img[y0c, x0c]
+    v01 = img[y0c, x0c + 1]
+    v10 = img[y0c + 1, x0c]
+    v11 = img[y0c + 1, x0c + 1]
+    if img.dim() == 3:
+        fx = fx[..., None]
+        fy = fy[..., None]
+    top = v00 * (1 - fx) + v01 * fx
+    bot = v10 * (1 - fx) + v11 * fx
+    out = top * (1 - fy) + bot * fy
+    mask = valid[..., None] if img.dim() == 3 else valid
+    return torch.where(mask, out, oob_value), valid
+
+
+def nearest_sample_planes(planes: torch.Tensor, x: torch.Tensor,
+                          y: torch.Tensor, oob_value: float = 0.0
+                          ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Nearest sampling of C planes (C, H, W) at shared coordinates x, y
+    (truncated toward zero: pass them pre-rounded); returns ((C, ...),
+    valid (...))."""
+    c, h, w = planes.shape
+    xi = torch.clamp(x.to(torch.int64), 0, w - 1)
+    yi = torch.clamp(y.to(torch.int64), 0, h - 1)
+    valid = (x >= 0) & (y >= 0) & (x <= w - 1) & (y <= h - 1)
+    taps = planes.reshape(c, -1)[:, (yi * w + xi).reshape(-1)]
+    out = taps.reshape((c,) + tuple(x.shape))
+    return torch.where(valid[None], out, oob_value), valid
+
+
+def nearest_sample(img: torch.Tensor, uv: torch.Tensor,
+                   oob_value: float = 0.0
+                   ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Nearest sampling of ``img`` (H, W) or (H, W, C) at packed
+    coordinates ``uv`` (..., 2), rounded half to even (label and segment
+    maps); valid where the rounded pixel lies in the image."""
+    h, w = img.shape[:2]
+    x = torch.round(uv[..., 0]).to(torch.int64)
+    y = torch.round(uv[..., 1]).to(torch.int64)
+    valid = (x >= 0) & (y >= 0) & (x < w) & (y < h)
+    out = img[torch.clamp(y, 0, h - 1), torch.clamp(x, 0, w - 1)]
+    mask = valid[..., None] if img.dim() == 3 else valid
+    return torch.where(mask, out, oob_value), valid

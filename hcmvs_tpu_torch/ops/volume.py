@@ -1,16 +1,22 @@
 """Plane-sweep sigma tables: the exact-scoring lookup engine (PyTorch port
-of ``hcmvs_tpu/ops/volume.py``, rect-frame build only).
+of ``hcmvs_tpu/ops/volume.py``).
 
 Every warp position of a pixel's patch lies on its epipolar line,
 parameterised by the scalar sigma (inverse depth along the plane).  Per
 (ref, src) pair the source is resampled once along every pixel's line at
-D = 128 uniform sigma steps into ``tab[q, j]``, stored as u16 fixed point,
-and every score sample becomes a 1-D lerp lookup (``volume_lookup``).
+D uniform sigma steps into ``tab[q, j]``, stored as u16 fixed point, and
+every score sample becomes a 1-D lerp lookup (``volume_lookup``).
 
-The tables are built in each pair's rectified frame
-(``build_volume_tables_rect``), where every pixel's sigma segment is a
-strided run of one rect row.  Its pixel order is tile-major
-(``to_volume_order``); the scoring consumer uses the same order.
+Two builds, chosen by ``use_rect_volume_build``:
+- the rect-frame build (``build_volume_tables_rect``, D = 128), where
+  every pixel's sigma segment is a strided run of one rect row; its pixel
+  order is tile-major (``to_volume_order``);
+- the per-plane build (``build_volume_tables``, D = 128, 256, 384 or
+  512: ``cfg.volume_planes``), one bilinear warp of the source per coarse
+  plane and Catmull-Rom along sigma between them; its pixel order is the
+  image's (row-major).
+Every consumer of the tables (kernel B's and D's index fields, D's bounds
+panels) keys its row order on the same gate (``dense/score.py``).
 
 Three kernels live here, each beside its plain PyTorch version:
 - kernel A, ``rect_build_tab`` (``kernels/csrc/rect_build.cu``), replaces
@@ -33,7 +39,8 @@ from hcmvs_tpu_torch import kernels
 from hcmvs_tpu_torch.dense.types import mat3_apply
 from hcmvs_tpu_torch.ops.sampling import bicubic_sample_xy
 
-D_PLANES = 128          # sigma planes per table
+D_PLANES = 128          # sigma planes per table chunk (the rect build's D)
+MAX_PLANES = 512        # the deepest per-plane table kernels B and D take
 F_PACK_SCALE = 64       # packed index fields: u16 steps of 1/64 plane
 _SIGMA_MARGIN = 1.35    # widening of the sigma range for patch obliquity
 _CHUNK = 2048           # table rows are padded to a multiple of this
@@ -70,13 +77,14 @@ def _decode_tab(x: torch.Tensor) -> torch.Tensor:
     return x.to(torch.float32) * (1.0 / 65535.0)
 
 
-def sigma_grid(d_min, d_max):
-    """(sigma0, dsigma): uniform D_PLANES-step grid over the realisable
+def sigma_grid(d_min, d_max, margin: float = _SIGMA_MARGIN,
+               n_planes: int = D_PLANES):
+    """(sigma0, dsigma): uniform ``n_planes``-step grid over the realisable
     sigma range of hypotheses clamped to [0.8 d_min, 1.2 d_max], widened
-    by ``_SIGMA_MARGIN`` for patch obliquity."""
-    s_min = 1.0 / (1.2 * _SIGMA_MARGIN * d_max)
-    s_max = _SIGMA_MARGIN / (0.8 * d_min)
-    dsig = (s_max - s_min) / (D_PLANES - 1)
+    by ``margin`` for patch obliquity."""
+    s_min = 1.0 / (1.2 * margin * d_max)
+    s_max = margin / (0.8 * d_min)
+    dsig = (s_max - s_min) / (n_planes - 1)
     return s_min, dsig
 
 
@@ -95,19 +103,34 @@ def _intersect_sigma(cons) -> Tuple[torch.Tensor, torch.Tensor]:
     return lo, hi
 
 
+def table_chunks(cfg) -> int:
+    """``cfg.volume_planes`` // 128, the per-plane build's ``n_chunks``;
+    raises for a plane count the kernels do not take (not a multiple of
+    128, or above 512)."""
+    d = cfg.volume_planes
+    if d % D_PLANES or not D_PLANES <= d <= MAX_PLANES:
+        raise NotImplementedError(
+            f"volume_planes={d} (tables take a multiple of 128 planes up to "
+            f"{MAX_PLANES})")
+    return d // D_PLANES
+
+
 def use_rect_volume_build(cfg, h: int, w: int) -> bool:
-    """Whether stage tables are built in the rect frame: always, in the
-    port (the per-plane build is not ported and raises)."""
+    """Whether stage tables are built in the rect frame (tile-major rows)
+    rather than plane by plane (image-order rows), as the JAX package
+    routes them: ``volume_planes > 128`` or ``volume_build="planes"`` take
+    the per-plane build; "rect" and, in the port, "auto" the rect build on
+    every device ("auto" with ``use_pallas=False`` the per-plane one)."""
     del h, w
-    if cfg.volume_planes > D_PLANES:
-        raise NotImplementedError(
-            f"volume_planes={cfg.volume_planes} (> 128 needs the per-plane "
-            "table build and multi-chunk lookups, not ported)")
-    if cfg.volume_build not in ("auto", "rect"):
-        raise NotImplementedError(
-            f"volume_build={cfg.volume_build!r} (per-plane table build, "
-            "not ported)")
-    return True
+    if table_chunks(cfg) > 1:
+        return False
+    if cfg.volume_build == "rect":
+        return True
+    if cfg.volume_build == "planes":
+        return False
+    if cfg.volume_build != "auto":
+        raise ValueError(f"unknown volume_build {cfg.volume_build!r}")
+    return bool(cfg.use_pallas)
 
 
 def padded_hw(h: int, w: int) -> Tuple[int, int]:
@@ -167,7 +190,9 @@ def u16_as_int32(x: torch.Tensor) -> torch.Tensor:
 
 
 def volume_lookup_plain(tab: torch.Tensor, f: torch.Tensor) -> torch.Tensor:
-    """Plain version of kernel B: tab (P, D) u16, f (P, S) f32 ->
+    """Plain version of kernel B (``volume_lookup_xla``'s lerp, which the
+    Pallas kernel's per-chunk select-merge computes at every D): tab (P, D)
+    u16, f (P, S) f32 ->
     ``lerp(tab[q, i0], tab[q, i0 + 1], f - i0)`` with
     ``i0 = clip(floor f, 0, D - 2)``, decoded to f32."""
     i0 = torch.clamp(torch.floor(f), 0.0, tab.shape[1] - 2.0)
@@ -185,9 +210,9 @@ def volume_lookup_plain(tab: torch.Tensor, f: torch.Tensor) -> torch.Tensor:
 
 
 def volume_lookup(tab: torch.Tensor, f: torch.Tensor) -> torch.Tensor:
-    """Lerp-sample per-pixel tables: tab (P_pad, 128) u16, f (P_pad, S)
-    contiguous f32 -> (P_pad, S).  Kernel B on CUDA, the plain version on
-    the CPU."""
+    """Lerp-sample per-pixel tables: tab (P_pad, D) u16, D a multiple of
+    128 up to 512, f (P_pad, S) contiguous f32 -> (P_pad, S).  Kernel B on
+    CUDA, the plain version on the CPU."""
     if kernels.use_kernel(tab):
         return kernels.volume_lookup(tab, f)
     return volume_lookup_plain(tab, f)
@@ -236,6 +261,128 @@ def volume_lookup_multi(tab: torch.Tensor, f: torch.Tensor,
     if kernels.use_kernel(tab):
         return kernels.volume_lookup_multi(tab, f, bounds)
     return volume_lookup_multi_plain(tab, f, bounds)
+
+
+# --------------------------------------------------------------------------
+# the per-plane build (image-order rows, any plane count)
+# --------------------------------------------------------------------------
+
+_PLANE_BATCH = 16       # coarse planes warped per pass of the planes build
+
+
+def build_view_volume(A: torch.Tensor, wv: torch.Tensor,
+                      src_gray: torch.Tensor, sig0, dsig, h: int, w: int,
+                      build_step: int = 2, n_planes: int = D_PLANES
+                      ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """One (ref, src) pair's table, (P_pad, n_planes) u16 in image order
+    (rows past h * w zero), and its valid-sigma interval (H, W) x 2.
+
+    Every ``build_step``-th plane (and the last coarse one) is a bilinear
+    warp of the source through the plane's homography; the planes between
+    are Catmull-Rom along sigma, the coarse stack padded with its end
+    planes at both ends and cut to ``n_planes``, as the JAX package builds
+    them.  The warps go ``_PLANE_BATCH`` planes a pass; each plane's
+    values are the same elementwise arithmetic whatever the batch."""
+    from hcmvs_tpu_torch.ops.sampling import bilinear_sample_xy
+    dev = src_gray.device
+    f32 = torch.float32
+    v_, u_ = torch.meshgrid(torch.arange(h, dtype=f32, device=dev),
+                            torch.arange(w, dtype=f32, device=dev),
+                            indexing="ij")
+    p0x = A[0, 0] * u_ + A[0, 1] * v_ + A[0, 2]
+    p0y = A[1, 0] * u_ + A[1, 1] * v_ + A[1, 2]
+    p0z = A[2, 0] * u_ + A[2, 1] * v_ + A[2, 2]
+    hs, ws = src_gray.shape
+
+    def planes(js: torch.Tensor) -> torch.Tensor:
+        sig = (sig0 + dsig * js)[:, None, None]            # (B, 1, 1)
+        phx = p0x + wv[0] * sig
+        phy = p0y + wv[1] * sig
+        phz = p0z + wv[2] * sig
+        inv_z = 1.0 / torch.where(phz.abs() < 1e-9, 1e-9, phz)
+        val, _ = bilinear_sample_xy(src_gray, phx * inv_z, phy * inv_z)
+        return val.reshape(js.shape[0], h * w)
+
+    step = 1 if build_step == 1 else build_step
+    n_coarse = (n_planes - 1) // step + 1
+    js = torch.arange(n_coarse, dtype=f32, device=dev) * step
+    coarse = torch.cat([planes(js[i:i + _PLANE_BATCH])
+                        for i in range(0, n_coarse, _PLANE_BATCH)])
+    rows = [_encode_tab(coarse)]
+    if step > 1:
+        idx = torch.arange(n_coarse, device=dev)
+        cm1 = coarse[torch.clamp_min(idx - 1, 0)]
+        cp1 = coarse[torch.clamp_max(idx + 1, n_coarse - 1)]
+        cp2 = coarse[torch.clamp_max(idx + 2, n_coarse - 1)]
+        for r in range(1, step):
+            t = r / step
+            # Catmull-Rom weights at fraction t
+            w0 = -0.5 * t + t * t - 0.5 * t ** 3
+            w1 = 1.0 - 2.5 * t * t + 1.5 * t ** 3
+            w2 = 0.5 * t + 2.0 * t * t - 1.5 * t ** 3
+            w3 = -0.5 * t * t + 0.5 * t ** 3
+            rows.append(_encode_tab(w0 * cm1 + w1 * coarse + w2 * cp1
+                                    + w3 * cp2))
+        del cm1, cp1, cp2
+    del coarse
+    # (n_coarse, step, P) -> plane-major (D, P), then pixel-major rows
+    tab = torch.stack(rows, dim=1).reshape(n_coarse * step, h * w)
+    tab = tab[:n_planes].T
+    p_pad = _round_up(h * w, _CHUNK)
+    out = torch.zeros((p_pad, n_planes), dtype=torch.uint16, device=dev)
+    out[:h * w] = tab
+    del tab, rows
+
+    # valid-sigma interval: each border is one linear constraint
+    # a + b*sigma >= 0 (z > 0 folded in), intersected analytically
+    cons = (
+        (p0z, wv[2]),                                          # z > 0
+        (p0x, wv[0]),                                          # u >= 0
+        ((ws - 1) * p0z - p0x, (ws - 1) * wv[2] - wv[0]),      # u <= W-1
+        (p0y, wv[1]),                                          # v >= 0
+        ((hs - 1) * p0z - p0y, (hs - 1) * wv[2] - wv[1]),      # v <= H-1
+    )
+    lo, hi = _intersect_sigma(cons)
+    # shrink by one step: the lerp also reads plane floor(f) + 1
+    return out, lo + dsig, hi - dsig
+
+
+def build_volume_tables(geom, src_grays: torch.Tensor, d_min, d_max,
+                        n_chunks: int = 1) -> VolumeTables:
+    """All neighbour views' per-plane tables for one reference view:
+    ``n_chunks * 128`` sigma planes, (V, P_pad, D) u16 in image order.
+    The neighbours are built one after another (the JAX package
+    serialises them above 640x480; each pair's f32 plane stack is the
+    largest temporary)."""
+    v, h, w = src_grays.shape
+    n_planes = n_chunks * D_PLANES
+    if not 1 <= n_chunks <= MAX_PLANES // D_PLANES:
+        raise NotImplementedError(
+            f"{n_planes} sigma planes (tables take 128 to {MAX_PLANES})")
+    sig0, dsig = sigma_grid(d_min, d_max, n_planes=n_planes)
+    tabs, los, his = [], [], []
+    for vi in range(v):
+        tab, lo, hi = build_view_volume(geom.A[vi], geom.wv[vi],
+                                        src_grays[vi], sig0, dsig, h, w,
+                                        n_planes=n_planes)
+        tabs.append(tab)
+        los.append(lo)
+        his.append(hi)
+    ones = torch.ones(v, dtype=torch.float32, device=src_grays.device)
+    return VolumeTables(tab=torch.stack(tabs), sig0=sig0 * ones,
+                        inv_dsig=(1.0 / dsig) * ones,
+                        sig_lo=torch.stack(los), sig_hi=torch.stack(his))
+
+
+def build_tables(geom, src_grays: torch.Tensor, d_min, d_max, cfg
+                 ) -> VolumeTables:
+    """One reference view's tables by the build ``cfg`` routes to
+    (``use_rect_volume_build``)."""
+    h, w = src_grays.shape[1:]
+    if use_rect_volume_build(cfg, h, w):
+        return build_volume_tables_rect(geom, src_grays, d_min, d_max)
+    return build_volume_tables(geom, src_grays, d_min, d_max,
+                               n_chunks=table_chunks(cfg))
 
 
 # --------------------------------------------------------------------------

@@ -328,6 +328,24 @@ _NO_JAX_SCRIPT = textwrap.dedent("""
     problem, state, _ = make_problem(12, 300, device="cpu")
     stepped = ba_step(problem, state, 1e-3)
     assert float(ba_cost(problem, stepped)) < float(ba_cost(problem, state))
+    # the quality ladder's CLI on the CPU (the per-plane build, streamed)
+    # and the single-view API
+    import contextlib, io, json
+    from hcmvs_tpu_torch.dense import estimate_depth_map, make_view_geometry
+    from hcmvs_tpu_torch.eval import quality_ladder
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        quality_ladder.main(["--h", "32", "--w", "48", "--fx", "45",
+                             "--views", "3", "--ext", "2", "--iters", "1",
+                             "--device", "cpu", "--volume-planes", "256",
+                             "--cfg", '{"volume_streaming": true}'])
+    lines = [json.loads(x) for x in buf.getvalue().splitlines()]
+    assert lines[-1]["final"] and 0 <= lines[-1]["acc2pct"] <= 1
+    geom = make_view_geometry(cams[0], cams[torch.tensor([1, 2])])
+    sv = estimate_depth_map(torch.Generator().manual_seed(0), geom,
+                            scene.gray[0], scene.gray[1:3], sc.d_min,
+                            sc.d_max, cfg)
+    assert sv.depth.shape == (h, w) and torch.isfinite(sv.cost).all()
     assert not any(m.split(".")[0] in BLOCKED
                    for m in sys.modules if sys.modules[m] is not None)
     print("OK", float((depth > 0).float().mean()))

@@ -228,14 +228,44 @@ def test_kernel_b_matches_plain(s, offset, monkeypatch):
     assert torch.equal(out, ref)
     with pytest.raises(ValueError):
         kernels.volume_lookup(tab, f[:, ::2])          # not contiguous
-    with pytest.raises(ValueError):
-        kernels.volume_lookup(_u16(np.zeros((8, 256))).to(dev),
-                              torch.zeros(8, 9, device=dev))
+    for d in (192, 640):        # depths the per-plane build never makes
+        with pytest.raises(ValueError):
+            kernels.volume_lookup(_u16(np.zeros((8, d))).to(dev),
+                                  torch.zeros(8, 9, device=dev))
     with pytest.raises(TypeError):
         kernels.volume_lookup(tab.to(torch.int32), f)
     monkeypatch.setattr(kernels, "MAX_ITEMS", p * s - 1)
     with pytest.raises(ValueError, match="items"):
         kernels.volume_lookup(tab, f)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("s", [9, 16, 36, 64, 5])
+@pytest.mark.parametrize("d", [256, 384, 512])
+def test_kernel_b_deep_tables_match_plain(d, s):
+    """Kernel B on the per-plane build's deeper tables (D passed at run
+    time), with fields below 0, above D - 2 and at exact integers, and on
+    a table the per-plane build made on the card (image-order rows)."""
+    dev = _cuda()
+    rng = np.random.default_rng(3)
+    p = 4099
+    tab = _u16(rng.integers(0, 65536, (p, d))).to(dev)
+    f = _field(rng, (p, s), -3, d + 2, dev)
+    out = vol.volume_lookup(tab, f)
+    with kernels.plain_versions():
+        ref = vol.volume_lookup(tab, f)
+    assert torch.equal(out, ref)
+    sc, geom, src = _scene(dev)
+    vt = vol.build_volume_tables(
+        geom, src, torch.tensor(sc.d_min, device=dev),
+        torch.tensor(sc.d_max, device=dev), n_chunks=d // 128)
+    f = _field(rng, (vt.tab.shape[1], s), -3, d + 2, dev)
+    out = vol.volume_lookup(vt.tab[1], f)
+    with kernels.plain_versions():
+        ref = vol.volume_lookup(vt.tab[1], f)
+    assert torch.equal(out, ref)
+    with kernels.earlier_designs(), pytest.raises(ValueError):
+        kernels.volume_lookup(tab, f[:p])
 
 
 @pytest.mark.gpu

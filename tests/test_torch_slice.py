@@ -253,12 +253,15 @@ def test_aggregate_scores_match():
 def test_unported_knobs_raise(world, tmp_path):
     scene_t = scene_from_numpy(world["scene"], device="cpu")
     gen = torch.Generator().manual_seed(0)
-    for kw in (dict(exact_backend="bilinear"),
-               dict(geo_backend="direct"), dict(volume_build="planes"),
-               dict(volume_planes=256), dict(batch_candidates=True),
-               dict(batch_candidates=True, score_mode="warped"),
-               dict(view_spread=1), dict(volume_streaming=True)):
-        with pytest.raises(NotImplementedError):
+    # the retired batch_candidates, and plane counts the tables do not
+    # take (the direct routes, the per-plane build, streaming and view
+    # spread run: tests/test_torch_{direct,planes,streaming}.py)
+    for kw, what in ((dict(batch_candidates=True), "batch_candidates"),
+                     (dict(batch_candidates=True, score_mode="warped"),
+                      "batch_candidates"),
+                     (dict(volume_planes=200), "volume_planes"),
+                     (dict(volume_planes=640), "volume_planes")):
+        with pytest.raises(NotImplementedError, match=what):
             tsd.estimate_scene(gen, scene_t, world["tcfg"].replace(**kw))
     # the densify options whose modules are not ported: the SGM fusion
     # modes (external prior maps run: tests/test_torch_masks.py)
