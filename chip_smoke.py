@@ -40,7 +40,8 @@ Phases, each fatal on failure:
  10. the hierarchy path through the kernels: the hierarchical-cross
      schedule's entry point (``hcmvs_tpu_torch.pipeline.hierarchy.main``)
      on a 4-view ridge scene written as ``scene.mvs`` + four 2560x1920
-     PNGs at DenseConfig(): the five default stages (levels 3 / 2 / 2 /
+     PNGs at DenseConfig() with two external iterations a stage
+     (HIER_FLAGS): the five default stages (levels 3 / 2 / 2 /
      1 / 1, variants A / B / A / B / A) at 640 / 640 / 640 / 1280 / 1280
      wide, with the cross-scale injection in the B stages; kernels A, B
      and C must have launched (C in every A stage), each stage's launches,
@@ -77,7 +78,8 @@ Phases, each fatal on failure:
      labels, and one refine gradient on the card agrees with the CPU's;
  16. photos -> SfM -> dense: the MvgMvsPipeline entry point
      (``hcmvs_tpu_torch.pipeline.mvgmvs.main``, SEQUENTIAL, distortion
-     estimated, ``--no-mesh``, ``resolution-level=0``) on 8 ridge photos at
+     estimated, ``--no-mesh``, ``resolution-level=0``, two external
+     iterations) on 8 ridge photos at
      1280x960 (focal 1200 px) put through a radial distortion k1 = -0.15
      and written as PNGs whose EXIF holds FocalLengthIn35mmFilm = 33.75:
      K from EXIF exactly 1200, 8 of 8 views registered, k1 in (-0.25,
@@ -100,7 +102,8 @@ Phases, each fatal on failure:
      and at most 0.6 px, seconds per step, the PCG budget, peak memory; a
      second run equal;
  19. the whole chain, small: ``mvgmvs.main`` with mesh and texture on 4
-     pinhole ridge photos at 320x240 at ``DenseConfig()``; the PLY mesh,
+     pinhole ridge photos at 320x240 at ``DenseConfig()`` with two external
+     iterations; the PLY mesh,
      OBJ, MTL and PNG atlas read back with at least one face; then its
      dense step again through the plain versions, compared;
  20. kernels B and D past 128 planes: B on view 0's per-plane tables at
@@ -115,19 +118,41 @@ Phases, each fatal on failure:
      launched (none on the direct route), wall and peak memory; then the
      256-plane route through the plain versions (no launch, the same map);
  22. the reference's 10-neighbour operating point: 11 views x 10
-     neighbours at 1280x960 (bench._build's workload, 128 planes) with
+     neighbours at 1280x960 (bench._build's workload at one sweep a
+     phase, 128 planes) with
      streamed tables, then with scene-wide attached ones (bit-equal maps;
      at 640x480 if they do not fit), chunks of 4 / 4 / 3 views against
      one sweep call (equal), and 256 planes streamed with the candidates
      batched (kernel D), with views/s, the live tables' bytes and the
      peak memory of each.
-Launches are counted by kernel and output shape (B and D with the
-table's depth).  Then a JSON line per
+ 23. kernels B, D and E past the caps they once had: B at 512 planes on
+     4.3 M rows (2.2 G table entries) and D packed and bounded at 576
+     columns on 3.8 M rows (2.19 G items), each in two row chunks and
+     bit-equal to its plain version; E with 140 warped offsets
+     (adapt_half_window 11, patch step 2) on view 0's three pairs at
+     1280x960, exact; each timed, with its bound;
+ 24. SGM: densify --fusion-mode -2, then -1, through the CLI entry point
+     on phase 8's scene: no kernel launched, view 0 at its floor, the
+     .dmap / .ply files read back, the two modes' maps equal, SGM's wall,
+     device operations and peak memory printed; then the box scene's
+     left-right check removing occlusion ghosts;
+ 25. ``eval.golden`` on the card at 144x192, 5 views: the default run,
+     ``--hierarchy`` and ``--full-stack --fx 180``, each key held against
+     the JAX package's same-tree CPU run of that mode;
+ 26. ``eval.full_run`` at 1280x960, 6 views (SfM, the 5-stage hierarchy,
+     fusion, graph cut, refine, texture): ATE, depth accuracy, mesh
+     F-score and refine's drop against their gates, each stage's wall
+     and the peak memory.
+Phases 19, 21 and 24-26 run last, after phase 23, side by side, each in
+a process of its own (``chip_smoke.py --worker KIND OUT``, an internal
+mode), which counts its own launches and hands them back.  Launches are
+counted by kernel and output shape (B and D with the table's depth).
+Then a JSON line per
 path, one for the kernels, the nvidia-smi line, and
 a last line ``{"ok": true, "device": {...}}``.  Exits non-zero, with no
 result line, without a CUDA device or without the package beside this
-script.  The densify, hierarchy, mesh and photo outputs go to temporary
-directories beside this script, removed at the end.
+script.  The densify, hierarchy, mesh, photo, SGM and full-run outputs go
+to temporary directories beside this script, removed at the end.
 """
 
 from __future__ import annotations
@@ -369,13 +394,18 @@ DENSIFY_PNG_FILTER = 4
 
 
 # the hierarchy path: a 4-view ridge scene written as HIER_IMAGE_HW PNGs,
-# through the hierarchy CLI at DenseConfig(); the default schedule's levels
+# through the hierarchy CLI at DenseConfig() + HIER_FLAGS; the default
+# schedule's levels
 # 3 / 2 / 2 / 1 / 1 run at 640 / 640 / 640 / 1280 / 1280 wide (its
 # min_resolution of 640 clamps levels 3 and 2 to HIER_LEVEL_HW).  Its
 # floor is the densify app's (the JAX package's own hierarchy on this
 # scene at 144x192 and 240x320 reads above 0.90 on the CPU; PERF.md)
 HIER_IMAGE_HW = (1920, 2560)
 HIER_LEVEL_HW = (480, 640)
+# two external iterations a stage (DenseConfig() runs four): the whole
+# script must stay inside its time limit with phases 23-26; every check of
+# phases 10-11 stays
+HIER_FLAGS = ("n-EstimationIters-external=2",)
 
 
 def hierarchy_scene(h: int, w: int, textured: bool = True):
@@ -1111,6 +1141,12 @@ def stage_records():
         hierarchy.estimate_scene = run_stage
 
 
+def hier_cfg():
+    """The hierarchy path's base config: DenseConfig() with HIER_FLAGS."""
+    from hcmvs_tpu_torch.core.config import config_from_cli_flags
+    return config_from_cli_flags(dict(f.split("=", 1) for f in HIER_FLAGS))
+
+
 def _hierarchy_run(scene_path, img_dir, out_dir, plain: bool):
     """One hierarchy run on the card, the kernel pass through the CLI entry
     point, the plain pass through ``densify_hierarchical`` with the same
@@ -1118,7 +1154,6 @@ def _hierarchy_run(scene_path, img_dir, out_dir, plain: bool):
     records)."""
     import torch
     from hcmvs_tpu_torch import kernels
-    from hcmvs_tpu_torch.core.config import DenseConfig
     from hcmvs_tpu_torch.pipeline import hierarchy
     from hcmvs_tpu_torch.utils import profiling
     profiling.reset_report()
@@ -1129,10 +1164,11 @@ def _hierarchy_run(scene_path, img_dir, out_dir, plain: bool):
         if plain:
             with kernels.plain_versions():
                 stats = hierarchy.densify_hierarchical(
-                    scene_path, img_dir, out_dir, DenseConfig())
+                    scene_path, img_dir, out_dir, hier_cfg())
         else:
             stats = hierarchy.main(["--input-file", scene_path,
-                                    "--images-dir", img_dir, "-w", out_dir])
+                                    "--images-dir", img_dir, "-w", out_dir,
+                                    "--flags", *HIER_FLAGS])
         torch.cuda.synchronize()
         seconds = time.perf_counter() - t0
     return (stats, profiling.report(), seconds,
@@ -1147,7 +1183,6 @@ def check_hierarchy(root):
     summary, the checks that failed)."""
     import numpy as np
     from hcmvs_tpu_torch import kernels
-    from hcmvs_tpu_torch.core.config import DenseConfig
     from hcmvs_tpu_torch.io.dmap import read_dmap
     from hcmvs_tpu_torch.io.ply import read_ply
     from hcmvs_tpu_torch.pipeline.hierarchy import default_schedule
@@ -1163,7 +1198,7 @@ def check_hierarchy(root):
     log(f"[{label}] ridge scene.mvs + {N_VIEWS} {HIER_IMAGE_HW[1]}x"
         f"{HIER_IMAGE_HW[0]} PNGs (row filter {DENSIFY_PNG_FILTER}) written "
         f"in {time.perf_counter() - t0:.3f} s")
-    schedule = default_schedule(DenseConfig())
+    schedule = default_schedule(hier_cfg())
     gts = {}
 
     def stage_acc(rec):
@@ -1786,7 +1821,9 @@ PHOTO_HW = (960, 1280)
 PHOTO_VIEWS = 8
 PHOTO_FX = 1200.0
 PHOTO_K1 = -0.15
-PHOTO_FLAGS = ("resolution-level=0",)
+# two external iterations (DenseConfig() runs four) keep the script inside
+# its time limit with phases 23-26; every check stays
+PHOTO_FLAGS = ("resolution-level=0", "n-EstimationIters-external=2")
 # k1's window and the ATE bound (10% of the spacing) of the JAX package's
 # distortion golden (tests/test_distortion.py:121, :134)
 PHOTO_K1_WINDOW = (-0.25, -0.08)
@@ -1831,6 +1868,7 @@ BA_RMS_MAX = 0.6
 # phase 19: the whole chain, small: 4 pinhole ridge photos, same FOV
 CHAIN_HW = (240, 320)
 CHAIN_VIEWS = 4
+CHAIN_FLAGS = ("n-EstimationIters-external=2",)    # as PHOTO_FLAGS
 
 
 def photo_scene(h: int, w: int, n_views: int):
@@ -2165,7 +2203,8 @@ def check_ba(dev):
 
 def check_chain(root):
     """Phase 19: ``pipeline.mvgmvs.main`` with mesh and texture on 4
-    pinhole ridge photos at 320x240, ``DenseConfig()``, counts reset just
+    pinhole ridge photos at 320x240, ``DenseConfig()`` with CHAIN_FLAGS,
+    counts reset just
     before, read just after; then its dense step through the plain
     versions."""
     import numpy as np
@@ -2189,7 +2228,7 @@ def check_chain(root):
     kernels.reset_launches()
     with launch_shapes() as shapes:
         t0 = time.perf_counter()
-        out = mvgmvs.main([photos, str(out_dir)])
+        out = mvgmvs.main([photos, str(out_dir), "--flags", *CHAIN_FLAGS])
         torch.cuda.synchronize()
         seconds = time.perf_counter() - t0
     launches = dict(kernels.launches)
@@ -2223,8 +2262,8 @@ def check_chain(root):
                       f"{launches}")
     d0 = out["depth"][0]
     med = float(np.median(sc.depth_gt[d0 > 0] / d0[d0 > 0]))
-    plain = check_plain_dense(label, photos, (), out, str(root / "plain"),
-                              sc, med, failed)
+    plain = check_plain_dense(label, photos, CHAIN_FLAGS, out,
+                              str(root / "plain"), sc, med, failed)
     return launches, {
         "views": CHAIN_VIEWS, "h": h, "w": w,
         "registered": len(out["sfm"].poses),
@@ -2580,7 +2619,9 @@ def check_operating_point(dev):
                               "total_s", 0.0)}
         return state
 
-    cfg = slice_cfg().replace(volume_streaming=True)
+    # one sweep a phase (the slice's workload runs two): the script's time
+    # limit; no check depends on the sweep count
+    cfg = slice_cfg().replace(volume_streaming=True, estimation_iters=1)
     for h, w in ((H, W), (H // 2, W // 2)):
         sc, scene = op_scene(h, w, dev)
         live = OP_NBR * -(-h * w // 2048) * 2048 * 128 * 2
@@ -2656,8 +2697,575 @@ def check_operating_point(dev):
         k: dict(v) for k, v in by_shape.items()}, "runs": summary}, failed
 
 
+# phase 23: kernels B, D and E one chunk past the caps they once had: B
+# and D split rows into launches of under 2^31 items and table entries, E
+# reads its offsets from a device buffer of any length
+CAP_B = (4_300_000, 9, 512)     # rows, field width, planes (2.2 G entries)
+CAP_D = (3_800_000, 576, 128)   # rows, 9 candidates x 64 offsets, planes
+CAP_E = dict(adapt_half_window=11, patch_step=2)     # 140 warped offsets
+CAP_E_OFFSETS = 140
+
+
+def _by_rows(fn, rows: int, *arrays):
+    """A row-wise plain version over slices of ``rows`` rows, joined (its
+    int64 temporaries at 2 G items would not fit the card at once)."""
+    import torch
+    p = arrays[0].shape[0]
+    return torch.cat([fn(*(None if a is None else a[r:r + rows]
+                           for a in arrays)) for r in range(0, p, rows)])
+
+
+def past_caps(scene, cfg, dev, rows):
+    """Phase 23: kernel B at D = 512 on 4.3 M rows (2.2 G table entries)
+    and kernel D packed and bounded at 576 columns on 3.8 M rows (2.19 G
+    items): two row chunks each, bit-equal to their plain versions (run
+    in row slices); kernel E with the 140 warped offsets of
+    adapt_half_window 11 at patch step 2, on view 0's three pairs at
+    1280x960: exact.  Each timed with its bound; the entries join the
+    rows' ``shapes``."""
+    import torch
+    from hcmvs_tpu_torch import kernels
+    from hcmvs_tpu_torch.dense import score as S
+    from hcmvs_tpu_torch.dense.scene_driver import init_scene_state
+    from hcmvs_tpu_torch.dense.types import make_view_geometry, pixel_rays
+    from hcmvs_tpu_torch.ops import volume as vol
+    from hcmvs_tpu_torch.ops import zncc_warped as zw
+    from hcmvs_tpu_torch.ops.gradients import sobel_magnitude
+
+    by_name = {r["name"]: r for r in rows}
+    gen = torch.Generator(device=dev).manual_seed(23)
+
+    def add(name, shape, label, n_launch, ms, plain_ms, n_bytes, n_el):
+        b_ms, b_by = bound(name, n_bytes, n_el)
+        x = dict(shape=shape, field=label, max_abs_err=0.0, ms=ms,
+                 plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
+                 launches_per_call=n_launch)
+        by_name[name].setdefault("shapes", []).append(x)
+        log(f"[caps] {name} {shape} ({label}): {n_launch} launches a call, "
+            f"kernel {ms:.3f} ms, plain {plain_ms:.3f} ms, bound "
+            f"{b_ms:.3f} ms ({b_by}), {100 * b_ms / ms:.1f}% of the bound")
+
+    # B: a random 512-plane table, fields over the whole grid and past it
+    p, s, d = CAP_B
+    tab = torch.randint(-32768, 32768, (p, d), dtype=torch.int16,
+                        device=dev, generator=gen).view(torch.uint16)
+    f = torch.rand((p, s), device=dev, generator=gen) * (d + 4) - 2
+    before = kernels.launches["volume_lookup"]
+    out = kernels.volume_lookup(tab, f)
+    n_launch = kernels.launches["volume_lookup"] - before
+    same = torch.equal(out, _by_rows(vol.volume_lookup_plain, 500_000, tab,
+                                     f))
+    log(f"[caps] B volume_lookup: table {tuple(tab.shape)} "
+        f"({p * d / 2 ** 31:.3f} x 2^31 entries), field {tuple(f.shape)}, "
+        f"{n_launch} launches, bit-equal {same}")
+    if not same or n_launch != 2:
+        raise AssertionError(f"kernel B past the item cap: bit-equal {same},"
+                             f" {n_launch} launches")
+    i0 = torch.clamp(torch.floor(f), 0, d - 2).long()
+    n_bytes = nbytes(f, out) + table_bytes(tab, i0)
+    del i0
+    add("volume_lookup", [p, s, d], "random, past the item cap", n_launch,
+        cuda_ms(lambda: kernels.volume_lookup(tab, f), 5),
+        cuda_ms(lambda: _by_rows(vol.volume_lookup_plain, 500_000, tab, f),
+                1, 1, 3, host_bound_ok=True), n_bytes, out.numel())
+    del tab, f, out
+    torch.cuda.empty_cache()
+
+    # D, packed and bounded: random 128-plane table and packed field,
+    # per-row intervals holding part of each row's items
+    p, c, d = CAP_D
+    tab = torch.randint(-32768, 32768, (p, d), dtype=torch.int16,
+                        device=dev, generator=gen).view(torch.uint16)
+    f = torch.randint(0, (d - 1) * vol.F_PACK_SCALE + 1, (p, c),
+                      dtype=torch.int16, device=dev,
+                      generator=gen).view(torch.uint16)
+    lo = torch.randint(0, 40 * vol.F_PACK_SCALE, (p, 1), device=dev,
+                       generator=gen)
+    hi = torch.randint(60 * vol.F_PACK_SCALE, 65535, (p, 1), device=dev,
+                       generator=gen)
+    bounds = torch.cat([lo.expand(p, 64), hi.expand(p, 64)],
+                       1).to(torch.uint16)
+    before = kernels.launches["volume_lookup_multi"]
+    out = kernels.volume_lookup_multi(tab, f, bounds)
+    n_launch = kernels.launches["volume_lookup_multi"] - before
+    plain = _by_rows(vol.volume_lookup_multi_plain, 400_000, tab, f, bounds)
+    same = torch.equal(out.view(torch.int16), plain.view(torch.int16))
+    del plain
+    log(f"[caps] D volume_lookup_multi (bounded): table {tuple(tab.shape)},"
+        f" field {tuple(f.shape)} ({p * c / 2 ** 31:.3f} x 2^31 items), "
+        f"{n_launch} launches, bit-equal {same}")
+    if not same or n_launch != 2:
+        raise AssertionError(f"kernel D past the item cap: bit-equal {same},"
+                             f" {n_launch} launches")
+    need_bytes = 0
+    for r in range(0, p, 400_000):
+        fi = vol.u16_as_int32(f[r:r + 400_000])
+        need = (fi >= lo[r:r + 400_000]) & (fi <= hi[r:r + 400_000])
+        need_bytes += table_bytes(tab[r:r + 400_000],
+                                  torch.clamp_max(fi >> 6, d - 2).long(),
+                                  need)
+        del fi, need
+    add("volume_lookup_multi", [p, c, d], "random bounded, past the item "
+        "cap", n_launch,
+        cuda_ms(lambda: kernels.volume_lookup_multi(tab, f, bounds), 3),
+        cuda_ms(lambda: _by_rows(vol.volume_lookup_multi_plain, 400_000,
+                                 tab, f, bounds), 1, 1, 3,
+                host_bound_ok=True),
+        nbytes(f, out) + need_bytes + 64 * p, out.numel())
+    del tab, f, out, bounds, lo, hi
+    torch.cuda.empty_cache()
+
+    # E: view 0 against its three neighbours, warped scoring at full
+    # sampling with the widest adaptive window of the reference's presets
+    cfg_e = cfg.replace(**CAP_E)
+    h, w = scene.gray.shape[1:]
+    nbr = scene.nbr_idx[0]
+    geom = make_view_geometry(scene.cams[0], scene.cams[nbr])
+    rays = pixel_rays(geom.K_inv_ref, h, w)
+    st = init_scene_state(torch.Generator(device=dev).manual_seed(2), scene)
+    offsets = S.patch_offsets(cfg_e)
+    hw = S.halfwin_map(sobel_magnitude(scene.gray[0]), cfg_e)
+    stats = S.ref_patch_stats(scene.gray[0], hw, offsets)
+    x = S.warped_inputs(geom, scene.gray[nbr], stats, hw, st.depth[0],
+                        st.normal[0], rays, offsets)
+    e_args = x[:9]
+    before = kernels.launches["zncc_warped"]
+    out_s, out_v = kernels.zncc_warped(*e_args)
+    n_launch = kernels.launches["zncc_warped"] - before
+    plain_s, plain_v = zw.zncc_warped_plain(*e_args)
+    err = max(float((out_s - plain_s).abs().max()),
+              float((out_v - plain_v).abs().max()))
+    n_off = len(x.scan_offsets)
+    log(f"[caps] E zncc_warped: out {tuple(out_s.shape)} x 2, {n_off} "
+        f"offsets, pad {x.pad}, {n_launch} launch, max |kernel - plain| "
+        f"{err:.3g}")
+    if err != 0 or n_off != CAP_E_OFFSETS:
+        raise AssertionError(f"kernel E at {n_off} offsets: max abs err "
+                             f"{err}")
+    add("zncc_warped", list(out_s.shape) + [f"{n_off} offsets"],
+        f"adapt_half_window {CAP_E['adapt_half_window']}, patch step "
+        f"{CAP_E['patch_step']}", n_launch,
+        cuda_ms(lambda: kernels.zncc_warped(*e_args), 10),
+        cuda_ms(lambda: zw.zncc_warped_plain(*e_args), 3,
+                host_bound_ok=True),
+        nbytes(*(t for t in e_args if torch.is_tensor(t)), out_s, out_v),
+        out_s.numel() * n_off)
+    del x, e_args, out_s, out_v, plain_s, plain_v
+    torch.cuda.empty_cache()
+
+
+# phase 24: SGM (densify --fusion-mode -2, then -1) on the densify phase's
+# scene.  SGM_FLOOR: the JAX package's view 0 depth_acc_2pct with
+# --fusion-mode -2 on this scene at 480x640 on the CPU, less 0.05
+# (tests/test_torch_sgm.py run as a script); it reaches none of the five
+# kernels
+SGM_JAX_ACC = 0.8581
+SGM_FLOOR = SGM_JAX_ACC - 0.05
+SGM_MATCHES = N_VIEWS * N_NBR * 2      # a pair's match and its reverse
+BOX_HW = (64, 96)                      # tests/test_sgm.py's box scene
+
+
+def _sgm_run(scene_path, img_dir, out_dir, mode):
+    """densify's CLI entry point in SGM mode ``mode`` on the card: (stats,
+    stage report, seconds, peak GiB, launches, launches by shape)."""
+    import torch
+    from hcmvs_tpu_torch import kernels
+    from hcmvs_tpu_torch.pipeline import densify as D
+    from hcmvs_tpu_torch.utils import profiling
+    profiling.reset_report()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    kernels.reset_launches()
+    with launch_shapes() as shapes:
+        t0 = time.perf_counter()
+        stats = D.main(["--input-file", scene_path, "--images-dir", img_dir,
+                        "-w", out_dir, "--fusion-mode", str(mode),
+                        "--flags", *DENSIFY_FLAGS])
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+    return (stats, profiling.report(), seconds,
+            torch.cuda.max_memory_allocated() / 2 ** 30,
+            dict(kernels.launches), shapes)
+
+
+def _box_lr_check(dev):
+    """tests/test_sgm.py's occlusion check on the card: single-pair SGM on
+    the box scene with and without the left-right check; (ghost share,
+    estimates in the occluded band) for each."""
+    import numpy as np
+    import torch
+    from hcmvs_tpu_torch.core.camera import Camera
+    from hcmvs_tpu_torch.dense.scene_driver import SceneTensors
+    from hcmvs_tpu_torch.dense.sgm import lr_consistency, sgm_scene
+    from hcmvs_tpu_torch.dense.types import make_view_geometry
+    from hcmvs_tpu_torch.utils.synth import make_box_scene
+    sc = make_box_scene(np.random.default_rng(5), h=BOX_HW[0], w=BOX_HW[1],
+                        n_views=2)
+    cams = Camera(*(torch.stack([getattr(c, f) for c in sc.cameras])
+                    for f in "KRC")).to(dev)
+    scene = SceneTensors(
+        gray=torch.stack([torch.from_numpy(im) for im in sc.images]).to(dev),
+        cams=cams, nbr_idx=torch.tensor([[1], [0]], device=dev),
+        nbr_valid=torch.ones(2, 1, dtype=torch.bool, device=dev),
+        d_min=torch.full((2,), sc.d_min, device=dev),
+        d_max=torch.full((2,), sc.d_max, device=dev))
+    g01 = make_view_geometry(cams[0], cams[1:2])
+    occl = ~lr_consistency(
+        g01, torch.from_numpy(sc.depth_gts[0]).to(dev),
+        torch.from_numpy(sc.depth_gts[1]).to(dev),
+        rel_thr=0.01).cpu().numpy()
+    inner = np.s_[6:-6, 6:-6]
+    out = {}
+    for lr in (False, True):
+        d0 = sgm_scene(scene, n_depths=64, n_pairs=1,
+                       lr_check=lr)[0][0].cpu().numpy()
+        gt = sc.depth_gts[0]
+        val = d0 > 0
+        ghost = val & (np.abs(d0 - gt) / gt > 0.05)
+        out[lr] = (float(ghost[inner].sum() / max(val[inner].sum(), 1)),
+                   float((val & occl)[inner].mean()))
+    return out
+
+
+def check_sgm(root, dev):
+    """Phase 24: densify --fusion-mode -2 and -1 (SGM) through the CLI
+    entry point on the densify phase's scene (1280x960, 4 views, 3
+    neighbours, scene.mvs + PNGs): no kernel of the port may launch, view
+    0 must reach SGM_FLOOR, the .dmap / .ply files must read back, the two
+    modes' maps must be equal; SGM's wall, its device operations (one
+    match profiled, times the run's matches) and the peak memory are
+    printed; then the box scene's occlusion check."""
+    import numpy as np
+    from hcmvs_tpu_torch.dense.sgm import sgm_match
+    from hcmvs_tpu_torch.dense.types import make_view_geometry
+    from hcmvs_tpu_torch.io.dmap import read_dmap
+    from hcmvs_tpu_torch.io.ply import read_ply
+    from hcmvs_tpu_torch.utils.synth import make_plane_scene, write_plane_scene
+
+    label = "sgm"
+    failed = []
+    sc = make_plane_scene(np.random.default_rng(0), h=H, w=W,
+                          n_views=N_VIEWS, fx=180.0 * W / 192.0)
+    scene_path, img_dir = write_plane_scene(str(root), sc,
+                                            png_filter=DENSIFY_PNG_FILTER)
+    runs, summary = {}, {}
+    launches_all = collections.Counter()
+    by_shape = {name: collections.Counter() for name in SHAPE_OF}
+    for mode in (-2, -1):
+        out_dir = root / f"mode{-mode}"
+        st, rep, sec, peak, launches, shapes = _sgm_run(
+            scene_path, img_dir, str(out_dir), mode)
+        runs[mode] = st
+        launches_all.update(launches)
+        for name, cnt in check_shapes(f"{label} {mode}", launches, shapes,
+                                      failed).items():
+            by_shape[name].update(cnt)
+        if any(launches.values()):
+            failed.append(f"{label} {mode}: kernels launched {launches}")
+        acc = depth_acc_2pct(st["depth"][0], sc.depth_gt)
+        sgm_s = rep["densify.sgm"]["total_s"]
+        log(f"[{label}] --fusion-mode {mode}: total {sec:.3f} s, SGM "
+            f"{sgm_s:.3f} s ({SGM_MATCHES} matches), peak memory "
+            f"{peak:.2f} GiB, valid {st['valid_frac']:.4f}, points "
+            f"{st['n_points']}, view 0 interior depth_acc_2pct {acc:.4f} "
+            f"(floor {SGM_FLOOR:.4f}), launches {launches}")
+        if acc < SGM_FLOOR:
+            failed.append(f"{label} {mode}: depth accuracy {acc} < "
+                          f"{SGM_FLOOR}")
+        for i in range(N_VIEWS):
+            dm = read_dmap(str(out_dir / "depthmap" / f"depth{i:04d}.dmap"))
+            if not np.array_equal(dm.depth, st["depth"][i]):
+                failed.append(f"{label} {mode}: depth{i:04d}.dmap does not "
+                              f"read back")
+        if mode == -2:
+            pts, _ = read_ply(str(out_dir / "scene_dense.ply"))
+            if not len(pts) == st["n_points"] > 0:
+                failed.append(f"{label}: scene_dense.ply has {len(pts)} "
+                              f"points, stats {st['n_points']}")
+        elif st["n_points"] != 0 or (out_dir / "scene_dense.ply").exists():
+            failed.append(f"{label} -1: a cloud was fused")
+        summary[f"mode{mode}"] = {"total_s": sec, "sgm_s": sgm_s,
+                                  "peak_gib": peak,
+                                  "valid_frac": st["valid_frac"],
+                                  "n_points": st["n_points"],
+                                  "depth_acc_2pct": acc}
+    if not np.array_equal(runs[-2]["depth"], runs[-1]["depth"]):
+        failed.append(f"{label}: modes -2 and -1 give different maps")
+
+    # device operations of one match: view 0 against its first neighbour
+    # at the run's depth range (from depth0000.dmap), times the matches
+    import torch
+    from hcmvs_tpu_torch.io.images import load_image
+    dm0 = read_dmap(str(root / "mode2" / "depthmap" / "depth0000.dmap"))
+    nb = int(dm0.view_ids[1])
+    grays = [torch.from_numpy(load_image(str(Path(img_dir)
+                                             / f"im{i:04d}.png"),
+                                         gray=True)).to(dev)
+             for i in (0, nb)]
+    cams = [sc.cameras[i].to(dev) for i in (0, nb)]
+    geom = make_view_geometry(cams[0], cams[1][None])
+    dmin = torch.tensor(dm0.d_min, dtype=torch.float32, device=dev)
+    dmax = torch.tensor(dm0.d_max, dtype=torch.float32, device=dev)
+    ms, ops = device_busy(lambda: sgm_match(geom, grays[0], grays[1], dmin,
+                                            dmax))
+    log(f"[{label}] one match at {H}x{W}, 64 depths: {ops} device "
+        f"operations, {ms:.3f} ms of device time (profiler); the run's "
+        f"{SGM_MATCHES} matches ~{ops * SGM_MATCHES} operations")
+    summary.update(match_device_ops=ops, match_device_ms=ms,
+                   run_device_ops_est=ops * SGM_MATCHES)
+
+    box = _box_lr_check(dev)
+    (g_no, occ_no), (g_lr, occ_lr) = box[False], box[True]
+    log(f"[{label}] box scene {BOX_HW[0]}x{BOX_HW[1]}, one pair: ghost "
+        f"share {g_no:.4f} -> {g_lr:.4f} with the LR check, estimates in "
+        f"the occluded band {occ_no:.4f} -> {occ_lr:.4f}")
+    if not (occ_lr < occ_no * 0.35 and g_lr < g_no * 0.75):
+        failed.append(f"{label}: the LR check does not remove the box "
+                      f"scene's ghosts ({box})")
+    summary["box_lr"] = {"ghost": [g_no, g_lr], "occluded": [occ_no, occ_lr]}
+    summary["launches_by_shape"] = {k: dict(v) for k, v in by_shape.items()}
+    return dict(launches_all), summary, failed
+
+
+# phase 25: eval.golden on the card, held key by key against the JAX
+# package's run of the same mode on the CPU (``JAX_PLATFORMS=cpu python -m
+# hcmvs_tpu.eval.golden [--hierarchy | --full-stack --fx 180]``, 144x192,
+# 5 views, on the same tree; PERF.md).  The SfM halves draw their own
+# RANSAC samples, so ATE and rms are bounded from above.
+GOLDEN_JAX = {
+    "run": {"ate_rmse": 0.1616, "sfm_rms_px": 0.371, "depth_acc_2pct": 0.92,
+            "cloud_dist": 0.00972, "mesh_fscore": 0.935, "registered": 5},
+    "hierarchy": {"hier_depth_acc_2pct": 0.717},
+    "full_stack": {"hier_depth_acc_2pct": 0.712}}
+GOLDEN_ARGS = {"run": [], "hierarchy": ["--hierarchy"],
+               "full_stack": ["--full-stack", "--fx", "180"]}
+GOLDEN_ACC_TOL = 0.03
+GOLDEN_CLOUD_RTOL = 0.25
+GOLDEN_MESH_TOL = 0.05
+GOLDEN_ATE_MARGIN = 0.05
+GOLDEN_RMS_MARGIN = 0.1
+
+
+def _golden_gates(mode, out, failed):
+    ref = GOLDEN_JAX[mode]
+    checks = []
+    for key in ("depth_acc_2pct", "hier_depth_acc_2pct"):
+        if key in ref:
+            checks.append((key, abs(out[key] - ref[key]) <= GOLDEN_ACC_TOL))
+    if "cloud_dist" in ref:
+        checks += [
+            ("cloud_dist", abs(out["cloud_dist"] - ref["cloud_dist"])
+             <= GOLDEN_CLOUD_RTOL * ref["cloud_dist"]),
+            ("mesh_fscore", abs(out["mesh_fscore"] - ref["mesh_fscore"])
+             <= GOLDEN_MESH_TOL),
+            ("registered", out["registered"] == ref["registered"]),
+            ("ate_rmse", out["ate_rmse"] <= ref["ate_rmse"]
+             + GOLDEN_ATE_MARGIN),
+            ("sfm_rms_px", out["sfm_rms_px"] <= ref["sfm_rms_px"]
+             + GOLDEN_RMS_MARGIN)]
+    for key, ok in checks:
+        if not ok:
+            failed.append(f"golden {mode}: {key} {out[key]} against the JAX "
+                          f"package's {ref[key]}")
+    return {k: ok for k, ok in checks}
+
+
+def check_golden(dev, modes=tuple(GOLDEN_ARGS)):
+    """Phase 25: ``eval.golden.main`` on the card in each of ``modes`` (the
+    default run, ``--hierarchy``, ``--full-stack --fx 180``), each key
+    against the JAX package's same-tree CPU run; wall, launches and peak
+    per run."""
+    import torch
+    from hcmvs_tpu_torch import kernels
+    from hcmvs_tpu_torch.eval import golden
+    failed = []
+    summary = {}
+    launches_all = collections.Counter()
+    by_shape = {name: collections.Counter() for name in SHAPE_OF}
+    for mode in modes:
+        args = GOLDEN_ARGS[mode]
+        label = f"golden_{mode}"
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        kernels.reset_launches()
+        with launch_shapes() as shapes:
+            t0 = time.perf_counter()
+            out = golden.main(args)
+            torch.cuda.synchronize()
+            sec = time.perf_counter() - t0
+        launches = dict(kernels.launches)
+        launches_all.update(launches)
+        for name, cnt in check_shapes(label, launches, shapes,
+                                      failed).items():
+            by_shape[name].update(cnt)
+        if min(launches[k] for k in EXACT_KERNELS) <= 0:
+            failed.append(f"{label}: a kernel of the path never launched: "
+                          f"{launches}")
+        gates = _golden_gates(mode, out, failed)
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        log(f"[{label}] {sec:.3f} s, peak memory {peak:.2f} GiB, launches "
+            f"{launches}: {out} against the JAX package's "
+            f"{GOLDEN_JAX[mode]}, gates {gates}")
+        summary[mode] = dict(out, seconds=sec, peak_gib=peak, gates=gates)
+    summary["launches_by_shape"] = {k: dict(v) for k, v in by_shape.items()}
+    return dict(launches_all), summary, failed
+
+
+# phase 26: eval.full_run at 1280x960, 6 views; the gates are the JAX
+# package's only full-size readings (BASELINE.md:119-123: ATE 0.0156,
+# depth 0.971, mesh F 0.763 -> 0.794 refined), depth and F less the
+# margins the other phases allow
+FULL_ATE_MAX = 0.025
+FULL_DEPTH_FLOOR = 0.94
+FULL_MESH_FLOOR = 0.713
+FULL_REFINE_DROP = 0.01
+
+
+def check_full_run(root):
+    """Phase 26: ``eval.full_run.main`` at 1280x960 with 6 views (SfM, the
+    5-stage hierarchy, fusion, graph cut, refine, texture, all on the
+    card): its gates, each stage's wall, the peak memory, launches by
+    shape.  No plain rerun: A, B and C are held against their plain
+    versions at these shapes in phases 3-11."""
+    import torch
+    from hcmvs_tpu_torch import kernels
+    from hcmvs_tpu_torch.eval import full_run
+    label = "full_run"
+    failed = []
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    kernels.reset_launches()
+    with launch_shapes() as shapes:
+        t0 = time.perf_counter()
+        out = full_run.main(["--out-dir", str(root)])
+        torch.cuda.synchronize()
+        sec = time.perf_counter() - t0
+    launches = dict(kernels.launches)
+    shapes = check_shapes(label, launches, shapes, failed)
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    if min(launches[k] for k in EXACT_KERNELS) <= 0:
+        failed.append(f"{label}: a kernel of the path never launched: "
+                      f"{launches}")
+    log(f"[{label}] {sec:.3f} s, peak memory {peak:.2f} GiB; stages: SfM "
+        f"{out['sfm_s']} s, dense {out['dense_s']} s, mesh {out['mesh_s']} "
+        f"s, refine {out['refine_s']} s, texture {out['texture_s']} s; "
+        f"dense stages {out['stage_walls']}")
+    log(f"[{label}] ATE {out['ate_rmse']} (max {FULL_ATE_MAX}), depth "
+        f"{out['depth_acc_2pct']} (floor {FULL_DEPTH_FLOOR}), cloud "
+        f"{out['cloud_dist']}, mesh F {out['mesh_fscore']} -> refined "
+        f"{out['mesh_fscore_refined']} (floor {FULL_MESH_FLOOR}), points "
+        f"{out['n_points']}, faces {out['n_faces']}")
+    for ok, what in (
+            (out["ate_rmse"] < FULL_ATE_MAX, "ATE"),
+            (out["depth_acc_2pct"] >= FULL_DEPTH_FLOOR, "depth accuracy"),
+            (out["mesh_fscore"] >= FULL_MESH_FLOOR, "mesh F-score"),
+            (out["mesh_fscore_refined"] >= out["mesh_fscore"]
+             - FULL_REFINE_DROP, "refine's F-score drop")):
+        if not ok:
+            failed.append(f"{label}: {what} misses its gate: {out}")
+    return launches, dict(out, seconds=sec, peak_gib=peak,
+                          launches_by_shape=shapes), failed
+
+
+# phases 19, 21 and 24-26 run last, side by side, each in a process of its
+# own: they are host-bound (the card idles most of the time), and one
+# after the other they would take ~400 s of the script's 1,200 s.  Each
+# worker resets, drives and reads its own launch counts and sends them
+# back as JSON.  (Their walls are taken side by side; the operating point,
+# whose attached tables take 67 GiB of the card, ends before they start.)
+WORKERS = ("full_run", "golden_full_stack", "routes", "chain", "sgm",
+           "golden_hierarchy", "golden_run")
+WORKER_TIMEOUT_S = 600
+
+
+def _worker(kind: str, out_path: str) -> int:
+    """One phase of WORKERS (``chip_smoke.py --worker KIND OUT``): writes
+    its (launches, summary, failed checks) as JSON to OUT."""
+    import torch
+    from hcmvs_tpu_torch import kernels
+    dev = torch.device("cuda", 0)
+    kernels.library()
+    root = Path(tempfile.mkdtemp(prefix=f"_{kind}_smoke_",
+                                 dir=Path(__file__).resolve().parent))
+    try:
+        if kind == "sgm":
+            result = check_sgm(root, dev)
+        elif kind == "chain":
+            result = check_chain(root)
+        elif kind == "routes":
+            result = check_routes()
+        elif kind == "full_run":
+            result = check_full_run(root)
+        else:
+            result = check_golden(dev, (kind[len("golden_"):],))
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    Path(out_path).write_text(json.dumps(     # numpy scalars as numbers
+        result, default=lambda x: x.item()))
+    return 0
+
+
+def run_workers(kinds=WORKERS) -> dict:
+    """Runs each phase of ``kinds`` in a process of its own, all at once
+    (the card's host cores shared out among them), prints each one's log
+    when it ends and returns {kind: (launches, summary, failed)}; raises if
+    a worker fails.  Every worker is ended before this returns."""
+    import os
+    tmp = Path(tempfile.mkdtemp(prefix="_workers_smoke_",
+                                dir=Path(__file__).resolve().parent))
+    threads = str(max(1, (os.cpu_count() or 1) // len(kinds)))
+    env = dict(os.environ, OMP_NUM_THREADS=threads)
+    procs = {}
+    try:
+        for kind in kinds:
+            log_f = (tmp / f"{kind}.log").open("w")
+            procs[kind] = (subprocess.Popen(
+                [sys.executable, str(Path(__file__).resolve()), "--worker",
+                 kind, str(tmp / f"{kind}.json")], stdout=log_f,
+                stderr=subprocess.STDOUT, env=env), log_f)
+        results = {}
+        for kind, (proc, log_f) in procs.items():
+            rc = proc.wait(timeout=WORKER_TIMEOUT_S)
+            log_f.close()
+            print((tmp / f"{kind}.log").read_text(), end="", flush=True)
+            if rc != 0:
+                raise RuntimeError(f"phase worker {kind} failed ({rc})")
+            results[kind] = tuple(json.loads(
+                (tmp / f"{kind}.json").read_text()))
+        return results
+    finally:
+        for proc, log_f in procs.values():
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+            log_f.close()
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
+def merge_paths(parts) -> tuple:
+    """(launches, summary, failed) of several workers as one path: counts
+    and shapes summed, summaries side by side, failures joined."""
+    launches = collections.Counter()
+    by_shape = {name: collections.Counter() for name in SHAPE_OF}
+    summary, failed = {}, []
+    for label, (l, s, f) in parts.items():
+        launches.update(l)
+        for name, counts in s["launches_by_shape"].items():
+            by_shape[name].update(counts)
+        summary[label] = s
+        failed += f
+    summary["launches_by_shape"] = {k: dict(v) for k, v in by_shape.items()}
+    return dict(launches), summary, failed
+
+
 def main() -> int:
+    if len(sys.argv) == 4 and sys.argv[1] == "--worker":
+        return _worker(sys.argv[2], sys.argv[3])
     t_start = time.perf_counter()
+
+    def phase_done(phases: str) -> None:
+        log(f"[time] phases {phases} done at "
+            f"{time.perf_counter() - t_start:.1f} s")
     try:
         import torch
     except ImportError:
@@ -2701,6 +3309,7 @@ def main() -> int:
     rows = kernel_parity(sc, scene, cfg, dev)
     torch.cuda.empty_cache()
 
+    phase_done("3")
     # 4-7. the two paths, each through the kernels and the plain versions
     paths = {}
     paths["exact"] = check_path(sc, scene, cfg, dev, "exact", EXACT_KERNELS)
@@ -2711,6 +3320,7 @@ def main() -> int:
     del scene
     torch.cuda.empty_cache()
 
+    phase_done("4-7")
     # 8-9. the densify path, each through the kernels and the plain versions
     root = Path(tempfile.mkdtemp(prefix="_densify_smoke_",
                                  dir=Path(__file__).resolve().parent))
@@ -2720,6 +3330,7 @@ def main() -> int:
         shutil.rmtree(root, ignore_errors=True)
     torch.cuda.empty_cache()
 
+    phase_done("8-9")
     # 10-11. the hierarchy path, each through the kernels and the plain
     # versions
     root = Path(tempfile.mkdtemp(prefix="_hierarchy_smoke_",
@@ -2730,6 +3341,7 @@ def main() -> int:
         shutil.rmtree(root, ignore_errors=True)
     torch.cuda.empty_cache()
 
+    phase_done("10-11")
     # 12-13. the masked densify path, each through the kernels and the
     # plain versions; 14-15. the mesh path on its dense output
     root = Path(tempfile.mkdtemp(prefix="_masks_smoke_",
@@ -2742,8 +3354,9 @@ def main() -> int:
         shutil.rmtree(root, ignore_errors=True)
     torch.cuda.empty_cache()
 
+    phase_done("12-15")
     # 16. photos -> SfM -> dense; 17. SfM again on its photos (library
-    # calls); 18. bundle adjustment at scale; 19. the whole chain, small
+    # calls); 18. bundle adjustment at scale
     root = Path(tempfile.mkdtemp(prefix="_photos_smoke_",
                                  dir=Path(__file__).resolve().parent))
     try:
@@ -2756,24 +3369,33 @@ def main() -> int:
     torch.cuda.empty_cache()
     paths["ba"] = check_ba(dev)
     torch.cuda.empty_cache()
-    root = Path(tempfile.mkdtemp(prefix="_chain_smoke_",
-                                 dir=Path(__file__).resolve().parent))
-    try:
-        paths["chain"] = check_chain(root)
-    finally:
-        shutil.rmtree(root, ignore_errors=True)
-    torch.cuda.empty_cache()
-
+    phase_done("16-18")
     # 20. kernels B and D on the per-plane build's 256 / 384 / 512 planes
     _, scene = make_scene(dev)
     deep_parity(scene, cfg, dev, rows)
     del scene
     torch.cuda.empty_cache()
-    # 21. the dense routes at 1280x960; 22. the 10-neighbour operating
-    # point, streamed
-    paths["routes"] = check_routes()
-    torch.cuda.empty_cache()
+    phase_done("20")
+    # 22. the 10-neighbour operating point, streamed
     paths["operating_point"] = check_operating_point(dev)
+    torch.cuda.empty_cache()
+    phase_done("22")
+    # 23. kernels B, D and E past the caps they once had
+    _, scene = make_scene(dev)
+    past_caps(scene, cfg, dev, rows)
+    del scene
+    torch.cuda.empty_cache()
+    phase_done("23")
+    # 19. the whole chain, small; 21. the dense routes at 1280x960; 24.
+    # SGM through densify; 25. the golden quality gate, three modes; 26.
+    # the full product run at 1280x960: side by side
+    done = run_workers()
+    for kind in ("chain", "routes", "sgm", "full_run"):
+        paths[kind] = done[kind]
+    paths["golden"] = merge_paths({k[len("golden_"):]: v
+                                   for k, v in done.items()
+                                   if k.startswith("golden_")})
+    phase_done("19, 21, 24-26")
     failed = [f for _, _, fs in paths.values() for f in fs]
     if failed:
         for f in failed:

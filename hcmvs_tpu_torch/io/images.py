@@ -386,11 +386,26 @@ def resize_image(img: np.ndarray, scale: float) -> np.ndarray:
     h, w = img.shape[:2]
     new_w, new_h = max(1, round(w * scale)), max(1, round(h * scale))
     weights = _area_weights if scale < 1.0 else _linear_weights
-    wy, wx = weights(h, new_h), weights(w, new_w)
-    x = img.astype(np.float64)
-    out = np.tensordot(wy, x, axes=(1, 0))            # (new_h, W, ...)
+    return _resample(img, weights(h, new_h), weights(w, new_w))
+
+
+def _resample(img: np.ndarray, wy: np.ndarray, wx: np.ndarray
+              ) -> np.ndarray:
+    """Rows through the (new_h, H) weights ``wy``, columns through the
+    (new_w, W) weights ``wx``, in float64; the input's dtype back."""
+    out = np.tensordot(wy, img.astype(np.float64), axes=(1, 0))
     out = np.moveaxis(np.tensordot(out, wx, axes=(1, 1)), -1, 1)
     return out.astype(img.dtype)
+
+
+def resize_linear(img: np.ndarray, new_h: int, new_w: int) -> np.ndarray:
+    """Resize (H, W[, C]) to (new_h, new_w) like ``cv2.resize``'s default,
+    INTER_LINEAR, whichever way the size goes."""
+    h, w = img.shape[:2]
+    if (h, w) == (new_h, new_w):
+        return img
+    return _resample(img, _linear_weights(h, new_h),
+                     _linear_weights(w, new_w))
 
 
 def write_png(path: str, img: np.ndarray, filters=2,

@@ -9,7 +9,9 @@ is no fallback.  The library is loaded with ``ctypes``: pointers come from
 
 Each launcher below checks device, dtype, shape and contiguity, allocates
 its output with ``torch.empty``, launches on the current stream, raises if
-the launch was refused, and adds one to its entry of ``launches``.
+the launch was refused, and adds one to its entry of ``launches`` for each
+launch (kernels B and D launch once per row chunk, E once per chunk of
+views).
 
 ``csrc/earlier/`` keeps the designs that kernels B and D had before their
 redesign.  They are built into a library of their own and taken only
@@ -52,8 +54,12 @@ launches: Dict[str, int] = {"rect_build": 0, "volume_lookup": 0,
 _state = {"lib": None, "earlier_lib": None, "earlier": False, "plain": False}
 
 # kernels B and D: items (P x C) and table entries (P x D) a launch, at
-# most (32-bit index work)
+# most (32-bit index work).  Rows are independent, so a larger lookup is
+# launched in chunks of whole rows under this cap; a chunk's row count is
+# a multiple of ROW_ALIGN, so every chunk's field, output and table rows
+# start 16-byte aligned as the whole arrays do.
 MAX_ITEMS = 2 ** 31 - 1
+ROW_ALIGN = 64
 
 # kernel E keeps every view's sums in registers: views per launch, at most
 # (zncc_warped.cu kMaxViews; covers the 10-neighbour operating point).
@@ -173,8 +179,7 @@ def _load(path: Path) -> ctypes.CDLL:
         "rect_build": [p, p, p, p, p, p, p, i, i, i, i, i64, p],
         "rect_lookup": [p, p, p, p, p, p, p, i, i, i, i, i, i, p],
         "volume_lookup_multi": [p, p, p, p, i64, i, i, i, p],
-        "zncc_warped": [p, p, p, p, p, p, p, p, p,
-                        ctypes.POINTER(ctypes.c_int), i, i, i, i, i, p]}
+        "zncc_warped": [p, p, p, p, p, p, p, p, p, p, i, i, i, i, i, p]}
     for name, argtypes in signatures.items():
         if hasattr(lib, f"hcmvs_{name}"):
             fn = getattr(lib, f"hcmvs_{name}")
@@ -214,12 +219,12 @@ def _check_tensor(name: str, t: torch.Tensor, dtype: torch.dtype,
         raise ValueError(f"{name} is not contiguous")
 
 
-def _check_items(kernel: str, p: int, c: int, d: int) -> None:
-    """Kernels B and D index their (P, C) items and (P, D) tables with
-    32-bit integers."""
-    if p * max(c, d) > MAX_ITEMS:
-        raise ValueError(f"{kernel} takes at most {MAX_ITEMS} items and "
-                         f"table entries, got {p} x {c} and {p} x {d}")
+def row_chunks(p: int, c: int, d: int):
+    """(start, stop) row ranges of a (P, C) lookup on a (P, D) table, each
+    under ``MAX_ITEMS`` items and table entries (kernels B and D index
+    with 32-bit integers); one range when the whole lookup fits."""
+    rows = max(ROW_ALIGN, MAX_ITEMS // max(c, d) // ROW_ALIGN * ROW_ALIGN)
+    return [(s, min(s + rows, p)) for s in range(0, max(p, 1), rows)]
 
 
 def _launch(name: str, device: torch.device, *args) -> None:
@@ -253,7 +258,7 @@ def _check_depth(kernel: str, tab: torch.Tensor, f: torch.Tensor) -> None:
 
 def volume_lookup(tab: torch.Tensor, f: torch.Tensor) -> torch.Tensor:
     """Kernel B: tab (P, D) u16, D a multiple of 128 up to 512, f (P, S)
-    f32 -> (P, S) f32."""
+    f32 -> (P, S) f32; any P, in launches of ``row_chunks``."""
     if tab.device.type != "cuda":
         raise ValueError("volume_lookup kernel needs CUDA tensors")
     _check_depth("kernel B", tab, f)
@@ -266,10 +271,12 @@ def volume_lookup(tab: torch.Tensor, f: torch.Tensor) -> torch.Tensor:
         raise ValueError("the earlier design of kernel B takes only "
                          "128-plane tables")
     _check_tensor("f", f, torch.float32, (p, s), tab.device)
-    _check_items("kernel B", p, s, d)
     out = torch.empty((p, s), dtype=torch.float32, device=tab.device)
-    _launch("volume_lookup", tab.device,
-            tab.data_ptr(), f.data_ptr(), out.data_ptr(), p, s, d)
+    for r0, r1 in row_chunks(p, s, d):
+        _launch("volume_lookup", tab.device,
+                tab.data_ptr() + r0 * d * tab.element_size(),
+                f.data_ptr() + r0 * s * f.element_size(),
+                out.data_ptr() + r0 * s * out.element_size(), r1 - r0, s, d)
     return out
 
 
@@ -327,7 +334,8 @@ def volume_lookup_multi(tab: torch.Tensor, f: torch.Tensor,
                         bounds: torch.Tensor = None) -> torch.Tensor:
     """Kernel D: tab (P, D) u16, f (P, C) f32 -> (P, C) f32; or f (P, C)
     u16 (packed, f * 64) -> (P, C) u16, with the sentinel 0xFFFF outside
-    the per-row interval of ``bounds`` (P, 128) u16 when given."""
+    the per-row interval of ``bounds`` (P, 128) u16 when given.  Any P, in
+    launches of ``row_chunks``."""
     if tab.device.type != "cuda":
         raise ValueError("volume_lookup_multi kernel needs CUDA tensors")
     _check_depth("kernel D", tab, f)
@@ -345,15 +353,32 @@ def volume_lookup_multi(tab: torch.Tensor, f: torch.Tensor,
     else:
         mode = 0
     _check_tensor("f", f, f.dtype, (p, c), dev)
-    _check_items("kernel D", p, c, tab.shape[1])
     if bounds is not None:
         _check_tensor("bounds", bounds, torch.uint16, (p, 128), dev)
     out = torch.empty((p, c), dtype=f.dtype, device=dev)
-    _launch("volume_lookup_multi", dev,
-            tab.data_ptr(), f.data_ptr(),
-            None if bounds is None else bounds.data_ptr(), out.data_ptr(),
-            p, c, tab.shape[1], mode)
+    d = tab.shape[1]
+    for r0, r1 in row_chunks(p, c, d):
+        _launch("volume_lookup_multi", dev,
+                tab.data_ptr() + r0 * d * tab.element_size(),
+                f.data_ptr() + r0 * c * f.element_size(),
+                None if bounds is None
+                else bounds.data_ptr() + r0 * 128 * bounds.element_size(),
+                out.data_ptr() + r0 * c * out.element_size(),
+                r1 - r0, c, d, mode)
     return out
+
+
+_offset_buffers: Dict[tuple, torch.Tensor] = {}
+
+
+def _offset_buffer(offs: tuple, device: torch.device) -> torch.Tensor:
+    """Kernel E's (dy, dx) int32 pairs on the card, one buffer per offset
+    list and device (a config has a few lists; each is copied once)."""
+    key = (offs, device)
+    if key not in _offset_buffers:
+        _offset_buffers[key] = torch.tensor(offs or (0,), dtype=torch.int32,
+                                            device=device)
+    return _offset_buffers[key]
 
 
 def zncc_warped(ref_pad: torch.Tensor, tm: torch.Tensor, nsq0: torch.Tensor,
@@ -387,16 +412,16 @@ def zncc_warped(ref_pad: torch.Tensor, tm: torch.Tensor, nsq0: torch.Tensor,
     _check_tensor("acc", acc, torch.float32, (v, 4, h, w), dev)
     if v < 1:
         raise ValueError("kernel E takes at least one view")
-    offs = [int(x) for o in scan_offsets for x in o]
-    if len(offs) > 2 * 128 or any(abs(x) > pad for x in offs):
-        raise ValueError(f"kernel E takes at most 128 offsets within the "
-                         f"pad {pad}, got {list(scan_offsets)}")
-    offs_c = (ctypes.c_int * max(len(offs), 1))(*offs)
+    offs = tuple(int(x) for o in scan_offsets for x in o)
+    if any(abs(x) > pad for x in offs):
+        raise ValueError(f"kernel E takes offsets within the pad {pad}, "
+                         f"got {list(scan_offsets)}")
+    offs_dev = _offset_buffer(offs, dev)
     score = torch.empty((v, h, w), dtype=torch.float32, device=dev)
     var1 = torch.empty((v, h, w), dtype=torch.float32, device=dev)
     _launch("zncc_warped", dev,
             ref_pad.data_ptr(), tm.data_ptr(), nsq0.data_ptr(),
             warped_pad.data_ptr(), valid_pad.data_ptr(), hw.data_ptr(),
-            acc.data_ptr(), score.data_ptr(), var1.data_ptr(), offs_c,
-            len(offs) // 2, v, h, w, pad)
+            acc.data_ptr(), score.data_ptr(), var1.data_ptr(),
+            offs_dev.data_ptr(), len(offs) // 2, v, h, w, pad)
     return score, var1

@@ -38,8 +38,13 @@
 // computes the reference's terms once (v_d, the colour and spatial
 // weights, the window mask, e = exp(..) * in_win) and each view adds
 // wt = e * ok to its own four sums, in the offsets' order.  The offsets
-// ride in the kernel's parameter space as shared-memory displacements
-// with dy^2 + dx^2 and max(|dy|, |dx|) beside them.  All indices are
+// come as a device buffer of (dy, dx) pairs, any count within the pad
+// (the Pallas kernel reads them from SMEM): the block turns them into
+// shared-memory displacements with dy^2 + dx^2 and max(|dy|, |dx|)
+// beside them, staged after the tiles (12 B an offset), which every
+// thread then reads as a broadcast.  (Until the offsets moved there they
+// rode by value in the kernel's parameters, which capped them at 128:
+// n-adapthalfwin 11 at patch step 2 gives 140.)  All indices are
 // 32-bit (the launcher checks the sizes), with no division.  The
 // accumulation order and every rounding step follow the plain version
 // (built with --fmad=false; expf, not __expf): (exp(..) * in_win) * ok is
@@ -53,7 +58,6 @@
 
 namespace {
 
-constexpr int kMaxOffsets = 128;
 constexpr int kMaxViews = 10;
 constexpr int kTileX = 32;             // a block's pixel tile
 constexpr int kTileY = 16;
@@ -67,13 +71,6 @@ __device__ __forceinline__ void copy_async(float* dst, const float* src) {
                "l"(src));
 }
 
-struct Offsets {
-  int n;
-  int disp[kMaxOffsets];    // dy * tile_w + dx in the shared tile
-  float d2[kMaxOffsets];    // dy^2 + dx^2
-  float cheb[kMaxOffsets];  // max(|dy|, |dx|)
-};
-
 template <int NV>
 __global__ void __launch_bounds__(kTileX * kThreadsY)
     zncc_warped_kernel(const float* __restrict__ ref_pad,
@@ -84,7 +81,8 @@ __global__ void __launch_bounds__(kTileX * kThreadsY)
                        const float* __restrict__ hw,
                        const float* __restrict__ acc,
                        float* __restrict__ score, float* __restrict__ var_out,
-                       const Offsets offs, int h, int w, int pad) {
+                       const int* __restrict__ offsets, int n_offsets, int h,
+                       int w, int pad) {
   extern __shared__ float tile[];
   const int tw = kTileX + 2 * pad;
   const int th = kTileY + 2 * pad;
@@ -94,6 +92,19 @@ __global__ void __launch_bounds__(kTileX * kThreadsY)
   const int plane = hp * wp;
   const int x0 = blockIdx.x * kTileX;
   const int y0 = blockIdx.y * kTileY;
+  // the offset table after the 1 + 2 NV tile planes: displacement in the
+  // shared tile, dy^2 + dx^2, max(|dy|, |dx|)
+  int* o_disp = reinterpret_cast<int*>(tile + (1 + 2 * NV) * tsz);
+  float* o_d2 = reinterpret_cast<float*>(o_disp + n_offsets);
+  float* o_cheb = o_d2 + n_offsets;
+  for (int k = threadIdx.y * kTileX + threadIdx.x; k < n_offsets;
+       k += kTileX * kThreadsY) {
+    const int dy = offsets[2 * k], dx = offsets[2 * k + 1];
+    o_disp[k] = dy * tw + dx;
+    o_d2[k] = (float)(dy * dy + dx * dx);
+    const int ay = dy < 0 ? -dy : dy, ax = dx < 0 ? -dx : dx;
+    o_cheb[k] = (float)(ay > ax ? ay : ax);
+  }
 
   // tile planes: 0 the reference, 1..NV the warped views, NV+1..2NV their
   // validity.  Tile row r, column c is padded row y0 + r, column x0 + c.
@@ -146,13 +157,13 @@ __global__ void __launch_bounds__(kTileX * kThreadsY)
     const float inv_2hw2 = -0.5f * (1.0f / (hw_p * hw_p));
 
 #pragma unroll 4
-    for (int k = 0; k < offs.n; ++k) {
-      const int q = centre + offs.disp[k];
+    for (int k = 0; k < n_offsets; ++k) {
+      const int q = centre + o_disp[k];
       const float v_d = t_ref[q];
       const float dc = v_d - v_c;
       const float w_color = (dc * dc) * inv_2sc2;
-      const float w_sp = offs.d2[k] * inv_2hw2;
-      const float in_win = offs.cheb[k] <= hw_p ? 1.0f : 0.0f;
+      const float w_sp = o_d2[k] * inv_2hw2;
+      const float in_win = o_cheb[k] <= hw_p ? 1.0f : 0.0f;
       const float e = expf(w_color + w_sp) * in_win;
       const float dt = v_d - tm_p;
 #pragma unroll
@@ -182,7 +193,7 @@ template <int NV>
 int launch(const float* ref_pad, const float* tm, const float* nsq0,
            const float* warped_pad, const float* valid_pad, const float* hw,
            const float* acc, float* score, float* var_out,
-           const Offsets& offs, int h, int w, int pad, int smem,
+           const int* offsets, int n_offsets, int h, int w, int pad, int smem,
            cudaStream_t stream) {
   if (smem > 48 * 1024) {
     cudaError_t rc = cudaFuncSetAttribute(
@@ -193,7 +204,7 @@ int launch(const float* ref_pad, const float* tm, const float* nsq0,
   const dim3 grid((w + kTileX - 1) / kTileX, (h + kTileY - 1) / kTileY);
   zncc_warped_kernel<NV><<<grid, dim3(kTileX, kThreadsY), smem, stream>>>(
       ref_pad, tm, nsq0, warped_pad, valid_pad, hw, acc, score, var_out,
-      offs, h, w, pad);
+      offsets, n_offsets, h, w, pad);
   return (int)cudaGetLastError();
 }
 
@@ -201,10 +212,11 @@ int launch(const float* ref_pad, const float* tm, const float* nsq0,
 
 // ref_pad (h + 2 pad, w + 2 pad); tm, nsq0, hw (h, w); warped_pad,
 // valid_pad (v, h + 2 pad, w + 2 pad); acc (v, 4, h, w); score, var_out
-// (v, h, w); all f32, contiguous.  offsets: host array of n (dy, dx)
-// int pairs, n <= 128, every |dy|, |dx| <= pad; 1 <= v <= 10; every
-// array's element count below 2^31; the (1 + 2 v) haloed tiles within a
-// block's shared memory.
+// (v, h, w); all f32, contiguous.  offsets: device array of n (dy, dx)
+// int pairs, every |dy|, |dx| <= pad (checked by the Python launcher);
+// 1 <= v <= 10; every array's element count below 2^31; the (1 + 2 v)
+// haloed tiles and the 12 n bytes of the offset table within a block's
+// shared memory.
 HCMVS_API int hcmvs_zncc_warped(const void* ref_pad, const void* tm,
                                 const void* nsq0, const void* warped_pad,
                                 const void* valid_pad, const void* hw,
@@ -212,26 +224,15 @@ HCMVS_API int hcmvs_zncc_warped(const void* ref_pad, const void* tm,
                                 const int* offsets, int n_offsets, int v,
                                 int h, int w, int pad, void* stream) {
   const long long tile = (long long)(kTileX + 2 * pad) * (kTileY + 2 * pad);
-  const long long smem = (1 + 2LL * v) * tile * (long long)sizeof(float);
+  const long long smem = (1 + 2LL * v) * tile * (long long)sizeof(float) +
+                         12LL * n_offsets;
   const long long padded = (long long)(h + 2 * pad) * (w + 2 * pad);
-  if (n_offsets < 0 || n_offsets > kMaxOffsets || v < 1 || v > kMaxViews ||
+  if (n_offsets < 0 || v < 1 || v > kMaxViews ||
       pad < 0 || smem > kMaxSmemBytes || (long long)v * padded >= (1LL << 31) ||
       4LL * v * h * w >= (1LL << 31)) {
     return (int)cudaErrorInvalidValue;
   }
   if (h <= 0 || w <= 0) return (int)cudaSuccess;
-  Offsets offs;
-  offs.n = n_offsets;
-  for (int k = 0; k < n_offsets; ++k) {
-    const int dy = offsets[2 * k], dx = offsets[2 * k + 1];
-    if (dy < -pad || dy > pad || dx < -pad || dx > pad) {
-      return (int)cudaErrorInvalidValue;
-    }
-    offs.disp[k] = dy * (kTileX + 2 * pad) + dx;
-    offs.d2[k] = (float)(dy * dy + dx * dx);
-    const int ay = dy < 0 ? -dy : dy, ax = dx < 0 ? -dx : dx;
-    offs.cheb[k] = (float)(ay > ax ? ay : ax);
-  }
   const float* a[7] = {(const float*)ref_pad,    (const float*)tm,
                        (const float*)nsq0,       (const float*)warped_pad,
                        (const float*)valid_pad,  (const float*)hw,
@@ -243,8 +244,8 @@ HCMVS_API int hcmvs_zncc_warped(const void* ref_pad, const void* tm,
   switch (v) {
 #define HCMVS_ZNCC_CASE(NV)                                                \
   case NV:                                                                 \
-    return launch<NV>(a[0], a[1], a[2], a[3], a[4], a[5], a[6], s, o, offs, \
-                      h, w, pad, sm, st);
+    return launch<NV>(a[0], a[1], a[2], a[3], a[4], a[5], a[6], s, o,     \
+                      offsets, n_offsets, h, w, pad, sm, st);
     HCMVS_ZNCC_CASE(1)
     HCMVS_ZNCC_CASE(2)
     HCMVS_ZNCC_CASE(3)

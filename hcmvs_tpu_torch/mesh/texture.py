@@ -54,70 +54,57 @@ class MaxRectsPacker:
     the reference's default texture-atlas packer).
 
     Keeps the list of maximal free rectangles; each insert picks the free
-    rect minimizing the leftover short side, splits every free rect the
-    placement intersects, and prunes contained ones.
+    rect minimizing the leftover short side (then the long side; the first
+    in the list on a tie), splits every free rect the placement
+    intersects (into its left, right, top and bottom remainders, in the
+    list's order), and prunes every rect contained in another.  The list
+    is an (n, 4) array and each step one array operation: the JAX
+    package's per-rect Python loops (its pruning is quadratic) took tens
+    of seconds for the thousands of charts of a 1280x960 mesh, and give
+    the same placements.
     """
 
     def __init__(self, width: int, height: int):
         self.w = width
         self.h = height
-        self.free = [(0, 0, width, height)]
+        self.free = np.array([[0, 0, width, height]], np.int64)
         self.used_area = 0
 
     def insert(self, rw: int, rh: int):
         """Place a rw x rh rect; returns (x, y) or None if it won't fit."""
-        best = None
-        best_key = None
-        for (fx, fy, fw, fh) in self.free:
-            if fw >= rw and fh >= rh:
-                short = min(fw - rw, fh - rh)
-                longl = max(fw - rw, fh - rh)
-                key = (short, longl)
-                if best_key is None or key < best_key:
-                    best_key = key
-                    best = (fx, fy)
-        if best is None:
+        f = self.free
+        fit = np.flatnonzero((f[:, 2] >= rw) & (f[:, 3] >= rh))
+        if len(fit) == 0:
             return None
-        x, y = best
-        placed = (x, y, rw, rh)
-        new_free = []
-        for fr in self.free:
-            new_free.extend(self._split(fr, placed))
-        # prune free rects contained in another
-        pruned = []
-        for i, a in enumerate(new_free):
-            if any(i != j and self._contains(b, a)
-                   for j, b in enumerate(new_free)):
-                continue
-            pruned.append(a)
-        self.free = pruned
+        dw, dh = f[fit, 2] - rw, f[fit, 3] - rh
+        short, longl = np.minimum(dw, dh), np.maximum(dw, dh)
+        best = short == short.min()
+        best &= longl == longl[best].min()
+        x, y = (int(v) for v in f[fit[np.argmax(best)], :2])
+        fx, fy, fw, fh = f.T
+        overlap = ~((x >= fx + fw) | (x + rw <= fx)
+                    | (y >= fy + fh) | (y + rh <= fy))
+        pieces = np.stack([
+            f,
+            np.stack([fx, fy, x - fx, fh], 1),                    # left
+            np.stack([np.full_like(fx, x + rw), fy, fx + fw - x - rw,
+                      fh], 1),                                    # right
+            np.stack([fx, fy, fw, y - fy], 1),                    # top
+            np.stack([fx, np.full_like(fy, y + rh), fw,
+                      fy + fh - y - rh], 1)], 1)                  # bottom
+        keep = np.stack([~overlap, overlap & (x > fx),
+                         overlap & (x + rw < fx + fw), overlap & (y > fy),
+                         overlap & (y + rh < fy + fh)], 1)
+        new = pieces[keep]                     # row-major: the list order
+        x0, y0 = new[:, 0], new[:, 1]
+        x1, y1 = x0 + new[:, 2], y0 + new[:, 3]
+        # inside[i, j]: rect i lies within rect j
+        inside = ((x0[:, None] >= x0) & (y0[:, None] >= y0)
+                  & (x1[:, None] <= x1) & (y1[:, None] <= y1))
+        np.fill_diagonal(inside, False)
+        self.free = new[~inside.any(1)]
         self.used_area += rw * rh
         return x, y
-
-    @staticmethod
-    def _contains(a, b):
-        ax, ay, aw, ah = a
-        bx, by, bw, bh = b
-        return (bx >= ax and by >= ay and bx + bw <= ax + aw
-                and by + bh <= ay + ah)
-
-    @staticmethod
-    def _split(fr, used):
-        fx, fy, fw, fh = fr
-        ux, uy, uw, uh = used
-        if (ux >= fx + fw or ux + uw <= fx
-                or uy >= fy + fh or uy + uh <= fy):
-            return [fr]                       # no overlap
-        out = []
-        if ux > fx:
-            out.append((fx, fy, ux - fx, fh))                 # left
-        if ux + uw < fx + fw:
-            out.append((ux + uw, fy, fx + fw - ux - uw, fh))  # right
-        if uy > fy:
-            out.append((fx, fy, fw, uy - fy))                 # top
-        if uy + uh < fy + fh:
-            out.append((fx, uy + uh, fw, fy + fh - uy - uh))  # bottom
-        return out
 
 
 def _project_np(K, R, C, X):

@@ -25,9 +25,10 @@ points from ``<stem>_l_colored.png`` label images; ``--sample-mesh``
 writes an area-weighted sampling of a ``.ply`` / ``.obj`` mesh as
 ``scene_sampled.ply``.  Everything runs on
 the card unless ``device="cpu"`` is asked for; without a card that
-request is required (no quiet fallback).  Modes whose modules are not
-ported raise NotImplementedError naming the module: SGM (``fusion_mode``
--1/-2) and the viewer export.
+request is required (no quiet fallback).  ``--fusion-mode -1/-2`` takes
+SGM stereo maps (``dense/sgm.py``) in place of PatchMatch;
+``--export-viewer`` writes ``scene_dense.html`` (``io/viewer.py``) beside
+the cloud.
 """
 
 from __future__ import annotations
@@ -377,7 +378,8 @@ def densify(scene_path: str, images_dir: str, out_dir: str,
     SceneDensify.cpp:3865-3880).  ``filter_point_cloud``: run the
     visibility filter on the fused cloud with this threshold.
     ``fusion_mode`` (ref: DensifyPointCloud.cpp:154, :436-441): 0 =
-    PatchMatch depth maps + fusion; 1 = depth maps only.  ``device``:
+    PatchMatch depth maps + fusion; 1 = depth maps only; -2 / -1 the same
+    with SGM stereo maps (``dense/sgm.sgm_scene``).  ``device``:
     where the tensors live ("cuda" by default; "cpu" must be asked for).
     ``init`` replaces the random initial state (as in ``estimate_scene``).
     ``masks_dir``: where semantic masks are looked for (with
@@ -387,9 +389,6 @@ def densify(scene_path: str, images_dir: str, out_dir: str,
     """
     cfg = cfg or DenseConfig()
     dev = resolve_device(device)
-    if fusion_mode < 0:
-        raise NotImplementedError(f"fusion_mode {fusion_mode}: SGM stereo "
-                                  f"maps (dense/sgm.py, not ported)")
     os.makedirs(out_dir, exist_ok=True)
     scene = read_mvs(scene_path)
     n = len(scene.images)
@@ -445,6 +444,12 @@ def densify(scene_path: str, images_dir: str, out_dir: str,
             depth = stack([d.depth for d in loaded])
             normal = stack([np.moveaxis(d.normal, -1, 0) for d in loaded])
             conf = stack([d.conf for d in loaded])
+    elif fusion_mode < 0:
+        # SGM stereo path (ref: SceneDensify.cpp:3899-3911 sgm.Match
+        # dispatch when nFusionMode -1/-2)
+        from hcmvs_tpu_torch.dense.sgm import sgm_scene
+        with stage_timer("densify.sgm", block_on=dev, log=verbose):
+            depth, normal, conf = sgm_scene(tensors)
     else:
         with stage_timer("densify.estimate", block_on=dev, log=verbose):
             gen = torch.Generator(device=dev).manual_seed(0)
@@ -541,9 +546,9 @@ def main(argv=None):
                     help="visibility-filter threshold (ref: negative "
                          "values, e.g. -1)")
     ap.add_argument("--fusion-mode", type=int, default=0,
-                    help="0 depth-maps & fusion, 1 export depth-maps only "
-                         "(ref: DensifyPointCloud.cpp:154; the SGM modes "
-                         "-1/-2 are not ported)")
+                    help="0 depth-maps & fusion, 1 export depth-maps only, "
+                         "-2 / -1 the same from SGM stereo maps (ref: "
+                         "DensifyPointCloud.cpp:154)")
     ap.add_argument("--no-resume", action="store_true",
                     help="re-estimate even if depth*.dmap files exist")
     ap.add_argument("--masks-dir", default=None,
@@ -558,7 +563,8 @@ def main(argv=None):
                          "(ref: GenerateFinalPrior, "
                          "SceneDensify.cpp:1079-1161)")
     ap.add_argument("--export-viewer", action="store_true",
-                    help="offline WebGL viewer (not ported)")
+                    help="also write scene_dense.html, an offline "
+                         "WebGL viewer of the dense cloud")
     ap.add_argument("--sample-mesh", type=float, default=0.0,
                     help="side mode: sample the --input-file mesh (.ply / "
                          ".obj), > 0 points per unit area, < 0 a point "
@@ -579,9 +585,6 @@ def main(argv=None):
                         args.sample_mesh)
         print({"mode": "sample-mesh", "n_points": n})
         return {"mode": "sample-mesh", "n_points": n}
-    if args.export_viewer:
-        raise NotImplementedError("--export-viewer (io/viewer.py, not "
-                                  "ported)")
     flags = dict(f.split("=", 1) for f in args.flags)
     cfg = config_from_cli_flags(flags)
     images_dir = args.images_dir or os.path.dirname(args.input_file)
@@ -599,6 +602,14 @@ def main(argv=None):
                     masks_dir=args.masks_dir,
                     fusion_mode=args.fusion_mode,
                     priors_dir=args.priors_dir, device=args.device)
+    if args.export_viewer:
+        from hcmvs_tpu_torch.io.ply import read_ply
+        from hcmvs_tpu_torch.io.viewer import export_viewer_html
+        verts, extras = read_ply(os.path.join(args.working_dir,
+                                              "scene_dense.ply"))
+        export_viewer_html(os.path.join(args.working_dir,
+                                        "scene_dense.html"),
+                           verts, colors=extras.get("colors"))
     print({k: v for k, v in stats.items()
            if k not in ("depth", "normal", "conf")})
     log_report()

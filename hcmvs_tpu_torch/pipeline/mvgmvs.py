@@ -15,15 +15,16 @@ unless ``--no-mesh``, ``scene_mesh.ply`` and ``scene_textured.{obj,mtl,
 png}``.  Everything runs on the card unless ``device="cpu"`` is asked for
 (without a card that request is required).  The photos must be PNG or
 binary PNM (the port decodes no JPEG; ``io/images.py``); their EXIF
-(``eXIf`` chunk) seeds the focal length.  Not ported: the SGM path
-(``fusion_mode`` -1/-2, ``dense/sgm.py``).
+(``eXIf`` chunk) seeds the focal length.  ``fusion_mode`` -1/-2 takes the
+SGM stereo maps (``dense/sgm.py``) in place of PatchMatch.
 
 Random draws: the SfM RANSACs take their samples from ``sampler``
 (``sfm.two_view.Sampler``; a generator seeded with 0 by default), the
 dense stage from a ``torch.Generator`` seeded with 0.  Stages are timed
 into ``utils.profiling``'s report: the ``sfm.*`` stages, ``photos.load``,
 ``photos.distortion``, ``photos.undistort``, ``dense.scene_tensors``,
-``dense.estimate``, ``dense.fuse``, ``mesh.reconstruct``,
+``dense.estimate`` (``dense.sgm`` in the SGM modes), ``dense.fuse``,
+``mesh.reconstruct``,
 ``mesh.texture``.
 """
 
@@ -44,12 +45,6 @@ from hcmvs_tpu_torch.sfm.incremental import (SfMConfig, incremental_sfm,
                                              sfm_to_scene)
 from hcmvs_tpu_torch.sfm.two_view import Sampler
 from hcmvs_tpu_torch.utils.profiling import stage_timer
-
-
-def _check_fusion_mode(fusion_mode: int) -> None:
-    if fusion_mode < 0:
-        raise NotImplementedError(f"fusion_mode {fusion_mode}: SGM stereo "
-                                  f"maps (dense/sgm.py, not ported)")
 
 
 def _run_sfm(grays, K, sfm_cfg, preset, verbose, sampler, dev):
@@ -73,7 +68,6 @@ def run_pipeline(images: List[np.ndarray], K: np.ndarray, out_dir: str,
     ``preset``: "SEQUENTIAL" (incremental SfM) or "GLOBAL" (rotation +
     translation averaging), the reference's presets (ref:
     MvgMvsPipeline.py:116-122)."""
-    _check_fusion_mode(fusion_mode)
     dev = resolve_device(device)
     os.makedirs(out_dir, exist_ok=True)
     dense_cfg = dense_cfg or DenseConfig()
@@ -84,13 +78,15 @@ def run_pipeline(images: List[np.ndarray], K: np.ndarray, out_dir: str,
     write_mvs(os.path.join(out_dir, "scene.mvs"), scene)
     return _dense_mesh_texture(result, scene, images, K, out_dir,
                                dense_cfg, with_mesh, with_texture, verbose,
-                               dev)
+                               dev, fusion_mode)
 
 
 def _dense_mesh_texture(result, scene, images, K, out_dir, dense_cfg,
-                        with_mesh, with_texture, verbose, dev) -> Dict:
-    """Steps 10-13 from a finished SfM result: PatchMatch over the
-    registered views at the images' size, fusion, then the mesh and its
+                        with_mesh, with_texture, verbose, dev,
+                        fusion_mode: int = 0) -> Dict:
+    """Steps 10-13 from a finished SfM result: PatchMatch (SGM for a
+    negative ``fusion_mode``) over the registered views at the images'
+    size, fusion, then the mesh and its
     texture (the JAX package's defaults: clean-up with components of >= 10
     faces, the gray images as texture)."""
     from hcmvs_tpu_torch.dense.fusion import (compact_point_cloud,
@@ -101,10 +97,15 @@ def _dense_mesh_texture(result, scene, images, K, out_dir, dense_cfg,
     grays = [images[i] for i in reg]
     with stage_timer("dense.scene_tensors", block_on=dev):
         tensors = build_scene_tensors(scene, grays, dense_cfg, device=dev)
-    with stage_timer("dense.estimate", block_on=dev):
-        gen = torch.Generator(device=dev).manual_seed(0)
-        state = estimate_scene(gen, tensors, dense_cfg, verbose=verbose)
-        depth, normal, conf = finalize(state, dense_cfg)
+    if fusion_mode < 0:
+        from hcmvs_tpu_torch.dense.sgm import sgm_scene
+        with stage_timer("dense.sgm", block_on=dev):
+            depth, normal, conf = sgm_scene(tensors)
+    else:
+        with stage_timer("dense.estimate", block_on=dev):
+            gen = torch.Generator(device=dev).manual_seed(0)
+            state = estimate_scene(gen, tensors, dense_cfg, verbose=verbose)
+            depth, normal, conf = finalize(state, dense_cfg)
     with stage_timer("dense.fuse", block_on=dev):
         priority = torch.arange(len(reg), dtype=torch.float32, device=dev)
         fused = fuse_point_cloud(depth, normal, conf, tensors.cams,
@@ -161,7 +162,6 @@ def run_pipeline_photos(images_dir: str, out_dir: str,
     from hcmvs_tpu_torch.io.images import list_images, load_image, to_gray
     from hcmvs_tpu_torch.sfm.distortion import (refine_with_distortion,
                                                 undistort_image)
-    _check_fusion_mode(fusion_mode)
     dev = resolve_device(device)
     os.makedirs(out_dir, exist_ok=True)
     paths = list_images(images_dir)
@@ -203,7 +203,7 @@ def run_pipeline_photos(images_dir: str, out_dir: str,
     write_mvs(os.path.join(out_dir, "scene.mvs"), scene)
     out = _dense_mesh_texture(result, scene, grays, K, out_dir,
                               dense_cfg or DenseConfig(), with_mesh,
-                              with_texture, verbose, dev)
+                              with_texture, verbose, dev, fusion_mode)
     out["K"] = K
     out["distortion"] = k
     out["rms_unrefined"] = rms_unrefined

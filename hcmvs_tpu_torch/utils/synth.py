@@ -1,5 +1,5 @@
 """Synthetic scenes with analytic ground truth (numpy port of
-``hcmvs_tpu/utils/synth.py``'s plane and ridge scenes).
+``hcmvs_tpu/utils/synth.py``'s plane, box and ridge scenes).
 
 The arithmetic is the JAX package's, in numpy float64 until the end, so
 the same arguments give bit-identical images and cameras.  Cameras come
@@ -125,6 +125,68 @@ def make_plane_scene(rng: np.random.Generator, h: int = 64, w: int = 80,
     return PlaneScene(cameras=cams, images=images, depth_gt=depth_ref,
                       normal_gt=n_cam, n_w=n_w, c_w=c_w,
                       d_min=d_min, d_max=d_max)
+
+
+@dataclasses.dataclass
+class BoxScene:
+    cameras: List[Camera]
+    images: List[np.ndarray]
+    depth_gts: List[np.ndarray]       # per-view ground-truth depth
+    d_min: float
+    d_max: float
+
+
+def make_box_scene(rng: np.random.Generator, h: int = 96, w: int = 128,
+                   n_views: int = 4, fx: float = 150.0,
+                   z_bg: float = 6.0, z_fg: float = 4.0,
+                   fg_half: float = 0.6) -> BoxScene:
+    """Occlusion scene: a textured foreground plate (z = z_fg, |x|, |y| <=
+    fg_half) floating over a textured background plane (z = z_bg): depth
+    discontinuities and per-view occlusion, the failure mode the LR check,
+    the cross-view filter and fusion must survive.  (``rng`` is unused,
+    as in the JAX package: the textures have fixed seeds.)"""
+    K = np.array([[fx, 0, w / 2], [0, fx, h / 2], [0, 0, 1.0]])
+    cams_np = []
+    for i in range(n_views):
+        if i == 0:
+            R, C = np.eye(3), np.zeros(3)
+        else:
+            side = 1 if i % 2 else -1
+            k = (i + 1) // 2
+            R = _rotation(0.008 * side * k, -0.015 * side * k, 0.004 * k)
+            C = np.array([0.3 * side * k, 0.04 * k, 0.0])
+        cams_np.append((K, R, C))
+    tex_bg = _texture_params(np.random.default_rng(777))
+    tex_fg = _texture_params(np.random.default_rng(778))
+
+    images, depths = [], []
+    for Kn, Rn, Cn in cams_np:
+        Kinv = np.linalg.inv(Kn)
+        v, u = np.meshgrid(np.arange(h, dtype=np.float64),
+                           np.arange(w, dtype=np.float64), indexing="ij")
+        p = np.stack([u, v, np.ones_like(u)], axis=-1)
+        ray_w = (p @ Kinv.T) @ Rn
+        # intersect both z = const planes (ray_w[..., 2] != 0)
+        t_fg = (z_fg - Cn[2]) / ray_w[..., 2]
+        t_bg = (z_bg - Cn[2]) / ray_w[..., 2]
+        X_fg = Cn + ray_w * t_fg[..., None]
+        X_bg = Cn + ray_w * t_bg[..., None]
+        on_fg = ((np.abs(X_fg[..., 0]) <= fg_half)
+                 & (np.abs(X_fg[..., 1]) <= fg_half))
+        img = np.where(on_fg, _texture(X_fg[..., :2] * 2.0, tex_fg),
+                       _texture(X_bg[..., :2], tex_bg))
+        # camera depth = z of the hit point in camera coordinates
+        d_fg = ((X_fg - Cn) @ Rn.T)[..., 2]
+        d_bg = ((X_bg - Cn) @ Rn.T)[..., 2]
+        depth = np.where(on_fg, d_fg, d_bg)
+        images.append(img.astype(np.float32))
+        depths.append(depth.astype(np.float32))
+    cams = [Camera(K=torch.as_tensor(Kn, dtype=torch.float32),
+                   R=torch.as_tensor(Rn, dtype=torch.float32),
+                   C=torch.as_tensor(Cn, dtype=torch.float32))
+            for Kn, Rn, Cn in cams_np]
+    return BoxScene(cameras=cams, images=images, depth_gts=depths,
+                    d_min=z_fg * 0.6, d_max=z_bg * 1.4)
 
 
 def blob_texture_fn(rng: np.random.Generator, n_blobs: int = 1200,

@@ -269,7 +269,9 @@ def test_densify_export_only_resume_and_cli(world):
 def test_densify_needs_a_device_and_raises_for_unported(world, tmp_path):
     """Without a card the default device raises; masks (under
     use_semantic), --priors-dir, --project-labels and mesh sampling run;
-    SGM and the viewer export raise naming their modules."""
+    SGM (fusion modes -1 / -2) and the viewer export run too
+    (tests/test_torch_sgm.py and tests/test_torch_converters.py hold them
+    against the JAX package)."""
     from hcmvs_tpu_torch.io.dmap import DepthMapData, write_dmap
     from hcmvs_tpu_torch.io.images import write_png
     from hcmvs_tpu_torch.pipeline.densify import densify, main
@@ -278,9 +280,10 @@ def test_densify_needs_a_device_and_raises_for_unported(world, tmp_path):
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError):
             densify(*args, world["tcfg"], verbose=False)
-    for kw in (dict(fusion_mode=-1), dict(fusion_mode=-2)):
-        with pytest.raises(NotImplementedError, match="dense/sgm.py"):
-            densify(*args, world["tcfg"], verbose=False, device="cpu", **kw)
+    sgm = densify(world["scene_path"], world["img_dir"],
+                  str(tmp_path / "sgm"), world["tcfg"], verbose=False,
+                  device="cpu", fusion_mode=-1)
+    assert sgm["n_points"] == 0 and (sgm["depth"] > 0).mean() > 0.3
     # masks are read under use_semantic only (without it they are ignored,
     # tests/test_torch_repairs.py); then they feed the planar priors, as
     # an external prior map does
@@ -315,9 +318,14 @@ def test_densify_needs_a_device_and_raises_for_unported(world, tmp_path):
     pts, _ = read_ply(str(tmp_path / "sampled" / "scene_sampled.ply"))
     assert sampled["n_points"] == len(pts) == 100
     assert (pts[:, 2] == 4).all()
-    with pytest.raises(NotImplementedError, match="io/viewer.py"):
-        main(["--input-file", world["scene_path"], "--device", "cpu",
-              "--export-viewer"])
+    viewer = tmp_path / "viewer"
+    main(["--input-file", world["scene_path"], "--images-dir",
+          world["img_dir"], "-w", str(viewer), "--device", "cpu",
+          "--export-viewer", "--flags", "resolution-level=0",
+          "min-resolution=0", "n-EstimationIters=1",
+          "n-EstimationIters-external=1", "n-adapthalfwin=3"])
+    html = (viewer / "scene_dense.html").read_text()
+    assert f"{len(read_ply(str(viewer / 'scene_dense.ply'))[0])}" in html
 
 
 def compare_at(h: int, w: int) -> None:

@@ -346,6 +346,33 @@ _NO_JAX_SCRIPT = textwrap.dedent("""
                             scene.gray[0], scene.gray[1:3], sc.d_min,
                             sc.d_max, cfg)
     assert sv.depth.shape == (h, w) and torch.isfinite(sv.cost).all()
+    # SGM (densify --fusion-mode -2) with the viewer export, then the
+    # converters: the dense scene through COLMAP, NVM, OpenMVG and
+    # PhotoScan files and back
+    path, img_dir = write_plane_scene("sgm_scene", sc)
+    stats = main(["--input-file", path, "--images-dir", img_dir, "-w",
+                  "sgm", "--device", "cpu", "--fusion-mode", "-2",
+                  "--export-viewer", "--flags", "resolution-level=0",
+                  "min-resolution=0"])
+    assert stats["n_points"] > 0 and os.path.exists("sgm/scene_dense.html")
+    from hcmvs_tpu_torch import io as tio
+    from hcmvs_tpu_torch.io.colmap import read_colmap_model, write_colmap_model
+    scn = tio.read_mvs(path)
+    write_colmap_model("colmap", scn)
+    tio.write_nvm("scene.nvm", scn)
+    tio.write_openmvg_json("sfm_data.json", scn)
+    tio.write_photoscan_xml("cameras.xml", scn)
+    for back in (read_colmap_model("colmap"), tio.read_nvm("scene.nvm"),
+                 tio.read_openmvg_json("sfm_data.json"),
+                 tio.read_photoscan_xml("cameras.xml")):
+        assert len(back.images) == n
+        for i in range(n):
+            assert np.allclose(back.pose_of(i)[1], scn.pose_of(i)[1],
+                               atol=1e-4)
+    # the golden gate, tiny, on the CPU
+    from hcmvs_tpu_torch.eval import golden
+    g = golden.run(h=72, w=96, n_views=4, device="cpu")
+    assert g["registered"] >= 2 and 0 <= g["depth_acc_2pct"] <= 1
     assert not any(m.split(".")[0] in BLOCKED
                    for m in sys.modules if sys.modules[m] is not None)
     print("OK", float((depth > 0).float().mean()))

@@ -234,9 +234,13 @@ def test_kernel_b_matches_plain(s, offset, monkeypatch):
                                   torch.zeros(8, 9, device=dev))
     with pytest.raises(TypeError):
         kernels.volume_lookup(tab.to(torch.int32), f)
-    monkeypatch.setattr(kernels, "MAX_ITEMS", p * s - 1)
-    with pytest.raises(ValueError, match="items"):
-        kernels.volume_lookup(tab, f)
+    # past the item cap the rows go in chunks (here 1024 rows a launch,
+    # the last one 3 rows), bit-equal to one launch
+    monkeypatch.setattr(kernels, "MAX_ITEMS", 1024 * 128)
+    before = kernels.launches["volume_lookup"]
+    chunked = kernels.volume_lookup(tab, f)
+    assert kernels.launches["volume_lookup"] == before + 5
+    assert torch.equal(chunked, out)
 
 
 @pytest.mark.gpu
@@ -372,9 +376,84 @@ def test_kernel_d_matches_plain(mode, d, c, monkeypatch):
             kernels.volume_lookup_multi(tab, f.to(torch.float32), bounds)
     with pytest.raises(ValueError):               # not contiguous
         kernels.volume_lookup_multi(tab, f[:, ::2])
-    monkeypatch.setattr(kernels, "MAX_ITEMS", p * c - 1)
-    with pytest.raises(ValueError, match="items"):
-        kernels.volume_lookup_multi(tab, f, bounds)
+    # past the item cap the rows go in chunks (1024 rows a launch, the
+    # last one 3 rows), equal to one launch
+    monkeypatch.setattr(kernels, "MAX_ITEMS", 1024 * max(c, d))
+    before = kernels.launches["volume_lookup_multi"]
+    chunked = kernels.volume_lookup_multi(tab, f, bounds)
+    assert kernels.launches["volume_lookup_multi"] == before + 5
+    assert torch.equal(chunked.view(torch.int16), out.view(torch.int16))
+
+
+def _plain_by_rows(fn, rows: int, *arrays):
+    """A row-wise plain version over slices of ``rows`` rows, joined (at
+    2 G items its int64 temporaries would not fit the card at once)."""
+    p = arrays[0].shape[0]
+    return torch.cat([fn(*(None if a is None else a[r:r + rows]
+                           for a in arrays)) for r in range(0, p, rows)])
+
+
+def _random_u16(shape, hi: int, dev) -> torch.Tensor:
+    return torch.randint(0, hi, shape, dtype=torch.int32,
+                         device=dev).to(torch.uint16)
+
+
+@pytest.mark.gpu
+def test_kernel_b_past_the_item_cap():
+    """Kernel B on a 512-plane table of 4,300,000 rows (2.2 G entries,
+    4.4 GB; one launch takes 2^31 - 1): two row chunks, bit-equal to the
+    plain version."""
+    dev = _cuda()
+    torch.manual_seed(0)
+    p, s, d = 4_300_000, 9, 512
+    assert p * d > kernels.MAX_ITEMS
+    tab = torch.randint(-32768, 32768, (p, d), dtype=torch.int16,
+                        device=dev).view(torch.uint16)
+    f = torch.rand(p, s, device=dev) * (d + 4) - 2
+    before = kernels.launches["volume_lookup"]
+    out = vol.volume_lookup(tab, f)
+    assert kernels.launches["volume_lookup"] == before + 2
+    assert torch.equal(out, _plain_by_rows(vol.volume_lookup_plain,
+                                           500_000, tab, f))
+
+
+@pytest.mark.gpu
+def test_kernel_d_past_the_item_cap():
+    """Kernel D, packed and bounded, at 576 columns (9 candidates x 64
+    offsets) on 3,800,000 rows (2.19 G items, a 4.4 GB field): two row
+    chunks, equal to the plain version."""
+    dev = _cuda()
+    torch.manual_seed(1)
+    p, c, d = 3_800_000, 576, 128
+    assert p * c > kernels.MAX_ITEMS
+    tab = torch.randint(-32768, 32768, (p, d), dtype=torch.int16,
+                        device=dev).view(torch.uint16)
+    f = _random_u16((p, c), (d - 1) * vol.F_PACK_SCALE + 1, dev)
+    lo = torch.randint(0, 40 * vol.F_PACK_SCALE, (p, 1), device=dev)
+    hi = torch.randint(60 * vol.F_PACK_SCALE, 65535, (p, 1), device=dev)
+    bounds = torch.cat([lo.expand(p, 64), hi.expand(p, 64)],
+                       1).to(torch.uint16)
+    before = kernels.launches["volume_lookup_multi"]
+    out = vol.volume_lookup_multi(tab, f, bounds)
+    assert kernels.launches["volume_lookup_multi"] == before + 2
+    ref = _plain_by_rows(vol.volume_lookup_multi_plain, 400_000, tab, f,
+                         bounds)
+    assert torch.equal(out.view(torch.int16), ref.view(torch.int16))
+
+
+@pytest.mark.gpu
+def test_kernel_e_past_128_offsets():
+    """Kernel E with the 140 offsets of adapt_half_window 11 at patch
+    step 2 (pad 11, the corners left out), 3 views at 960 x 1280: exact
+    against the plain version."""
+    dev = _cuda()
+    case = _zncc_case(dev, v=3, h=960, w=1280, pad=11, step=2,
+                      halfwins=(5.0, 11.0))
+    assert len(case["scan_offsets"]) == 140
+    out_s, out_v = zw.zncc_warped(**case)
+    with kernels.plain_versions():
+        ref_s, ref_v = zw.zncc_warped(**case)
+    assert torch.equal(out_s, ref_s) and torch.equal(out_v, ref_v)
 
 
 @pytest.mark.gpu

@@ -29,9 +29,10 @@ package's focal lengths exactly, from JPEG (APP1) and PNG (``eXIf``)
 files.  Driver: K equal (f = 180 from EXIF); 4 of 4 views registered; the
 port's SfM ATE within 0.005 of the JAX run's; on the same poses the fused
 points within 5% and the valid share within 0.02 of the JAX run's (the
-random streams differ).  ``--fusion-mode -1`` raises NotImplementedError
-naming dense/sgm.py, a JPEG folder raises naming JPEG, the default device
-is cuda (raising here, where there is none).
+random streams differ).  The SGM mode (``fusion_mode`` -1) from the same
+SfM result: depth within 1% on >= 98% of pixels, points within 5%.  A
+JPEG folder raises naming JPEG, the default device is cuda (raising
+here, where there is none).
 """
 
 import os
@@ -194,11 +195,37 @@ def test_driver_matches_jax(driver_runs):
     assert len(pts) == n_t
 
 
-def test_sgm_jpeg_and_device_are_refused(tmp_path):
-    _, d = _write_photos(str(tmp_path))
-    with pytest.raises(NotImplementedError, match="dense/sgm.py"):
-        tmvg.main([d, str(tmp_path / "o"), "--fusion-mode", "-1",
-                   "--device", "cpu"])
+def test_sgm_jpeg_and_device_are_refused(driver_runs, tmp_path):
+    """The SGM mode runs: from the JAX run's SfM result, both packages'
+    dense step with fusion_mode -1 gives depth within 1% on >= 98% of
+    each view's pixels and fused clouds within 5%; a JPEG folder raises,
+    and the default device is cuda."""
+    from hcmvs_tpu_torch.io.images import load_image
+    _, oj, _, captured, out = driver_runs
+    d = os.path.join(os.path.dirname(out), "photos")
+    paths = list_images(d)
+    names = [os.path.basename(p) for p in paths]
+    grays = [load_image(p, gray=True) for p in paths]
+    h, w = grays[0].shape
+    K, res = oj["K"], captured["jax"]
+    for name in ("jax", "port"):
+        os.makedirs(tmp_path / name)
+    sj = jmvg._dense_mesh_texture(
+        res, jinc.sfm_to_scene(res, K, names, w, h), grays, K,
+        str(tmp_path / "jax"), JaxDenseConfig(**SMALL, **FORCED), False,
+        False, -1, False)
+    res_t = sfm_result_from_numpy(res)
+    st = tmvg._dense_mesh_texture(
+        res_t, tinc.sfm_to_scene(res_t, K, names, w, h), grays, K,
+        str(tmp_path / "port"), DenseConfig(**SMALL), False, False, False,
+        torch.device("cpu"), -1)
+    dj, dt = np.asarray(sj["depth"]), st["depth"]
+    for i in range(len(paths)):
+        vj, vt = dj[i] > 0, dt[i] > 0
+        close = vj & vt & (np.abs(dt[i] - dj[i]) <= 0.01 * dj[i])
+        assert (close | (~vj & ~vt)).mean() >= 0.98, i
+    n_t, n_j = len(st["cloud"]["points"]), len(sj["cloud"]["points"])
+    assert n_j > 100 and abs(n_t - n_j) <= 0.05 * n_j, (n_t, n_j)
     jpegs = tmp_path / "jpegs"
     os.makedirs(jpegs)
     for i in range(2):

@@ -250,7 +250,7 @@ def test_aggregate_scores_match():
         assert np.array_equal(out.numpy(), _np(ref))
 
 
-def test_unported_knobs_raise(world, tmp_path):
+def test_unported_knobs_raise(world):
     scene_t = scene_from_numpy(world["scene"], device="cpu")
     gen = torch.Generator().manual_seed(0)
     # the retired batch_candidates, and plane counts the tables do not
@@ -263,13 +263,3 @@ def test_unported_knobs_raise(world, tmp_path):
                      (dict(volume_planes=640), "volume_planes")):
         with pytest.raises(NotImplementedError, match=what):
             tsd.estimate_scene(gen, scene_t, world["tcfg"].replace(**kw))
-    # the densify options whose modules are not ported: the SGM fusion
-    # modes (external prior maps run: tests/test_torch_masks.py)
-    from hcmvs_tpu_torch.io.mvs import SceneMVS, write_mvs
-    from hcmvs_tpu_torch.pipeline.densify import densify
-    path = str(tmp_path / "scene.mvs")
-    write_mvs(path, SceneMVS())
-    for kw in (dict(fusion_mode=-1), dict(fusion_mode=-2)):
-        with pytest.raises(NotImplementedError):
-            densify(path, str(tmp_path), str(tmp_path / "out"),
-                    world["tcfg"], verbose=False, device="cpu", **kw)
