@@ -142,14 +142,23 @@ Phases, each fatal on failure:
  26. ``eval.full_run`` at 1280x960, 6 views (SfM, the 5-stage hierarchy,
      fusion, graph cut, refine, texture): ATE, depth accuracy, mesh
      F-score and refine's drop against their gates, each stage's wall
-     and the peak memory.
-Phases 19, 21 and 24-26 run last, after phase 23, side by side, each in
-a process of its own (``chip_smoke.py --worker KIND OUT``, an internal
-mode), which counts its own launches and hands them back.  Launches are
-counted by kernel and output shape (B and D with the table's depth).
-Then a JSON line per
-path, one for the kernels, the nvidia-smi line, and
-a last line ``{"ok": true, "device": {...}}``.  Exits non-zero, with no
+     and the peak memory;
+ 27. real photos: every JPEG fixture of tests/data/jpeg through
+     ``io.images.imread`` (the port's own decoder, native/jpeg.cpp, built
+     on first use) in its three modes against the manifest's cv2
+     digests, the decode's ms per megapixel and ``resize_image``'s time
+     to halve a 6000x4000 gray and RGB image on this host; then the 8
+     committed 1280x960 JPEG photos (phase 16's scene, EXIF focal
+     33.75 mm) through ``mvgmvs.main`` as phase 16 runs them: K exactly
+     1200 from EXIF, 8 of 8 registered, k1 in its window, ATE below
+     0.025, the refined rms within 0.05 px of the JAX package's on these
+     JPEGs, view 0 at its floor, kernels A, B and C launched.
+Phases 19, 21, 24-26 and 27's pipeline run last, after phase 23 and 27's
+decoder check, side by side, each in a process of its own
+(``chip_smoke.py --worker KIND OUT``, an internal mode), which counts
+its own launches and hands them back.  Launches are counted by kernel
+and output shape (B and D with the table's depth).  Then a JSON line per
+path, one for the kernels, the nvidia-smi line, and a last line ``{"ok": true, "device": {...}}``.  Exits non-zero, with no
 result line, without a CUDA device or without the package beside this
 script.  The densify, hierarchy, mesh, photo, SGM and full-run outputs go
 to temporary directories beside this script, removed at the end.
@@ -533,6 +542,13 @@ def check_shapes(label, launches, shapes, failed) -> dict:
                           f"{launches[name]}")
         out[name] = dict(counts)
     return out
+
+
+def read_rgb(path: str):
+    """An image file's samples as stored, colour in RGB(A) order."""
+    from hcmvs_tpu_torch.io.images import imread
+    img = imread(path, "unchanged")
+    return img if img.ndim == 2 else img[..., [2, 1, 0, 3][:img.shape[2]]]
 
 
 def depth_acc_2pct(depth, gt) -> float:
@@ -1632,7 +1648,6 @@ def check_mesh(root, dev):
     import numpy as np
     import torch
     from hcmvs_tpu_torch import kernels
-    from hcmvs_tpu_torch.io.images import _read_samples
     from hcmvs_tpu_torch.io.mvs import read_mvs
     from hcmvs_tpu_torch.io.obj import read_obj
     from hcmvs_tpu_torch.io.ply import read_ply
@@ -1684,7 +1699,7 @@ def check_mesh(root, dev):
     vr, er = read_ply(refine_ply)
     obj = read_obj(obj_path)
     mtl = (out / "mesh_refine_texture.mtl").read_text()
-    atlas, _ = _read_samples(str(out / "mesh_refine_texture.png"))
+    atlas = read_rgb(str(out / "mesh_refine_texture.png"))
     back = {"ply": np.array_equal(v, V0) and np.array_equal(e["faces"], F),
             "refined_ply": (np.array_equal(vr, V1)
                             and np.array_equal(er["faces"], F)),
@@ -2210,7 +2225,6 @@ def check_chain(root):
     import numpy as np
     import torch
     from hcmvs_tpu_torch import kernels
-    from hcmvs_tpu_torch.io.images import _read_samples
     from hcmvs_tpu_torch.io.obj import read_obj
     from hcmvs_tpu_torch.io.ply import read_ply
     from hcmvs_tpu_torch.pipeline import mvgmvs
@@ -2247,7 +2261,7 @@ def check_chain(root):
                        and obj.mtllib == "scene_textured.mtl")
         back["mtl"] = ("map_Kd scene_textured.png"
                        in (out_dir / "scene_textured.mtl").read_text())
-        atlas, _ = _read_samples(str(out_dir / "scene_textured.png"))
+        atlas = read_rgb(str(out_dir / "scene_textured.png"))
         back["png"] = np.array_equal(atlas, tm.atlas)
     log(f"[{label}] {len(out['sfm'].poses)} of {CHAIN_VIEWS} registered, "
         f"k = {[float(x) for x in out['distortion']]}, "
@@ -3167,14 +3181,173 @@ def check_full_run(root):
                           launches_by_shape=shapes), failed
 
 
-# phases 19, 21 and 24-26 run last, side by side, each in a process of its
-# own: they are host-bound (the card idles most of the time), and one
-# after the other they would take ~400 s of the script's 1,200 s.  Each
+# phase 27: real photos, the committed JPEGs of tests/data/jpeg (phase
+# 16's scene saved by tests/data/jpeg/make_fixtures.py as RGB 4:2:0 JPEGs
+# at quality 95 with FocalLengthIn35mmFilm = 33.75 in APP1).  First, in
+# this process: every fixture's decode in the three imread modes against
+# its cv2 digest in the manifest (no cv2 here), the decode's ms per
+# megapixel and resize_image's time to halve a 6000x4000 image; then, as
+# a worker: mvgmvs.main on the photos as phase 16 runs it.  Its gates:
+# phase 16's K, registration, k1 window and ATE, the refined rms within
+# PHOTO_RMS_TOL of the JAX package's own on these JPEGs (its
+# incremental_sfm + refine_with_distortion on the CPU, tests/
+# test_torch_photos_jpeg.py 960 1280 jax incremental), view 0 at the
+# median scale at least the JAX package's own run_pipeline_photos on the
+# scene's JPEGs at 480x640 (tests/test_torch_photos_jpeg.py 480 640 jax)
+# less 0.05
+JPEG_DIR = Path(__file__).resolve().parent / "tests" / "data" / "jpeg"
+JPEG_MODES = ("color", "gray", "unchanged")
+PHOTO_JPEG_JAX_RMS = 1.168623432442342
+PHOTO_JPEG_JAX_ACC = 0.7512350971745876
+PHOTO_JPEG_ACC_FLOOR = PHOTO_JPEG_JAX_ACC - 0.05
+RESIZE_SHAPES = ((4000, 6000), (4000, 6000, 3))
+
+
+def check_jpeg_decoder() -> tuple:
+    """Phase 27, its host half: the JPEG fixtures through ``io.images.
+    imread`` against the manifest's cv2 digests, the decode's ms per
+    megapixel (the 8 photos in color mode, median of 3 rounds) and
+    ``resize_image``'s seconds to halve RESIZE_SHAPES (median of 3).
+    Returns (summary, failed checks)."""
+    import hashlib
+    import numpy as np
+    from hcmvs_tpu_torch import native
+    from hcmvs_tpu_torch.io.images import imread, resize_image
+    label = "photos_jpeg"
+    failed = []
+    t0 = time.perf_counter()
+    native.library("jpeg")
+    build_s = time.perf_counter() - t0
+    manifest = json.loads((JPEG_DIR / "manifest.json").read_text())["files"]
+    bad = []
+    for name, digests in manifest.items():
+        for mode in JPEG_MODES:
+            img = imread(str(JPEG_DIR / name), mode)
+            want = digests[mode]
+            if (list(img.shape) != want["shape"] or hashlib.sha256(
+                    img.tobytes()).hexdigest() != want["sha256"]):
+                bad.append(f"{name} {mode}")
+    if bad:
+        failed.append(f"{label}: decodes differ from the manifest: {bad}")
+    photos = sorted((JPEG_DIR / "photos").glob("*.jpg"))
+    each = []
+    for _ in range(3):
+        for path in photos:
+            t0 = time.perf_counter()
+            img = imread(str(path), "color")
+            each.append(time.perf_counter() - t0)
+    ph, pw = img.shape[:2]
+    ms_per_mp = float(np.median(each)) * 1e3 / (ph * pw / 1e6)
+    rng = np.random.default_rng(0)
+    resize_s = {}
+    for shape in RESIZE_SHAPES:
+        img = rng.random(shape, dtype=np.float32)
+        times = []
+        for _ in range(3):
+            t0 = time.perf_counter()
+            resize_image(img, 0.5)
+            times.append(time.perf_counter() - t0)
+        resize_s["x".join(map(str, shape))] = float(np.median(times))
+    log(f"[{label}] jpeg.cpp built in {build_s:.3f} s; {len(manifest)} "
+        f"fixtures x {len(JPEG_MODES)} modes, {len(bad)} differ from "
+        f"their cv2 digests; decode {ms_per_mp:.3f} ms per megapixel (the "
+        f"{len(photos)} photos, {pw}x{ph} colour, median of 3 rounds); "
+        f"resize_image at 0.5 {resize_s} s "
+        f"(median of 3) on this host; {smi_line()}")
+    return {"build_s": build_s, "fixtures": len(manifest),
+            "modes": list(JPEG_MODES), "differ": bad,
+            "decode_ms_per_mp": ms_per_mp, "resize_half_s": resize_s}, failed
+
+
+def check_photos_jpeg(root):
+    """Phase 27, its pipeline half: ``pipeline.mvgmvs.main`` on the
+    committed JPEG photos as phase 16 runs it (SEQUENTIAL, distortion
+    estimated, ``--no-mesh``, PHOTO_FLAGS), counts reset just before,
+    read just after.  Returns (launches, JSON summary, failed checks)."""
+    import numpy as np
+    import torch
+    from hcmvs_tpu_torch import kernels
+    from hcmvs_tpu_torch.eval.pose_eval import ate, umeyama_align
+    from hcmvs_tpu_torch.pipeline import mvgmvs
+    from hcmvs_tpu_torch.utils import profiling
+    from hcmvs_tpu_torch.utils.synth import make_ridge_scene
+    label = "photos_jpeg"
+    failed = []
+    h, w = PHOTO_HW
+    # the scene's geometry (its texture is in the JPEGs)
+    sc = make_ridge_scene(np.random.default_rng(0), h=h, w=w,
+                          n_views=PHOTO_VIEWS, fx=PHOTO_FX, spacing=0.25,
+                          texture_fn=lambda xy: np.zeros(xy.shape[:-1],
+                                                         np.float32))
+    profiling.reset_report()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    kernels.reset_launches()
+    with launch_shapes() as shapes:
+        t0 = time.perf_counter()
+        out = mvgmvs.main([str(JPEG_DIR / "photos"), str(root / "out"),
+                           "--flags", *PHOTO_FLAGS, "--no-mesh"])
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+    launches = dict(kernels.launches)
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    shapes = check_shapes(label, launches, shapes, failed)
+    if min(launches[k] for k in EXACT_KERNELS) <= 0:
+        failed.append(f"{label}: a kernel of the path never launched: "
+                      f"{launches}")
+    stages = _stage_lines(label, profiling.report(), SFM_STAGES)
+    res = out["sfm"]
+    reg, est = _centres(res)
+    gt = np.stack([sc.cameras[i].C.numpy() for i in reg])
+    a = ate(est, gt)
+    scale = umeyama_align(est, gt)[0]
+    k = [float(x) for x in out["distortion"]]
+    d0 = out["depth"][0]
+    med = float(np.median(sc.depth_gt[d0 > 0] / d0[d0 > 0]))
+    acc_med = depth_acc_2pct(d0 * med, sc.depth_gt)
+    log(f"[{label}] f = {float(out['K'][0, 0])} px from EXIF; {len(reg)} "
+        f"of {PHOTO_VIEWS} registered; k = {k}; rms "
+        f"{out['rms_unrefined']:.4f} -> {res.reproj_rms:.4f} px refined "
+        f"(JAX on the CPU {PHOTO_JPEG_JAX_RMS:.4f}); ATE rmse "
+        f"{a['rmse']:.5f} (max {a['max']:.5f}, scale {scale:.5f}); view 0 "
+        f"interior "
+        f"depth_acc_2pct {acc_med:.4f} at the median scale {med:.5f} "
+        f"(floor {PHOTO_JPEG_ACC_FLOOR:.4f}); valid {(d0 > 0).mean():.4f}; "
+        f"{len(out['cloud']['points'])} points; launches {launches}; "
+        f"total {seconds:.3f} s, peak memory {peak:.2f} GiB")
+    for ok, what in (
+            (out["K"][0, 0] == PHOTO_FX, "K from EXIF"),
+            (len(reg) == PHOTO_VIEWS, "registered views"),
+            (PHOTO_K1_WINDOW[0] < k[0] < PHOTO_K1_WINDOW[1], "k1"),
+            (a["rmse"] < PHOTO_ATE_MAX, "ATE"),
+            (abs(res.reproj_rms - PHOTO_JPEG_JAX_RMS) <= PHOTO_RMS_TOL,
+             "refined rms"),
+            (acc_med >= PHOTO_JPEG_ACC_FLOOR, "view 0 accuracy")):
+        if not ok:
+            failed.append(f"{label}: {what} misses its gate")
+    return launches, {
+        "views": PHOTO_VIEWS, "h": h, "w": w, "flags": list(PHOTO_FLAGS),
+        "f_px": float(out["K"][0, 0]), "registered": len(reg), "k": k,
+        "rms_unrefined_px": out["rms_unrefined"], "rms_px": res.reproj_rms,
+        "jax_rms_px": PHOTO_JPEG_JAX_RMS, "ate_rmse": a["rmse"],
+        "ate_max": a["max"], "median_scale": med,
+        "depth_acc_2pct_median_scale": acc_med,
+        "median_floor": PHOTO_JPEG_ACC_FLOOR,
+        "valid_frac": float((d0 > 0).mean()),
+        "n_points": len(out["cloud"]["points"]), "total_s": seconds,
+        "stage_s": stages, "peak_gib": peak,
+        "launches_by_shape": shapes}, failed
+
+
+# phases 19, 21, 24-26 and 27's pipeline run last, side by side, each in a
+# process of its own: they are host-bound (the card idles most of the
+# time), and one after the other they would take ~400 s of the script's
+# 1,200 s.  Each
 # worker resets, drives and reads its own launch counts and sends them
 # back as JSON.  (Their walls are taken side by side; the operating point,
 # whose attached tables take 67 GiB of the card, ends before they start.)
 WORKERS = ("full_run", "golden_full_stack", "routes", "chain", "sgm",
-           "golden_hierarchy", "golden_run")
+           "golden_hierarchy", "golden_run", "photos_jpeg")
 WORKER_TIMEOUT_S = 600
 
 
@@ -3196,6 +3369,8 @@ def _worker(kind: str, out_path: str) -> int:
             result = check_routes()
         elif kind == "full_run":
             result = check_full_run(root)
+        elif kind == "photos_jpeg":
+            result = check_photos_jpeg(root)
         else:
             result = check_golden(dev, (kind[len("golden_"):],))
     finally:
@@ -3386,16 +3561,24 @@ def main() -> int:
     del scene
     torch.cuda.empty_cache()
     phase_done("23")
+    # 27, its host half: the JPEG decoder against the manifest, decode and
+    # resize times (before the side-by-side group, so they run alone)
+    jpeg_summary, jpeg_failed = check_jpeg_decoder()
+    phase_done("27 (decoder)")
     # 19. the whole chain, small; 21. the dense routes at 1280x960; 24.
     # SGM through densify; 25. the golden quality gate, three modes; 26.
-    # the full product run at 1280x960: side by side
+    # the full product run at 1280x960; 27. the pipeline from the JPEG
+    # photos: side by side
     done = run_workers()
     for kind in ("chain", "routes", "sgm", "full_run"):
         paths[kind] = done[kind]
+    launches, summary, failed = done["photos_jpeg"]
+    paths["photos_jpeg"] = (launches, dict(summary, decoder=jpeg_summary),
+                            failed + jpeg_failed)
     paths["golden"] = merge_paths({k[len("golden_"):]: v
                                    for k, v in done.items()
                                    if k.startswith("golden_")})
-    phase_done("19, 21, 24-26")
+    phase_done("19, 21, 24-27")
     failed = [f for _, _, fs in paths.values() for f in fs]
     if failed:
         for f in failed:

@@ -47,8 +47,10 @@ SENSOR_WIDTH_DB_MM: Dict[str, float] = {
 DEFAULT_FOCAL_FACTOR = 1.2    # focal_px = 1.2 * max(w, h) when unknown
 
 EXIF_IFD = 0x8769
-TAG_NAMES = {271: "Make", 272: "Model", EXIF_IFD: "ExifOffset",
-             37386: "FocalLength", 41989: "FocalLengthIn35mmFilm"}
+ORIENTATION = 274
+TAG_NAMES = {271: "Make", 272: "Model", ORIENTATION: "Orientation",
+             EXIF_IFD: "ExifOffset", 37386: "FocalLength",
+             41989: "FocalLengthIn35mmFilm"}
 _NAME_TAGS = {v: k for k, v in TAG_NAMES.items()}
 # TIFF field types: (struct code, bytes per value)
 _TYPES = {1: ("B", 1), 2: ("s", 1), 3: ("H", 2), 4: ("I", 4), 5: ("II", 8),
@@ -111,6 +113,21 @@ def parse_exif(tiff: bytes) -> Dict[int, object]:
     if isinstance(sub, int):
         tags.update(_read_ifd(tiff, sub, end))
     return tags
+
+
+def orientation(tiff: Optional[bytes]) -> int:
+    """IFD0's Orientation (1-8) of a TIFF-structured EXIF block, as
+    OpenCV's ExifReader reads it; 1 (as stored) when the block or the tag
+    is missing or out of range."""
+    if not tiff or tiff[:2] not in (b"II", b"MM") or len(tiff) < 8:
+        return 1
+    end = "<" if tiff[:2] == b"II" else ">"
+    try:
+        value = _read_ifd(tiff, struct.unpack_from(end + "I", tiff, 4)[0],
+                          end).get(ORIENTATION, 1)
+    except struct.error:
+        return 1
+    return value if isinstance(value, int) and 1 <= value <= 8 else 1
 
 
 def _exif_block(data: bytes) -> Optional[bytes]:

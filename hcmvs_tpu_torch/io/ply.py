@@ -109,7 +109,10 @@ def read_ply(path: str) -> Tuple[np.ndarray, dict]:
     if end < 0:
         raise ValueError("not a PLY file")
     header_lines = data[:end].decode(errors="replace").splitlines()
-    body = data[end + len("end_header"):].lstrip(b"\n\r")
+    # the body starts after end_header's line break; stripping every
+    # leading \n / \r byte, as the JAX package does, eats a binary body
+    # whose first byte is 0x0a or 0x0d
+    body = data[data.find(b"\n", end) + 1:]
     fmt = "binary_little_endian"
     elements = []  # (name, count, [(prop_name, dtype) or ('list', ...)])
     for line in header_lines:

@@ -1,27 +1,31 @@
-"""Host-side C++ components of the mesh path, bound with ctypes (port of
-``hcmvs_tpu/native/__init__.py``).
+"""Host-side C++ components, bound with ctypes (port of
+``hcmvs_tpu/native/__init__.py``, plus a JPEG decoder of the port's own).
 
 - ``maxflow.cpp``: a Boykov-Kolmogorov-style s-t max-flow / min-cut, the
   graph-cut solver of surface reconstruction (ref: SceneReconstruct.cpp
   :58-101, IBFS);
 - ``raster.cpp``: two-pass z-buffer rasterization with per-pixel face ids
   and perspective-correct barycentrics (ref: TRasterMesh, Mesh.cpp
-  :3532-3586).
+  :3532-3586);
+- ``jpeg.cpp``: baseline, extended and progressive Huffman JPEG decoding
+  to the samples ``cv2.imread`` gives with libjpeg-turbo (its ISLOW IDCT,
+  fancy upsampling and colour tables), behind ``io.images``.
 
-Both sources are byte-for-byte the JAX package's, and they are compiled
-with its flags, ``g++ -O3 -march=native -std=c++17 -shared -fPIC`` (the
-flags matter: without ``-march=native`` g++ forms no fused multiply-adds
-on x86 and the barycentrics differ in the last bit), so the two packages
-give equal outputs.  Each is compiled at first use into
+``maxflow.cpp`` and ``raster.cpp`` are byte-for-byte the JAX package's;
+``jpeg.cpp`` is the port's own (the JAX package decodes with OpenCV,
+which the port's machine does not have).  All three are compiled with
+the JAX package's flags, ``g++ -O3 -march=native -std=c++17 -shared
+-fPIC`` (the flags matter: without ``-march=native`` g++ forms no fused
+multiply-adds on x86 and the barycentrics differ in the last bit), so the
+two packages give equal outputs.  Each is compiled at first use into
 ``_build/<name>-<hash>.so`` beside this file (listed in ``.gitignore``;
 the hash covers the source, the flags and the CPU that ``-march=native``
 resolves to, so a copy of the tree on another machine builds anew) and
 loaded with ctypes.  A failed build raises with the compiler's output;
 there is no fallback.  The plain versions, scipy's integer max-flow
 (``maxflow_scipy``) and the numpy rasterizer of ``mesh.mesh_ops``, are
-reached only by asking for them.
+reached only by asking for them; the JPEG decoder has none.
 """
-
 from __future__ import annotations
 
 import ctypes
@@ -87,28 +91,87 @@ _F64 = np.ctypeslib.ndpointer(np.float64, flags="C_CONTIGUOUS")
 _I32 = np.ctypeslib.ndpointer(np.int32, flags="C_CONTIGUOUS")
 _U8 = np.ctypeslib.ndpointer(np.uint8, flags="C_CONTIGUOUS")
 
+_I64 = np.ctypeslib.ndpointer(np.int64, flags="C_CONTIGUOUS")
+_BYTES = ctypes.c_char_p
+_MSG = ctypes.c_char_p
+
 _SIGNATURES = {
-    "maxflow": ("hcmvs_maxflow", ctypes.c_double,
-                [ctypes.c_int32, ctypes.c_int64, _I32, _I32, _F32, _F32,
-                 _F32, _F32, _U8]),
-    "raster": ("hcmvs_rasterize", None,
-               [ctypes.c_int32, ctypes.c_int32, _F64, _I32, _F64, _F64,
-                _F64, ctypes.c_int32, ctypes.c_int32, ctypes.c_int32,
-                _F32, _I32, _F32]),
+    "maxflow": [("hcmvs_maxflow", ctypes.c_double,
+                 [ctypes.c_int32, ctypes.c_int64, _I32, _I32, _F32, _F32,
+                  _F32, _F32, _U8])],
+    "raster": [("hcmvs_rasterize", None,
+                [ctypes.c_int32, ctypes.c_int32, _F64, _I32, _F64, _F64,
+                 _F64, ctypes.c_int32, ctypes.c_int32, ctypes.c_int32,
+                 _F32, _I32, _F32])],
+    "jpeg": [("hcmvs_jpeg_header", ctypes.c_int,
+              [_BYTES, ctypes.c_int64, _I64, _MSG, ctypes.c_int]),
+             ("hcmvs_jpeg_decode", ctypes.c_int,
+              [_BYTES, ctypes.c_int64, ctypes.c_int32, _U8, ctypes.c_int64,
+               _MSG, ctypes.c_int])],
 }
 
 
 def library(name: str) -> ctypes.CDLL:
-    """The loaded library of ``<name>.cpp`` ("maxflow" or "raster"),
-    built on first use, with its function's argument types declared."""
+    """The loaded library of ``<name>.cpp`` ("maxflow", "raster" or
+    "jpeg"), built on first use, with its functions' argument types
+    declared."""
     if name not in _libs:
         lib = ctypes.CDLL(str(build(name)))
-        fn_name, restype, argtypes = _SIGNATURES[name]
-        fn = getattr(lib, fn_name)
-        fn.restype = restype
-        fn.argtypes = argtypes
+        for fn_name, restype, argtypes in _SIGNATURES[name]:
+            fn = getattr(lib, fn_name)
+            fn.restype = restype
+            fn.argtypes = argtypes
         _libs[name] = lib
     return _libs[name]
+
+
+JPEG_MODES = {"color": 0, "gray": 1, "unchanged": 2}
+
+
+def _jpeg_status(rc: int, msg, path: str) -> None:
+    """Raises for a nonzero status of the JPEG decoder: 1 an unsupported
+    feature (NotImplementedError), 2 a corrupt or truncated stream
+    (ValueError), each naming it."""
+    if rc == 1:
+        raise NotImplementedError(f"{path}: {msg.value.decode()}")
+    if rc:
+        raise ValueError(f"{path}: {msg.value.decode()}")
+
+
+def jpeg_header(data: bytes, path: str = "JPEG") -> Dict[str, int]:
+    """The frame of a JPEG file: width, height, components, precision,
+    sof (the SOF marker), colour_space (0 gray, 1 YCbCr, 2 RGB), app1
+    (offset, length) of the first APP1 segment's body, progressive,
+    restart_interval.  Raises as ``jpeg_decode`` does."""
+    info = np.zeros(10, np.int64)
+    msg = ctypes.create_string_buffer(256)
+    _jpeg_status(library("jpeg").hcmvs_jpeg_header(
+        data, len(data), info, msg, len(msg)), msg, path)
+    keys = ("width", "height", "components", "precision", "sof",
+            "colour_space")
+    out = {k: int(v) for k, v in zip(keys, info)}
+    out.update(app1=(int(info[6]), int(info[7])),
+               progressive=int(info[8]), restart_interval=int(info[9]))
+    return out
+
+
+def jpeg_decode(data: bytes, mode: str = "color",
+                path: str = "JPEG") -> np.ndarray:
+    """The samples ``cv2.imread`` gives for a JPEG file's bytes, without
+    EXIF orientation: ``mode`` "color" (H, W, 3) BGR, "gray" (H, W) (the Y
+    plane of a YCbCr file) or "unchanged" (gray for one component, else
+    BGR).  Raises NotImplementedError naming an unsupported feature and
+    ValueError naming the fault of a corrupt or truncated stream."""
+    head = jpeg_header(data, path)
+    h, w = head["height"], head["width"]
+    gray = mode == "gray" or (mode == "unchanged"
+                              and head["components"] == 1)
+    out = np.empty((h, w) if gray else (h, w, 3), np.uint8)
+    msg = ctypes.create_string_buffer(256)
+    _jpeg_status(library("jpeg").hcmvs_jpeg_decode(
+        data, len(data), JPEG_MODES[mode], out, out.size, msg, len(msg)),
+        msg, path)
+    return out
 
 
 def maxflow(n_nodes: int, eu: np.ndarray, ev: np.ndarray,

@@ -239,6 +239,36 @@ def test_densify_matches_jax(world):
     _check_outputs(out_dir, stats, with_cloud=True)
 
 
+def test_densify_from_jpegs_matches_jax(world, tmp_path):
+    """The densify app on the world's scene with its images saved as
+    JPEGs (quality 95, the scene's image names changed to them): the port
+    decodes them itself, the JAX package through cv2; held as
+    test_densify_matches_jax holds the PNG run."""
+    Image = pytest.importorskip("PIL.Image")
+    from hcmvs_tpu_torch.io.mvs import read_mvs, write_mvs
+    from hcmvs_tpu_torch.pipeline.densify import densify
+    scene = read_mvs(world["scene_path"])
+    img_dir = tmp_path / "images"
+    img_dir.mkdir()
+    for rec, img in zip(scene.images, world["sc"].images):
+        rec.name = rec.name.replace(".png", ".jpg")
+        Image.fromarray((img * 255).astype(np.uint8)).save(
+            str(img_dir / rec.name), quality=95)
+    scene_path = str(tmp_path / "scene.mvs")
+    write_mvs(scene_path, scene)
+    ref = _jax_densify(scene_path, str(img_dir), str(tmp_path / "jax"),
+                       world["jcfg"])
+    stats = densify(scene_path, str(img_dir), str(tmp_path / "port"),
+                    world["tcfg"], verbose=False, device="cpu",
+                    init=world["init"])
+    gt = world["sc"].depth_gt
+    acc_t, acc_j = _acc(stats["depth"][0], gt), _acc(ref["depth"][0], gt)
+    assert acc_t > 0.7, acc_t
+    assert abs(acc_t - acc_j) <= 0.03, (acc_t, acc_j)
+    assert abs(stats["valid_frac"] - ref["valid_frac"]) <= 0.03
+    assert abs(stats["n_points"] - ref["n_points"]) <= 0.02 * ref["n_points"]
+
+
 def test_densify_export_only_resume_and_cli(world):
     """fusion_mode 1 writes the maps only; a second run resumes from
     them; the CLI entry point runs the same path."""

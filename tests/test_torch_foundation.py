@@ -369,6 +369,20 @@ _NO_JAX_SCRIPT = textwrap.dedent("""
         for i in range(n):
             assert np.allclose(back.pose_of(i)[1], scn.pose_of(i)[1],
                                atol=1e-4)
+    # a committed JPEG (4:2:0) and an oriented one through the port's own
+    # decoder (native/jpeg.cpp), to the manifest's cv2 digests
+    import hashlib
+    import hcmvs_tpu_torch
+    from hcmvs_tpu_torch.io.images import imread
+    jdir = os.path.join(os.path.dirname(os.path.dirname(
+        hcmvs_tpu_torch.__file__)), "tests", "data", "jpeg")
+    with open(os.path.join(jdir, "manifest.json")) as f:
+        manifest = json.load(f)["files"]
+    for name in ("variants/s420.jpg", "variants/orient6.jpg"):
+        for mode, want in manifest[name].items():
+            img = imread(os.path.join(jdir, name), mode)
+            assert hashlib.sha256(img.tobytes()).hexdigest() \
+                == want["sha256"], (name, mode)
     # the golden gate, tiny, on the CPU
     from hcmvs_tpu_torch.eval import golden
     g = golden.run(h=72, w=96, n_views=4, device="cpu")

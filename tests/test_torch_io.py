@@ -268,11 +268,45 @@ def test_png_writer_row_filters(tmp_path, filters):
         assert np.array_equal(back, img), kind
 
 
+def test_ply_body_starting_with_a_line_break_byte(tmp_path):
+    """A binary body whose first byte is 0x0a or 0x0d reads back exactly
+    (the JAX package's reader strips such bytes and then fails)."""
+    for first in (b"\x0a", b"\x0d"):
+        pts = np.frombuffer((first + b"\x00\x80\x3f") * 12, "<f4")
+        pts = pts.reshape(4, 3).copy()
+        path = str(tmp_path / "p.ply")
+        tply.write_ply_points(path, pts, colors=np.full((4, 3), 13,
+                                                        np.uint8))
+        back, extras = tply.read_ply(path)
+        assert np.array_equal(back, pts)
+        assert (extras["colors"] == 13).all()
+
+
+def _jpeg_frame(marker: int, precision: int = 8, n_comp: int = 3) -> bytes:
+    """SOI and a frame header of ``marker`` (the decoder stops there)."""
+    body = struct.pack(">BHHB", precision, 2, 2, n_comp) + b"".join(
+        bytes([k + 1, 0x11, 0]) for k in range(n_comp))
+    return (b"\xff\xd8\xff" + bytes([marker])
+            + struct.pack(">H", len(body) + 2) + body + b"\xff\xd9")
+
+
+def _tiff_compressed(compression: int) -> bytes:
+    """A little-endian TIFF header and IFD naming ``compression``."""
+    tags = ((256, 2), (257, 2), (258, 8), (259, compression), (262, 1),
+            (273, 8), (277, 1), (279, 4))
+    ifd = struct.pack("<H", len(tags)) + b"".join(
+        struct.pack("<HHII", t, 4, 1, v) for t, v in tags)
+    return b"II*\0" + struct.pack("<I", 12) + bytes(4) + ifd + bytes(4)
+
+
 @pytest.mark.parametrize("data,what", [
-    (_png(0, 16, 1), "interlaced"), (_png(2, 8, 1), "interlaced"),
-    (_png(3, 8, 1), "interlaced"), (b"\xff\xd8\xff\xe0" + bytes(16), "JPEG"),
-    (b"P2\n2 2\n255\n0 0 0 0\n", "P2"), (b"P5\n2 2\n65535\n" + bytes(8),
-                                          "maxval"),
+    (_jpeg_frame(0xC9), "arithmetic"), (_jpeg_frame(0xC3), "lossless"),
+    (_jpeg_frame(0xC1, precision=12), "12-bit"),
+    (_jpeg_frame(0xC0, n_comp=4), "CMYK"),
+    (_jpeg_frame(0xDE), "hierarchical"),
+    (_tiff_compressed(7), "JPEG-in-TIFF"),
+    (b"BM" + bytes(12) + struct.pack("<IiiHHI", 40, 2, 2, 1, 32, 3)
+     + bytes(20), "bit fields"),
     (b"GIF89a" + bytes(16), "unknown")])
 def test_unsupported_images_raise(tmp_path, data, what):
     path = str(tmp_path / "x.img")

@@ -679,3 +679,26 @@ def test_sfm_features_and_ransac_on_cuda_match_cpu():
     assert int(rg_.n_inliers) == int(rc.n_inliers) >= 150
     assert (rg_.R.cpu() - rc.R).abs().max() <= 1e-4
     assert (rg_.t.cpu() - rc.t).abs().max() <= 1e-4
+
+
+@pytest.mark.gpu
+def test_jpeg_fixtures_match_their_manifest_on_the_card_machine():
+    """The port's decodes of every committed fixture of tests/data/jpeg
+    (native/jpeg.cpp, built on first use) equal the manifest's cv2
+    digests on the card's machine, where no cv2 exists; the photos' gray
+    decodes then go to the card."""
+    import hashlib
+    import json
+    from hcmvs_tpu_torch.io.images import imread
+    dev = _cuda()
+    root = Path(__file__).resolve().parent / "data" / "jpeg"
+    manifest = json.loads((root / "manifest.json").read_text())["files"]
+    for name, digests in manifest.items():
+        for mode, want in digests.items():
+            img = imread(str(root / name), mode)
+            assert list(img.shape) == want["shape"], (name, mode)
+            assert hashlib.sha256(img.tobytes()).hexdigest() \
+                == want["sha256"], (name, mode)
+    gray = torch.from_numpy(imread(str(root / "photos" / "p00.jpg"),
+                                   "gray")).to(dev)
+    assert gray.shape == (960, 1280) and int(gray.max()) > 0

@@ -16,11 +16,11 @@ ground truth over its valid pixels (``eval/golden.py --hierarchy``'s
 alignment).
 
 The driver runs on tests/test_distortion.py's ``test_run_pipeline_photos_
-exif`` scene and small DenseConfig: 4 ridge photos at 144x192, written as
-8-bit PNGs whose ``eXIf`` chunk holds FocalLengthIn35mmFilm = 33.75 (the
-port writes them; Pillow, which the JAX package reads EXIF with, reads
-them back).  JAX runs on the CPU with the table / rect backends forced,
-as the other dense parity tests force them.  The port's SfM replays the
+exif`` scene and small DenseConfig: a folder of 4 ridge photos at 144x192,
+JPEGs as that test writes them (Pillow, gray, quality 97,
+FocalLengthIn35mmFilm = 33.75 in APP1), which the port decodes itself
+and the JAX package through cv2.  JAX runs on the CPU with the table /
+rect backends forced, as the other dense parity tests force them.  The port's SfM replays the
 JAX run's draws (tests/test_torch_incremental.py); its dense stage gets
 the JAX run's SfM result, so both densify the same poses.
 
@@ -30,9 +30,9 @@ files.  Driver: K equal (f = 180 from EXIF); 4 of 4 views registered; the
 port's SfM ATE within 0.005 of the JAX run's; on the same poses the fused
 points within 5% and the valid share within 0.02 of the JAX run's (the
 random streams differ).  The SGM mode (``fusion_mode`` -1) from the same
-SfM result: depth within 1% on >= 98% of pixels, points within 5%.  A
-JPEG folder raises naming JPEG, the default device is cuda (raising
-here, where there is none).
+SfM result: depth within 1% on >= 98% of pixels, points within 5%.  The
+two packages load the JPEG folder to equal arrays; the default device is
+cuda (raising here, where there is none).
 """
 
 import os
@@ -124,11 +124,19 @@ def test_exif_bytes_read_by_pillow(tmp_path):
     assert texif.read_exif_tags(str(tmp_path / "missing.png")) == {}
 
 
-def _write_photos(root, exif=True):
+def _write_photos(root, exif=True, jpeg=False):
     sc = make_ridge_scene(np.random.default_rng(6), h=144, w=192, n_views=4,
                           fx=180.0, z0=4.0, spacing=0.25)
     d = os.path.join(root, "photos")
-    write_photos(d, sc.images, 33.75 if exif else None)
+    if jpeg:                    # as tests/test_distortion.py writes them
+        os.makedirs(d)
+        exif = Image.Exif()
+        exif.get_ifd(0x8769)[41989] = 33.75
+        for i, im in enumerate(sc.images):
+            Image.fromarray((np.clip(im, 0, 1) * 255).astype(np.uint8)).save(
+                os.path.join(d, f"p{i:02d}.jpg"), quality=97, exif=exif)
+    else:
+        write_photos(d, sc.images, 33.75 if exif else None)
     return sc, d
 
 
@@ -142,7 +150,7 @@ def test_list_images_matches(tmp_path):
 @pytest.fixture(scope="module")
 def driver_runs(tmp_path_factory):
     root = str(tmp_path_factory.mktemp("photos"))
-    sc, d = _write_photos(root)
+    sc, d = _write_photos(root, jpeg=True)
     captured = {}
     orig = jinc.incremental_sfm
 
@@ -198,8 +206,9 @@ def test_driver_matches_jax(driver_runs):
 def test_sgm_jpeg_and_device_are_refused(driver_runs, tmp_path):
     """The SGM mode runs: from the JAX run's SfM result, both packages'
     dense step with fusion_mode -1 gives depth within 1% on >= 98% of
-    each view's pixels and fused clouds within 5%; a JPEG folder raises,
-    and the default device is cuda."""
+    each view's pixels and fused clouds within 5%; both packages load the
+    JPEG folder to equal arrays, and the default device is cuda."""
+    from hcmvs_tpu.io.images import load_image as jax_load_image
     from hcmvs_tpu_torch.io.images import load_image
     _, oj, _, captured, out = driver_runs
     d = os.path.join(os.path.dirname(out), "photos")
@@ -226,14 +235,10 @@ def test_sgm_jpeg_and_device_are_refused(driver_runs, tmp_path):
         assert (close | (~vj & ~vt)).mean() >= 0.98, i
     n_t, n_j = len(st["cloud"]["points"]), len(sj["cloud"]["points"])
     assert n_j > 100 and abs(n_t - n_j) <= 0.05 * n_j, (n_t, n_j)
-    jpegs = tmp_path / "jpegs"
-    os.makedirs(jpegs)
-    for i in range(2):
-        Image.fromarray(np.zeros((48, 64), np.uint8)).save(
-            str(jpegs / f"p{i}.jpg"))
-    with pytest.raises(NotImplementedError, match="JPEG"):
-        tmvg.run_pipeline_photos(str(jpegs), str(tmp_path / "o"),
-                                 device="cpu")
+    assert all(p.endswith(".jpg") for p in paths)
+    for p, g in zip(paths, grays):
+        assert np.array_equal(g, jax_load_image(p, gray=True))
+        assert np.array_equal(load_image(p), jax_load_image(p))
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="no CUDA device"):
             tmvg.run_pipeline_photos(d, str(tmp_path / "o"))
@@ -267,8 +272,6 @@ def _photo_chain(h: int, w: int, which: str, root: str,
     """chip_smoke.py phase 16's chain at H x W through one package (with
     ``presets``: SfM by those presets and the distortion refinement
     alone)."""
-    from hcmvs_tpu_torch.core.config import config_from_cli_flags
-    from hcmvs_tpu_torch.eval.pose_eval import umeyama_align
     from hcmvs_tpu_torch.utils.synth import blob_texture_fn, distort_images
     fx = 1200.0 * w / 1280
     sc = make_ridge_scene(np.random.default_rng(0), h=h, w=w, n_views=8,
@@ -279,6 +282,15 @@ def _photo_chain(h: int, w: int, which: str, root: str,
     write_photos(photos, distort_images(sc.images, K,
                                         np.array([-0.15, 0.0, 0.0])),
                  fx * 36.0 / w)
+    return run_chain(sc, photos, which, root, presets)
+
+
+def run_chain(sc, photos: str, which: str, root: str, presets=()) -> dict:
+    """The chain of ``_photo_chain`` on the photo directory ``photos`` of
+    the ridge scene ``sc`` through one package."""
+    from hcmvs_tpu_torch.core.config import config_from_cli_flags
+    from hcmvs_tpu_torch.eval.pose_eval import umeyama_align
+    h, w = sc.depth_gt.shape
     if presets:
         return _photo_sfm(sc, photos, which, presets)
     flags = {"resolution-level": "0"}
