@@ -12,8 +12,9 @@ Phases, each fatal on failure:
      version on the card, at the 1280x960 shapes the paths give it (B
      at every index-field width: 36 and 9 offsets, and the densify
      path's 64 and 16 on a table at its depth range; D at 324 and 81
-     columns), A, B (64, 16) and C also at the hierarchy's 640x480 ones,
-     and E also at 12 views (two launches), with its device time (``cuda_ms``: launches queued
+     columns and the view axis's 144), A, B (64, 16) and C also at the
+     hierarchy's 640x480 ones, and E also at 12 views (two launches),
+     with its device time (``cuda_ms``: launches queued
      behind a spin kernel, so the host's launch work is not counted;
      checked against torch.profiler on kernel A), B's and D's earlier
      designs timed on the same inputs (``earlier_ms``), and the least
@@ -153,9 +154,24 @@ Phases, each fatal on failure:
      1200 from EXIF, 8 of 8 registered, k1 in its window, ATE below
      0.025, the refined rms within 0.05 px of the JAX package's on these
      JPEGs, view 0 at its floor, kernels A, B and C launched.
-Phases 19, 21, 24-26 and 27's pipeline run last, after phase 23 and 27's
-decoder check, side by side, each in a process of its own
-(``chip_smoke.py --worker KIND OUT``, an internal mode), which counts
+ 28. the view axis (``hcmvs_tpu_torch.parallel``): ``parallel.mh_check``'s
+     dense schedule (a photometric and a geometric pass of one sweep, the
+     cross-view filter, fusion) on 8 views at 1280x960, 3 neighbours, in
+     three configs (tables of 128 planes: A, B, C; 256 planes, the
+     per-plane build: B, C; hybrid and candidate-batched: A, C, D, E), as
+     two processes sharing the card over Gloo and at NCCL world size 1
+     (and over NCCL across two cards when there are two): maps, keep and
+     points bit-equal to one process, every kernel of each config
+     launched by every process, walls, collective seconds and peak memory
+     per process; bundle adjustment sharded over two processes at phase
+     18's problem within rel 1e-3 of one process; ``eval.refine_bench`` at
+     640x480, 8 views; ``eval.roofline`` of one bench round at 1280x960;
+     ``eval.scaling.run_multiprocess`` on the view axis's scene with its
+     value check.
+Phase 28 runs after phase 23 and 27's decoder check, alone.  Phases
+14-15, 19, 21, 24-26 and 27's pipeline run last, after it, side by side,
+each in a process of its own (``chip_smoke.py --worker KIND OUT``, an internal
+mode), which counts
 its own launches and hands them back.  Launches are counted by kernel
 and output shape (B and D with the table's depth).  Then a JSON line per
 path, one for the kernels, the nvidia-smi line, and a last line ``{"ok": true, "device": {...}}``.  Exits non-zero, with no
@@ -166,6 +182,7 @@ to temporary directories beside this script, removed at the end.
 
 from __future__ import annotations
 
+import atexit
 import collections
 import concurrent.futures
 import contextlib
@@ -177,24 +194,20 @@ import tempfile
 import time
 from pathlib import Path
 
+try:    # the port's launch counts by shape (main says why if it is missing)
+    from hcmvs_tpu_torch.kernels.shapes import (SHAPE_OF, launch_shapes,
+                                                shape_key)
+except ImportError:
+    pass
+
 H, W, N_VIEWS, N_NBR = 960, 1280, 4, 3
 MARGIN = 6   # interior margin of depth_acc_2pct, as in the parity tests
-# H100 SXM peaks (NVIDIA data sheet) for the bound: device memory rate and
-# float32 outside the tensor cores (the kernels' integer work is counted
-# at the same rate)
-HBM_BYTES_PER_S = 3.35e12
-F32_OPS_PER_S = 67e12
 # spin-kernel clock for cuda_ms's sleep (H100 SXM boost 1.98 GHz; a lower
 # clock only lengthens the sleep)
 SLEEP_CYCLES_PER_S = 1.98e9
 MAX_SLEEP_CYCLES = 2 ** 33
 # kernel A's time from CUDA events and from torch.profiler must agree
 TIMER_AGREEMENT = 0.05
-# operations per output element of each kernel (from its source: index
-# arithmetic, clamps, decode, lerp, encode; kernel E per offset, its exp
-# counted as one)
-OPS_PER_ELEMENT = {"rect_build": 25, "volume_lookup": 10, "rect_lookup": 15,
-                   "volume_lookup_multi": 10, "zncc_warped": 20}
 
 
 def log(msg: str) -> None:
@@ -317,10 +330,11 @@ def device_busy(fn):
 def bound(name: str, n_bytes: float, n_elements: float):
     """(ms, "bytes" or "operations"): the least time of the work, the
     larger of its bytes over the memory rate and its operations over the
-    float32 rate."""
-    t_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
-    t_ops = n_elements * OPS_PER_ELEMENT[name] / F32_OPS_PER_S * 1e3
-    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+    float32 rate (the H100 SXM's data-sheet ceilings and the operations
+    per element of each kernel, kept in ``eval.roofline``)."""
+    from hcmvs_tpu_torch.eval.roofline import OPS_PER_ELEMENT, least_seconds
+    s, by = least_seconds(n_bytes, n_elements * OPS_PER_ELEMENT[name])
+    return s * 1e3, by
 
 
 def nbytes(*ts) -> int:
@@ -347,14 +361,16 @@ def table_bytes(tab, i0, need=None) -> int:
 
 def make_scene(dev):
     """The bench scene (bench._build) at 1280x960, focal length scaled with
-    width as hcmvs_tpu/eval/golden.py does."""
+    width as hcmvs_tpu/eval/golden.py does, its texture's sines on the
+    card."""
     import numpy as np
     import torch
     from hcmvs_tpu_torch.core.camera import Camera
     from hcmvs_tpu_torch.dense.scene_driver import SceneTensors
     from hcmvs_tpu_torch.utils.synth import make_plane_scene
     sc = make_plane_scene(np.random.default_rng(0), h=H, w=W,
-                          n_views=N_VIEWS, fx=180.0 * W / 192.0)
+                          n_views=N_VIEWS, fx=180.0 * W / 192.0,
+                          texture_device=dev)
     cams = Camera(*(torch.stack([getattr(c, f) for c in sc.cameras])
                     for f in "KRC")).to(dev)
     nbr = [[j for j in range(N_VIEWS) if j != i][:N_NBR]
@@ -412,7 +428,7 @@ DENSIFY_PNG_FILTER = 4
 HIER_IMAGE_HW = (1920, 2560)
 HIER_LEVEL_HW = (480, 640)
 # two external iterations a stage (DenseConfig() runs four): the whole
-# script must stay inside its time limit with phases 23-26; every check of
+# script must stay inside its time limit with phases 23-28; every check of
 # phases 10-11 stays
 HIER_FLAGS = ("n-EstimationIters-external=2",)
 
@@ -420,12 +436,13 @@ HIER_FLAGS = ("n-EstimationIters-external=2",)
 def hierarchy_scene(h: int, w: int, textured: bool = True):
     """The hierarchy path's ridge scene at h x w (focal length scaled with
     width as hcmvs_tpu/eval/golden.py does, the plane scene's sinusoid
-    texture); untextured it only renders the ground truth."""
+    texture, its sines on the card); untextured it only renders the
+    ground truth."""
     import numpy as np
     from hcmvs_tpu_torch.utils.synth import (make_ridge_scene,
                                              sinusoid_texture_fn)
-    tex = (sinusoid_texture_fn(np.random.default_rng(12345)) if textured
-           else lambda xy: np.zeros(xy.shape[:-1], np.float32))
+    tex = (sinusoid_texture_fn(np.random.default_rng(12345), "cuda")
+           if textured else lambda xy: np.zeros(xy.shape[:-1], np.float32))
     return make_ridge_scene(np.random.default_rng(0), h=h, w=w,
                             n_views=N_VIEWS, fx=180.0 * w / 192.0,
                             texture_fn=tex)
@@ -474,62 +491,6 @@ def densify_cfg(flags=DENSIFY_FLAGS):
     return config_from_cli_flags(dict(f.split("=", 1) for f in flags))
 
 
-def _d_mode(a) -> tuple:
-    """Kernel D's mode as a launch-key suffix: none for the bounded mode
-    (the paths' own), "packed" or "f32" otherwise."""
-    import torch
-    if a[1].dtype == torch.float32:
-        return ("f32",)
-    return () if len(a) > 2 and a[2] is not None else ("packed",)
-
-
-# each kernel's launches are counted by the shape of its output, read
-# from its arguments: A (V, P_pad, 128), B (P, S) and D (P, C) with the
-# table's depth D appended (P, S, D) / (P, C, D) (D's mode after that
-# unless bounded), C (V, 2, H, W), E (V, H, W)
-SHAPE_OF = {
-    "rect_build": lambda a: (a[0].shape[0], a[6], 128),
-    "volume_lookup": lambda a: tuple(a[1].shape) + (a[0].shape[1],),
-    "rect_lookup": lambda a: tuple(a[0].shape[:2]) + tuple(a[5].shape),
-    "volume_lookup_multi": lambda a: (tuple(a[1].shape) + (a[0].shape[1],)
-                                      + _d_mode(a)),
-    "zncc_warped": lambda a: (a[3].shape[0],) + tuple(a[1].shape)}
-
-
-def shape_key(shape) -> str:
-    return "x".join(x if isinstance(x, str) else str(int(x))
-                    for x in shape)
-
-
-@contextlib.contextmanager
-def launch_shapes():
-    """Counts each kernel's launches by output shape inside the block:
-    recorders around the launchers in ``kernels``, which the ops call
-    through the module; each adds what the launcher added to
-    ``kernels.launches`` (which is unchanged).  Yields {kernel: Counter
-    of shape keys}."""
-    from hcmvs_tpu_torch import kernels
-    counts = {name: collections.Counter() for name in SHAPE_OF}
-    launchers = {name: getattr(kernels, name) for name in SHAPE_OF}
-
-    def recorder(name):
-        def recorded(*args):
-            before = kernels.launches[name]
-            out = launchers[name](*args)
-            counts[name][shape_key(SHAPE_OF[name](args))] += (
-                kernels.launches[name] - before)
-            return out
-        return recorded
-
-    for name in SHAPE_OF:
-        setattr(kernels, name, recorder(name))
-    try:
-        yield counts
-    finally:
-        for name, launch in launchers.items():
-            setattr(kernels, name, launch)
-
-
 def check_shapes(label, launches, shapes, failed) -> dict:
     """Launches by output shape; a failed check unless each kernel's add
     up to its launch count."""
@@ -567,7 +528,8 @@ def lookup_cases(sc, scene, cfg, geom, st, rays):
     it, at its final (64) and explore (16) offsets on a table at the depth
     range densify takes from the scene's sparse points.  D: the packed,
     bounded field of view 0's nine propagation candidates at full (C =
-    324) and explore (C = 81) sampling."""
+    324) and explore (C = 81) sampling, and at the view axis's full
+    sampling (``parallel.mh_check``'s window, C = 144)."""
     import dataclasses
 
     import numpy as np
@@ -580,6 +542,7 @@ def lookup_cases(sc, scene, cfg, geom, st, rays):
                                                     phase_cfg)
     from hcmvs_tpu_torch.dense.view_selection import depth_range_from_points
     from hcmvs_tpu_torch.ops import volume as vol
+    from hcmvs_tpu_torch.parallel.mh_check import base_cfg
     from hcmvs_tpu_torch.utils.synth import plane_sparse_points
 
     dev = st.depth.device
@@ -620,8 +583,9 @@ def lookup_cases(sc, scene, cfg, geom, st, rays):
     normals = torch.stack([c[1] for c in cand])
     bounds0 = S.volume_bounds(vt, True)[0]
     d_cases = []
-    for step in (cfg.patch_step, cfg.explore_patch_step):
-        offsets = S.patch_offsets(cfg.replace(patch_step=step))
+    for offsets in (S.patch_offsets(cfg), S.patch_offsets(
+            cfg.replace(patch_step=cfg.explore_patch_step)),
+            S.patch_offsets(base_cfg("volume"))):
         f2, _ = S.packed_fields(geom, vt, depths, normals, rays, offsets)
         d_cases.append((vt.tab[0], f2, bounds0))
     return b_cases, d_cases
@@ -818,7 +782,7 @@ def kernel_parity(sc, scene, cfg, dev):
     del levels
 
     # D: view 0's table against the packed, bounded fields of its nine
-    # propagation candidates at C = 324 and 81
+    # propagation candidates at C = 324, 81 and 144
     shapes = []
     for tab0, f2, bounds0 in d_cases:
         out = kernels.volume_lookup_multi(tab0, f2, bounds0)
@@ -3339,21 +3303,229 @@ def check_photos_jpeg(root):
         "launches_by_shape": shapes}, failed
 
 
-# phases 19, 21, 24-26 and 27's pipeline run last, side by side, each in a
-# process of its own: they are host-bound (the card idles most of the
-# time), and one after the other they would take ~400 s of the script's
-# 1,200 s.  Each
+# phase 28: the view axis (hcmvs_tpu_torch.parallel) on the card.  The
+# dense schedule of parallel.mh_check (a photometric and a geometric pass
+# of one sweep, the filter, fusion) on an 8-view plane scene at 1280x960,
+# 3 neighbours, in three configs that between them run all five kernels:
+# tables of 128 planes (the rect build: A, B, C), the dry run's 256 planes
+# (the per-plane build, B at D = 256, C) and the hybrid, candidate-batched
+# route (A, C, D, E).  Each runs as two processes sharing the card over
+# Gloo, at NCCL world size 1 and, with two cards or more, as two processes
+# over NCCL; process 0 of each reruns it in one process and the maps, keep
+# and points must be bit-equal.  Then bundle adjustment sharded over two
+# processes at phase 18's problem, held within rel 1e-3 of one process
+# (tests/test_sharding.py:128-131), the refine benchmark, the roofline of
+# one bench round and scaling.run_multiprocess on the view axis's scene
+# with its value check.
+VIEW_AXIS_FX = 1200.0
+VIEW_AXIS_ARGS = ("--views", "8", "--nbrs", "3", "--h", str(H), "--w",
+                  str(W), "--fx", str(VIEW_AXIS_FX), "--backend", "volume")
+VIEW_AXIS_CFGS = {
+    "tables128": ({}, ("rect_build", "volume_lookup", "rect_lookup")),
+    "planes256": ({"volume_planes": 256}, ("volume_lookup", "rect_lookup")),
+    "hybrid_batched": ({"score_mode": "hybrid", "candidate_kernel": "on"},
+                       ("rect_build", "rect_lookup", "volume_lookup_multi",
+                        "zncc_warped")),
+}
+VIEW_AXIS_TIMEOUT_S = 240
+HERE = str(Path(__file__).resolve().parent)
+
+
+def view_axis_runs(device: str = "cuda"):
+    """(label, processes, dist backend) of phase 28's runs on ``device``:
+    two processes over Gloo and NCCL at one process, and two over NCCL
+    when there is a card for each (on the CPU, for a rehearsal, Gloo at
+    one process instead of NCCL)."""
+    import torch
+    one = "nccl" if device == "cuda" else "gloo"
+    runs = [("gloo_x2", 2, "gloo"), (f"{one}_x1", 1, one)]
+    n_cards = torch.cuda.device_count() if device == "cuda" else 0
+    log(f"[view_axis] {n_cards} card(s): "
+        + ("NCCL across two cards too" if n_cards >= 2 else
+           "NCCL across cards needs two; two processes share the card "
+           "over Gloo"))
+    if n_cards >= 2:
+        runs.append(("nccl_x2", 2, "nccl"))
+    return runs
+
+
+def check_view_axis(device: str = "cuda", args=VIEW_AXIS_ARGS):
+    """Phase 28, the dense schedule under the view axis: each run of
+    ``view_axis_runs`` in its own processes (``mh_check.launch``), every
+    config of VIEW_AXIS_CFGS one after another in them; launches, in all
+    and by output shape, are counted by each process around its view-axis
+    run alone."""
+    from hcmvs_tpu_torch.parallel import mh_check
+
+    label = "view_axis"
+    failed = []
+    launches = collections.Counter()
+    by_shape = {name: collections.Counter() for name in SHAPE_OF}
+    summary = {}
+    cfg_args = []
+    for over, _ in VIEW_AXIS_CFGS.values():
+        cfg_args += ["--cfg", json.dumps(over)]
+    for run, n_proc, backend in view_axis_runs(device):
+        t0 = time.perf_counter()
+        outs = mh_check.launch(n_proc, ["--device", device, "--dist-backend",
+                                        backend, *args, *cfg_args],
+                               timeout=VIEW_AXIS_TIMEOUT_S, workdir=HERE)
+        wall = time.perf_counter() - t0
+        lines = mh_check.parse_lines(outs)
+        summary[run] = {"wall_s": wall, "configs": {}}
+        for name, (over, kernels_of) in VIEW_AXIS_CFGS.items():
+            per = [x for x in lines if x["cfg"] == over]
+            p0 = next(x for x in per if x["rank"] == 0)
+            got = collections.Counter()
+            for x in per:
+                got.update(x["launches"])
+                for k, counts in x["launches_by_shape"].items():
+                    by_shape[k].update(counts)
+                for k in kernels_of:
+                    if x["launches"][k] <= 0:
+                        failed.append(f"{label} {run} {name}: rank "
+                                      f"{x['rank']} never launched {k}")
+            if over.get("volume_planes", 128) > 128 and got["rect_build"]:
+                failed.append(f"{label} {run} {name}: the per-plane build "
+                              f"launched kernel A")
+            launches.update(got)
+            log(f"[{label}] {run} {name}: equal to one process "
+                f"{p0['equal']} (depth {p0['depth_mismatch']}, normal "
+                f"{p0['normal_mismatch']}, cost {p0['cost_mismatch']}, keep "
+                f"{p0['keep_agree']}, points {p0['pt_diff']}, kept "
+                f"{p0['kept']}); walls "
+                + " / ".join(f"{x['wall_s']:.3f}" for x in per)
+                + f" s (one process {p0['one_process_wall_s']:.3f} s); "
+                f"collectives " + " / ".join(
+                    f"{x['collectives']} in {x['collective_s']:.4f} s"
+                    for x in per)
+                + "; peak " + " / ".join(
+                    f"{x['peak_gib'] or 0:.2f}" for x in per)
+                + f" GiB; launches {dict(got)}")
+            if not p0["equal"]:
+                failed.append(f"{label} {run} {name}: differs from one "
+                              f"process: {p0}")
+            summary[run]["configs"][name] = {
+                "equal": p0["equal"], "kept": p0["kept"],
+                "one_process_wall_s": p0["one_process_wall_s"],
+                "wall_s": [x["wall_s"] for x in per],
+                "collective_s": [x["collective_s"] for x in per],
+                "collectives": [x["collectives"] for x in per],
+                "peak_gib": [x["peak_gib"] for x in per],
+                "launches": dict(got)}
+    for k in ("rect_build", "volume_lookup", "rect_lookup",
+              "volume_lookup_multi", "zncc_warped"):
+        launches.setdefault(k, 0)
+        if launches[k] <= 0:
+            failed.append(f"{label}: {k} never launched under the view axis")
+    summary["launches_by_shape"] = check_shapes(label, launches, by_shape,
+                                                failed)
+    return dict(launches), summary, failed
+
+
+BA_SHARDED_PROCS = 2
+
+
+def check_ba_sharded(device: str = "cuda", size=BA_SIZE):
+    """Phase 28, bundle adjustment sharded over two processes sharing the
+    card (Gloo) at phase 18's problem, against one process."""
+    import torch
+    from hcmvs_tpu_torch.parallel import mh_check
+    backend = ("nccl" if device == "cuda"
+               and torch.cuda.device_count() >= 2 else "gloo")
+    outs = mh_check.launch(BA_SHARDED_PROCS, [
+        "--device", device, "--dist-backend", backend, "--ba-size",
+        *map(str, size), "--ba-iters", str(BA_ITERS)],
+        timeout=VIEW_AXIS_TIMEOUT_S, workdir=HERE)
+    lines = mh_check.parse_lines(outs)
+    p0 = next(x for x in lines if x["rank"] == 0)
+    m = p0["observations"]
+    log(f"[ba_sharded] {p0['cams']} cameras, {p0['points']} points, {m} "
+        f"observations over {p0['world']} processes ({backend}): rms "
+        f"{(p0['cost'] / m) ** 0.5!r} px (one process "
+        f"{(p0['one_process_cost'] / m) ** 0.5!r}), cost rel "
+        f"{p0['cost_rel']:.3e}, points within {p0['pt_diff']:.3e}; walls "
+        + " / ".join(f"{x['wall_s']:.3f}" for x in lines)
+        + f" s (one process {p0['one_process_wall_s']:.3f} s); collectives "
+        + " / ".join(f"{x['collectives']} in {x['collective_s']:.4f} s"
+                     for x in lines)
+        + "; peak " + " / ".join(f"{x['peak_gib'] or 0:.2f}" for x in lines)
+        + " GiB")
+    failed = [] if p0["within"] else [
+        f"ba_sharded: outside rel 1e-3 / atol 1e-4 of one process: {p0}"]
+    return {"backend": backend, **{k: [x[k] for x in lines] for k in (
+        "wall_s", "collective_s", "collectives", "peak_gib",
+        "local_observations")}, **{k: p0[k] for k in (
+            "cams", "points", "observations", "cost", "one_process_cost",
+            "cost_rel", "pt_diff", "one_process_wall_s")}}, failed
+
+
+def check_parallel_evals(device: str = "cuda", refine_hw=(480, 640),
+                         roofline_args=("--rounds", "2"),
+                         scaling_hw=(H, W)):
+    """Phase 28's harness lines: ``eval.refine_bench`` at 640x480 and 8
+    views, ``eval.roofline`` of one bench round at 1280x960 and
+    ``eval.scaling.run_multiprocess`` on the view axis's scene (8 views
+    at 1280x960, 3 neighbours, the tables' route) with its value check."""
+    import io
+    from hcmvs_tpu_torch.eval import refine_bench, roofline, scaling
+    failed = []
+    t0 = time.perf_counter()
+    ref = refine_bench.run(*refine_hw, 8, iters=3, device=device)
+    log(f"[refine_bench] {json.dumps(ref)} ({time.perf_counter() - t0:.1f} "
+        f"s)")
+    t0 = time.perf_counter()
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        roof = roofline.main([*roofline_args]
+                             + ([] if device == "cuda" else ["--cpu"]))
+    log(f"[roofline] {buf.getvalue().strip()} ({time.perf_counter() - t0:.1f}"
+        f" s)")
+    t0 = time.perf_counter()
+    sc = scaling.run_multiprocess(reps=1, timeout=VIEW_AXIS_TIMEOUT_S,
+                                  device=device, h=scaling_hw[0],
+                                  w=scaling_hw[1], backend="volume",
+                                  fx=VIEW_AXIS_FX * scaling_hw[1] / W)
+    log(f"[scaling] {json.dumps(sc)} ({time.perf_counter() - t0:.1f} s)")
+    if sc["value_check"] != "OK":
+        failed.append(f"scaling.run_multiprocess value check {sc}")
+    return {"refine_bench": ref, "roofline": roof, "scaling": sc}, failed
+
+
+def check_phase_28(device: str = "cuda", dense_args=VIEW_AXIS_ARGS,
+                   ba_size=BA_SIZE, refine_hw=(480, 640),
+                   roofline_args=("--rounds", "2"), scaling_hw=(H, W)):
+    """Phase 28 in order, nothing else running in this process: the
+    dense schedule under the view axis, sharded BA, the harness lines."""
+    t0 = time.perf_counter()
+    launches, summary, failed = check_view_axis(device, dense_args)
+    log(f"[view_axis] dense runs {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    ba_summary, ba_failed = check_ba_sharded(device, ba_size)
+    log(f"[ba_sharded] {time.perf_counter() - t0:.1f} s")
+    evals, evals_failed = check_parallel_evals(device, refine_hw,
+                                               roofline_args, scaling_hw)
+    return launches, dict(summary, ba_sharded=ba_summary, **evals), \
+        failed + ba_failed + evals_failed
+
+
+# phases 14-15, 19, 21, 24-26 and 27's pipeline run last, side by side,
+# each in a process of its own: they are host-bound (the card idles most
+# of the time), and one after the other they would take ~460 s of the
+# script's 1,200 s.  (The hierarchy, 11 GiB of the card, would not fit
+# beside them.)  Each
 # worker resets, drives and reads its own launch counts and sends them
 # back as JSON.  (Their walls are taken side by side; the operating point,
 # whose attached tables take 67 GiB of the card, ends before they start.)
-WORKERS = ("full_run", "golden_full_stack", "routes", "chain", "sgm",
-           "golden_hierarchy", "golden_run", "photos_jpeg")
+WORKERS = ("mesh", "full_run", "golden_full_stack", "routes", "chain",
+           "sgm", "golden_hierarchy", "golden_run", "photos_jpeg")
 WORKER_TIMEOUT_S = 600
 
 
-def _worker(kind: str, out_path: str) -> int:
-    """One phase of WORKERS (``chip_smoke.py --worker KIND OUT``): writes
-    its (launches, summary, failed checks) as JSON to OUT."""
+def _worker(kind: str, out_path: str, dense_root: str = "") -> int:
+    """One phase of WORKERS (``chip_smoke.py --worker KIND OUT
+    DENSE_ROOT``): writes its (launches, summary, failed checks) as JSON
+    to OUT; the mesh phase reads phase 12's output under DENSE_ROOT."""
     import torch
     from hcmvs_tpu_torch import kernels
     dev = torch.device("cuda", 0)
@@ -3369,6 +3541,8 @@ def _worker(kind: str, out_path: str) -> int:
             result = check_routes()
         elif kind == "full_run":
             result = check_full_run(root)
+        elif kind == "mesh":
+            result = check_mesh(Path(dense_root), dev)
         elif kind == "photos_jpeg":
             result = check_photos_jpeg(root)
         else:
@@ -3380,11 +3554,12 @@ def _worker(kind: str, out_path: str) -> int:
     return 0
 
 
-def run_workers(kinds=WORKERS) -> dict:
+def run_workers(kinds=WORKERS, dense_root: str = "") -> dict:
     """Runs each phase of ``kinds`` in a process of its own, all at once
     (the card's host cores shared out among them), prints each one's log
     when it ends and returns {kind: (launches, summary, failed)}; raises if
-    a worker fails.  Every worker is ended before this returns."""
+    a worker fails.  Every worker is ended before this returns.
+    ``dense_root``: phase 12's output, for the mesh phase."""
     import os
     tmp = Path(tempfile.mkdtemp(prefix="_workers_smoke_",
                                 dir=Path(__file__).resolve().parent))
@@ -3396,7 +3571,8 @@ def run_workers(kinds=WORKERS) -> dict:
             log_f = (tmp / f"{kind}.log").open("w")
             procs[kind] = (subprocess.Popen(
                 [sys.executable, str(Path(__file__).resolve()), "--worker",
-                 kind, str(tmp / f"{kind}.json")], stdout=log_f,
+                 kind, str(tmp / f"{kind}.json"), str(dense_root)],
+                stdout=log_f,
                 stderr=subprocess.STDOUT, env=env), log_f)
         results = {}
         for kind, (proc, log_f) in procs.items():
@@ -3434,8 +3610,8 @@ def merge_paths(parts) -> tuple:
 
 
 def main() -> int:
-    if len(sys.argv) == 4 and sys.argv[1] == "--worker":
-        return _worker(sys.argv[2], sys.argv[3])
+    if len(sys.argv) == 5 and sys.argv[1] == "--worker":
+        return _worker(*sys.argv[2:])
     t_start = time.perf_counter()
 
     def phase_done(phases: str) -> None:
@@ -3518,18 +3694,15 @@ def main() -> int:
 
     phase_done("10-11")
     # 12-13. the masked densify path, each through the kernels and the
-    # plain versions; 14-15. the mesh path on its dense output
-    root = Path(tempfile.mkdtemp(prefix="_masks_smoke_",
-                                 dir=Path(__file__).resolve().parent))
-    try:
-        paths["densify_masks"] = check_masks(root)
-        torch.cuda.empty_cache()
-        paths["mesh"] = check_mesh(root, dev)
-    finally:
-        shutil.rmtree(root, ignore_errors=True)
+    # plain versions (its output stays for the mesh path, 14-15, in the
+    # side-by-side group)
+    masks_root = Path(tempfile.mkdtemp(prefix="_masks_smoke_",
+                                       dir=Path(__file__).resolve().parent))
+    atexit.register(shutil.rmtree, masks_root, True)
+    paths["densify_masks"] = check_masks(masks_root)
     torch.cuda.empty_cache()
 
-    phase_done("12-15")
+    phase_done("12-13")
     # 16. photos -> SfM -> dense; 17. SfM again on its photos (library
     # calls); 18. bundle adjustment at scale
     root = Path(tempfile.mkdtemp(prefix="_photos_smoke_",
@@ -3565,12 +3738,20 @@ def main() -> int:
     # resize times (before the side-by-side group, so they run alone)
     jpeg_summary, jpeg_failed = check_jpeg_decoder()
     phase_done("27 (decoder)")
-    # 19. the whole chain, small; 21. the dense routes at 1280x960; 24.
-    # SGM through densify; 25. the golden quality gate, three modes; 26.
-    # the full product run at 1280x960; 27. the pipeline from the JPEG
-    # photos: side by side
-    done = run_workers()
-    for kind in ("chain", "routes", "sgm", "full_run"):
+    # 28. the view axis: the dense schedule over processes on the card,
+    # sharded bundle adjustment, the refine benchmark, the roofline and
+    # the scaling check (alone: its walls and collective times)
+    torch.cuda.empty_cache()
+    paths["view_axis"] = check_phase_28()
+    torch.cuda.empty_cache()
+    phase_done("28")
+    # 14-15. the mesh path on phase 12's dense output; 19. the whole
+    # chain, small; 21. the dense routes at 1280x960; 24. SGM through
+    # densify; 25. the golden quality gate, three modes; 26. the full
+    # product run at 1280x960; 27. the pipeline from the JPEG photos: side
+    # by side
+    done = run_workers(dense_root=masks_root)
+    for kind in ("mesh", "chain", "routes", "sgm", "full_run"):
         paths[kind] = done[kind]
     launches, summary, failed = done["photos_jpeg"]
     paths["photos_jpeg"] = (launches, dict(summary, decoder=jpeg_summary),
@@ -3578,7 +3759,7 @@ def main() -> int:
     paths["golden"] = merge_paths({k[len("golden_"):]: v
                                    for k, v in done.items()
                                    if k.startswith("golden_")})
-    phase_done("19, 21, 24-27")
+    phase_done("14-15, 19, 21, 24-27")
     failed = [f for _, _, fs in paths.values() for f in fs]
     if failed:
         for f in failed:

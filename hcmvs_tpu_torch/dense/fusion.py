@@ -76,22 +76,25 @@ def _backproject(cam: Camera, depth: torch.Tensor):
 def cross_view_filter(depths: torch.Tensor, normals: torch.Tensor,
                       confs: torch.Tensor, cams: Camera,
                       nbr_idx: torch.Tensor, nbr_valid: torch.Tensor,
-                      cfg: DenseConfig):
+                      cfg: DenseConfig, views: Optional[range] = None):
     """Consistency filter and fused depth across views.
 
     Args: depths (N, H, W); normals (N, 3, H, W); confs (N, H, W); cams
-    batched Camera (N); nbr_idx / nbr_valid (N, V).
+    batched Camera (N); nbr_idx / nbr_valid (N, V); ``views``: the views
+    to filter (all by default; a process's block under the view axis),
+    each against all views' maps.
 
-    Returns (filtered_depth, fused_depth, support): depths with too little
-    cross-view support zeroed; the support-weighted mean depth (the
-    reference's depthMap_fuse); the supporting-view count (int32).
+    Returns (filtered_depth, fused_depth, support), one row a filtered
+    view: depths with too little cross-view support zeroed; the
+    support-weighted mean depth (the reference's depthMap_fuse); the
+    supporting-view count (int32).
     """
     del normals
     n, h, w = depths.shape
     nbr = nbr_idx.tolist()
     thr = cfg.depth_diff_threshold * cfg.depth_weight
     filt, fused, support = [], [], []
-    for i in range(n):
+    for i in (range(n) if views is None else views):
         depth_i = depths[i]
         X_w = _backproject(cams[i], depth_i)
         w0 = conf_to_weight(confs[i], depth_i)
@@ -300,7 +303,8 @@ def fuse_point_cloud(depths: torch.Tensor, normals: torch.Tensor,
                      nbr_idx: torch.Tensor, nbr_valid: torch.Tensor,
                      priority, cfg: DenseConfig,
                      colors: Optional[torch.Tensor] = None,
-                     with_colors: bool = False) -> dict:
+                     with_colors: bool = False,
+                     views: Optional[range] = None) -> dict:
     """Fuse per-view depth maps into a world point cloud.
 
     Args:
@@ -308,10 +312,12 @@ def fuse_point_cloud(depths: torch.Tensor, normals: torch.Tensor,
         (N, H, W); colors (N, H, W, 3) when ``with_colors``.
       priority: (N,) smaller = higher priority (the reference processes
         the best-connected images first, SceneDensify.cpp:3290-3302).
+      views: the views whose pixels to fuse (all by default; a process's
+        block under the view axis), each against all views' maps.
 
-    Returns a dict of per-pixel tensors and the ``keep`` mask; compact it
-    with ``compact_point_cloud``.  Points are (N, 3, H, W) planes.
-    Neighbours are sampled bilinearly at the rounded projection (round
+    Returns a dict of per-pixel tensors, one row a fused view, and the
+    ``keep`` mask; compact it with ``compact_point_cloud``.  Points are
+    (N, 3, H, W) planes.  Neighbours are sampled bilinearly at the rounded projection (round
     half to even, as ``jnp.round``)."""
     n, h, w = depths.shape
     dev = depths.device
@@ -322,7 +328,7 @@ def fuse_point_cloud(depths: torch.Tensor, normals: torch.Tensor,
     prio = (priority.tolist() if torch.is_tensor(priority)
             else [float(p) for p in priority])
     outs = []
-    for i in range(n):
+    for i in (range(n) if views is None else views):
         cam_i = cams[i]
         depth_i = depths[i]
         X_w = _backproject(cam_i, depth_i)

@@ -25,7 +25,12 @@ SceneDensify.cpp:983-1031).  The retired ``batch_candidates`` raises
 NotImplementedError instead of being skipped.  ``scene_sweeps`` can sweep
 a chunk of the views (``view_start``, ``view_chunk``) against the
 full-scene snapshot it is given; ``sweep_in_chunks`` chains such chunks
-over a scene, every view exactly once.  Every stage of ``estimate_scene``
+over a scene, every view exactly once.  The random init and refinement
+draw from one generator in view order, or from a list with one generator
+a view (``view_generators``): then a view's draws do not depend on which
+other views the same process sweeps, which is what lets the view axis
+(``hcmvs_tpu_torch.parallel.sharding``) split the views over processes
+and still give one process's maps.  Every stage of ``estimate_scene``
 is timed into ``utils.profiling``'s report, the device synchronised at its
 end; streamed table builds are timed inside their sweep stage and apart,
 as ``estimate.tables.streamed``.
@@ -34,7 +39,7 @@ as ``estimate.tables.streamed``.
 from __future__ import annotations
 
 import dataclasses
-from typing import Optional, Tuple
+from typing import Optional, Sequence, Tuple, Union
 
 import numpy as np
 import torch
@@ -84,6 +89,8 @@ class SceneTensors:
     inject_normal: Optional[torch.Tensor] = None   # (N, 3, H, W) hypothesis
     vols: Optional[VolumeTables] = None  # leading (N, V) dims; built once
                                          # per stage by attach_volumes
+    vols_first: int = 0     # the view of vols' first row (a process's
+                            # block of views under the view axis)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -119,7 +126,7 @@ def _per_view_context(scene: SceneTensors, i: int,
     stats = S.ref_patch_stats(scene.gray[i], hw, S.patch_offsets(cfg))
     rays = pixel_rays(geom.K_inv_ref, h, w)
     if scene.vols is not None:
-        vol_i = VolumeTables(*(x[i] for x in scene.vols))
+        vol_i = VolumeTables(*(x[i - scene.vols_first] for x in scene.vols))
     elif cfg.volume_streaming and S.use_volume_tables(cfg):
         with stage_timer("estimate.tables.streamed",
                          block_on=scene.gray.device):
@@ -144,9 +151,34 @@ def _per_view_context(scene: SceneTensors, i: int,
         inject_normal=view(scene.inject_normal))
 
 
+Generators = Union[torch.Generator, Sequence[torch.Generator]]
+
+
+def view_generator(seed: int, view: int, device) -> torch.Generator:
+    """View ``view``'s generator of the random init and refinement,
+    seeded from (seed, view) alone (the JAX package keeps one key a view,
+    ``fold_in(key, view)``); the entropy has three words, so it never
+    meets ``prior_generator``'s."""
+    state = np.random.SeedSequence([seed, view, 1]).generate_state(
+        1, np.uint64)
+    return torch.Generator(device=device).manual_seed(
+        int(state[0]) & (2 ** 63 - 1))
+
+
+def view_generators(seed: int, n_views: int, device) -> list:
+    """``view_generator`` of every view of a scene, in view order."""
+    return [view_generator(seed, i, device) for i in range(n_views)]
+
+
+def _gen_of(gen: Generators, view: int) -> torch.Generator:
+    """The generator view ``view`` draws from: its own from a per-view
+    list, else the one shared generator."""
+    return gen if isinstance(gen, torch.Generator) else gen[view]
+
+
 def scene_sweeps(state: SceneState, scene: SceneTensors, cfg: DenseConfig,
                  phase: int, n_iters: int, use_nbr: bool,
-                 gen: torch.Generator, inject: bool = False,
+                 gen: Generators, inject: bool = False,
                  view_start: int = 0, view_chunk: int = 0) -> SceneState:
     """``n_iters`` sweeps on every view.  Neighbour depth/normal snapshots
     are taken once at entry.  Within a full-sampling call all but the last
@@ -154,7 +186,9 @@ def scene_sweeps(state: SceneState, scene: SceneTensors, cfg: DenseConfig,
     ``explore_until_last``).  With ``inject`` (set by the caller at the
     last external iteration when cross-scale maps are attached) the last
     inner sweep scores the upsampled previous-stage hypothesis with a 0.1
-    bonus (ref: restore/libs/MVS/DepthMap.cpp:1527-1549).
+    bonus (ref: restore/libs/MVS/DepthMap.cpp:1527-1549).  ``gen`` is
+    one generator, drawn from in view order, or a per-view list
+    (``view_generators``).
 
     ``view_chunk`` > 0 sweeps only views ``[view_start, min(view_start +
     view_chunk, N))`` against the full-scene snapshot ``state``, and
@@ -182,11 +216,11 @@ def scene_sweeps(state: SceneState, scene: SceneTensors, cfg: DenseConfig,
     else:
         views = range(n_views)
 
-    def one_iter(st, c_, ctx_, off_, inj=False):
-        st = half_sweep(st, ctx_, c_, phase, 0, off_, prop_offsets, gen,
+    def one_iter(st, c_, ctx_, off_, g, inj=False):
+        st = half_sweep(st, ctx_, c_, phase, 0, off_, prop_offsets, g,
                         inject=inj)
         if cfg.sweep_mode != "jacobi":
-            st = half_sweep(st, ctx_, c_, phase, 1, off_, prop_offsets, gen,
+            st = half_sweep(st, ctx_, c_, phase, 1, off_, prop_offsets, g,
                             inject=inj)
         return st
 
@@ -207,9 +241,10 @@ def scene_sweeps(state: SceneState, scene: SceneTensors, cfg: DenseConfig,
                 ctx.geom, pack_depth_normals(nbr_depth, nbr_normal)))
         ctx_x = (dataclasses.replace(ctx, stats=S.ref_patch_stats(
             scene.gray[i], ctx.hw, offsets_x)) if split else ctx)
+        g = _gen_of(gen, i)
         for _ in range(n_iters - 1):
-            st = one_iter(st, cfg_x, ctx_x, offsets_x)
-        st = one_iter(st, cfg, ctx, offsets, inject)
+            st = one_iter(st, cfg_x, ctx_x, offsets_x, g)
+        st = one_iter(st, cfg, ctx, offsets, g, inject)
         depth[i], normal[i], cost[i] = st.depth, st.normal, st.cost
         # a streamed view's tables go before the next view's are built
         del ctx, ctx_x
@@ -219,7 +254,7 @@ def scene_sweeps(state: SceneState, scene: SceneTensors, cfg: DenseConfig,
 
 def sweep_in_chunks(state: SceneState, scene: SceneTensors,
                     cfg: DenseConfig, phase: int, n_iters: int,
-                    use_nbr: bool, gen: torch.Generator, view_chunk: int,
+                    use_nbr: bool, gen: Generators, view_chunk: int,
                     inject: bool = False) -> SceneState:
     """``scene_sweeps`` over the scene in chunks of ``view_chunk`` views
     (the last one may be short), each against the same entry snapshot
@@ -240,14 +275,16 @@ def sweep_in_chunks(state: SceneState, scene: SceneTensors,
     return SceneState(depth=depth, normal=normal, cost=cost)
 
 
-def init_scene_state(gen: torch.Generator, scene: SceneTensors
+def init_scene_state(gen: Generators, scene: SceneTensors
                      ) -> SceneState:
-    """Random init of every view, optionally seeded by sparse depths."""
+    """Random init of every view, optionally seeded by sparse depths;
+    ``gen`` as in ``scene_sweeps``."""
     n, h, w = scene.gray.shape
     sts = []
     for i in range(n):
         rays = pixel_rays(scene.cams[i].K_inv, h, w)
-        st = init_state(gen, rays, scene.d_min[i], scene.d_max[i])
+        st = init_state(_gen_of(gen, i), rays, scene.d_min[i],
+                        scene.d_max[i])
         if scene.seed_depth is not None:
             seed = scene.seed_depth[i]
             st = dataclasses.replace(
@@ -258,12 +295,12 @@ def init_scene_state(gen: torch.Generator, scene: SceneTensors
                       cost=torch.stack([s.cost for s in sts]))
 
 
-def _build_scene_volumes(scene: SceneTensors,
-                         cfg: DenseConfig) -> VolumeTables:
-    """Every view's tables (the build ``cfg`` routes to), stacked to
-    (N, V, ...)."""
+def _build_scene_volumes(scene: SceneTensors, cfg: DenseConfig,
+                         views: Optional[range] = None) -> VolumeTables:
+    """The tables of every view (of ``views``, a block of them, if
+    given), by the build ``cfg`` routes to, stacked to (N, V, ...)."""
     outs = []
-    for i in range(scene.gray.shape[0]):
+    for i in (range(scene.gray.shape[0]) if views is None else views):
         nbr = scene.nbr_idx[i]
         geom = make_view_geometry(scene.cams[i], scene.cams[nbr])
         outs.append(build_tables(geom, scene.gray[nbr], scene.d_min[i],
@@ -292,14 +329,15 @@ def phase_cfg(cfg: DenseConfig, phase: int,
     return cfg
 
 
-def estimate_scene(gen: torch.Generator, scene: SceneTensors,
+def estimate_scene(gen: Generators, scene: SceneTensors,
                    cfg: DenseConfig, verbose: bool = False,
                    init: Optional[SceneState] = None,
                    replace_prior: bool = False) -> SceneState:
     """Full multi-view estimation with the HC-MVS external schedule.
 
     ``gen`` drives the random init and refinement (on the scene's
-    device); ``init`` replaces the random init.  The planar-prior pass
+    device): one generator, or one a view (``view_generators``); ``init``
+    replaces the random init.  The planar-prior pass
     (``want_prior_pass``) runs before external iteration max(n - 2, 1)
     when no prior is attached; with ``replace_prior`` (a hierarchy
     stage's schedule, as the JAX package's ``_run_stage``) it runs even
@@ -359,8 +397,10 @@ def prior_generator(view: int, device) -> torch.Generator:
 def _priors_batched(gray: torch.Tensor, depth: torch.Tensor,
                     semantic: Optional[torch.Tensor], n_semantic: int,
                     cfg: Optional[DenseConfig] = None,
-                    draws: Optional[list] = None) -> torch.Tensor:
-    """``generate_priors`` of every view: (N, H, W) prior depths.  The
+                    draws: Optional[list] = None,
+                    views: Optional[range] = None) -> torch.Tensor:
+    """``generate_priors`` of every view (of ``views`` if given): (N, H, W)
+    prior depths, one row a view.  The
     RANSAC draws of view i come from ``prior_generator(i)`` unless
     ``draws`` gives each view's (anchor, offsets).  The fransac* knobs of
     ``cfg`` set every prior-plane threshold (ref: DensifyPointCloud.cpp:
@@ -372,7 +412,7 @@ def _priors_batched(gray: torch.Tensor, depth: torch.Tensor,
                   probability=cfg.ransac_probability)
     n, h, w = gray.shape
     outs = []
-    for i in range(n):
+    for i in (range(n) if views is None else views):
         view_draws = None
         if semantic is not None:
             view_draws = (draws[i] if draws is not None else ransac_draws(
@@ -389,7 +429,8 @@ def _priors_batched(gray: torch.Tensor, depth: torch.Tensor,
 def compute_scene_priors(state: SceneState, scene: SceneTensors,
                          with_super: bool = True,
                          cfg: Optional[DenseConfig] = None,
-                         draws: Optional[list] = None) -> SceneTensors:
+                         draws: Optional[list] = None,
+                         views: Optional[range] = None) -> SceneTensors:
     """The scene with per-view planar-prior depth maps attached as
     ``prior_depth`` (with RANSAC planes per mask region where masks are
     attached: nUseSemantic).  An external channel (``ext_prior_depth``,
@@ -397,49 +438,62 @@ def compute_scene_priors(state: SceneState, scene: SceneTensors,
     merges it: external wins where nonzero, the superpixel/semantic prior
     fills the rest (ref: SceneDensify.cpp:1079-1161).
     ``with_super=False`` skips the superpixel pass and attaches the
-    external channel alone.  ``draws``: see ``_priors_batched``."""
+    external channel alone.  ``draws``: see ``_priors_batched``.
+    ``views``: compute the priors of these views only (a process's block
+    under the view axis) and attach them as a (len(views), H, W) block;
+    the caller gathers the blocks."""
+    ext = scene.ext_prior_depth
+    if ext is not None and views is not None:
+        ext = ext[views.start:views.stop]
     if with_super:
         n_sem = (int(scene.semantic.max()) + 1
                  if scene.semantic is not None else 0)
         priors = _priors_batched(scene.gray, state.depth, scene.semantic,
-                                 n_sem, cfg, draws)
-        if scene.ext_prior_depth is not None:
-            priors = merge_final_prior(scene.ext_prior_depth, priors)
+                                 n_sem, cfg, draws, views)
+        if ext is not None:
+            priors = merge_final_prior(ext, priors)
     else:
-        priors = scene.ext_prior_depth
+        priors = ext
     return dataclasses.replace(scene, prior_depth=priors)
 
 
 def optimize_maps(state: SceneState, scene: SceneTensors,
-                  cfg: DenseConfig) -> SceneState:
+                  cfg: DenseConfig,
+                  views: Optional[range] = None) -> SceneState:
     """Mid-schedule filter: cross-view consistency and the two
     GapInterpolation phases (ref: EVT_OPTIMIZEDEPTHMAP at it_ext in
     {1, 2}, SceneDensify.cpp:3929-3958): row/column interpolation of the
     fused maps (:2295-2785), gradient-guided re-propagation over the
     remaining holes (:2791-2983), then the copy-back of valid fused pixels
     (:2988-2998).  Unfilled pixels keep their hypothesis so PatchMatch can
-    re-score them."""
+    re-score them.  ``views``: filter only these views (a process's block
+    under the view axis), against all views' maps; the others come back
+    as they were."""
     conf = torch.clamp_min(1.0 - state.cost, 0.01)
+    views = range(state.depth.shape[0]) if views is None else views
     filt, fused, _ = cross_view_filter(
         state.depth, state.normal, conf, scene.cams, scene.nbr_idx,
-        scene.nbr_valid, cfg)
+        scene.nbr_valid, cfg, views)
     depth_fuse = torch.where(filt > 0, fused, 0.0)
     h, w = depth_fuse.shape[1:]
     outs = []
-    for i in range(depth_fuse.shape[0]):
+    for k, i in enumerate(views):
         gra = sobel_magnitude(scene.gray[i])
-        d, c, nrm = gap_interpolate(depth_fuse[i], conf[i], cfg, gra=gra,
+        d, c, nrm = gap_interpolate(depth_fuse[k], conf[i], cfg, gra=gra,
                                     normal=state.normal[i])
         rays = pixel_rays(scene.cams[i].K_inv, h, w)
         outs.append(gap_repropagate(d, nrm, state.depth[i], state.normal[i],
                                     c, gra, rays, cfg))
+    sl = slice(views.start, views.stop)
     depth2 = torch.stack([o[0] for o in outs])
     normal2 = torch.stack([o[1] for o in outs])
     # copy-back: valid fused pixels win; holes revert to the hypothesis
-    return SceneState(
-        depth=torch.where(depth2 > 0, depth2, state.depth),
-        normal=torch.where((depth2 > 0)[:, None], normal2, state.normal),
-        cost=state.cost)
+    depth = state.depth.clone()
+    normal = state.normal.clone()
+    depth[sl] = torch.where(depth2 > 0, depth2, state.depth[sl])
+    normal[sl] = torch.where((depth2 > 0)[:, None], normal2,
+                             state.normal[sl])
+    return SceneState(depth=depth, normal=normal, cost=state.cost)
 
 
 def finalize(state: SceneState, cfg: DenseConfig

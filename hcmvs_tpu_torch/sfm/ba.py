@@ -24,11 +24,17 @@ the LM loop, whose accept/reject and the incremental SfM around it
 amplify the last bits of a sum, give equal states.  On the CPU the sums
 are ``index_add_`` in row order, as XLA's scatter.  Observations are
 sorted by point (``build_problem``), as in the JAX package.
+
+Sharded (``parallel.sharding.shard_ba``): a process holds a block of the
+points and their observations; ``cam_reduce`` sums each camera-side
+partial (U, bc, the right-hand side, the Schur product's back term, the
+preconditioner's blocks, the cost) over the processes, and every process
+then solves the same camera system.
 """
 
 from __future__ import annotations
 
-from typing import NamedTuple, Tuple
+from typing import Callable, NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
@@ -183,14 +189,26 @@ def _huber_weight(r2: torch.Tensor, delta: float) -> torch.Tensor:
     return torch.where(r <= delta, 1.0, delta / r)
 
 
+Reduce = Optional[Callable[[torch.Tensor], torch.Tensor]]
+
+
+def _identity(x: torch.Tensor) -> torch.Tensor:
+    return x
+
+
 def ba_cost(problem: BAProblem, state: BAState,
-            huber_delta: float = 4.0) -> torch.Tensor:
-    """Huber cost over the valid observations (a device scalar)."""
+            huber_delta: float = 4.0,
+            cam_reduce: Reduce = None) -> torch.Tensor:
+    """Huber cost over the valid observations (a device scalar), summed
+    over the processes by ``cam_reduce`` when the problem is sharded."""
     r = _residuals(*_obs_inputs(problem, state))
     r2 = torch.sum(r ** 2, dim=-1)
     rho = torch.where(torch.sqrt(r2) <= huber_delta, r2,
                       2 * huber_delta * torch.sqrt(r2) - huber_delta ** 2)
-    return torch.sum(rho * problem.obs_valid)
+    cost = torch.sum(rho * problem.obs_valid)
+    if cam_reduce is None:
+        return cost
+    return cam_reduce(cost.reshape(1))[0]
 
 
 def conjugate_gradient(A, b: torch.Tensor, M, tol: float,
@@ -222,13 +240,16 @@ def conjugate_gradient(A, b: torch.Tensor, M, tol: float,
 
 def ba_step(problem: BAProblem, state: BAState, lam: float,
             huber_delta: float = 4.0, solver: str = "auto",
-            cg_iters: int = 0) -> BAState:
+            cg_iters: int = 0, cam_reduce: Reduce = None) -> BAState:
     """One damped Gauss-Newton step via Schur elimination of the points.
 
     ``solver``: "cg" = block-Jacobi-preconditioned CG on the matrix-free
     reduced operator; "dense" = materialize S through the operator and
-    solve exactly; "auto" = dense when C <= 24 else cg.
+    solve exactly; "auto" = dense when C <= 24 else cg.  ``cam_reduce``:
+    the sum over processes of a camera-side partial (a sharded problem,
+    ``parallel.sharding.shard_ba``); none for a whole problem.
     """
+    red = _identity if cam_reduce is None else cam_reduce
     C = state.rvecs.shape[0]
     P = state.points.shape[0]
     if solver == "auto":
@@ -250,10 +271,10 @@ def ba_step(problem: BAProblem, state: BAState, lam: float,
 
     wJc = Jc * w[:, None, None]
     wJp = Jp * w[:, None, None]
-    U = cam_sum.sum(torch.einsum("mri,mrj->mij", wJc, Jc))      # (C, 6, 6)
+    U = red(cam_sum.sum(torch.einsum("mri,mrj->mij", wJc, Jc)))  # (C,6,6)
     V = pt_sum.sum(torch.einsum("mri,mrj->mij", wJp, Jp))       # (P, 3, 3)
     Wm = torch.einsum("mri,mrj->mij", wJc, Jp)                  # (M, 6, 3)
-    bc = -cam_sum.sum(torch.einsum("mri,mr->mi", wJc, r))       # (C, 6)
+    bc = -red(cam_sum.sum(torch.einsum("mri,mr->mi", wJc, r)))  # (C, 6)
     bp = -pt_sum.sum(torch.einsum("mri,mr->mi", wJp, r))        # (P, 3)
 
     # damp + invert point blocks (LM: scale-aware diagonal damping)
@@ -276,14 +297,15 @@ def ba_step(problem: BAProblem, state: BAState, lam: float,
         y = torch.einsum("mij,...mi->...mj", Wm, x_free[..., obs_cam, :])
         s = pt_sum.sum(y, dim=-2)                                # (..., P, 3)
         z = torch.einsum("pij,...pj->...pi", V_inv, s)
-        back = cam_sum.sum(
-            torch.einsum("mij,...mj->...mi", Wm, z[..., obs_pt, :]), dim=-2)
+        back = red(cam_sum.sum(
+            torch.einsum("mij,...mj->...mi", Wm, z[..., obs_pt, :]), dim=-2))
         out = ux - back
         return torch.where(fixed[:, None], x, out)
 
     # rhs_c' = bc - sum_m W_m (V^-1 bp)[pt_m]
     vb = torch.einsum("pij,pj->pi", V_inv, bp)
-    rhs_c = bc - cam_sum.sum(torch.einsum("mij,mj->mi", Wm, vb[obs_pt]))
+    rhs_c = bc - red(cam_sum.sum(torch.einsum("mij,mj->mi", Wm,
+                                               vb[obs_pt])))
     rhs_c = torch.where(fixed[:, None], 0.0, rhs_c)
 
     if solver == "dense":
@@ -298,7 +320,7 @@ def ba_step(problem: BAProblem, state: BAState, lam: float,
         # block-Jacobi preconditioner: diagonal blocks of S are
         # U' - sum_{m in c} W_m V^-1 W_m^T (each point seen once per cam)
         WVW = torch.einsum("mij,mjk,mlk->mil", Wm, V_inv[obs_pt], Wm)
-        D = U_damp - cam_sum.sum(WVW)                            # (C, 6, 6)
+        D = U_damp - red(cam_sum.sum(WVW))                       # (C, 6, 6)
         eye6 = torch.eye(6, dtype=torch.float32, device=dev)
         D = torch.where(fixed[:, None, None], eye6[None], D)
         D_inv = inv(D + 1e-8 * eye6[None])
@@ -324,13 +346,16 @@ def ba_step(problem: BAProblem, state: BAState, lam: float,
 
 def run_ba(problem: BAProblem, state: BAState, n_iters: int = 20,
            init_lambda: float = 1e-3, verbose: bool = False,
-           cg_iters: int = 0) -> Tuple[BAState, float]:
-    """LM driver (host loop; each trial step reads its cost back)."""
+           cg_iters: int = 0,
+           cam_reduce: Reduce = None) -> Tuple[BAState, float]:
+    """The LM loop (on the host; each trial step reads its cost back);
+    ``cam_reduce`` as in ``ba_step``."""
     lam = init_lambda
-    cost = float(ba_cost(problem, state))
+    cost = float(ba_cost(problem, state, cam_reduce=cam_reduce))
     for it in range(n_iters):
-        trial = ba_step(problem, state, np.float32(lam), cg_iters=cg_iters)
-        new_cost = float(ba_cost(problem, trial))
+        trial = ba_step(problem, state, np.float32(lam), cg_iters=cg_iters,
+                        cam_reduce=cam_reduce)
+        new_cost = float(ba_cost(problem, trial, cam_reduce=cam_reduce))
         if new_cost < cost:
             state = trial
             cost = new_cost

@@ -1,5 +1,4 @@
-"""Stage timers and the end-of-run report (port of ``stage_timer``,
-``report``, ``reset_report`` and ``log_report`` of
+"""Stage timers, the end-of-run report and device traces (port of
 ``hcmvs_tpu/utils/profiling.py``; ref: the reference's TD_TIMER scoped
 timers, e.g. frame_main/libs/MVS/SceneDensify.cpp:760,3008,3267, and
 Util::LogMemoryInfo at shutdown, DensifyPointCloud.cpp:362).
@@ -10,12 +9,16 @@ Its ``block_on`` takes a device (or a tensor, whose device is used): on a
 CUDA device the timer synchronises it before reading the clock, so the
 span covers the work queued inside the block.
 The report's memory line is ``torch.cuda.max_memory_allocated``.
+``trace`` writes a ``torch.profiler`` Chrome trace of a block (the JAX
+package's ``jax.profiler`` trace; view it in Perfetto or
+chrome://tracing).
 """
 
 from __future__ import annotations
 
 import contextlib
 import logging
+import os
 import time
 from collections import defaultdict
 from typing import Dict, Optional
@@ -107,3 +110,20 @@ def log_report() -> str:
     msg = "\n".join(lines)
     get_logger().info(msg)
     return msg
+
+
+@contextlib.contextmanager
+def trace(log_dir: str = "hcmvs_trace"):
+    """``torch.profiler`` around a block (the host's operations, and the
+    card's kernels and copies when CUDA is up), written as a Chrome trace
+    ``<log_dir>/trace_<pid>.json`` when the block ends; yields
+    ``log_dir``."""
+    from torch.profiler import ProfilerActivity, profile
+    os.makedirs(log_dir, exist_ok=True)
+    activities = [ProfilerActivity.CPU]
+    if torch.cuda.is_available():
+        activities.append(ProfilerActivity.CUDA)
+    with profile(activities=activities) as prof:
+        yield log_dir
+    prof.export_chrome_trace(os.path.join(log_dir,
+                                          f"trace_{os.getpid()}.json"))

@@ -25,20 +25,30 @@ _SLANT = (0.3, 0.15)        # plane z = Z0 + a*x + b*y
 _Z0 = 4.0
 
 
-def _texture_params(rng: np.random.Generator):
-    return (rng.uniform(1.5, 11.0, (_N_WAVES, 2)),
-            rng.uniform(0, 2 * np.pi, _N_WAVES),
-            rng.uniform(0.3, 1.0, _N_WAVES) / _N_WAVES)
+def _texture_params(rng: np.random.Generator, n_waves: int = _N_WAVES):
+    return (rng.uniform(1.5, 11.0, (n_waves, 2)),
+            rng.uniform(0, 2 * np.pi, n_waves),
+            rng.uniform(0.3, 1.0, n_waves) / n_waves)
 
 
-def _texture(xy: np.ndarray, params) -> np.ndarray:
+def _texture(xy: np.ndarray, params, device=None) -> np.ndarray:
     """Random sum of sinusoids, fixed per scene, so every view samples
-    the same Lambertian world texture."""
+    the same Lambertian world texture.  numpy (bit-identical to the JAX
+    package's) unless ``device`` is given, where the same float64 sums run
+    in torch on that device (the sines' last bits are the device's)."""
     freqs, phases, amps = params
-    val = np.zeros(xy.shape[:-1])
+    if device is None:
+        x, y, sin = xy[..., 0], xy[..., 1], np.sin
+    else:
+        x, y = (torch.as_tensor(xy[..., i], dtype=torch.float64,
+                                device=device) for i in (0, 1))
+        sin = torch.sin
+    val = x * 0
     for k in range(len(amps)):
-        val += amps[k] * np.sin(xy[..., 0] * freqs[k, 0]
-                                + xy[..., 1] * freqs[k, 1] + phases[k])
+        val = val + amps[k] * sin(x * freqs[k, 0] + y * freqs[k, 1]
+                                  + phases[k])
+    if device is not None:
+        val = val.cpu().numpy()
     return (0.5 + 0.5 * val / np.abs(val).max()).astype(np.float32)
 
 
@@ -65,11 +75,13 @@ def _rotation(rx: float, ry: float, rz: float) -> np.ndarray:
 
 
 def make_plane_scene(rng: np.random.Generator, h: int = 64, w: int = 80,
-                     n_views: int = 3, fx: float = 100.0) -> PlaneScene:
+                     n_views: int = 3, fx: float = 100.0,
+                     texture_device=None) -> PlaneScene:
     """Textured slanted plane z = z0 + a*x + b*y seen from ``n_views``
     cameras: camera 0 is the reference at the origin, the others are
     translated sideways with a small rotation.  ``rng`` is accepted for
-    signature parity; the texture comes from a fixed seed."""
+    signature parity; the texture comes from a fixed seed, its sines
+    computed on ``texture_device`` if given (``_texture``)."""
     del rng
     a, b = _SLANT
     z0 = _Z0
@@ -102,7 +114,7 @@ def make_plane_scene(rng: np.random.Generator, h: int = 64, w: int = 80,
         ray_w = (p @ Kinv.T) @ Rn           # R^T @ ray
         t = (c_w - n_w @ Cn) / (ray_w @ n_w)
         X = Cn + ray_w * t[..., None]
-        img = _texture(X[..., :2] * 2.0, tex_params)
+        img = _texture(X[..., :2] * 2.0, tex_params, texture_device)
         return img.astype(np.float32), t.astype(np.float32)
 
     images = []
@@ -218,15 +230,16 @@ def blob_texture_fn(rng: np.random.Generator, n_blobs: int = 1200,
     return fn
 
 
-def sinusoid_texture_fn(rng: np.random.Generator):
+def sinusoid_texture_fn(rng: np.random.Generator, device=None):
     """The plane scene's texture (a random sum of 24 sinusoids over world
     x, y at twice the plane scene's coordinates' scale, normalised per
     image) as a world-(x, y) -> intensity function: 24 ``sin`` per pixel,
-    cheap enough for multi-megapixel ridge scenes."""
+    cheap enough for multi-megapixel ridge scenes; on ``device`` if given
+    (``_texture``)."""
     params = _texture_params(rng)
 
     def fn(xy: np.ndarray) -> np.ndarray:
-        return _texture(xy * 2.0, params)
+        return _texture(xy * 2.0, params, device)
 
     return fn
 
@@ -353,6 +366,19 @@ def plane_depth_of_view(scene: PlaneScene, view: int) -> np.ndarray:
     s = (scene.c_w - scene.n_w @ C) / np.where(
         np.abs(denom) < 1e-12, 1e-12, denom)
     return s.astype(np.float32)                       # rc_z == 1 => depth
+
+
+def plane_normal_of_view(scene: PlaneScene, view: int) -> np.ndarray:
+    """(3,) ground-truth plane normal in the view's camera frame, facing
+    the camera: R @ n_w in float32, as a chain of fused multiply-adds
+    (each product and sum rounded once, as the JAX package's float32
+    product on the CPU), so both packages give the same bits."""
+    R = scene.cameras[view].R.numpy().astype(np.float64)
+    n_w = scene.n_w.astype(np.float32).astype(np.float64)
+    acc = np.zeros(3, np.float32)
+    for k in range(3):
+        acc = (R[:, k] * n_w[k] + acc.astype(np.float64)).astype(np.float32)
+    return -acc if acc[2] > 0 else acc
 
 
 def plane_sparse_points(scene: PlaneScene, n_sparse: int = 60,

@@ -387,6 +387,14 @@ _NO_JAX_SCRIPT = textwrap.dedent("""
     from hcmvs_tpu_torch.eval import golden
     g = golden.run(h=72, w=96, n_views=4, device="cpu")
     assert g["registered"] >= 2 and 0 <= g["depth_acc_2pct"] <= 1
+    # the multi-process layer and the rest of eval/ (imported by the walk
+    # above), and the dry run: the view axis over two Gloo processes
+    for name in ("parallel.distributed", "parallel.sharding",
+                 "parallel.mh_check", "entry", "eval.scaling",
+                 "eval.refine_bench", "eval.roofline", "eval.cpu_anchor"):
+        assert "hcmvs_tpu_torch." + name in sys.modules, name
+    from hcmvs_tpu_torch.entry import dryrun_multichip
+    assert dryrun_multichip(2, "cpu")["equal"]
     assert not any(m.split(".")[0] in BLOCKED
                    for m in sys.modules if sys.modules[m] is not None)
     print("OK", float((depth > 0).float().mean()))

@@ -72,6 +72,38 @@ def test_dispatch_takes_plain_versions_only_on_cpu():
                             torch.zeros(8, 128))
 
 
+def test_launch_shapes_counts_each_launch_by_output_shape(monkeypatch):
+    from hcmvs_tpu_torch.kernels.shapes import launch_shapes
+
+    def fake(name, n):
+        def launch(*args):
+            kernels.launches[name] += n       # as many as its chunks
+        return launch
+
+    monkeypatch.setattr(kernels, "zncc_warped", fake("zncc_warped", 2))
+    monkeypatch.setattr(kernels, "volume_lookup_multi",
+                        fake("volume_lookup_multi", 1))
+    launcher = kernels.zncc_warped
+    before = dict(kernels.launches)
+    tab = torch.zeros(6, 128)
+    with launch_shapes() as shapes:
+        kernels.zncc_warped(None, torch.zeros(4, 5), None, torch.zeros(3))
+        kernels.zncc_warped(None, torch.zeros(4, 5), None, torch.zeros(3))
+        idx = torch.zeros(6, 9, dtype=torch.int16)
+        kernels.volume_lookup_multi(tab, torch.zeros(6, 9), None)
+        kernels.volume_lookup_multi(tab, idx, None)
+        kernels.volume_lookup_multi(tab, idx, torch.zeros(6))
+    assert kernels.zncc_warped is launcher
+    assert shapes["zncc_warped"] == {"3x4x5": 4}
+    # D's key: (P, C, D), then its mode unless bounded
+    assert shapes["volume_lookup_multi"] == {
+        "6x9x128xf32": 1, "6x9x128xpacked": 1, "6x9x128": 1}
+    assert shapes["rect_build"] == {}
+    for name in ("zncc_warped", "volume_lookup_multi"):
+        assert (sum(shapes[name].values())
+                == kernels.launches[name] - before.get(name, 0))
+
+
 def test_failed_build_raises_with_compiler_output(tmp_path, monkeypatch):
     fake = tmp_path / "nvcc"
     fake.write_text("#!/bin/sh\necho 'error: no such target' >&2\nexit 2\n")
