@@ -154,16 +154,23 @@ Phases, each fatal on failure:
      1200 from EXIF, 8 of 8 registered, k1 in its window, ATE below
      0.025, the refined rms within 0.05 px of the JAX package's on these
      JPEGs, view 0 at its floor, kernels A, B and C launched.
- 28. the view axis (``hcmvs_tpu_torch.parallel``): ``parallel.mh_check``'s
-     dense schedule (a photometric and a geometric pass of one sweep, the
-     cross-view filter, fusion) on 8 views at 1280x960, 3 neighbours, in
-     three configs (tables of 128 planes: A, B, C; 256 planes, the
-     per-plane build: B, C; hybrid and candidate-batched: A, C, D, E), as
-     two processes sharing the card over Gloo and at NCCL world size 1
-     (and over NCCL across two cards when there are two): maps, keep and
-     points bit-equal to one process, every kernel of each config
-     launched by every process, walls, collective seconds and peak memory
-     per process; bundle adjustment sharded over two processes at phase
+ 28. the (view, tile) mesh (``hcmvs_tpu_torch.parallel``): first each
+     kernel against its plain version at the tile axis's band shapes
+     (view 0 cut to each band's window of the (2 x 2) mesh); then
+     ``parallel.mh_check``'s dense schedule (a photometric and a
+     geometric pass of one sweep, the cross-view filter, fusion) on 8
+     views at 1280x960, 3 neighbours, in three configs (tables of 128
+     planes: A, B, C; 256 planes, the per-plane build: B, C; hybrid and
+     candidate-batched: A, C, D, E), on the view axis as two processes
+     sharing the card over Gloo (and the first config at NCCL world size
+     1), and on the
+     (2 x 2) mesh (two row bands a view, a halo exchange after every
+     half-sweep) as four processes over Gloo (and over NCCL across two
+     cards, and the (2 x 2) mesh across four, when there are that many):
+     maps, keep and points bit-equal to one process, every kernel of each
+     config launched by every process, every band shape held in the
+     parity check, walls, collective and halo seconds and peak memory per
+     process; bundle adjustment sharded over two processes at phase
      18's problem within rel 1e-3 of one process; ``eval.refine_bench`` at
      640x480, 8 views; ``eval.roofline`` of one bench round at 1280x960;
      ``eval.scaling.run_multiprocess`` on the view axis's scene with its
@@ -339,6 +346,19 @@ def bound(name: str, n_bytes: float, n_elements: float):
 
 def nbytes(*ts) -> int:
     return sum(t.numel() * t.element_size() for t in ts)
+
+
+def rect_rows_bytes(img, rb, band_rows: int) -> int:
+    """Bytes of the rect image ``img`` (V, ..., H_r, W_r) that tiles with
+    the row bases ``rb`` (V, tiles..., in 8-row units) can read: each
+    view's rows from its least base to its largest base plus
+    ``band_rows``.  A row band's tiles reach only part of the frame."""
+    h_r = img.shape[-2]
+    rb = rb.reshape(rb.shape[0], -1)
+    lo = (rb.amin(1).long() * 8).clamp(0, h_r)
+    hi = (rb.amax(1).long() * 8 + band_rows).clamp(0, h_r)
+    return (int((hi - lo).sum()) * (img[0].numel() // h_r)
+            * img.element_size())
 
 
 def table_bytes(tab, i0, need=None) -> int:
@@ -706,7 +726,9 @@ def kernel_parity(sc, scene, cfg, dev):
             cuda_ms(lambda: kernels.rect_build(*args), 10),
             cuda_ms(lambda: vol._rect_build_plain(*args), 3, 1,
                     host_bound_ok=True),
-            nbytes(*args[:-1], tab), tab.numel(), shape=list(tab.shape),
+            nbytes(*args[1:-1], tab) + rect_rows_bytes(
+                s.rect_src, s.rb, 8 * vol._RG_ROW_HALVES),
+            tab.numel(), shape=list(tab.shape),
             field=label))
         if label == "slice":
             a_args = args
@@ -775,7 +797,9 @@ def kernel_parity(sc, scene, cfg, dev):
             cuda_ms(lambda: kernels.rect_lookup(*c_args), 20),
             cuda_ms(lambda: rg.rect_lookup_plain(ctx, sigma), 10,
                     host_bound_ok=True),
-            nbytes(*c_args, out), out[:, 0].numel(), shape=list(out.shape),
+            nbytes(*c_args[1:], out) + rect_rows_bytes(
+                ctx.maps, ctx.rb, rg.BAND_ROWS),
+            out[:, 0].numel(), shape=list(out.shape),
             field=label))
         del ctx, out, plain
     row("rect_lookup", "hcmvs_tpu/ops/rect_gather.py:322", shapes=shapes)
@@ -2513,14 +2537,16 @@ def check_routes():
 def op_scene(h, w, dev):
     """Phase 22's scene: ``make_plane_scene`` (bench._build's) with
     OP_VIEWS views at h x w, focal length scaled with width, each view's
-    first OP_NBR other views as neighbours."""
+    first OP_NBR other views as neighbours, its texture's sines on the
+    card."""
     import numpy as np
     import torch
     from hcmvs_tpu_torch.core.camera import Camera
     from hcmvs_tpu_torch.dense.scene_driver import SceneTensors
     from hcmvs_tpu_torch.utils.synth import make_plane_scene
     sc = make_plane_scene(np.random.default_rng(0), h=h, w=w,
-                          n_views=OP_VIEWS, fx=180.0 * w / 192.0)
+                          n_views=OP_VIEWS, fx=180.0 * w / 192.0,
+                          texture_device=dev)
     cams = Camera(*(torch.stack([getattr(c, f) for c in sc.cameras])
                     for f in "KRC")).to(dev)
     nbr = [[j for j in range(OP_VIEWS) if j != i][:OP_NBR]
@@ -2636,8 +2662,10 @@ def check_operating_point(dev):
         break
     torch.cuda.empty_cache()
 
-    # chunks of OP_CHUNK views from one entry state vs one call
-    sc, scene = op_scene(H, W, dev)
+    # chunks of OP_CHUNK views from one entry state vs one call (on the
+    # full-size scene, made again only if the runs above fell back)
+    if (h, w) != (H, W):
+        sc, scene = op_scene(H, W, dev)
     entry = init_scene_state(torch.Generator(device=dev).manual_seed(0),
                              scene)
     one = scene_sweeps(entry, scene, cfg, 1, cfg.estimation_iters, True,
@@ -3303,16 +3331,20 @@ def check_photos_jpeg(root):
         "launches_by_shape": shapes}, failed
 
 
-# phase 28: the view axis (hcmvs_tpu_torch.parallel) on the card.  The
-# dense schedule of parallel.mh_check (a photometric and a geometric pass
-# of one sweep, the filter, fusion) on an 8-view plane scene at 1280x960,
-# 3 neighbours, in three configs that between them run all five kernels:
-# tables of 128 planes (the rect build: A, B, C), the dry run's 256 planes
-# (the per-plane build, B at D = 256, C) and the hybrid, candidate-batched
-# route (A, C, D, E).  Each runs as two processes sharing the card over
-# Gloo, at NCCL world size 1 and, with two cards or more, as two processes
-# over NCCL; process 0 of each reruns it in one process and the maps, keep
-# and points must be bit-equal.  Then bundle adjustment sharded over two
+# phase 28: the (view, tile) mesh (hcmvs_tpu_torch.parallel) on the card.
+# The dense schedule of parallel.mh_check (a photometric and a geometric
+# pass of one sweep, the filter, fusion) on an 8-view plane scene at
+# 1280x960, 3 neighbours, in three configs that between them run all five
+# kernels: tables of 128 planes (the rect build: A, B, C), the dry run's
+# 256 planes (the per-plane build, B at D = 256, C) and the hybrid,
+# candidate-batched route (A, C, D, E; B in its geometric phase's
+# refinement).  Each runs on the view axis as two processes sharing the
+# card over Gloo (the first at NCCL world size 1 too) and, with two cards
+# or more, as two processes over NCCL; and on the (2 x 2) mesh as four
+# processes over Gloo
+# (over NCCL too with four cards), every kernel first held against its
+# plain version at the band shapes (band_parity); process 0 of each reruns
+# it in one process and the maps, keep and points must be bit-equal.  Then bundle adjustment sharded over two
 # processes at phase 18's problem, held within rel 1e-3 of one process
 # (tests/test_sharding.py:128-131), the refine benchmark, the roofline of
 # one bench round and scaling.run_multiprocess on the view axis's scene
@@ -3329,32 +3361,228 @@ VIEW_AXIS_CFGS = {
 }
 VIEW_AXIS_TIMEOUT_S = 240
 HERE = str(Path(__file__).resolve().parent)
+# the tile axis's mesh: 2 view blocks x 2 row bands, a process each
+TILE_MESH = (2, 2)
 
 
 def view_axis_runs(device: str = "cuda"):
-    """(label, processes, dist backend) of phase 28's runs on ``device``:
-    two processes over Gloo and NCCL at one process, and two over NCCL
-    when there is a card for each (on the CPU, for a rehearsal, Gloo at
-    one process instead of NCCL)."""
+    """(label, processes, dist backend, row bands, configs) of phase 28's
+    runs on ``device``: two processes over Gloo (the view axis) and four
+    over Gloo on the (2 x 2) mesh (the tile axis) in every config of
+    VIEW_AXIS_CFGS, NCCL at one process in the first config alone (the
+    NCCL path on one card; on the CPU, for a rehearsal, Gloo), and, with
+    a card for each, two over NCCL and four over NCCL on the (2 x 2)
+    mesh in every config."""
     import torch
     one = "nccl" if device == "cuda" else "gloo"
-    runs = [("gloo_x2", 2, "gloo"), (f"{one}_x1", 1, one)]
+    n_tile_procs = TILE_MESH[0] * TILE_MESH[1]
+    every = tuple(VIEW_AXIS_CFGS)
+    runs = [("gloo_x2", 2, "gloo", 1, every),
+            (f"{one}_x1", 1, one, 1, every[:1]),
+            ("gloo_2x2", n_tile_procs, "gloo", TILE_MESH[1], every)]
     n_cards = torch.cuda.device_count() if device == "cuda" else 0
     log(f"[view_axis] {n_cards} card(s): "
         + ("NCCL across two cards too" if n_cards >= 2 else
            "NCCL across cards needs two; two processes share the card "
-           "over Gloo"))
+           "over Gloo")
+        + ("; the (2 x 2) mesh over NCCL too" if n_cards >= n_tile_procs
+           else "; the (2 x 2) mesh's four processes share the card over "
+           "Gloo"))
     if n_cards >= 2:
-        runs.append(("nccl_x2", 2, "nccl"))
+        runs.append(("nccl_x2", 2, "nccl", 1, every))
+    if n_cards >= n_tile_procs:
+        runs.append(("nccl_2x2", n_tile_procs, "nccl", TILE_MESH[1],
+                     every))
     return runs
 
 
-def check_view_axis(device: str = "cuda", args=VIEW_AXIS_ARGS):
-    """Phase 28, the dense schedule under the view axis: each run of
-    ``view_axis_runs`` in its own processes (``mh_check.launch``), every
-    config of VIEW_AXIS_CFGS one after another in them; launches, in all
-    and by output shape, are counted by each process around its view-axis
-    run alone."""
+def band_parity(rows, dev, args=VIEW_AXIS_ARGS):
+    """Phase 28, first: each kernel the tile axis's configs run against its
+    plain version at every band shape the (2 x 2) mesh gives it: view 0
+    of the view axis's scene (random init) cut to each band's window (A
+    on the window's tiles, B on the window's tables and index fields, C
+    on the rect engine's fields cut to it, D and E on its candidates and
+    warped sources), each kernel where the config routes to it (the
+    hybrid route's geometric phase reads its tables through B too).
+    Appends a ``shapes`` entry to each kernel's row of ``rows`` (field
+    "tile band ...") and returns {kernel: the shape keys held}."""
+    import torch
+    from hcmvs_tpu_torch import kernels
+    from hcmvs_tpu_torch.dense import scene_driver as SD
+    from hcmvs_tpu_torch.dense import score as S
+    from hcmvs_tpu_torch.dense.patchmatch import (_propagate_from,
+                                                  propagation_offsets)
+    from hcmvs_tpu_torch.dense.types import (Rows, make_view_geometry,
+                                             pixel_rays)
+    from hcmvs_tpu_torch.entry import build_scene
+    from hcmvs_tpu_torch.ops import rect_gather as rg
+    from hcmvs_tpu_torch.ops import volume as vol
+    from hcmvs_tpu_torch.ops import zncc_warped as zw
+    from hcmvs_tpu_torch.ops.gradients import sobel_magnitude
+    from hcmvs_tpu_torch.parallel import mh_check
+    from hcmvs_tpu_torch.parallel import sharding as P
+
+    opt = dict(zip(args[::2], args[1::2]))
+    h, w = int(opt["--h"]), int(opt["--w"])
+    scene = build_scene(int(opt["--views"]), h, w, dev,
+                        n_nbr=int(opt["--nbrs"]), fx=float(opt["--fx"]))
+    nbr = scene.nbr_idx[0]
+    geom = make_view_geometry(scene.cams[0], scene.cams[nbr])
+    st = SD.init_scene_state(SD.view_generators(
+        mh_check.SEED, scene.gray.shape[0], dev), scene)
+    mesh = P.ViewMesh(n_view=TILE_MESH[0], n_tile=TILE_MESH[1], rank=0,
+                      world=TILE_MESH[0] * TILE_MESH[1], device=dev)
+    by_name = {r["name"]: r for r in rows}
+    held = collections.defaultdict(set)
+    rect_all = rg.build_rect_context(geom, rg.pack_depth_normals(
+        st.depth[nbr], st.normal[nbr]))
+    setup = vol.rect_build_setup(geom, scene.gray[nbr], scene.d_min[0],
+                                 scene.d_max[0])
+
+    def add(name, field, err, ms, plain_ms, n_bytes, n_elements, shape):
+        key = shape_key(shape)
+        if key in held[name]:
+            return
+        held[name].add(key)
+        b_ms, b_by = bound(name, n_bytes, n_elements)
+        by_name[name].setdefault("shapes", []).append(dict(
+            shape=list(shape), field=field, max_abs_err=err, ms=ms,
+            plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by))
+        log(f"[parity] {name} at {key} ({field}): max |kernel - plain| "
+            f"{err:.3g}, kernel {ms:.3f} ms, plain {plain_ms:.3f} ms, bound "
+            f"{b_ms:.3f} ms ({b_by}), {100 * b_ms / ms:.1f}% of the bound")
+        if err != 0:
+            raise AssertionError(f"kernel {name} at {key} differs from its "
+                                 f"plain version by {err}")
+
+    for label, (over, _) in VIEW_AXIS_CFGS.items():
+        cfg = mh_check.base_cfg(opt["--backend"], over)
+        offsets = S.patch_offsets(cfg)
+        tables = S.use_volume_tables(cfg)
+        blocked = vol.use_rect_volume_build(cfg, h, w)
+        kernels_of = {
+            "rect_build": tables and blocked and not cfg.volume_streaming,
+            "volume_lookup": tables,
+            "rect_lookup": S.use_rect_backend(cfg, h, w) and bool(
+                cfg.use_geo_consistency or cfg.view_spread),
+            "volume_lookup_multi": tables and S.use_candidate_batch(cfg),
+            "zncc_warped": cfg.score_mode in ("warped", "hybrid")}
+        kernels_of = [k for k, on in kernels_of.items() if on]
+        # the whole view's per-pixel fields, cut by band below
+        rays_all = pixel_rays(geom.K_inv_ref, h, w)
+        hw_all = S.halfwin_map(sobel_magnitude(scene.gray[0]), cfg)
+        stats_all = (S.ref_patch_stats(scene.gray[0], hw_all, offsets)
+                     if "zncc_warped" in kernels_of else None)
+        for band in P.scene_bands(mesh, h, cfg):
+            lo, hi = band.lo, band.hi
+            field = f"tile band rows {lo}-{hi}, {label}"
+            d_w, n_w = st.depth[0][lo:hi], st.normal[0][:, lo:hi]
+            rays = rays_all[:, lo:hi].clone()
+            if "rect_build" in kernels_of:
+                a_args = (setup.rect_src,) + vol.rect_build_args(
+                    setup, (lo, hi))
+                tab = kernels.rect_build(*a_args)
+                plain = vol._rect_build_plain(*a_args)
+                add("rect_build", field, float(
+                    (tab.to(torch.int32) - plain.to(torch.int32)).abs()
+                    .max()) / 65535.0,
+                    cuda_ms(lambda: kernels.rect_build(*a_args), 10),
+                    cuda_ms(lambda: vol._rect_build_plain(*a_args), 3, 1,
+                            host_bound_ok=True),
+                    nbytes(*a_args[1:-1], tab) + rect_rows_bytes(
+                        setup.rect_src, a_args[1], 8 * vol._RG_ROW_HALVES),
+                    tab.numel(), tab.shape)
+                del tab, plain
+            vt = (vol.build_tables(geom, scene.gray[nbr], scene.d_min[0],
+                                   scene.d_max[0], cfg, (lo, hi))
+                  if tables else None)
+            if "volume_lookup" in kernels_of:
+                f = S.volume_fields(geom, vt, d_w, n_w, rays, offsets,
+                                    blocked)[2]
+                tab0 = vt.tab[0]
+                out = kernels.volume_lookup(tab0, f)
+                err = float((out - vol.volume_lookup_plain(tab0, f)).abs()
+                            .max())
+                add("volume_lookup", field, err,
+                    cuda_ms(lambda: kernels.volume_lookup(tab0, f), 20),
+                    cuda_ms(lambda: vol.volume_lookup_plain(tab0, f), 10,
+                            host_bound_ok=True),
+                    nbytes(f, out) + table_bytes(tab0, torch.clamp(
+                        torch.floor(f), 0, tab0.shape[1] - 2).long()),
+                    out.numel(), tuple(f.shape) + (tab0.shape[1],))
+                del f, out
+            if "rect_lookup" in kernels_of:
+                rc = rg.rect_rows(rect_all, lo, hi)
+                sigma = (1.0 / d_w).contiguous()
+                c_args = (rc.maps, rc.row_int, rc.c0, rc.k, rc.rb, sigma)
+                out = kernels.rect_lookup(*c_args)
+                same = torch.equal(out.view(torch.int32),
+                                   rg.rect_lookup_plain(rc, sigma)
+                                   .view(torch.int32))
+                add("rect_lookup", field, 0.0 if same else float("inf"),
+                    cuda_ms(lambda: kernels.rect_lookup(*c_args), 20),
+                    cuda_ms(lambda: rg.rect_lookup_plain(rc, sigma), 10,
+                            host_bound_ok=True),
+                    nbytes(*c_args[1:], out) + rect_rows_bytes(
+                        rc.maps, rc.rb, rg.BAND_ROWS),
+                    out[:, 0].numel(), out.shape)
+                del out, rc
+            if "volume_lookup_multi" in kernels_of:
+                cand = [(d_w, n_w)] + [
+                    _propagate_from(d_w, n_w, rays, dy, dx)
+                    for dy, dx in propagation_offsets(cfg)]
+                f2, _ = S.packed_fields(geom, vt, torch.stack(
+                    [c[0] for c in cand]), torch.stack(
+                    [c[1] for c in cand]), rays, offsets, blocked)
+                tab0, b0 = vt.tab[0], S.volume_bounds(vt, blocked)[0]
+                out = kernels.volume_lookup_multi(tab0, f2, b0)
+                oi = vol.u16_as_int32(out)
+                err = float((oi - vol.u16_as_int32(
+                    vol.volume_lookup_multi_plain(tab0, f2, b0))).abs()
+                    .max())
+                fi, bi = vol.u16_as_int32(f2), vol.u16_as_int32(b0)
+                t_bytes = table_bytes(
+                    tab0, torch.clamp_max(fi >> 6, tab0.shape[1] - 2).long(),
+                    (fi >= bi[:, :1]) & (fi <= bi[:, 64:65]))
+                add("volume_lookup_multi", field, err,
+                    cuda_ms(lambda: kernels.volume_lookup_multi(tab0, f2,
+                                                                b0), 20),
+                    cuda_ms(lambda: vol.volume_lookup_multi_plain(
+                        tab0, f2, b0), 5, host_bound_ok=True),
+                    nbytes(f2, out) + 64 * tab0.shape[0] + t_bytes,
+                    out.numel(), tuple(out.shape) + (tab0.shape[1],))
+                del f2, out, oi, fi, bi, cand
+            if "zncc_warped" in kernels_of:
+                stats = SD._stats_rows(stats_all, lo, hi)
+                x = S.warped_inputs(geom, scene.gray[nbr], stats,
+                                    hw_all[lo:hi].clone(), d_w, n_w, rays,
+                                    offsets, Rows(lo, h))
+                e_args = x[:9]
+                out_s, out_v = kernels.zncc_warped(*e_args)
+                plain_s, plain_v = zw.zncc_warped_plain(*e_args)
+                err = max(float((out_s - plain_s).abs().max()),
+                          float((out_v - plain_v).abs().max()))
+                add("zncc_warped", field, err,
+                    cuda_ms(lambda: kernels.zncc_warped(*e_args), 20),
+                    cuda_ms(lambda: zw.zncc_warped_plain(*e_args), 10,
+                            host_bound_ok=True),
+                    nbytes(*(t for t in e_args if torch.is_tensor(t)),
+                           out_s, out_v),
+                    out_s.numel() * len(x.scan_offsets), out_s.shape)
+                del x, e_args, out_s, out_v, plain_s, plain_v, stats
+            del vt, rays
+        del rays_all, hw_all, stats_all
+    return {k: sorted(v) for k, v in held.items()}
+
+
+def check_view_axis(device: str = "cuda", args=VIEW_AXIS_ARGS,
+                    held=None):
+    """Phase 28, the dense schedule on the mesh: each run of
+    ``view_axis_runs`` in its own processes (``mh_check.launch``), its
+    configs one after another in them; launches, in all
+    and by output shape, are counted by each process around its mesh run
+    alone.  Every shape a tile-axis run launches a kernel at must be one
+    of ``held`` ({kernel: shape keys}, from ``band_parity``)."""
     from hcmvs_tpu_torch.parallel import mh_check
 
     label = "view_axis"
@@ -3362,18 +3590,21 @@ def check_view_axis(device: str = "cuda", args=VIEW_AXIS_ARGS):
     launches = collections.Counter()
     by_shape = {name: collections.Counter() for name in SHAPE_OF}
     summary = {}
-    cfg_args = []
-    for over, _ in VIEW_AXIS_CFGS.values():
-        cfg_args += ["--cfg", json.dumps(over)]
-    for run, n_proc, backend in view_axis_runs(device):
+    for run, n_proc, backend, n_tile, names in view_axis_runs(device):
+        cfg_args = []
+        for name in names:
+            cfg_args += ["--cfg", json.dumps(VIEW_AXIS_CFGS[name][0])]
         t0 = time.perf_counter()
         outs = mh_check.launch(n_proc, ["--device", device, "--dist-backend",
-                                        backend, *args, *cfg_args],
+                                        backend, "--n-tile", str(n_tile),
+                                        *args, *cfg_args],
                                timeout=VIEW_AXIS_TIMEOUT_S, workdir=HERE)
         wall = time.perf_counter() - t0
         lines = mh_check.parse_lines(outs)
-        summary[run] = {"wall_s": wall, "configs": {}}
-        for name, (over, kernels_of) in VIEW_AXIS_CFGS.items():
+        summary[run] = {"wall_s": wall, "mesh": lines[0]["mesh"],
+                        "configs": {}}
+        for name in names:
+            over, kernels_of = VIEW_AXIS_CFGS[name]
             per = [x for x in lines if x["cfg"] == over]
             p0 = next(x for x in per if x["rank"] == 0)
             got = collections.Counter()
@@ -3381,6 +3612,13 @@ def check_view_axis(device: str = "cuda", args=VIEW_AXIS_ARGS):
                 got.update(x["launches"])
                 for k, counts in x["launches_by_shape"].items():
                     by_shape[k].update(counts)
+                    for key, n in counts.items():
+                        if (n_tile > 1 and n and held is not None
+                                and key not in held.get(k, ())):
+                            failed.append(
+                                f"{label} {run} {name}: {k} launched at "
+                                f"{key}, a shape not held against its "
+                                f"plain version")
                 for k in kernels_of:
                     if x["launches"][k] <= 0:
                         failed.append(f"{label} {run} {name}: rank "
@@ -3396,12 +3634,21 @@ def check_view_axis(device: str = "cuda", args=VIEW_AXIS_ARGS):
                 f"{p0['kept']}); walls "
                 + " / ".join(f"{x['wall_s']:.3f}" for x in per)
                 + f" s (one process {p0['one_process_wall_s']:.3f} s); "
-                f"collectives " + " / ".join(
-                    f"{x['collectives']} in {x['collective_s']:.4f} s"
-                    for x in per)
+                + "; ".join(
+                    f"{k} " + " / ".join(
+                        f"{c['calls']} calls"
+                        + ("" if c["bytes"] is None else
+                           f", {c['bytes']} B")
+                        + f" in {c['s']:.4f} s" for c in
+                        (x["by_collective"][k] for x in per))
+                    for k in sorted(p0["by_collective"]))
                 + "; peak " + " / ".join(
                     f"{x['peak_gib'] or 0:.2f}" for x in per)
-                + f" GiB; launches {dict(got)}")
+                + f" GiB; launches {dict(got)}"
+                + ("" if n_tile == 1 else
+                   f"; mesh {p0['mesh']}, bands " + " / ".join(
+                       str(x["bands"]) for x in per)
+                   + f", halo {p0['halo_rows']} rows"))
             if not p0["equal"]:
                 failed.append(f"{label} {run} {name}: differs from one "
                               f"process: {p0}")
@@ -3412,6 +3659,7 @@ def check_view_axis(device: str = "cuda", args=VIEW_AXIS_ARGS):
                 "collective_s": [x["collective_s"] for x in per],
                 "collectives": [x["collectives"] for x in per],
                 "peak_gib": [x["peak_gib"] for x in per],
+                "by_collective": [x["by_collective"] for x in per],
                 "launches": dict(got)}
     for k in ("rect_build", "volume_lookup", "rect_lookup",
               "volume_lookup_multi", "zncc_warped"):
@@ -3492,13 +3740,20 @@ def check_parallel_evals(device: str = "cuda", refine_hw=(480, 640),
     return {"refine_bench": ref, "roofline": roof, "scaling": sc}, failed
 
 
-def check_phase_28(device: str = "cuda", dense_args=VIEW_AXIS_ARGS,
+def check_phase_28(rows, device: str = "cuda", dense_args=VIEW_AXIS_ARGS,
                    ba_size=BA_SIZE, refine_hw=(480, 640),
                    roofline_args=("--rounds", "2"), scaling_hw=(H, W)):
     """Phase 28 in order, nothing else running in this process: the
-    dense schedule under the view axis, sharded BA, the harness lines."""
+    kernels at the tile axis's band shapes (into ``rows``), the dense
+    schedule on the view axis and the (2 x 2) mesh, sharded BA, the
+    harness lines."""
+    import torch
     t0 = time.perf_counter()
-    launches, summary, failed = check_view_axis(device, dense_args)
+    held = band_parity(rows, torch.device(device), dense_args)
+    torch.cuda.empty_cache()
+    log(f"[view_axis] band parity {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    launches, summary, failed = check_view_axis(device, dense_args, held)
     log(f"[view_axis] dense runs {time.perf_counter() - t0:.1f} s")
     t0 = time.perf_counter()
     ba_summary, ba_failed = check_ba_sharded(device, ba_size)
@@ -3742,7 +3997,7 @@ def main() -> int:
     # sharded bundle adjustment, the refine benchmark, the roofline and
     # the scaling check (alone: its walls and collective times)
     torch.cuda.empty_cache()
-    paths["view_axis"] = check_phase_28()
+    paths["view_axis"] = check_phase_28(rows)
     torch.cuda.empty_cache()
     phase_done("28")
     # 14-15. the mesh path on phase 12's dense output; 19. the whole

@@ -81,3 +81,35 @@ def fundamental_matrix(ref: Camera, src: Camera) -> torch.Tensor:
     R_rel, t_rel = relative_motion(ref, src)
     E = torch.einsum("...ij,...jk->...ik", skew(t_rel), R_rel)
     return torch.einsum("...ji,...jk,...kl->...il", src.K_inv, E, ref.K_inv)
+
+
+def plane_homography(ref: Camera, src: Camera, n: torch.Tensor,
+                     d_plane: torch.Tensor) -> torch.Tensor:
+    """Plane-induced homography ref image -> src image, (..., 3, 3), of
+    the plane ``n . X = d_plane`` in ref-camera coordinates (``n`` unit,
+    facing the camera, so ``d_plane < 0`` for OpenMVS-convention
+    normals; ref: DepthMap.h:412-444, the Hl/Hm/Hr constants)."""
+    R_rel, t_rel = relative_motion(ref, src)
+    H_cam = R_rel + torch.einsum("...i,...j->...ij", t_rel,
+                                 n) / d_plane[..., None, None]
+    return torch.einsum("...ij,...jk,...kl->...il", src.K, H_cam, ref.K_inv)
+
+
+def apply_homography(H: torch.Tensor, uv: torch.Tensor) -> torch.Tensor:
+    """(..., 3, 3) homography applied to (..., 2) points -> (..., 2)."""
+    ones = torch.ones_like(uv[..., :1])
+    x = torch.einsum("...ij,...j->...i", H, torch.cat([uv, ones], dim=-1))
+    return x[..., :2] / x[..., 2:3]
+
+
+def point_to_epiline_dist(F: torch.Tensor, uv_ref: torch.Tensor,
+                          uv_src: torch.Tensor) -> torch.Tensor:
+    """Distance of ``uv_src`` (..., 2) to the epipolar line of ``uv_ref``
+    under ``F`` (``fundamental_matrix``)."""
+    ones = torch.ones_like(uv_ref[..., :1])
+    line = torch.einsum("...ij,...j->...i", F,
+                        torch.cat([uv_ref, ones], dim=-1))
+    num = (line[..., 0] * uv_src[..., 0] + line[..., 1] * uv_src[..., 1]
+           + line[..., 2]).abs()
+    den = torch.sqrt(line[..., 0] ** 2 + line[..., 1] ** 2) + 1e-12
+    return num / den

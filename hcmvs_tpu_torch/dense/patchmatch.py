@@ -36,9 +36,9 @@ import torch
 
 from hcmvs_tpu_torch.core.config import DenseConfig
 from hcmvs_tpu_torch.dense import score as S
-from hcmvs_tpu_torch.dense.types import (PatchMatchState, ViewGeometry,
-                                         face_camera_t, init_state,
-                                         normalize3, pixel_rays,
+from hcmvs_tpu_torch.dense.types import (PatchMatchState, Rows,
+                                         ViewGeometry, face_camera_t,
+                                         init_state, normalize3, pixel_rays,
                                          tangent_frame)
 from hcmvs_tpu_torch.ops.sampling import pad_edge
 
@@ -66,6 +66,9 @@ class ScoreContext:
     prior_depth: Optional[torch.Tensor] = None    # (H, W), 0 = no prior
     inject_depth: Optional[torch.Tensor] = None   # (H, W) cross-scale
     inject_normal: Optional[torch.Tensor] = None  # (3, H, W) hypothesis
+    rows: Optional[Rows] = None           # a row band's context: every
+                                          # per-pixel field (and vol's and
+                                          # rect's rows) holds these rows
 
 
 def propagation_offsets(cfg: DenseConfig) -> list:
@@ -98,7 +101,7 @@ def finish_cost(ctx: ScoreContext, ncc: torch.Tensor, bad: torch.Tensor,
     if phase >= 1 and cfg.use_geo_consistency and ctx.nbr_depth is not None:
         geo = S.geometric_scores(ctx.geom, depth, normal, ctx.rays,
                                  ctx.nbr_depth, ctx.nbr_normal, cfg,
-                                 rect=ctx.rect)
+                                 rect=ctx.rect, rows=ctx.rows)
         para_tapa, para_part = S.texture_weights(ctx.gra, cfg)
         gra_s = S.local_smoothness_score(cur_depth_map, cur_normal_map,
                                          ctx.rays, depth, normal, ctx.d_max,
@@ -110,7 +113,8 @@ def finish_cost(ctx: ScoreContext, ncc: torch.Tensor, bad: torch.Tensor,
         per_view = ncc
 
     if cfg.use_optical_flow and ctx.flow is not None:
-        fs = S.flow_score(ctx.geom, depth, ctx.rays, ctx.flow, view_idx=0)
+        fs = S.flow_score(ctx.geom, depth, ctx.rays, ctx.flow, view_idx=0,
+                          rows=ctx.rows)
         wt = cfg.photometric_flow
         per_view = torch.cat([((1.0 - wt) * per_view[0] + wt * fs)[None],
                               per_view[1:]])
@@ -128,7 +132,8 @@ def compute_cost(ctx: ScoreContext, depth: torch.Tensor,
     ``phase`` 0 = photometric, 1 = geometric."""
     ncc, bad = S.score_photometric(ctx.geom, ctx.src_grays, ctx.stats,
                                    ctx.hw, depth, normal, ctx.rays,
-                                   offsets, cfg, phase, vol=ctx.vol)
+                                   offsets, cfg, phase, vol=ctx.vol,
+                                   rows=ctx.rows)
     return finish_cost(ctx, ncc, bad, depth, normal, cur_depth_map,
                        cur_normal_map, delta_c2pmax, cfg, phase)
 
@@ -168,6 +173,18 @@ def _perturb_draws(gen: torch.Generator, h: int, w: int, scale: float,
         u=uniform(1.0),
         t1_ang=uniform(math.radians(cfg.random_angle1_range) * scale),
         t2_ang=uniform(math.radians(cfg.random_angle2_range) * scale))
+
+
+def _step_draws(gen: torch.Generator, h: int, w: int, scale: float,
+                cfg: DenseConfig, device,
+                rows: Optional[Rows] = None) -> PerturbDraws:
+    """``_perturb_draws`` of a field of ``h`` rows; with ``rows`` (a row
+    band's) the whole image's fields are drawn and the band's rows kept,
+    so a band draws what the whole view draws there."""
+    if rows is None:
+        return _perturb_draws(gen, h, w, scale, cfg, device)
+    draws = _perturb_draws(gen, rows.height, w, scale, cfg, device)
+    return PerturbDraws(*(x[rows.start:rows.start + h] for x in draws))
 
 
 def _perturb(draws: PerturbDraws, depth: torch.Tensor, normal: torch.Tensor,
@@ -224,19 +241,33 @@ def _batched_best(ctx: ScoreContext, cd: torch.Tensor, cn: torch.Tensor,
     return bc, bk
 
 
+def c2p_max(depth: torch.Tensor, normal: torch.Tensor,
+            rays: torch.Tensor) -> torch.Tensor:
+    """The largest camera-to-plane distance |(n . ray) d| of a state:
+    the local-smoothness term's scale (a max over the whole view)."""
+    return ((normal[0] * rays[0] + normal[1] * rays[1]
+             + normal[2] * rays[2]) * depth).abs().amax()
+
+
 def half_sweep(state: PatchMatchState, ctx: ScoreContext, cfg: DenseConfig,
                phase: int, parity: int, offsets, prop_offsets: list,
-               gen: torch.Generator, inject: bool = False
+               gen: torch.Generator, inject: bool = False,
+               delta_c2pmax: Optional[torch.Tensor] = None
                ) -> PatchMatchState:
     """One sweep: with ``sweep_mode == "jacobi"`` every pixel updates from
     the previous full state; with "redblack" only pixels with
-    (y + x) % 2 == parity do.  ``gen`` drives the random refinement.
-    ``inject`` scores the context's cross-scale hypothesis too."""
+    (y + x) % 2 == parity do (y the image row).  ``gen`` drives the
+    random refinement.  ``inject`` scores the context's cross-scale
+    hypothesis too.  A row band's sweep (``ctx.rows``) takes
+    ``delta_c2pmax``, ``c2p_max`` of the whole view's state; its rows
+    within the stencils' reach of the band's edges come out wrong and
+    are the caller's to replace."""
     h, w = state.depth.shape
-    delta_c2pmax = ((state.normal[0] * ctx.rays[0]
-                     + state.normal[1] * ctx.rays[1]
-                     + state.normal[2] * ctx.rays[2]) * state.depth
-                    ).abs().amax()
+    if delta_c2pmax is None:
+        if ctx.rows is not None:
+            raise ValueError("a row band's sweep needs the whole view's "
+                             "delta_c2pmax")
+        delta_c2pmax = c2p_max(state.depth, state.normal, ctx.rays)
     cur_d, cur_n = state.depth, state.normal
     lo_ok, hi_ok = ctx.d_min * 0.8, ctx.d_max * 1.2
     # the batched path serves the phases that score through the tables
@@ -301,7 +332,8 @@ def half_sweep(state: PatchMatchState, ctx: ScoreContext, cfg: DenseConfig,
         r_d, r_n, r_v, r_b = [], [], [], []
         for r in range(cfg.random_iters):
             scale = 0.5 ** r
-            draws = _perturb_draws(gen, h, w, scale, cfg, cur_d.device)
+            draws = _step_draws(gen, h, w, scale, cfg, cur_d.device,
+                                ctx.rows)
             d_r, n_r = _perturb(draws, bd, bn, ctx.rays, scale, cfg)
             r_d.append(d_r)
             r_n.append(n_r)
@@ -336,7 +368,8 @@ def half_sweep(state: PatchMatchState, ctx: ScoreContext, cfg: DenseConfig,
         # each step perturbs the running best and is accepted against it
         for r in range(cfg.random_iters):
             scale = 0.5 ** r
-            draws = _perturb_draws(gen, h, w, scale, cfg, cur_d.device)
+            draws = _step_draws(gen, h, w, scale, cfg, cur_d.device,
+                                ctx.rows)
             d_r, n_r = _perturb(draws, bd, bn, ctx.rays, scale, cfg)
             valid = (d_r >= lo_ok) & (d_r <= hi_ok)
             c = torch.where(valid, cost_of(d_r, n_r), float("inf"))
@@ -354,7 +387,8 @@ def half_sweep(state: PatchMatchState, ctx: ScoreContext, cfg: DenseConfig,
 
     if cfg.sweep_mode == "jacobi":
         return PatchMatchState(depth=bd, normal=bn, cost=bc)
-    yy, xx = torch.meshgrid(torch.arange(h, device=bd.device),
+    r0 = 0 if ctx.rows is None else ctx.rows.start
+    yy, xx = torch.meshgrid(torch.arange(r0, r0 + h, device=bd.device),
                             torch.arange(w, device=bd.device), indexing="ij")
     mask = ((yy + xx) % 2) == parity
     return PatchMatchState(depth=torch.where(mask, bd, state.depth),

@@ -47,9 +47,11 @@ import torch
 from hcmvs_tpu_torch.core.camera import Camera
 from hcmvs_tpu_torch.core.config import DenseConfig, window_cfg_for_width
 from hcmvs_tpu_torch.dense import score as S
+from hcmvs_tpu_torch.dense.bands import Band, HaloExchange
 from hcmvs_tpu_torch.dense.fusion import (cross_view_filter, gap_interpolate,
                                           gap_repropagate)
-from hcmvs_tpu_torch.dense.patchmatch import (ScoreContext, half_sweep,
+from hcmvs_tpu_torch.dense.patchmatch import (ScoreContext, c2p_max,
+                                              half_sweep,
                                               propagation_offsets)
 from hcmvs_tpu_torch.dense.priors import (generate_priors,
                                           hyps_from_probability,
@@ -58,9 +60,9 @@ from hcmvs_tpu_torch.dense.types import (PatchMatchState, init_state,
                                          make_view_geometry, pixel_rays)
 from hcmvs_tpu_torch.ops.gradients import sobel_magnitude
 from hcmvs_tpu_torch.ops.rect_gather import (build_rect_context,
-                                             pack_depth_normals)
+                                             pack_depth_normals, rect_rows)
 from hcmvs_tpu_torch.ops.volume import (VolumeTables, build_tables,
-                                        use_rect_volume_build)
+                                        table_rows, use_rect_volume_build)
 from hcmvs_tpu_torch.utils.profiling import stage_timer
 
 
@@ -91,6 +93,9 @@ class SceneTensors:
                                          # per stage by attach_volumes
     vols_first: int = 0     # the view of vols' first row (a process's
                             # block of views under the view axis)
+    vols_rows: Optional[Tuple[int, int]] = None  # the image rows [lo, hi)
+                            # vols holds (None: all; under the tile axis
+                            # the union of a process's band windows)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -111,13 +116,34 @@ def want_prior_pass(scene: SceneTensors, cfg: DenseConfig) -> bool:
             or scene.ext_prior_depth is not None)
 
 
+def _stats_rows(stats: S.RefPatchStats, r0: int, r1: int
+                ) -> S.RefPatchStats:
+    """Image rows [r0, r1) of a view's patch statistics (the padded
+    reference keeps its pad rows around them: real rows inside the
+    image); the statistics themselves for all rows."""
+    if (r0, r1) == (0, stats.tm.shape[0]):
+        return stats
+    pad = (stats.ref_pad.shape[-1] - stats.tm.shape[-1]) // 2
+    return S.RefPatchStats(
+        tm=stats.tm[r0:r1].clone(), norm_sq0=stats.norm_sq0[r0:r1].clone(),
+        sum_w=stats.sum_w[r0:r1].clone(),
+        ref_pad=stats.ref_pad[r0:r1 + 2 * pad].clone(),
+        wts=stats.wts[:, r0:r1].contiguous())
+
+
 def _per_view_context(scene: SceneTensors, i: int,
                       nbr_depth: Optional[torch.Tensor],
                       nbr_normal: Optional[torch.Tensor],
-                      cfg: DenseConfig) -> ScoreContext:
+                      cfg: DenseConfig,
+                      band: Optional[Band] = None) -> ScoreContext:
     """The ScoreContext of view ``i``: its slice of the attached tables,
     or, with ``volume_streaming`` and none attached, its tables built here
-    (by the gate of ``ops.volume.use_rect_volume_build``)."""
+    (by the gate of ``ops.volume.use_rect_volume_build``).  ``band`` (a
+    ``dense.bands.Band``): the context of the band's window rows, every
+    per-pixel field cut from the whole view's (so its values are the
+    whole view's) and the tables those of the window's rows (cut from
+    the attached ones, or built here when streamed); the neighbour images
+    and maps stay whole."""
     nbr = scene.nbr_idx[i]
     geom = make_view_geometry(scene.cams[i], scene.cams[nbr])
     h, w = scene.gray.shape[1:]
@@ -125,13 +151,22 @@ def _per_view_context(scene: SceneTensors, i: int,
     hw = S.halfwin_map(gra, cfg)
     stats = S.ref_patch_stats(scene.gray[i], hw, S.patch_offsets(cfg))
     rays = pixel_rays(geom.K_inv_ref, h, w)
+    band = None if band is None or band.whole else band
+    r0, r1 = (0, h) if band is None else (band.lo, band.hi)
+    if band is not None:
+        gra, hw, rays = (x[..., r0:r1, :].clone() for x in (gra, hw, rays))
+        stats = _stats_rows(stats, r0, r1)
     if scene.vols is not None:
-        vol_i = VolumeTables(*(x[i - scene.vols_first] for x in scene.vols))
+        vol_i = table_rows(
+            VolumeTables(*(x[i - scene.vols_first] for x in scene.vols)),
+            scene.vols_rows or (0, h), (r0, r1), w,
+            use_rect_volume_build(cfg, h, w))
     elif cfg.volume_streaming and S.use_volume_tables(cfg):
         with stage_timer("estimate.tables.streamed",
                          block_on=scene.gray.device):
             vol_i = build_tables(geom, scene.gray[nbr], scene.d_min[i],
-                                 scene.d_max[i], cfg)
+                                 scene.d_max[i], cfg,
+                                 None if band is None else (r0, r1))
     else:
         vol_i = None
     # kernel D's bounds panels depend only on the tables: once per call
@@ -139,7 +174,7 @@ def _per_view_context(scene: SceneTensors, i: int,
           if vol_i is not None and S.use_candidate_batch(cfg) else None)
 
     def view(x):
-        return None if x is None else x[i]
+        return None if x is None else x[i][..., r0:r1, :]
 
     return ScoreContext(
         geom=geom, src_grays=scene.gray[nbr], stats=stats, hw=hw,
@@ -148,7 +183,8 @@ def _per_view_context(scene: SceneTensors, i: int,
         vol_bounds=vb, flow=view(scene.flows),
         prior_depth=view(scene.prior_depth),
         inject_depth=view(scene.inject_depth),
-        inject_normal=view(scene.inject_normal))
+        inject_normal=view(scene.inject_normal),
+        rows=None if band is None else band.rows)
 
 
 Generators = Union[torch.Generator, Sequence[torch.Generator]]
@@ -176,10 +212,17 @@ def _gen_of(gen: Generators, view: int) -> torch.Generator:
     return gen if isinstance(gen, torch.Generator) else gen[view]
 
 
+def _clone_generator(gen: torch.Generator) -> torch.Generator:
+    g = torch.Generator(device=gen.device)
+    g.set_state(gen.get_state())
+    return g
+
+
 def scene_sweeps(state: SceneState, scene: SceneTensors, cfg: DenseConfig,
                  phase: int, n_iters: int, use_nbr: bool,
                  gen: Generators, inject: bool = False,
-                 view_start: int = 0, view_chunk: int = 0) -> SceneState:
+                 view_start: int = 0, view_chunk: int = 0,
+                 exchange: Optional[HaloExchange] = None) -> SceneState:
     """``n_iters`` sweeps on every view.  Neighbour depth/normal snapshots
     are taken once at entry.  Within a full-sampling call all but the last
     inner sweep may use the coarse explore sampling (see
@@ -194,7 +237,14 @@ def scene_sweeps(state: SceneState, scene: SceneTensors, cfg: DenseConfig,
     view_chunk, N))`` against the full-scene snapshot ``state``, and
     returns the other views as they were: a short last chunk sweeps its
     own views, each once.  (The JAX package's unclamped index writes the
-    wrong contexts over the last views there; see ROADMAP.)"""
+    wrong contexts over the last views there; see ROADMAP.)
+
+    ``exchange`` (the tile axis, ``dense.bands``): sweep this process's
+    row bands of each view (``exchange.group[exchange.me]``) one after
+    another, each half-sweep followed by the exchange, and return those
+    bands' own rows swept, the other rows as they were (the caller puts
+    the bands together).  Each band draws from a copy of its view's
+    generator, which ends where a whole view's sweep would leave it."""
     inject = inject and scene.inject_depth is not None
     offsets = S.patch_offsets(cfg)
     prop_offsets = propagation_offsets(cfg)
@@ -208,6 +258,7 @@ def scene_sweeps(state: SceneState, scene: SceneTensors, cfg: DenseConfig,
     n_views, h, w = state.depth.shape
     use_rect = (use_nbr and bool(cfg.use_geo_consistency or cfg.view_spread)
                 and S.use_rect_backend(cfg, h, w))
+    parities = (0,) if cfg.sweep_mode == "jacobi" else (0, 1)
     if view_chunk:
         if not 0 <= view_start < n_views:
             raise ValueError(f"view_start {view_start} outside the scene's "
@@ -215,39 +266,74 @@ def scene_sweeps(state: SceneState, scene: SceneTensors, cfg: DenseConfig,
         views = range(view_start, min(view_start + view_chunk, n_views))
     else:
         views = range(n_views)
-
-    def one_iter(st, c_, ctx_, off_, g, inj=False):
-        st = half_sweep(st, ctx_, c_, phase, 0, off_, prop_offsets, g,
-                        inject=inj)
-        if cfg.sweep_mode != "jacobi":
-            st = half_sweep(st, ctx_, c_, phase, 1, off_, prop_offsets, g,
-                            inject=inj)
-        return st
+    own = ([Band(0, h, 0, h, h)] if exchange is None else
+           [exchange.bands[b] for b in exchange.group[exchange.me]])
 
     depth, normal, cost = (list(torch.unbind(x)) for x in
                            (state.depth, state.normal, state.cost))
     for i in views:
-        st = PatchMatchState(depth=depth[i], normal=normal[i], cost=cost[i])
         if use_nbr:
             nbr_depth = depth0[scene.nbr_idx[i]]
             nbr_normal = normal0[scene.nbr_idx[i]]
         else:
             nbr_depth = nbr_normal = None
-        ctx = _per_view_context(scene, i, nbr_depth, nbr_normal, cfg)
-        if use_rect:
-            # warp the frozen neighbour snapshot into the per-pair rect
-            # frames once per call
-            ctx = dataclasses.replace(ctx, rect=build_rect_context(
-                ctx.geom, pack_depth_normals(nbr_depth, nbr_normal)))
-        ctx_x = (dataclasses.replace(ctx, stats=S.ref_patch_stats(
-            scene.gray[i], ctx.hw, offsets_x)) if split else ctx)
-        g = _gen_of(gen, i)
-        for _ in range(n_iters - 1):
-            st = one_iter(st, cfg_x, ctx_x, offsets_x, g)
-        st = one_iter(st, cfg, ctx, offsets, g, inject)
-        depth[i], normal[i], cost[i] = st.depth, st.normal, st.cost
+        # warp the frozen neighbour snapshot into the per-pair rect
+        # frames once per call, for the whole view (its frame fits the
+        # whole image's corners)
+        rect = (build_rect_context(make_view_geometry(
+            scene.cams[i], scene.cams[scene.nbr_idx[i]]),
+            pack_depth_normals(nbr_depth, nbr_normal)) if use_rect else None)
+        stats_x = (S.ref_patch_stats(scene.gray[i], S.halfwin_map(
+            sobel_magnitude(scene.gray[i]), cfg), offsets_x)
+            if split else None)
+        ctxs, ctxs_x = [], []
+        for b in own:
+            ctx = (None if b.empty else _per_view_context(
+                scene, i, nbr_depth, nbr_normal, cfg, b))
+            if rect is not None and ctx is not None:
+                ctx = dataclasses.replace(ctx, rect=rect_rows(rect, b.lo,
+                                                              b.hi))
+            ctxs.append(ctx)
+            ctxs_x.append(dataclasses.replace(ctx, stats=_stats_rows(
+                stats_x, b.lo, b.hi)) if split and ctx is not None else ctx)
+        del rect, stats_x
+        g0 = _gen_of(gen, i)
+        gens = [g0] if len(own) == 1 else [_clone_generator(g0)
+                                           for _ in own]
+        wins = [PatchMatchState(depth=b.window(depth[i]),
+                                normal=b.window(normal[i]),
+                                cost=b.window(cost[i])) for b in own]
+        dmax = (None if exchange is None else c2p_max(
+            depth[i], normal[i], pixel_rays(scene.cams[i].K_inv, h, w)))
+        steps = ([(cfg_x, ctxs_x, offsets_x, False)] * (n_iters - 1)
+                 + [(cfg, ctxs, offsets, inject)])
+        for c_, ctxs_, off_, inj in steps:
+            for parity in parities:
+                wins = [win if ctx is None else half_sweep(
+                    win, ctx, c_, phase, parity, off_, prop_offsets, g,
+                    inject=inj, delta_c2pmax=dmax)
+                    for win, ctx, g in zip(wins, ctxs_, gens)]
+                if exchange is not None:
+                    wins, dmax = exchange(wins, [
+                        None if b.empty else c2p_max(
+                            b.own(win.depth), b.own(win.normal),
+                            b.own(ctx.rays))
+                        for b, win, ctx in zip(own, wins, ctxs_)])
+        if exchange is None:
+            depth[i], normal[i], cost[i] = (wins[0].depth, wins[0].normal,
+                                            wins[0].cost)
+        else:
+            depth[i], normal[i], cost[i] = (x.clone() for x in
+                                            (depth[i], normal[i], cost[i]))
+            for b, win in zip(own, wins):
+                depth[i][b.start:b.stop] = b.own(win.depth)
+                normal[i][:, b.start:b.stop] = b.own(win.normal)
+                cost[i][b.start:b.stop] = b.own(win.cost)
+            swept = [g for b, g in zip(own, gens) if not b.empty]
+            if len(gens) > 1 and swept:
+                g0.set_state(swept[0].get_state())
         # a streamed view's tables go before the next view's are built
-        del ctx, ctx_x
+        del ctxs, ctxs_x, wins
     return SceneState(depth=torch.stack(depth), normal=torch.stack(normal),
                       cost=torch.stack(cost))
 
@@ -296,15 +382,18 @@ def init_scene_state(gen: Generators, scene: SceneTensors
 
 
 def _build_scene_volumes(scene: SceneTensors, cfg: DenseConfig,
-                         views: Optional[range] = None) -> VolumeTables:
+                         views: Optional[range] = None,
+                         row_range: Optional[Tuple[int, int]] = None
+                         ) -> VolumeTables:
     """The tables of every view (of ``views``, a block of them, if
-    given), by the build ``cfg`` routes to, stacked to (N, V, ...)."""
+    given), by the build ``cfg`` routes to, stacked to (N, V, ...);
+    ``row_range``: of those image rows alone (a row band's window)."""
     outs = []
     for i in (range(scene.gray.shape[0]) if views is None else views):
         nbr = scene.nbr_idx[i]
         geom = make_view_geometry(scene.cams[i], scene.cams[nbr])
         outs.append(build_tables(geom, scene.gray[nbr], scene.d_min[i],
-                                 scene.d_max[i], cfg))
+                                 scene.d_max[i], cfg, row_range))
     return VolumeTables(*(torch.stack(xs) for xs in zip(*outs)))
 
 

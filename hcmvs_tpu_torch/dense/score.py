@@ -32,13 +32,14 @@ it to rounding.
 from __future__ import annotations
 
 import math
-from typing import NamedTuple, Tuple
+from typing import NamedTuple, Optional, Tuple
 
 import torch
 
 from hcmvs_tpu_torch.core.config import DenseConfig
-from hcmvs_tpu_torch.dense.types import (ViewGeometry, mat3_apply,
-                                         mat3_apply_t, normalize3)
+from hcmvs_tpu_torch.dense.types import (Rows, ViewGeometry, mat3_apply,
+                                         mat3_apply_t, normalize3,
+                                         pixel_grid)
 from hcmvs_tpu_torch.ops.sampling import (bilinear_sample_xy,
                                           nearest_sample_planes_batched,
                                           pad_edge)
@@ -150,7 +151,8 @@ def _col(x: torch.Tensor) -> torch.Tensor:
 def photometric_scores(geom: ViewGeometry, src_grays: torch.Tensor,
                        stats: RefPatchStats, hw: torch.Tensor,
                        depth: torch.Tensor, normal: torch.Tensor,
-                       rays: torch.Tensor, offsets, cfg: DenseConfig
+                       rays: torch.Tensor, offsets, cfg: DenseConfig,
+                       rows: Optional[Rows] = None
                        ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Direct weighted ZNCC (``exact_backend="bilinear"``; ref:
     ScorePixelImage, DepthMap.cpp:522-595): every patch sample warped
@@ -158,15 +160,13 @@ def photometric_scores(geom: ViewGeometry, src_grays: torch.Tensor,
     sample of every view per offset.  Returns ``(scores, bad)``, both
     (V, H, W): ``1 - zncc`` in [0, 2], and the flat thRobust cost where
     the centre warp leaves the source or lies behind it, or the patch is
-    textureless."""
+    textureless.  ``rows``: the fields are a row band of the image."""
     h, w = depth.shape
     pad = _pad_of(offsets)
     th_robust = cfg.ncc_threshold_keep * 1.2
     dev = depth.device
     n_ray0, inv_dp, nk_x, nk_y = _plane_terms(geom, depth, normal, rays)
-    v_, u_ = torch.meshgrid(torch.arange(h, dtype=torch.float32, device=dev),
-                            torch.arange(w, dtype=torch.float32, device=dev),
-                            indexing="ij")
+    v_, u_ = pixel_grid(h, w, dev, rows)
     ref_center = _shifted(stats.ref_pad, pad, 0, 0, h, w)
     A, wv = geom.A, geom.wv                           # (V, 3, 3), (V, 3)
     # the homogeneous warp of the pixel grid, each view's as a plane
@@ -231,18 +231,20 @@ class WarpedInputs(NamedTuple):
 def warped_inputs(geom: ViewGeometry, src_grays: torch.Tensor,
                   stats: RefPatchStats, hw: torch.Tensor,
                   depth: torch.Tensor, normal: torch.Tensor,
-                  rays: torch.Tensor, offsets) -> WarpedInputs:
+                  rays: torch.Tensor, offsets,
+                  rows: Optional[Rows] = None) -> WarpedInputs:
     """Everything of warped scoring up to kernel E: each source sampled
     once per pixel at the hypothesis' warp centre, and the window corners
     (|dy| = |dx| = pad) warped exactly through the pixel's own plane (the
-    centre warp alone is normal-independent) into the starting sums."""
+    centre warp alone is normal-independent) into the starting sums.
+    ``rows``: the fields are a row band of the image (the warped sources
+    are then padded at the band's edges, which only the band's outer
+    ``pad`` rows read)."""
     h, w = depth.shape
     pad = _pad_of(offsets)
     dev = depth.device
     n_ray0, inv_dp, nk_x, nk_y = _plane_terms(geom, depth, normal, rays)
-    v_, u_ = torch.meshgrid(torch.arange(h, dtype=torch.float32, device=dev),
-                            torch.arange(w, dtype=torch.float32, device=dev),
-                            indexing="ij")
+    v_, u_ = pixel_grid(h, w, dev, rows)
     ref_center = _shifted(stats.ref_pad, pad, 0, 0, h, w)
     corner_offsets = tuple((dy, dx) for dy, dx in offsets
                            if abs(dy) == pad and abs(dx) == pad)
@@ -295,7 +297,8 @@ def warped_inputs(geom: ViewGeometry, src_grays: torch.Tensor,
 def photometric_scores_warped(geom: ViewGeometry, src_grays: torch.Tensor,
                               stats: RefPatchStats, hw: torch.Tensor,
                               depth: torch.Tensor, normal: torch.Tensor,
-                              rays: torch.Tensor, offsets, cfg: DenseConfig
+                              rays: torch.Tensor, offsets, cfg: DenseConfig,
+                              rows: Optional[Rows] = None
                               ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Warped-image weighted ZNCC: each source is sampled once per pixel
     at the warp centre and the patch read from that image at static
@@ -304,7 +307,7 @@ def photometric_scores_warped(geom: ViewGeometry, src_grays: torch.Tensor,
     both (V, H, W), as ``photometric_scores_volume``."""
     from hcmvs_tpu_torch.ops.zncc_warped import zncc_warped
     x = warped_inputs(geom, src_grays, stats, hw, depth, normal, rays,
-                      offsets)
+                      offsets, rows)
     score, var1 = zncc_warped(x.ref_pad, x.tm, x.nsq0, x.warped_pad,
                               x.valid_pad, x.hw, x.acc, x.scan_offsets,
                               x.pad)
@@ -644,17 +647,20 @@ def score_photometric(geom: ViewGeometry, src_grays: torch.Tensor,
                       stats: RefPatchStats, hw: torch.Tensor,
                       depth: torch.Tensor, normal: torch.Tensor,
                       rays: torch.Tensor, offsets, cfg: DenseConfig,
-                      phase: int = 1,
-                      vol=None) -> Tuple[torch.Tensor, torch.Tensor]:
+                      phase: int = 1, vol=None,
+                      rows: Optional[Rows] = None
+                      ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Dispatch on cfg.score_mode, as the JAX package: exact scoring
     through the sigma tables where they are attached, direct bilinear
     scoring where the config routes exact scoring there, or the warped
     approximation ("warped", and "hybrid" in the photometric phase).
-    Tables the config asks for but the caller did not attach raise."""
+    Tables the config asks for but the caller did not attach raise.
+    ``rows``: the fields (and ``vol``'s rows) are a row band of the
+    image."""
     tables = use_volume_tables(cfg)
     if not exact_scoring(cfg, phase):
         return photometric_scores_warped(geom, src_grays, stats, hw, depth,
-                                         normal, rays, offsets, cfg)
+                                         normal, rays, offsets, cfg, rows)
     if vol is not None:
         return photometric_scores_volume(geom, vol, stats, hw, depth,
                                          normal, rays, offsets, cfg)
@@ -662,7 +668,7 @@ def score_photometric(geom: ViewGeometry, src_grays: torch.Tensor,
         raise ValueError("exact scoring needs the sigma tables "
                          "(scene_driver.attach_volumes)")
     return photometric_scores(geom, src_grays, stats, hw, depth, normal,
-                              rays, offsets, cfg)
+                              rays, offsets, cfg, rows)
 
 
 def aggregate_scores(scores: torch.Tensor, cfg: DenseConfig) -> torch.Tensor:
@@ -685,18 +691,18 @@ def aggregate_scores(scores: torch.Tensor, cfg: DenseConfig) -> torch.Tensor:
 
 
 def flow_score(geom: ViewGeometry, depth: torch.Tensor, rays: torch.Tensor,
-               flow: torch.Tensor, view_idx: int = 0) -> torch.Tensor:
+               flow: torch.Tensor, view_idx: int = 0,
+               rows: Optional[Rows] = None) -> torch.Tensor:
     """Optical-flow cross-consistency against the best neighbour: (H, W)
     in [0, 2] (ref: DepthMap.cpp:741-792; applied to idxView==1 only).
 
     Compares the hypothesis' motion vector (its projection into the
     neighbour minus the pixel) with the dense flow ``flow`` (2, H, W),
-    scoring direction and length agreement."""
-    h, w = depth.shape
-    v_, u_ = torch.meshgrid(
-        torch.arange(h, dtype=torch.float32, device=depth.device),
-        torch.arange(w, dtype=torch.float32, device=depth.device),
-        indexing="ij")
+    scoring direction and length agreement.  ``rows``: the fields are a
+    row band of the image."""
+    w = depth.shape[1]
+    h = depth.shape[0] if rows is None else rows.height
+    v_, u_ = pixel_grid(depth.shape[0], w, depth.device, rows)
     X0 = (rays[0] * depth, rays[1] * depth, rays[2] * depth)
     X1 = mat3_apply(geom.R_rel[view_idx], X0)
     t = geom.t_rel[view_idx]
@@ -763,22 +769,22 @@ def _direct_taps(nbr_depth: torch.Tensor, nbr_normal: torch.Tensor,
 def geometric_scores(geom: ViewGeometry, depth: torch.Tensor,
                      normal: torch.Tensor, rays: torch.Tensor,
                      nbr_depth: torch.Tensor, nbr_normal: torch.Tensor,
-                     cfg: DenseConfig, rect=None) -> torch.Tensor:
+                     cfg: DenseConfig, rect=None,
+                     rows: Optional[Rows] = None) -> torch.Tensor:
     """Forward-backward reprojection consistency per view: (V, H, W) in
     [0, 2] (ref: DepthMap.cpp:625-732).  Projects each pixel into every
     neighbour with the hypothesis depth, reads the neighbour's (depth,
     normal) there (through the rect engine ``rect``, or, with
     ``geo_backend="direct"``, by nearest gathers of ``nbr_depth`` /
     ``nbr_normal``), back-projects, and scores the reprojection error
-    against the epipolar-distance normaliser plus normal agreement."""
-    h, w = depth.shape
+    against the epipolar-distance normaliser plus normal agreement.
+    ``rows``: the fields (and ``rect``'s) are a row band of the image."""
+    w = depth.shape[1]
+    h = depth.shape[0] if rows is None else rows.height
     if rect is None and use_rect_backend(cfg, h, w):
         raise ValueError("geometric scoring needs a rect context "
                          "(ops/rect_gather.build_rect_context)")
-    dev = depth.device
-    v_, u_ = torch.meshgrid(torch.arange(h, dtype=torch.float32, device=dev),
-                            torch.arange(w, dtype=torch.float32, device=dev),
-                            indexing="ij")
+    v_, u_ = pixel_grid(depth.shape[0], w, depth.device, rows)
     max_dist = float(math.hypot(w / 2, h / 2))
     fwd = _forward_projections(geom, depth, rays)
     if rect is not None:

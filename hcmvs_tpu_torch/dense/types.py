@@ -14,7 +14,7 @@ from __future__ import annotations
 
 import dataclasses
 import math
-from typing import NamedTuple, Tuple
+from typing import NamedTuple, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -88,6 +88,25 @@ class PatchMatchState:
     depth: torch.Tensor   # (H, W) f32; 0 marks invalid
     normal: torch.Tensor  # (3, H, W) f32 unit, camera space, n . ray < 0
     cost: torch.Tensor    # (H, W) f32 aggregated score (0 best, 2 worst)
+
+
+class Rows(NamedTuple):
+    """Where a field of a row band lies in its image: its first image row
+    and the image's height (the tile axis sweeps such fields; every
+    per-pixel coordinate and image bound is taken from here)."""
+
+    start: int
+    height: int
+
+
+def pixel_grid(h: int, w: int, device, rows: Optional[Rows] = None
+               ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(v, u) pixel coordinates (H, W) f32 of a field of ``h`` rows, the
+    image rows of ``rows`` (from 0 without)."""
+    r0 = 0 if rows is None else rows.start
+    return torch.meshgrid(
+        torch.arange(r0, r0 + h, dtype=torch.float32, device=device),
+        torch.arange(w, dtype=torch.float32, device=device), indexing="ij")
 
 
 def pixel_rays(K_inv: torch.Tensor, h: int, w: int) -> torch.Tensor:

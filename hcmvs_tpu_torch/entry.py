@@ -7,9 +7,10 @@ multi-process dry run (PyTorch port of the JAX package's
 ``entry()`` returns (fn, example args): a photometric and a geometric
 ``scene_sweeps`` pass on a 4-view 96x128 plane scene.  ``dryrun_multichip``
 runs one full step of the schedule (two sweeps a phase, the filter,
-fusion) under the view axis over ``n`` processes (``parallel.mh_check``,
-tile axis 1) and holds it against one process: the maps, ``keep`` and
-points must be bit-equal.
+fusion) on the (view, tile) mesh over ``n`` processes
+(``parallel.mh_check``; two row bands a view when ``n`` is even and at
+least 4, as the JAX package's dry run) and holds it against one process:
+the maps, ``keep`` and points must be bit-equal.
 """
 
 from __future__ import annotations
@@ -97,27 +98,32 @@ def dryrun_multichip(n_devices: int, device="cuda",
                      timeout: float = 900.0) -> dict:
     """One full step of the schedule (a photometric and a geometric pass
     of two sweeps, ``optimize_maps``, fusion) on max(2n, 8) 64x96 images
-    under the view axis over ``n_devices`` processes (tile axis 1), held
-    against one process: every map, ``keep`` and every point must be
-    bit-equal (the view axis adds no reduction across views; see
-    ``parallel.sharding``).  On CUDA the processes use NCCL when there is
-    a card for each, else Gloo on the shared card.  Returns process 0's
-    report; raises if a process fails or the maps differ."""
+    on the (n / n_tile, n_tile) mesh of ``n_devices`` processes, n_tile 2
+    when ``n_devices`` is even and at least 4, else 1
+    (``__graft_entry__.py:68-70``), held against one process: every map,
+    ``keep`` and every point must be bit-equal (the mesh adds no
+    reduction across views, and the row bands compute what the whole
+    view does at their rows; see ``parallel.sharding``).  On CUDA the
+    processes use NCCL when there is a card for each, else Gloo on the
+    shared card.  Returns process 0's report; raises if a process fails
+    or the maps differ."""
     from hcmvs_tpu_torch.parallel import mh_check
     dev = torch.device(device)
     n_imgs = max(2 * n_devices, 8)
+    n_tile = 2 if n_devices >= 4 and n_devices % 2 == 0 else 1
     backend = ("nccl" if dev.type == "cuda"
                and torch.cuda.device_count() >= n_devices else "gloo")
     outs = mh_check.launch(n_devices, [
         "--device", dev.type, "--dist-backend", backend, "--views",
         str(n_imgs), "--h", "64", "--w", "96", "--nbrs", "3", "--iters",
-        "2", "--backend", "volume", "--cfg", json.dumps(DRYRUN_OVERRIDES)],
-        timeout=timeout)
+        "2", "--backend", "volume", "--n-tile", str(n_tile), "--cfg",
+        json.dumps(DRYRUN_OVERRIDES)], timeout=timeout)
     rep = next(r for r in mh_check.parse_lines(outs) if r["rank"] == 0)
     if not rep["equal"]:
-        raise AssertionError(f"dryrun_multichip: the view axis differs from "
-                             f"one process: {rep}")
-    print(f"[dryrun_multichip] mesh=({n_devices}x1) images={n_imgs} "
+        raise AssertionError(f"dryrun_multichip: the mesh differs from one "
+                             f"process: {rep}")
+    n_view, n_tile = rep["mesh"]
+    print(f"[dryrun_multichip] mesh=({n_view}x{n_tile}) images={n_imgs} "
           f"backend={rep['dist_backend']} fused_points={rep['kept']} "
           f"depth_mismatch={rep['depth_mismatch']:.4f} "
           f"keep_agree={rep['keep_agree']:.4f} OK", flush=True)

@@ -216,6 +216,20 @@ def build_rect_context(geom, nbr_maps: torch.Tensor) -> RectContext:
                        rb=rb.to(torch.int32).contiguous())
 
 
+def rect_rows(ctx: RectContext, r0: int, r1: int) -> RectContext:
+    """The context of image rows [r0, r1) (r0 a multiple of 8, r1 too
+    or the image's height): the per-pixel fields and the per-tile bases
+    of those rows, the rect maps whole (the context itself for all
+    rows).  A row band's lookups through it equal the whole context's at
+    those rows."""
+    if (r0, r1) == (0, ctx.row_int.shape[1]):
+        return ctx
+    return RectContext(
+        maps=ctx.maps, row_int=ctx.row_int[:, r0:r1].contiguous(),
+        c0=ctx.c0[:, r0:r1].contiguous(), k=ctx.k[:, r0:r1].contiguous(),
+        rb=ctx.rb[:, r0 // ROWS_HALF:-(-r1 // ROWS_HALF)].contiguous())
+
+
 def pack_depth_normals(nbr_depth: torch.Tensor,
                        nbr_normal: torch.Tensor) -> torch.Tensor:
     """(V, H, W) depth + (V, 3, H, W) normals -> (V, 2, H, W) words.
@@ -292,3 +306,21 @@ def rect_lookup(ctx: RectContext, sigma: torch.Tensor) -> torch.Tensor:
         return kernels.rect_lookup(ctx.maps, ctx.row_int, ctx.c0, ctx.k,
                                    ctx.rb, sigma.contiguous())
     return rect_lookup_plain(ctx, sigma)
+
+
+def rect_coverage(ctx: RectContext, sigma: torch.Tensor) -> torch.Tensor:
+    """Share of in-frame lookups that land inside their tile's band and
+    window (a diagnostic: near 1.0 for usual MVS pair geometry), as a 0-d
+    float32 tensor."""
+    _, h, w = ctx.row_int.shape
+    h_r, w_r = ctx.frame_shape
+    icol = _icol(ctx, sigma)
+    cb_full = _from_tiles(_col_bases(ctx, icol), h, w)
+    rb_full = _from_tiles(ctx.rb, h, w)
+    in_frame = (ctx.row_int <= h_r - 1) & (icol >= 0) & (icol <= w_r - 1)
+    iwin = icol - cb_full * COLS_HALF
+    roff = ctx.row_int - rb_full * ROWS_HALF
+    hit = ((roff >= 0) & (roff < BAND_ROWS) & (iwin >= 0)
+           & (iwin < WIN_COLS))
+    return ((hit & in_frame).sum() / torch.clamp_min(in_frame.sum(), 1)
+            ).to(torch.float32)

@@ -31,7 +31,7 @@ Three kernels live here, each beside its plain PyTorch version:
 
 from __future__ import annotations
 
-from typing import NamedTuple, Tuple
+from typing import NamedTuple, Optional, Tuple
 
 import torch
 
@@ -272,10 +272,13 @@ _PLANE_BATCH = 16       # coarse planes warped per pass of the planes build
 
 def build_view_volume(A: torch.Tensor, wv: torch.Tensor,
                       src_gray: torch.Tensor, sig0, dsig, h: int, w: int,
-                      build_step: int = 2, n_planes: int = D_PLANES
+                      build_step: int = 2, n_planes: int = D_PLANES,
+                      row_range: Optional[Tuple[int, int]] = None
                       ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """One (ref, src) pair's table, (P_pad, n_planes) u16 in image order
     (rows past h * w zero), and its valid-sigma interval (H, W) x 2.
+    ``row_range`` (lo, hi): the image rows [lo, hi) alone (a row band's
+    table; every pixel's entries are those of the whole image's).
 
     Every ``build_step``-th plane (and the last coarse one) is a bilinear
     warp of the source through the plane's homography; the planes between
@@ -286,7 +289,9 @@ def build_view_volume(A: torch.Tensor, wv: torch.Tensor,
     from hcmvs_tpu_torch.ops.sampling import bilinear_sample_xy
     dev = src_gray.device
     f32 = torch.float32
-    v_, u_ = torch.meshgrid(torch.arange(h, dtype=f32, device=dev),
+    r0, r1 = (0, h) if row_range is None else row_range
+    h = r1 - r0
+    v_, u_ = torch.meshgrid(torch.arange(r0, r1, dtype=f32, device=dev),
                             torch.arange(w, dtype=f32, device=dev),
                             indexing="ij")
     p0x = A[0, 0] * u_ + A[0, 1] * v_ + A[0, 2]
@@ -348,12 +353,14 @@ def build_view_volume(A: torch.Tensor, wv: torch.Tensor,
 
 
 def build_volume_tables(geom, src_grays: torch.Tensor, d_min, d_max,
-                        n_chunks: int = 1) -> VolumeTables:
+                        n_chunks: int = 1,
+                        row_range: Optional[Tuple[int, int]] = None
+                        ) -> VolumeTables:
     """All neighbour views' per-plane tables for one reference view:
     ``n_chunks * 128`` sigma planes, (V, P_pad, D) u16 in image order.
     The neighbours are built one after another (the JAX package
     serialises them above 640x480; each pair's f32 plane stack is the
-    largest temporary)."""
+    largest temporary).  ``row_range``: a row band's rows alone."""
     v, h, w = src_grays.shape
     n_planes = n_chunks * D_PLANES
     if not 1 <= n_chunks <= MAX_PLANES // D_PLANES:
@@ -364,7 +371,8 @@ def build_volume_tables(geom, src_grays: torch.Tensor, d_min, d_max,
     for vi in range(v):
         tab, lo, hi = build_view_volume(geom.A[vi], geom.wv[vi],
                                         src_grays[vi], sig0, dsig, h, w,
-                                        n_planes=n_planes)
+                                        n_planes=n_planes,
+                                        row_range=row_range)
         tabs.append(tab)
         los.append(lo)
         his.append(hi)
@@ -374,15 +382,50 @@ def build_volume_tables(geom, src_grays: torch.Tensor, d_min, d_max,
                         sig_lo=torch.stack(los), sig_hi=torch.stack(his))
 
 
-def build_tables(geom, src_grays: torch.Tensor, d_min, d_max, cfg
+def build_tables(geom, src_grays: torch.Tensor, d_min, d_max, cfg,
+                 row_range: Optional[Tuple[int, int]] = None
                  ) -> VolumeTables:
     """One reference view's tables by the build ``cfg`` routes to
-    (``use_rect_volume_build``)."""
+    (``use_rect_volume_build``); ``row_range`` (lo, hi): the rows of
+    image rows [lo, hi) alone, lo a multiple of 8 and hi too or the
+    image's height (a row band's tables: the whole image's rows
+    [lo, hi), in the build's row order)."""
     h, w = src_grays.shape[1:]
+    if row_range is not None:
+        lo, hi = row_range
+        if not (0 <= lo < hi <= h and lo % 8 == 0
+                and (hi % 8 == 0 or hi == h)):
+            raise ValueError(f"rows [{lo}, {hi}) of a {h}-row image are "
+                             f"not whole 8-row tile rows")
     if use_rect_volume_build(cfg, h, w):
-        return build_volume_tables_rect(geom, src_grays, d_min, d_max)
+        return build_volume_tables_rect(geom, src_grays, d_min, d_max,
+                                        row_range)
     return build_volume_tables(geom, src_grays, d_min, d_max,
-                               n_chunks=table_chunks(cfg))
+                               n_chunks=table_chunks(cfg),
+                               row_range=row_range)
+
+
+def table_rows(vol: VolumeTables, span: Tuple[int, int],
+               rows: Tuple[int, int], w: int, rect: bool) -> VolumeTables:
+    """The tables of image rows ``rows`` (lo, hi) cut from ``vol``, one
+    view's tables of the image rows ``span`` around them (both whole
+    8-row tile rows, or ending at the image's last row): what
+    ``build_tables`` builds for ``rows``.  ``rect``: ``vol`` is in the
+    rect build's tile order, else in image order."""
+    if tuple(rows) == tuple(span):
+        return vol
+    r0, r1 = rows[0] - span[0], rows[1] - span[0]
+    if rect:
+        per = padded_hw(8, w)[1] * 8      # the table rows of a tile row
+        a, z = r0 // 8 * per, -(-r1 // 8) * per
+    else:
+        a, z = r0 * w, r1 * w
+    v, _, d = vol.tab.shape
+    tab = vol.tab.new_zeros((v, _round_up(z - a, _CHUNK), d))
+    tab[:, :z - a] = vol.tab[:, a:z]
+    return vol._replace(tab=tab,
+                        sig_lo=vol.sig_lo[:, r0:r1].contiguous(),
+                        sig_hi=vol.sig_hi[:, r0:r1].contiguous())
 
 
 # --------------------------------------------------------------------------
@@ -610,37 +653,62 @@ def rect_build_setup(geom, src_grays: torch.Tensor, d_min,
         rowf=rowf, c0=c0, k=k, az_ok=az_ok, sig0=sig0, dsig=dsig, h_r0=h_r0)
 
 
+def rect_build_args(s: RectBuildSetup,
+                    row_range: Optional[Tuple[int, int]] = None) -> tuple:
+    """Kernel A's arguments after the rect images, (rb, cb, rowf, c0w, kp,
+    p_pad): the whole view's, or those of the tiles of image rows
+    ``row_range`` (lo, hi), whole tile rows (a row band's window)."""
+    args = (s.rb, s.cb, s.rowf_g, s.c0w_g, s.kp_g)
+    if row_range is None:
+        return args + (s.p_pad,)
+    h, w = s.rowf.shape[1:]
+    n_bw = padded_hw(h, w)[1] // 128
+    t0, t1 = row_range[0] // 8 * n_bw, -(-row_range[1] // 8) * n_bw
+    return (s.rb[:, t0:t1].contiguous(), s.cb[:, t0:t1].contiguous(),
+            *(x[:, t0 * 1024:t1 * 1024].contiguous()
+              for x in args[2:]), _round_up((t1 - t0) * 1024, _CHUNK))
+
+
 def build_volume_tables_rect(geom, src_grays: torch.Tensor, d_min,
-                             d_max) -> VolumeTables:
+                             d_max,
+                             row_range: Optional[Tuple[int, int]] = None
+                             ) -> VolumeTables:
     """Rect-frame table build for one reference view (all V pairs).
 
     ``tab[p, j]`` is the bilerp of the rect-warped source at row(p) and
     column c0(p) + k(p) * sigma_j (``rect_build_setup``, then kernel A).
     The valid-sigma interval also intersects the rect band/window
     coverage, so banding misses are exact invalidity, never silent zeros.
+    ``row_range`` (lo, hi), whole tile rows: the setup (frame fit, rect
+    images, per-tile bases) is the whole view's, and kernel A runs on
+    the tiles of rows [lo, hi) alone.
     """
     v, h, w = src_grays.shape
     s = rect_build_setup(geom, src_grays, d_min, d_max)
-    tab = rect_build_tab(s.rect_src, s.rb, s.cb, s.rowf_g, s.c0w_g, s.kp_g,
-                         s.p_pad)
+    n_bw = padded_hw(h, w)[1] // 128
+    r0, r1 = (0, h) if row_range is None else row_range
+    args = rect_build_args(s, row_range)
+    rb, cb = args[:2]
+    tab = rect_build_tab(s.rect_src, *args)
 
     # exact valid-sigma interval: src-frame constraints plus the rect
     # frame / band / window coverage
     f32 = torch.float32
-    h8, w128 = padded_hw(h, w)
-    n_bh, n_bw = h8 // 8, w128 // 128
-    pv, pu = torch.meshgrid(torch.arange(h, dtype=f32, device=tab.device),
+    hb = r1 - r0
+    n_bh = -(-hb // 8)
+    pv, pu = torch.meshgrid(torch.arange(r0, r1, dtype=f32,
+                                         device=tab.device),
                             torch.arange(w, dtype=f32, device=tab.device),
                             indexing="ij")
-    rb, cb, rowf, c0, k, az_ok = s.rb, s.cb, s.rowf, s.c0, s.k, s.az_ok
+    rowf, c0, k, az_ok = (x[:, r0:r1] for x in (s.rowf, s.c0, s.k, s.az_ok))
     lo_all, hi_all = [], []
     for vi in range(v):
         A, wv = geom.A[vi], geom.wv[vi]
         p0x = A[0, 0] * pu + A[0, 1] * pv + A[0, 2]
         p0y = A[1, 0] * pu + A[1, 1] * pv + A[1, 2]
         p0z = A[2, 0] * pu + A[2, 1] * pv + A[2, 2]
-        rbf = _expand_tiles(rb[vi], n_bh, n_bw)[:h, :w].to(f32) * 8.0
-        cbf = _expand_tiles(cb[vi], n_bh, n_bw)[:h, :w].to(f32) * 512.0
+        rbf = _expand_tiles(rb[vi], n_bh, n_bw)[:hb, :w].to(f32) * 8.0
+        cbf = _expand_tiles(cb[vi], n_bh, n_bw)[:hb, :w].to(f32) * 512.0
         c0_v, k_v = c0[vi], k[vi]
         cons = (
             (p0z, wv[2]),

@@ -1,19 +1,22 @@
 """Multi-process runtime: torch.distributed, the global (view, tile) mesh
-and the collectives of the view axis (PyTorch port of
+and its collectives (PyTorch port of
 ``hcmvs_tpu/parallel/distributed.py``).
 
 The reference's only cross-process mechanism is the filesystem (run.sh
-moves the depth-map directories between stages; ref: run.sh:1-20).  Here every process joins one ``torch.distributed`` process
-group, owns one block of the scene's views (``parallel.sharding``), and
-the cross-view reads of the geometric phase, the filter and fusion read
-maps that an all-gather has made whole on every process.
+moves the depth-map directories between stages; ref: run.sh:1-20).  Here
+every process joins one ``torch.distributed`` process group and owns its
+shards of the (view, tile) mesh (``parallel.sharding``): the cross-view
+reads of the geometric phase, the filter and fusion read maps that an
+all-gather has made whole on every process, and the row bands of a view
+trade their edge rows inside their tile group (``gather_in_group``,
+timed by its caller as ``parallel.halo``).
 
 Backends: ``nccl`` for CUDA and ``gloo`` for the CPU unless the caller
 names one.  Gloo also carries CUDA tensors (``all_gather``,
 ``all_reduce``, ``broadcast``), staged through host memory: that is how
 two processes share one card, where NCCL refuses two ranks on one
 device.  Every collective is timed into ``utils.profiling``'s report as
-``parallel.all_gather`` / ``parallel.broadcast``.
+``parallel.all_gather`` / ``parallel.broadcast`` / ``parallel.halo``.
 
 On the CPU (tests, no card): processes rendezvous through a ``file://``
 path and use Gloo; ``parallel.mh_check.launch`` starts them.
@@ -94,21 +97,36 @@ def world() -> tuple:
 
 
 def global_mesh(n_tile: int = 1, device="cuda",
-                shards_per_process: int = 1):
+                shards_per_process: Optional[int] = None):
     """The (view, tile) mesh over every process of the group
-    (``shards_per_process`` view shards a process), with
-    ``torch.distributed``'s ``DeviceMesh`` of dims ("view", "tile")
-    attached; a single process without a group gets a mesh of its own
-    shards.  ``n_tile`` > 1 raises (see ``sharding.make_device_mesh``)."""
+    (``shards_per_process`` shards a process; by default one, or as many
+    as it takes for the processes to hold ``n_tile`` bands), view-major
+    in process order as the JAX package's
+    (``hcmvs_tpu/parallel/distributed.py:59-66``): ``n *
+    shards_per_process // n_tile`` view blocks of ``n_tile`` row bands.
+    ``torch.distributed``'s ``DeviceMesh`` of dims ("view", "tile") over
+    the processes is attached, and its "tile" group, when a tile group
+    spans several processes; a single process without a group gets a
+    mesh of its own shards."""
     from torch.distributed.device_mesh import init_device_mesh
 
     from hcmvs_tpu_torch.parallel.sharding import make_device_mesh
     device = local_device(device)
     rank, n = world()
-    mesh = make_device_mesh(n * shards_per_process, n_tile, device=device)
+    if shards_per_process is None:
+        shards_per_process = max(1, -(-n_tile // n))
+    shards = n * shards_per_process
+    if n_tile < 1 or shards % n_tile:
+        raise ValueError(f"{shards} shards do not split into row bands of "
+                         f"{n_tile}")
+    mesh = make_device_mesh(shards // n_tile, n_tile, device=device)
     if dist.is_initialized():
+        procs = mesh.tile_procs
         mesh.device_mesh = init_device_mesh(
-            device.type, (n, n_tile), mesh_dim_names=("view", "tile"))
+            device.type, (n // procs, procs),
+            mesh_dim_names=("view", "tile"))
+        if procs > 1:
+            mesh.tile_group = mesh.device_mesh.get_group("tile")
     return mesh
 
 
@@ -133,6 +151,18 @@ def fetch(x: torch.Tensor, blocks: List[range]) -> torch.Tensor:
         dist.all_gather(parts, send)
     out = torch.cat([p[:len(b)] for p, b in zip(parts, blocks)])
     return out.to(torch.bool) if x.dtype == torch.bool else out
+
+
+def gather_in_group(x: torch.Tensor, group, size: int
+                    ) -> List[torch.Tensor]:
+    """Every process's ``x`` (the same shape and dtype on each) in the
+    process group ``group`` of ``size`` processes, in the group's rank
+    order: an all-gather, untimed (the caller times it under its own
+    name)."""
+    x = x.contiguous()
+    parts = [torch.empty_like(x) for _ in range(size)]
+    dist.all_gather(parts, x, group=group)
+    return parts
 
 
 def sum_in_rank_order(x: torch.Tensor) -> torch.Tensor:

@@ -1,4 +1,4 @@
-"""Multi-process value check of the view axis (PyTorch port of
+"""Multi-process value check of the (view, tile) mesh (PyTorch port of
 ``hcmvs_tpu/parallel/mh_check.py``).
 
 One process a rank; ``launch`` starts them (a ``file://`` rendezvous in
@@ -12,9 +12,12 @@ hcmvs_tpu_torch.parallel.mh_check`` does, or by hand:
 
 An 8-view plane scene (32x48, 2 neighbours by default) runs a
 photometric and a geometric ``scene_sweeps`` pass, the mid-pipeline
-cross-view filter and depth-map fusion with the view axis split across
-the processes (``parallel.sharding``): the geometric phase's neighbour
-reads, the filter and fusion read maps gathered across them.  Process 0
+cross-view filter and depth-map fusion on the (view, tile) mesh over the
+processes (``parallel.sharding``; ``--n-tile`` row bands a view, 1 by
+default: the view axis alone): the geometric phase's neighbour reads, the
+filter and fusion read maps gathered across them, and under the tile
+axis every half-sweep ends with the halo exchange of the bands' edge
+rows.  Process 0
 then reruns the same schedule in one process with the same per-view
 generators and compares: depth, normal and cost maps and the fused
 ``keep`` and points must be equal.  It prints ``MHCHECK OK`` (exit 0) or
@@ -32,12 +35,13 @@ and the cost must agree within rel 1e-3 and the points within rtol 1e-3
 ``--cfg`` (JSON DenseConfig overrides, repeatable) runs several configs
 one after another; each prints an ``MHJSON`` line per process (walls,
 launches per kernel and by output shape, peak memory, collective
-seconds).  ``--bench-reps N``
+seconds, calls and bytes by collective: ``parallel.halo``, the halo
+exchange, ``parallel.all_gather``, the rest).  ``--bench-reps N``
 also times N runs of the sharded schedule (``MHBENCH``).  ``--device``
 is ``cuda`` by default: ranks on a one-card machine share the card and
 must name ``--dist-backend gloo`` (NCCL refuses two ranks on one card).
-On ``cpu``, ``--ranks-per-process`` gives each process several view
-shards (the JAX check's ``--devices-per-process``).
+On ``cpu``, ``--ranks-per-process`` gives each process several shards
+(the JAX check's ``--devices-per-process``).
 """
 
 from __future__ import annotations
@@ -76,7 +80,7 @@ def run_schedule(scene, cfg, seed: int, mesh=None, n_iters: int = 1):
     """Init, a photometric and a geometric ``scene_sweeps`` pass of
     ``n_iters`` sweeps, ``optimize_maps`` and fusion, every view drawing
     from its own generator: one process's schedule, or with ``mesh`` the
-    view-axis one (``parallel.sharding``).  Returns (state, fused)."""
+    mesh's (``parallel.sharding``).  Returns (state, fused)."""
     import torch
     from hcmvs_tpu_torch.dense import fusion
     from hcmvs_tpu_torch.dense import scene_driver as SD
@@ -230,7 +234,9 @@ def main(argv=None) -> int:
                     choices=["gloo", "nccl"],
                     help="default: nccl on cuda, gloo on cpu")
     ap.add_argument("--ranks-per-process", type=int, default=1,
-                    help="view shards a process (cpu only)")
+                    help="mesh shards a process (cpu only)")
+    ap.add_argument("--n-tile", type=int, default=1,
+                    help="row bands a view (the tile axis of the mesh)")
     ap.add_argument("--backend", default="direct", choices=list(BACKENDS))
     ap.add_argument("--cfg", action="append", default=None,
                     help="JSON DenseConfig overrides; repeat to run "
@@ -260,9 +266,11 @@ def main(argv=None) -> int:
 
     import torch
     from hcmvs_tpu_torch import kernels
+    from hcmvs_tpu_torch.dense.bands import halo_rows
     from hcmvs_tpu_torch.entry import build_scene
     from hcmvs_tpu_torch.kernels.shapes import launch_shapes
     from hcmvs_tpu_torch.parallel import distributed as D
+    from hcmvs_tpu_torch.parallel import sharding as P
     from hcmvs_tpu_torch.utils import profiling
     if args.device == "cpu":
         torch.set_num_threads(1)        # processes share the host's cores
@@ -278,7 +286,7 @@ def main(argv=None) -> int:
     if dev.type == "cuda":
         torch.cuda.set_device(dev)
         kernels.library()
-    mesh = D.global_mesh(device=dev,
+    mesh = D.global_mesh(n_tile=args.n_tile, device=dev,
                          shards_per_process=args.ranks_per_process)
     rank, world = D.world()
     backend = torch.distributed.get_backend()
@@ -309,15 +317,26 @@ def main(argv=None) -> int:
         wall = time.perf_counter() - t0
         launches = dict(kernels.launches)
         rep = profiling.report()
+        bands = (P.scene_bands(mesh, args.h, cfg) if mesh.n_tile > 1
+                 else None)
         line = {"rank": rank, "world": world, "dist_backend": backend,
                 "device": str(dev), "cfg": json.loads(text),
-                "views": list(mesh.own(args.views)),
+                "mesh": [mesh.n_view, mesh.n_tile],
+                "views": list(mesh.sweep_views(args.views)),
+                "bands": [[bands[b].start, bands[b].stop]
+                          for b in mesh.tile_bands()] if bands else None,
+                "halo_rows": halo_rows(cfg) if bands else None,
                 "wall_s": wall, "launches": launches,
                 "launches_by_shape": {k: dict(v) for k, v in shapes.items()},
                 "collective_s": sum(v["total_s"] for k, v in rep.items()
                                     if k.startswith("parallel.")),
                 "collectives": sum(v["calls"] for k, v in rep.items()
                                    if k.startswith("parallel.")),
+                "by_collective": {k: {"calls": v["calls"],
+                                      "s": v["total_s"],
+                                      "bytes": v.get("bytes")}
+                                  for k, v in rep.items()
+                                  if k.startswith("parallel.")},
                 "peak_gib": (torch.cuda.max_memory_allocated(dev) / 2 ** 30
                              if dev.type == "cuda" else None)}
         if args.bench_reps:

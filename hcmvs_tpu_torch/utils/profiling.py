@@ -79,6 +79,13 @@ def stage_timer(name: str, block_on=None, log: bool = False):
             get_logger().info("%s: %.3fs", name, dt)
 
 
+def add_bytes(name: str, n: int) -> None:
+    """Add ``n`` bytes to stage ``name``'s ``bytes`` (what a collective
+    moved, beside its seconds)."""
+    s = _STAGES[name]
+    s["bytes"] = s.get("bytes", 0) + int(n)
+
+
 def reset_report() -> None:
     _STAGES.clear()
 

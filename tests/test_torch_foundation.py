@@ -116,6 +116,47 @@ def test_camera_and_view_geometry_match(scenes):
         _close(getattr(tg, f), getattr(jg, f), rtol=1e-5)
 
 
+def test_camera_helpers_match(scenes):
+    """plane_homography, apply_homography and point_to_epiline_dist on the
+    same numpy inputs, at tests/test_camera.py's tolerances (homography
+    points rtol 1e-3 / atol 0.5, epiline distances within 0.1)."""
+    js, ts = scenes
+    jc, tc = _cams(js, jcam), _cams(ts, tcam)
+    jref, jsrc = (jax.tree.map(lambda x: x[i], jc) for i in (0, 1))
+    tref, tsrc = tc[0], tc[1]
+    rng = np.random.default_rng(5)
+    n = np.array([0.2, -0.1, -1.0])
+    n = (n / np.linalg.norm(n)).astype(np.float32)
+    d_plane = np.float32(-3.5)
+    jH = jcam.plane_homography(jref, jsrc, jnp.asarray(n),
+                               jnp.asarray(d_plane))
+    tH = tcam.plane_homography(tref, tsrc, torch.from_numpy(n),
+                               torch.tensor(d_plane))
+    _close(tH, jH, rtol=1e-5)
+    uv = rng.uniform(5, 50, (20, 2)).astype(np.float32)
+    tuv = tcam.apply_homography(tH, torch.from_numpy(uv))
+    np.testing.assert_allclose(
+        tuv.numpy(), np.asarray(jcam.apply_homography(jH, jnp.asarray(uv))),
+        rtol=1e-3, atol=0.5)
+    # true correspondences: points on the plane seen by both cameras
+    F_t = tcam.fundamental_matrix(tref, tsrc)
+    F_j = jcam.fundamental_matrix(jref, jsrc)
+    d_t = tcam.point_to_epiline_dist(F_t, torch.from_numpy(uv), tuv)
+    d_j = jcam.point_to_epiline_dist(F_j, jnp.asarray(uv), jnp.asarray(
+        tuv.numpy()))
+    assert float(d_t.max()) < 0.1
+    np.testing.assert_allclose(d_t.numpy(), np.asarray(d_j), rtol=0,
+                               atol=0.1)
+    # and random pairs, far from their epilines: the same distances
+    uv2 = rng.uniform(5, 50, (20, 2)).astype(np.float32)
+    np.testing.assert_allclose(
+        tcam.point_to_epiline_dist(F_t, torch.from_numpy(uv),
+                                   torch.from_numpy(uv2)).numpy(),
+        np.asarray(jcam.point_to_epiline_dist(F_j, jnp.asarray(uv),
+                                              jnp.asarray(uv2))),
+        rtol=1e-4, atol=1e-3)
+
+
 def test_types_helpers_match(scenes):
     js, ts = scenes
     h, w = js.images[0].shape

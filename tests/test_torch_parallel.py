@@ -375,6 +375,8 @@ def test_dryrun_multichip_on_the_cpu(n):
     rep = dryrun_multichip(n, "cpu", timeout=TIMEOUT)
     assert rep["world"] == n and rep["equal"] and rep["kept"] > 0
     assert rep["cfg"] == {"volume_planes": 256}
+    # two row bands a view from 4 processes on, as the JAX package's
+    assert rep["mesh"] == ([2, 1] if n == 2 else [2, 2])
 
 
 def test_scaling_run_returns_its_keys():
@@ -383,13 +385,6 @@ def test_scaling_run_returns_its_keys():
     assert set(out) == {"wall_s_1dev", "wall_s_2dev", "ratio_1dev",
                         "ratio_2dev"}
     assert out["ratio_1dev"] == 1.0 and out["wall_s_2dev"] > 0
-
-
-def test_the_tile_axis_raises():
-    with pytest.raises(NotImplementedError, match="ROADMAP.md.*tile axis"):
-        P.make_device_mesh(1, n_tile=2)
-    with pytest.raises(NotImplementedError, match="tile axis"):
-        D.global_mesh(n_tile=2, device="cpu")
 
 
 def test_one_process_needs_no_group(monkeypatch):

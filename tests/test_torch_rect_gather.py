@@ -102,6 +102,31 @@ def test_rect_context_matches_jax(setup):
     assert same.float().mean() >= 0.999
 
 
+def test_rect_coverage_matches_jax(setup):
+    """The banding diagnostic on the JAX context: the port's share equals
+    the JAX package's and is near total (tests/test_rect_gather.py:57's
+    gate, > 0.99)."""
+    _, _, _, _, ctx_j, sigma = setup
+    ctx_t = rect_context_from_numpy(ctx_j, device="cpu")
+    cov_t = trg.rect_coverage(ctx_t, torch.from_numpy(sigma))
+    cov_j = float(jrg.rect_coverage(ctx_j, jnp.asarray(sigma)))
+    assert cov_t.dtype == torch.float32 and cov_t.dim() == 0
+    assert float(cov_t) == pytest.approx(cov_j, rel=1e-6)
+    assert float(cov_t) > 0.99
+
+
+def test_rect_rows_cut_the_lookup_by_band(setup):
+    """A row band's context (``rect_rows``) reads what the whole one
+    reads at those rows (the tile axis cuts kernel C's fields so)."""
+    _, _, _, _, ctx_j, sigma = setup
+    ctx_t = rect_context_from_numpy(ctx_j, device="cpu")
+    sig = torch.from_numpy(sigma)
+    whole = trg.rect_lookup(ctx_t, sig)
+    for r0, r1 in ((0, 24), (16, 48), (40, H)):
+        part = trg.rect_lookup(trg.rect_rows(ctx_t, r0, r1), sig[r0:r1])
+        assert torch.equal(part, whole[:, :, r0:r1])
+
+
 def test_rect_lookup_plain_equals_jax_exactly(setup):
     _, _, _, _, ctx_j, sigma = setup
     ctx_t = rect_context_from_numpy(ctx_j, device="cpu")
