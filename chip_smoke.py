@@ -29,20 +29,29 @@ Phases, each fatal on failure:
      scoring in the photometric phase, batched table scoring in the
      geometric one); all five kernels must have launched;
   7. the same path through the plain versions, compared with phase 6;
-  8. the densify path through the kernels: the DensifyPointCloud entry
+  8. first the Farneback flow (``dense.flow.farneback_flow``, plain
+     PyTorch: the JAX package computes it on the host through OpenCV) on
+     the card against the port's own CPU run, on the committed photos
+     p00 -> p01 at 1280x960 (max |d| <= 5e-3 px, >= 99.9% of pixels
+     within 1e-3 px), with its card time, device operations and the share
+     of pixels moving more than 1 px; then the densify path through the
+     kernels: the DensifyPointCloud entry
      point (``hcmvs_tpu_torch.pipeline.densify.main``) on the same scene
      written as ``scene.mvs`` + four 1280x960 PNGs, at DenseConfig()
      defaults plus ``resolution-level=0`` (4 external iterations of 3
      sweeps, 6 random steps, the mid-schedule filter at iterations 1 and
-     2, LK flow, 3 neighbours); kernels A, B and C must have launched, the
-     ``.dmap`` / ``.ply`` / ``.mvs`` files must read back, view 0 must
-     reach its accuracy floor and the fused cloud must lie on the plane;
+     2, Farneback flow, 3 neighbours); kernels A, B and C must have
+     launched, the ``.dmap`` / ``.ply`` / ``.mvs`` files must read back,
+     view 0 must reach its accuracy floor and come within 0.03 of the JAX
+     package's CPU run of this config, and the fused cloud must lie on
+     the plane; the flows' seconds are printed (here and in phases 9-13);
   9. the same ``densify`` through the plain versions, compared with 8;
  10. the hierarchy path through the kernels: the hierarchical-cross
      schedule's entry point (``hcmvs_tpu_torch.pipeline.hierarchy.main``)
      on a 4-view ridge scene written as ``scene.mvs`` + four 2560x1920
      PNGs at DenseConfig() with two external iterations a stage
-     (HIER_FLAGS): the five default stages (levels 3 / 2 / 2 /
+     (HIER_FLAGS; Farneback flow at every level): the five default
+     stages (levels 3 / 2 / 2 /
      1 / 1, variants A / B / A / B / A) at 640 / 640 / 640 / 1280 / 1280
      wide, with the cross-scale injection in the B stages; kernels A, B
      and C must have launched (C in every A stage), each stage's launches,
@@ -110,7 +119,9 @@ Phases, each fatal on failure:
  20. kernels B and D past 128 planes: B on view 0's per-plane tables at
      256 / 384 / 512 planes (image-order rows) at the four field widths,
      D on the 256-plane table in its three modes at 324 and 81 columns,
-     bit-equal to their plain versions, timed, with their bounds;
+     then both on a random 1024-plane table (``volume_planes`` 1024) of
+     1,228,800 rows, B at the four widths and D in its three modes at 324
+     columns, bit-equal to their plain versions, timed, with their bounds;
  21. the dense routes on the quality ladder's ridge scene at 1280x960
      (``hcmvs_tpu_torch.eval.quality_ladder``, 5 views, 3 neighbours, 3 x
      2 sweeps): rect tables at 128 planes, the per-plane build at 128 and
@@ -176,9 +187,9 @@ Phases, each fatal on failure:
      ``eval.scaling.run_multiprocess`` on the view axis's scene with its
      value check.
 Phase 28 runs after phase 23 and 27's decoder check, alone.  Phases
-14-15, 19, 21, 24-26 and 27's pipeline run last, after it, side by side,
-each in a process of its own (``chip_smoke.py --worker KIND OUT``, an internal
-mode), which counts
+14-15, 17, 19, 21, 24-26 and 27's pipeline run last, after it, side by
+side, each in a process of its own (``chip_smoke.py --worker KIND OUT
+ROOTS``, an internal mode), which counts
 its own launches and hands them back.  Launches are counted by kernel
 and output shape (B and D with the table's depth).  Then a JSON line per
 path, one for the kernels, the nvidia-smi line, and a last line ``{"ok": true, "device": {...}}``.  Exits non-zero, with no
@@ -432,6 +443,22 @@ MIN_ACC = {"exact": 0.5, "hybrid_batched": 0.15, "densify": 0.85,
 # 96x128 and 240x320 reach 0.0015 and 0.0010; PERF.md)
 DENSIFY_FLAGS = ("resolution-level=0",)
 MAX_CLOUD_DISTANCE = 0.01
+# view 0's accuracy within DENSIFY_JAX_TOL of the JAX package's own CPU
+# run of this config (Farneback flow, DenseConfig() + resolution-level=0,
+# the same 4-view 1280x960 plane scene; valid 0.9519, 1,312,762 points):
+# ``PYTHONPATH=. python tests/test_torch_densify.py 960 1280 jax``
+# (PERF.md)
+DENSIFY_JAX_ACC = 0.8612
+DENSIFY_JAX_TOL = 0.03
+# phase 8's Farneback check: the committed photos' ordered pair whose flow
+# exceeds 1 px on the largest share of pixels at 1280x960 (12.9%; the
+# photos are blobs on a flat gray ground, where Farneback's flow is ~0:
+# every other ordered pair of the eight has 11.2-12.8%), on the card
+# against the port's own CPU run
+FLOW_PAIR = (0, 1)
+FLOW_MAX_ERR = 5e-3
+FLOW_NEAR = 1e-3
+FLOW_NEAR_SHARE = 0.999
 # the densify path's images are written with the Paeth row filter, as
 # OpenCV's encoder writes smooth images, so that their decode takes the
 # decoder's wavefront, its slow path
@@ -995,6 +1022,62 @@ def check_path(sc, scene, cfg, dev, label, path_kernels):
         "launches_by_shape": shapes}, failed
 
 
+def check_farneback(dev, failed) -> dict:
+    """Phase 8, first: ``farneback_flow`` (plain PyTorch, no kernel of
+    the port) on the card against the port's own CPU run, on FLOW_PAIR of
+    tests/data/jpeg/photos at 1280x960; its card time (median of 5
+    synchronised calls), its device operations a call and their summed
+    device time (torch.profiler) and the share of pixels moving more than
+    1 px."""
+    import numpy as np
+    import torch
+    from hcmvs_tpu_torch.dense.flow import farneback_flow, pyramid_levels
+    from hcmvs_tpu_torch.io.images import imread
+    photos = (Path(__file__).resolve().parent / "tests" / "data" / "jpeg"
+              / "photos")
+    a, b = (torch.from_numpy(imread(str(photos / f"p{i:02d}.jpg"), "gray")
+                             .astype(np.float32) / 255.0) for i in FLOW_PAIR)
+    t0 = time.perf_counter()
+    cpu = farneback_flow(a, b)
+    cpu_s = time.perf_counter() - t0
+    ga, gb = a.to(dev), b.to(dev)
+    err = (farneback_flow(ga, gb).cpu() - cpu).abs().amax(0)
+    max_err = float(err.max())
+    near = float((err <= FLOW_NEAR).float().mean())
+    times = []
+    for _ in range(5):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        farneback_flow(ga, gb)
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    ms = float(np.median(times))
+    busy_ms, n_ops = device_busy(lambda: farneback_flow(ga, gb))
+    moving = float((torch.hypot(cpu[0], cpu[1]) > 1.0).float().mean())
+    log(f"[farneback] p{FLOW_PAIR[0]:02d} -> p{FLOW_PAIR[1]:02d} "
+        f"{tuple(a.shape)}, {pyramid_levels(*a.shape)} levels: card "
+        f"{ms:.3f} ms a pair (median of 5; {n_ops} device operations, "
+        f"{busy_ms:.3f} ms of device time), CPU {cpu_s:.3f} s; card vs CPU "
+        f"max |d| {max_err:.3g} px, {near:.6f} of pixels within "
+        f"{FLOW_NEAR} px; {moving:.4f} of pixels move > 1 px, max "
+        f"{float(torch.hypot(cpu[0], cpu[1]).max()):.2f} px")
+    if not max_err <= FLOW_MAX_ERR or near < FLOW_NEAR_SHARE:
+        failed.append(f"farneback: card vs CPU max {max_err} px, {near} "
+                      f"within {FLOW_NEAR} px")
+    return {"pair": list(FLOW_PAIR), "h": int(a.shape[0]),
+            "w": int(a.shape[1]), "ms": ms, "device_ms": busy_ms,
+            "device_ops": n_ops, "cpu_s": cpu_s, "max_abs_err": max_err,
+            "within_1e-3": near, "moving_1px": moving}
+
+
+def flow_seconds(label: str, rep: dict) -> None:
+    """Logs the flows' seconds of a run's stage report."""
+    for name in ("densify.flows", "hierarchy.flows"):
+        if name in rep:
+            log(f"[{label}] flows (Farneback): {rep[name]['total_s']:.3f} s "
+                f"x{int(rep[name]['calls'])}")
+
+
 def _densify_run(scene_path, img_dir, out_dir, plain: bool):
     """One densify run on the card, the kernel pass through the CLI entry
     point, the plain pass through ``densify`` with the same work (depth
@@ -1030,8 +1113,10 @@ def check_densify(sc, root):
     from hcmvs_tpu_torch.io.mvs import read_mvs
     from hcmvs_tpu_torch.utils.synth import write_plane_scene
 
+    import torch
     label = "densify"
     failed = []
+    farneback = check_farneback(torch.device("cuda", 0), failed)
     t0 = time.perf_counter()
     scene_path, img_dir = write_plane_scene(str(root), sc,
                                             png_filter=DENSIFY_PNG_FILTER)
@@ -1052,6 +1137,7 @@ def check_densify(sc, root):
     for name, s in sorted(rep_k.items(), key=lambda kv: -kv[1]["total_s"]):
         log(f"[{label}] stage {name:<26} {s['total_s']:9.3f} s "
             f"x{int(s['calls'])}")
+    flow_seconds(label, rep_k)
     log(f"[{label}] total {sec_k:.3f} s, {N_VIEWS / sec_k:.4f} views/s, "
         f"peak memory {peak_k:.2f} GiB, valid {st_k['valid_frac']:.4f}, "
         f"points {st_k['n_points']}")
@@ -1075,6 +1161,12 @@ def check_densify(sc, root):
         f"cloud median distance to the plane / median depth {cloud:.6f}")
     if acc_k < MIN_ACC[label]:
         failed.append(f"{label}: depth accuracy {acc_k} < {MIN_ACC[label]}")
+    log(f"[{label}] view 0 depth_acc_2pct {acc_k:.4f} against the JAX "
+        f"package's {DENSIFY_JAX_ACC:.4f} on the CPU (within "
+        f"{DENSIFY_JAX_TOL})")
+    if abs(acc_k - DENSIFY_JAX_ACC) > DENSIFY_JAX_TOL:
+        failed.append(f"{label}: depth accuracy {acc_k} vs the JAX "
+                      f"package's {DENSIFY_JAX_ACC}")
     if cloud > MAX_CLOUD_DISTANCE:
         failed.append(f"{label}: cloud distance {cloud} > "
                       f"{MAX_CLOUD_DISTANCE}")
@@ -1086,6 +1178,7 @@ def check_densify(sc, root):
     if any(kernels.launches.values()):
         failed.append(f"{label} plain run launched kernels: "
                       f"{kernels.launches}")
+    flow_seconds(f"{label} plain", rep_p)
     acc_p = depth_acc_2pct(st_p["depth"][0], sc.depth_gt)
     agree = float((np.abs(st_k["depth"] - st_p["depth"])
                    <= 0.01 * np.abs(st_p["depth"])).mean())
@@ -1115,7 +1208,8 @@ def check_densify(sc, root):
         "cloud_distance": cloud, "plain_total_s": sec_p,
         "plain_stage_s": {k: v["total_s"] for k, v in rep_p.items()},
         "plain_depth_acc_2pct": acc_p, "plain_n_points": st_p["n_points"],
-        "agree_1pct": agree, "launches_by_shape": shapes}, failed
+        "agree_1pct": agree, "farneback": farneback,
+        "launches_by_shape": shapes}, failed
 
 
 @contextlib.contextmanager
@@ -1240,6 +1334,7 @@ def check_hierarchy(root):
     for name, s in sorted(rep_k.items(), key=lambda kv: -kv[1]["total_s"]):
         log(f"[{label}] report {name:<24} {s['total_s']:9.3f} s "
             f"x{int(s['calls'])}")
+    flow_seconds(label, rep_k)
     final_hw = (H, W)
     if rec_k and rec_k[-1]["hw"] != final_hw:
         failed.append(f"{label}: the last stage ran at {rec_k[-1]['hw']}, "
@@ -1275,6 +1370,7 @@ def check_hierarchy(root):
     if any(kernels.launches.values()):
         failed.append(f"{label} plain run launched kernels: "
                       f"{kernels.launches}")
+    flow_seconds(f"{label} plain", rep_p)
     for si, rec in enumerate(rec_p):
         stages[si].update(
             plain_seconds=rep_p[f"hierarchy.stage{si}"]["total_s"],
@@ -1463,6 +1559,7 @@ def check_masks(root):
     for name, s in sorted(rep_k.items(), key=lambda kv: -kv[1]["total_s"]):
         log(f"[{label}] stage {name:<26} {s['total_s']:9.3f} s "
             f"x{int(s['calls'])}")
+    flow_seconds(label, rep_k)
     prior_s = rep_k.get("estimate.priors", {}).get("total_s", 0.0)
     if len(pri_k) != 1 or rep_k.get("estimate.priors", {}).get(
             "calls") != 1:
@@ -1527,6 +1624,7 @@ def check_masks(root):
     if any(kernels.launches.values()):
         failed.append(f"{label} plain run launched kernels: "
                       f"{kernels.launches}")
+    flow_seconds(f"{label} plain", rep_p)
     acc_p = depth_acc_2pct(st_p["depth"][0], sc.depth_gt)
     agree = float((np.abs(st_k["depth"] - st_p["depth"])
                    <= 0.01 * np.abs(st_p["depth"])).mean())
@@ -1981,8 +2079,9 @@ def check_photos(root):
     """Phase 16: the photo directory through ``pipeline.mvgmvs.main``
     (SEQUENTIAL, distortion estimated, ``--no-mesh``) on the card, counts
     reset just before, read just after; then its dense step through the
-    plain versions.  Returns (launches, JSON summary, the checks that
-    failed, the scene)."""
+    plain versions.  Leaves the photos and their cameras' centres
+    (``centres.npy``) in ``root`` for phase 17.  Returns (launches, JSON
+    summary, the checks that failed)."""
     import numpy as np
     import torch
     from hcmvs_tpu_torch import kernels
@@ -1998,6 +2097,8 @@ def check_photos(root):
     h, w = PHOTO_HW
     t0 = time.perf_counter()
     sc = photo_scene(h, w, PHOTO_VIEWS)
+    np.save(root / "centres.npy",
+            np.stack([c.C.numpy() for c in sc.cameras]))
     K_gt = sc.cameras[0].K.numpy()
     photos = str(root / "photos")
     write_photos(photos, distort_images(sc.images, K_gt,
@@ -2084,14 +2185,15 @@ def check_photos(root):
         "sparse_points": len(res.points), "total_s": seconds,
         "stage_s": stages, "ba_each_s": rep.get("sfm.ba", {}).get("each_s"),
         "peak_gib": peak, "files_read_back": back,
-        "launches_by_shape": shapes}, failed, sc
+        "launches_by_shape": shapes}, failed
 
 
-def check_sfm_again(root, sc, dev):
-    """Phase 17: ``incremental_sfm`` twice on phase 16's photos (equal
-    poses and points: fixed-order sums, a seeded generator), then the
-    GLOBAL preset's ``global_sfm`` + ``refine_with_distortion``: all
-    views registered with finite poses and points, the ATE at most
+def check_sfm_again(root, dev):
+    """Phase 17: ``incremental_sfm`` twice on phase 16's photos under
+    ``root`` (equal poses and points: fixed-order sums, a seeded
+    generator), then the GLOBAL preset's ``global_sfm`` +
+    ``refine_with_distortion``: all views registered with finite poses and
+    points, the ATE against the cameras' centres (``centres.npy``) at most
     GLOBAL_ATE_TOL above the JAX package's on the same photos."""
     import numpy as np
     import torch
@@ -2134,7 +2236,7 @@ def check_sfm_again(root, sc, dev):
     g_s = time.perf_counter() - t0
     stages = _stage_lines(label, profiling.report(), SFM_STAGES)
     reg, est = _centres(g)
-    gt = np.stack([sc.cameras[i].C.numpy() for i in reg])
+    gt = np.load(root / "centres.npy")[reg]
     ga = ate(est, gt)
     launches = dict(kernels.launches)
     log(f"[{label}] incremental_sfm twice {secs[0]:.3f} / {secs[1]:.3f} s: "
@@ -2274,9 +2376,13 @@ def check_chain(root):
         **plain, "launches_by_shape": shapes}, failed
 
 
-# phase 20: kernels B and D on the per-plane build's deeper tables
+# phase 20: kernels B and D on the per-plane build's deeper tables, and
+# on a random table of volume_planes 1024 (eight chunks) with fields over
+# the whole grid and past it, on the image's rows
 DEEP_PLANES = (256, 384, 512)
 DEEP_D_PLANES = 256
+DEEP_RANDOM_PLANES = 1024
+DEEP_RANDOM_COLUMNS = 324        # D: 9 candidates x 36 offsets
 # phase 21: the quality ladder's scene (hcmvs_tpu/eval/quality_ladder.py)
 # at 1280x960, fixed FOV, once per route.  Route (i)'s floor is the JAX
 # package's 0.8966 at this config (BASELINE.md, u16 tables) less 0.02;
@@ -2432,6 +2538,9 @@ def deep_parity(scene, cfg, dev, rows):
                 n_bytes, f"{mode}, planes build {DEEP_D_PLANES}", mode))
             del out, plain
         del f2, f32, fi, b
+    del vt256, tab0
+    torch.cuda.empty_cache()
+    deep_random(h * w, widths, dev, by_name, entry)
     for name in ("volume_lookup", "volume_lookup_multi"):
         for x in by_name[name]["shapes"]:
             if 128 in x["shape"][2:]:
@@ -2440,6 +2549,80 @@ def deep_parity(scene, cfg, dev, rows):
                 f"{x['ms']:.3f} ms, plain {x['plain_ms']:.3f} ms, bound "
                 f"{x['bound_ms']:.3f} ms ({x['bound_by']}), "
                 f"{100 * x['bound_ms'] / x['ms']:.1f}% of the bound")
+
+
+def deep_random(p, widths, dev, by_name, entry):
+    """Phase 20, last: kernels B (at the paths' four field widths) and D
+    (f32, packed and bounded at DEEP_RANDOM_COLUMNS) on a random
+    DEEP_RANDOM_PLANES-plane table of ``p`` rows, fields over the whole
+    grid and past it (bounded rows hold part of each row's items):
+    bit-equal to the plain versions, timed, with their bounds."""
+    import torch
+    from hcmvs_tpu_torch import kernels
+    from hcmvs_tpu_torch.ops import volume as vol
+    d, c = DEEP_RANDOM_PLANES, DEEP_RANDOM_COLUMNS
+    gen = torch.Generator(device=dev).manual_seed(20)
+    tab = torch.randint(-32768, 32768, (p, d), dtype=torch.int16,
+                        device=dev, generator=gen).view(torch.uint16)
+    label = f"random, planes {d}"
+    for s in sorted({len(o) for o in widths}, reverse=True):
+        f = torch.rand((p, s), device=dev, generator=gen) * (d + 4) - 2
+        out = kernels.volume_lookup(tab, f)
+        same = torch.equal(out, vol.volume_lookup_plain(tab, f))
+        log(f"[deep] B volume_lookup: table {tuple(tab.shape)}, field "
+            f"{tuple(f.shape)}, bit-equal {same}")
+        if not same:
+            raise AssertionError(f"kernel B at D = {d}, {tuple(f.shape)} "
+                                 f"differs from its plain version")
+        n_bytes = nbytes(f, out) + table_bytes(tab, torch.clamp(
+            torch.floor(f), 0, d - 2).long())
+        by_name["volume_lookup"]["shapes"].append(entry(
+            "volume_lookup", tab, f, out,
+            cuda_ms(lambda: kernels.volume_lookup(tab, f), 20),
+            cuda_ms(lambda: vol.volume_lookup_plain(tab, f), 5,
+                    host_bound_ok=True), n_bytes, label))
+        del f, out
+    f2 = torch.randint(0, (d - 1) * vol.F_PACK_SCALE + 1, (p, c),
+                       dtype=torch.int32, device=dev,
+                       generator=gen).to(torch.uint16)
+    lo = torch.randint(0, 400 * vol.F_PACK_SCALE, (p, 1), device=dev,
+                       generator=gen)
+    hi = torch.randint(600 * vol.F_PACK_SCALE, 65535, (p, 1), device=dev,
+                       generator=gen)
+    bounds = torch.cat([lo.expand(p, 64), hi.expand(p, 64)],
+                       1).to(torch.uint16)
+    f32 = torch.rand((p, c), device=dev, generator=gen) * (d + 4) - 2
+    fi = vol.u16_as_int32(f2)
+    for mode, f, bnd in (("bounded", f2, bounds), ("packed", f2, None),
+                         ("f32", f32, None)):
+        out = kernels.volume_lookup_multi(tab, f, bnd)
+        plain = vol.volume_lookup_multi_plain(tab, f, bnd)
+        same = torch.equal(out.view(torch.int16) if mode != "f32" else out,
+                           plain.view(torch.int16) if mode != "f32"
+                           else plain)
+        log(f"[deep] D volume_lookup_multi ({mode}): table "
+            f"{tuple(tab.shape)}, field {tuple(f.shape)}, bit-equal {same}")
+        if not same:
+            raise AssertionError(f"kernel D ({mode}) at D = {d} differs "
+                                 f"from its plain version")
+        del plain
+        if mode == "f32":
+            i0, need = torch.clamp(torch.floor(f), 0, d - 2).long(), None
+        else:
+            i0 = torch.clamp_max(fi >> 6, d - 2).long()
+            need = ((fi >= lo) & (fi <= hi)) if bnd is not None else None
+        n_bytes = (nbytes(f, out) + table_bytes(tab, i0, need)
+                   + (64 * p if bnd is not None else 0))
+        del i0, need
+        by_name["volume_lookup_multi"]["shapes"].append(entry(
+            "volume_lookup_multi", tab, f, out,
+            cuda_ms(lambda: kernels.volume_lookup_multi(tab, f, bnd), 20),
+            cuda_ms(lambda: vol.volume_lookup_multi_plain(tab, f, bnd), 3,
+                    host_bound_ok=True),
+            n_bytes, f"{mode}, {label}", mode))
+        del out
+    del tab, f2, f32, fi, bounds
+    torch.cuda.empty_cache()
 
 
 def route_run(label, extra):
@@ -3773,14 +3956,18 @@ def check_phase_28(rows, device: str = "cuda", dense_args=VIEW_AXIS_ARGS,
 # back as JSON.  (Their walls are taken side by side; the operating point,
 # whose attached tables take 67 GiB of the card, ends before they start.)
 WORKERS = ("mesh", "full_run", "golden_full_stack", "routes", "chain",
-           "sgm", "golden_hierarchy", "golden_run", "photos_jpeg")
+           "sgm", "golden_hierarchy", "golden_run", "photos_jpeg",
+           "sfm_again")
 WORKER_TIMEOUT_S = 600
 
 
-def _worker(kind: str, out_path: str, dense_root: str = "") -> int:
-    """One phase of WORKERS (``chip_smoke.py --worker KIND OUT
-    DENSE_ROOT``): writes its (launches, summary, failed checks) as JSON
-    to OUT; the mesh phase reads phase 12's output under DENSE_ROOT."""
+def _worker(kind: str, out_path: str, roots: str = "{}") -> int:
+    """One phase of WORKERS (``chip_smoke.py --worker KIND OUT ROOTS``):
+    writes its (launches, summary, failed checks) as JSON to OUT; ROOTS
+    (JSON) names the directories earlier phases left: the mesh phase reads
+    phase 12's output under "dense", phase 17 phase 16's photos under
+    "photos"."""
+    roots = json.loads(roots)
     import torch
     from hcmvs_tpu_torch import kernels
     dev = torch.device("cuda", 0)
@@ -3797,7 +3984,9 @@ def _worker(kind: str, out_path: str, dense_root: str = "") -> int:
         elif kind == "full_run":
             result = check_full_run(root)
         elif kind == "mesh":
-            result = check_mesh(Path(dense_root), dev)
+            result = check_mesh(Path(roots["dense"]), dev)
+        elif kind == "sfm_again":
+            result = check_sfm_again(Path(roots["photos"]), dev)
         elif kind == "photos_jpeg":
             result = check_photos_jpeg(root)
         else:
@@ -3809,12 +3998,13 @@ def _worker(kind: str, out_path: str, dense_root: str = "") -> int:
     return 0
 
 
-def run_workers(kinds=WORKERS, dense_root: str = "") -> dict:
+def run_workers(kinds=WORKERS, roots: dict = None) -> dict:
     """Runs each phase of ``kinds`` in a process of its own, all at once
     (the card's host cores shared out among them), prints each one's log
     when it ends and returns {kind: (launches, summary, failed)}; raises if
     a worker fails.  Every worker is ended before this returns.
-    ``dense_root``: phase 12's output, for the mesh phase."""
+    ``roots``: the directories earlier phases left, by name (``_worker``).
+    """
     import os
     tmp = Path(tempfile.mkdtemp(prefix="_workers_smoke_",
                                 dir=Path(__file__).resolve().parent))
@@ -3826,7 +4016,8 @@ def run_workers(kinds=WORKERS, dense_root: str = "") -> dict:
             log_f = (tmp / f"{kind}.log").open("w")
             procs[kind] = (subprocess.Popen(
                 [sys.executable, str(Path(__file__).resolve()), "--worker",
-                 kind, str(tmp / f"{kind}.json"), str(dense_root)],
+                 kind, str(tmp / f"{kind}.json"),
+                 json.dumps({k: str(v) for k, v in (roots or {}).items()})],
                 stdout=log_f,
                 stderr=subprocess.STDOUT, env=env), log_f)
         results = {}
@@ -3958,21 +4149,16 @@ def main() -> int:
     torch.cuda.empty_cache()
 
     phase_done("12-13")
-    # 16. photos -> SfM -> dense; 17. SfM again on its photos (library
-    # calls); 18. bundle adjustment at scale
-    root = Path(tempfile.mkdtemp(prefix="_photos_smoke_",
-                                 dir=Path(__file__).resolve().parent))
-    try:
-        launches, summary, failed, photo_sc = check_photos(root)
-        paths["photos"] = (launches, summary, failed)
-        torch.cuda.empty_cache()
-        paths["sfm_again"] = check_sfm_again(root, photo_sc, dev)
-    finally:
-        shutil.rmtree(root, ignore_errors=True)
+    # 16. photos -> SfM -> dense (its photos stay for phase 17, SfM again
+    # on them, in the side-by-side group); 18. bundle adjustment at scale
+    photos_root = Path(tempfile.mkdtemp(prefix="_photos_smoke_",
+                                        dir=Path(__file__).resolve().parent))
+    atexit.register(shutil.rmtree, photos_root, True)
+    paths["photos"] = check_photos(photos_root)
     torch.cuda.empty_cache()
     paths["ba"] = check_ba(dev)
     torch.cuda.empty_cache()
-    phase_done("16-18")
+    phase_done("16, 18")
     # 20. kernels B and D on the per-plane build's 256 / 384 / 512 planes
     _, scene = make_scene(dev)
     deep_parity(scene, cfg, dev, rows)
@@ -4000,13 +4186,13 @@ def main() -> int:
     paths["view_axis"] = check_phase_28(rows)
     torch.cuda.empty_cache()
     phase_done("28")
-    # 14-15. the mesh path on phase 12's dense output; 19. the whole
-    # chain, small; 21. the dense routes at 1280x960; 24. SGM through
-    # densify; 25. the golden quality gate, three modes; 26. the full
-    # product run at 1280x960; 27. the pipeline from the JPEG photos: side
-    # by side
-    done = run_workers(dense_root=masks_root)
-    for kind in ("mesh", "chain", "routes", "sgm", "full_run"):
+    # 14-15. the mesh path on phase 12's dense output; 17. SfM again on
+    # phase 16's photos; 19. the whole chain, small; 21. the dense routes
+    # at 1280x960; 24. SGM through densify; 25. the golden quality gate,
+    # three modes; 26. the full product run at 1280x960; 27. the pipeline
+    # from the JPEG photos: side by side
+    done = run_workers(roots={"dense": masks_root, "photos": photos_root})
+    for kind in ("sfm_again", "mesh", "chain", "routes", "sgm", "full_run"):
         paths[kind] = done[kind]
     launches, summary, failed = done["photos_jpeg"]
     paths["photos_jpeg"] = (launches, dict(summary, decoder=jpeg_summary),
@@ -4014,7 +4200,7 @@ def main() -> int:
     paths["golden"] = merge_paths({k[len("golden_"):]: v
                                    for k, v in done.items()
                                    if k.startswith("golden_")})
-    phase_done("14-15, 19, 21, 24-27")
+    phase_done("14-15, 17, 19, 21, 24-27")
     failed = [f for _, _, fs in paths.values() for f in fs]
     if failed:
         for f in failed:

@@ -9,9 +9,9 @@ Routing (the accelerator knobs below): the port's "auto" means the sigma
 tables, the rect-frame build and the rect engine on every device (kernels
 on CUDA, plain versions on the CPU); the direct paths, the per-plane build
 and streaming are taken when the config names them, as in the JAX package.
-The retired ``batch_candidates`` raises ``NotImplementedError``, and so
-does a ``volume_planes`` that is not a multiple of 128 or is above 512;
-nothing is silently rerouted.
+The retired ``batch_candidates`` raises ``NotImplementedError``;
+``volume_planes`` is taken as the JAX package takes it (max(volume_planes
+// 128, 1) chunks of 128 planes); nothing is silently rerouted.
 """
 
 from __future__ import annotations
@@ -125,9 +125,11 @@ class DenseConfig:
     geo_backend: str = "auto"          # "auto"/"rect": rect engine on every
                                        # device (kernel C); "direct":
                                        # nearest gathers of the maps
-    volume_planes: int = 128           # 128 / 256 / 384 / 512 sigma
-                                       # planes; above 128 the tables are
-                                       # built plane by plane
+    volume_planes: int = 128           # sigma planes, in chunks of 128
+                                       # (max(volume_planes // 128, 1));
+                                       # above 128 the tables are built
+                                       # plane by plane; past 1024 batched
+                                       # scoring takes f32 index fields
     candidate_kernel: str = "auto"     # "on": batched candidate scoring
                                        # (kernel D); "auto" is off
     refine_batched: bool = False

@@ -439,7 +439,7 @@ def make_context(geom: ViewGeometry, ref_gray: torch.Tensor,
     vol = vb = rect = None
     if S.use_volume_tables(cfg):
         vol = build_tables(geom, src_grays, d_min, d_max, cfg)
-        if S.use_candidate_batch(cfg):
+        if S.use_candidate_batch(cfg) and S.packed_lookup(vol):
             vb = S.volume_bounds(vol, use_rect_volume_build(cfg, h, w))
     if (nbr_depth is not None and S.use_rect_backend(cfg, h, w)
             and (cfg.use_geo_consistency or cfg.view_spread)):

@@ -171,7 +171,8 @@ def _per_view_context(scene: SceneTensors, i: int,
         vol_i = None
     # kernel D's bounds panels depend only on the tables: once per call
     vb = (S.volume_bounds(vol_i, use_rect_volume_build(cfg, h, w))
-          if vol_i is not None and S.use_candidate_batch(cfg) else None)
+          if vol_i is not None and S.use_candidate_batch(cfg)
+          and S.packed_lookup(vol_i) else None)
 
     def view(x):
         return None if x is None else x[i][..., r0:r1, :]

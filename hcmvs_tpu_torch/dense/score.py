@@ -345,13 +345,30 @@ def _image_of_rows(x: torch.Tensor, h: int, w: int,
     return x[:h * w].T.reshape(x.shape[1], h, w)
 
 
+def packed_lookup(vol) -> bool:
+    """Whether kernel D reads ``vol``'s tables through packed u16 index
+    fields and bounds panels (the JAX package's TPU route): their 1/64
+    steps address at most ``MAX_PACKED_PLANES`` (1024) planes.  Deeper
+    tables take f32 fields, as the JAX package off the TPU."""
+    from hcmvs_tpu_torch.ops.volume import MAX_PACKED_PLANES
+    return vol.tab.shape[-1] <= MAX_PACKED_PLANES
+
+
+def _check_packed(vol) -> None:
+    if not packed_lookup(vol):
+        raise ValueError(f"{vol.tab.shape[-1]} sigma planes: packed u16 "
+                         "index fields address at most 1024")
+
+
 def volume_bounds(vol, blocked: bool = True) -> torch.Tensor:
     """Per-view bounds panels (V, P_pad, 128) u16 of kernel D's bounded
     mode: each table row's valid-sigma interval on the packed index scale
     (lo replicated in lanes 0..63, hi in 64..127), rows in the tables'
     order (tile-major when ``blocked``, the image's otherwise).  Depends
-    only on the stage's tables, so it is built once per sweep call."""
+    only on the stage's tables, so it is built once per sweep call.
+    Raises past ``packed_lookup``'s depth."""
     from hcmvs_tpu_torch.ops.volume import F_PACK_SCALE
+    _check_packed(vol)
     p_pad, d_planes = vol.tab.shape[-2], vol.tab.shape[-1]
     out = []
     for vi in range(vol.tab.shape[0]):
@@ -381,8 +398,9 @@ def packed_fields(geom: ViewGeometry, vol, depths: torch.Tensor,
     tables' row order (``blocked``: tile-major), column k * S + j holding
     the packed sigma index (``F_PACK_SCALE`` steps) of candidate k's sample
     j, and the sentinel 0xFFFF beyond the table's D planes; plus the
-    (K, H, W) centre sigmas."""
+    (K, H, W) centre sigmas.  Raises past ``packed_lookup``'s depth."""
     from hcmvs_tpu_torch.ops.volume import F_PACK_SCALE
+    _check_packed(vol)
     sig0, inv_dsig = vol.sig0[0], vol.inv_dsig[0]
     d_planes = vol.tab.shape[-1]
     enc, s_cs = [], []
@@ -413,7 +431,9 @@ def photometric_scores_volume_batched(geom: ViewGeometry, vol,
     This is the JAX package's packed TPU route, taken on every device:
     u16 index fields, bounded lookups whose 0xFFFF sentinel doubles as the
     validity mask, bf16-rounded bilateral weights, and a per-candidate
-    accumulation straight off the sentinel panel.  ``depths`` (K, H, W),
+    accumulation straight off the sentinel panel.  Tables deeper than the
+    packed fields address (``packed_lookup``) take the JAX package's route
+    off the TPU instead (``_scores_batched_f32``).  ``depths`` (K, H, W),
     ``normals`` (K, 3, H, W); ``bounds_all`` from ``volume_bounds`` (built
     here when None).  The tables' row order follows ``cfg``'s build gate
     (any D the table has).  Returns (scores, bad), both (K, V, H, W).
@@ -423,6 +443,9 @@ def photometric_scores_volume_batched(geom: ViewGeometry, vol,
                                             volume_lookup_multi)
     k_n, h, w = depths.shape
     blocked = use_rect_volume_build(cfg, h, w)
+    if not packed_lookup(vol):
+        return _scores_batched_f32(geom, vol, stats, depths, normals, rays,
+                                   offsets, cfg, blocked)
     pad = _pad_of(offsets)
     s_count = len(offsets)
     th_robust = cfg.ncc_threshold_keep * 1.2
@@ -470,6 +493,46 @@ def photometric_scores_volume_batched(geom: ViewGeometry, vol,
             bad = oob | (var1 <= 1e-12) | min_var_bad
             s_v.append(torch.where(bad, th_robust, score))
             b_v.append(bad)
+        scores.append(torch.stack(s_v))
+        bads.append(torch.stack(b_v))
+    return torch.stack(scores, dim=1), torch.stack(bads, dim=1)
+
+
+def _scores_batched_f32(geom: ViewGeometry, vol, stats: RefPatchStats,
+                        depths: torch.Tensor, normals: torch.Tensor,
+                        rays: torch.Tensor, offsets, cfg: DenseConfig,
+                        blocked: bool) -> Tuple[torch.Tensor, torch.Tensor]:
+    """``photometric_scores_volume_batched`` on f32 index fields (kernel
+    D's f32 mode) with validity from the sigma intervals and full-precision
+    weights: the JAX package's route off the TPU, which takes any D."""
+    from hcmvs_tpu_torch.ops.volume import volume_lookup_multi
+    k_n, h, w = depths.shape
+    s_count = len(offsets)
+    th_robust = cfg.ncc_threshold_keep * 1.2
+    sig0 = vol.sig0[0]
+    sig_hi_grid = sig0 + (vol.tab.shape[-1] - 1) / vol.inv_dsig[0]
+    s_cs, fwds = zip(*(_sample_sigmas(geom, depths[k], normals[k], rays,
+                                      offsets) for k in range(k_n)))
+    s_c_all, fwd = torch.stack(s_cs), torch.stack(fwds)  # (K, S, H, W)
+    f2 = _table_rows_multi(((fwd - sig0) * vol.inv_dsig[0]).reshape(
+        k_n * s_count, h, w), blocked)
+    f2 = torch.nn.functional.pad(f2, (0, 0, 0, vol.tab.shape[1]
+                                      - f2.shape[0]))
+    in_grid = (fwd >= sig0) & (fwd <= sig_hi_grid)
+    v_ds = _stacked_shifts(stats.ref_pad, _pad_of(offsets), offsets, h, w)
+    coef = stats.wts * (v_ds - stats.tm[None])
+    min_var_bad = stats.norm_sq0 <= cfg.min_patch_variance ** 2
+
+    scores, bads = [], []
+    for vi in range(vol.tab.shape[0]):
+        lo_v, hi_v = vol.sig_lo[vi], vol.sig_hi[vi]
+        v3 = _image_of_rows(volume_lookup_multi(vol.tab[vi], f2), h, w,
+                            blocked).reshape(k_n, s_count, h, w)
+        ok3 = (fwd >= lo_v) & (fwd <= hi_v) & in_grid
+        s_v, b_v = zip(*(_zncc_of_samples(v3[k], ok3[k], s_c_all[k], lo_v,
+                                          hi_v, stats, coef, offsets,
+                                          th_robust, min_var_bad)
+                         for k in range(k_n)))
         scores.append(torch.stack(s_v))
         bads.append(torch.stack(b_v))
     return torch.stack(scores, dim=1), torch.stack(bads, dim=1)
@@ -616,31 +679,47 @@ def photometric_scores_volume(geom: ViewGeometry, vol, stats: RefPatchStats,
         v3 = _image_of_rows(out2, h, w, blocked)         # (S, H, W)
         # validity: the in-image sigma interval AND the grid's own range
         ok3 = (fwd >= lo_v) & (fwd <= hi_v) & in_grid
-        # consumption shift: centre p reads sample row p + delta (zero
-        # validity where the sample pixel falls off the image)
-        v3p = torch.nn.functional.pad(v3, (pad, pad, pad, pad))
-        ok3p = torch.nn.functional.pad(ok3.to(torch.float32),
-                                       (pad, pad, pad, pad))
-        zeros = torch.zeros_like(depth)
-        num, s1, sq1, sw = zeros, zeros, zeros, zeros
-        for k, (dy, dx) in enumerate(offsets):
-            v1 = _shifted(v3p[k], pad, dy, dx, h, w)
-            ok = _shifted(ok3p[k], pad, dy, dx, h, w)
-            wt = stats.wts[k] * ok
-            num = num + coef[k] * ok * v1
-            s1 = s1 + wt * v1
-            sq1 = sq1 + wt * v1 * v1
-            sw = sw + wt
-        var1 = sq1 - s1 * s1 / torch.clamp_min(sw, 1e-12)
-        denom = torch.sqrt(torch.clamp_min(stats.norm_sq0 * var1, 1e-16))
-        ncc = torch.clamp(num / denom, -1.0, 1.0)
-        score = 1.0 - ncc
-        # centre visibility: the hypothesis must lie in the interval at p
-        oob = (s_c < lo_v) | (s_c > hi_v)
-        bad = oob | (var1 <= 1e-12) | min_var_bad
-        scores.append(torch.where(bad, th_robust, score))
+        score, bad = _zncc_of_samples(v3, ok3, s_c, lo_v, hi_v, stats, coef,
+                                      offsets, th_robust, min_var_bad)
+        scores.append(score)
         bads.append(bad)
     return torch.stack(scores), torch.stack(bads)
+
+
+def _zncc_of_samples(v3: torch.Tensor, ok3: torch.Tensor, s_c: torch.Tensor,
+                     lo_v: torch.Tensor, hi_v: torch.Tensor,
+                     stats: RefPatchStats, coef: torch.Tensor, offsets,
+                     th_robust: float, min_var_bad: torch.Tensor
+                     ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """One hypothesis' (score, bad) in one view, both (H, W), from its
+    looked-up samples ``v3`` (S, H, W) f32 and their validity ``ok3``
+    (S, H, W) bool in the fields' forward-shifted rows; ``coef`` the
+    numerator weights wts * (v_d - tm)."""
+    h, w = s_c.shape
+    pad = _pad_of(offsets)
+    # consumption shift: centre p reads sample row p + delta (zero
+    # validity where the sample pixel falls off the image)
+    v3p = torch.nn.functional.pad(v3, (pad, pad, pad, pad))
+    ok3p = torch.nn.functional.pad(ok3.to(torch.float32),
+                                   (pad, pad, pad, pad))
+    zeros = torch.zeros_like(s_c)
+    num, s1, sq1, sw = zeros, zeros, zeros, zeros
+    for k, (dy, dx) in enumerate(offsets):
+        v1 = _shifted(v3p[k], pad, dy, dx, h, w)
+        ok = _shifted(ok3p[k], pad, dy, dx, h, w)
+        wt = stats.wts[k] * ok
+        num = num + coef[k] * ok * v1
+        s1 = s1 + wt * v1
+        sq1 = sq1 + wt * v1 * v1
+        sw = sw + wt
+    var1 = sq1 - s1 * s1 / torch.clamp_min(sw, 1e-12)
+    denom = torch.sqrt(torch.clamp_min(stats.norm_sq0 * var1, 1e-16))
+    ncc = torch.clamp(num / denom, -1.0, 1.0)
+    score = 1.0 - ncc
+    # centre visibility: the hypothesis must lie in the interval at p
+    oob = (s_c < lo_v) | (s_c > hi_v)
+    bad = oob | (var1 <= 1e-12) | min_var_bad
+    return torch.where(bad, th_robust, score), bad
 
 
 def score_photometric(geom: ViewGeometry, src_grays: torch.Tensor,

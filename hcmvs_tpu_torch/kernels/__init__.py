@@ -246,18 +246,18 @@ def _launch(name: str, device: torch.device, *args) -> None:
 
 
 def _check_depth(kernel: str, tab: torch.Tensor, f: torch.Tensor) -> None:
-    """Kernels B and D take (P, D) u16 tables, D a multiple of 128 up to
-    512 (the rect build's 128 planes, the per-plane build's 256 / 384 /
-    512), and (P, C) fields."""
+    """Kernels B and D take (P, D) u16 tables, D a multiple of 128 (the
+    rect build's 128 planes, the per-plane build's 128 n), and (P, C)
+    fields."""
     if tab.dim() != 2 or f.dim() != 2 or tab.shape[1] % 128 \
-            or not 128 <= tab.shape[1] <= 512:
+            or tab.shape[1] < 128:
         raise ValueError(f"{kernel} takes (P, D) tables, D a multiple of "
-                         f"128 up to 512, and (P, C) fields, got "
+                         f"128, and (P, C) fields, got "
                          f"{tuple(tab.shape)}, {tuple(f.shape)}")
 
 
 def volume_lookup(tab: torch.Tensor, f: torch.Tensor) -> torch.Tensor:
-    """Kernel B: tab (P, D) u16, D a multiple of 128 up to 512, f (P, S)
+    """Kernel B: tab (P, D) u16, D a multiple of 128, f (P, S)
     f32 -> (P, S) f32; any P, in launches of ``row_chunks``."""
     if tab.device.type != "cuda":
         raise ValueError("volume_lookup kernel needs CUDA tensors")
@@ -357,6 +357,9 @@ def volume_lookup_multi(tab: torch.Tensor, f: torch.Tensor,
         _check_tensor("bounds", bounds, torch.uint16, (p, 128), dev)
     out = torch.empty((p, c), dtype=f.dtype, device=dev)
     d = tab.shape[1]
+    if _state["earlier"] and d > 512:
+        raise ValueError("the earlier design of kernel D stages tables of "
+                         "at most 512 planes")
     for r0, r1 in row_chunks(p, c, d):
         _launch("volume_lookup_multi", dev,
                 tab.data_ptr() + r0 * d * tab.element_size(),

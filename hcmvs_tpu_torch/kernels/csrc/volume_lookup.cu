@@ -19,14 +19,13 @@
 // and 9 in the exact and hybrid paths, 64 and 16 in the densify path), so
 // the row q = i / S is a multiply-shift; any other S takes the generic
 // instance, whose divider is fixed at launch.  D = 128 (the rect build's
-// tables) is a constant; the per-plane build's deeper tables (D = 256,
-// 384, 512) pass D at run time, a multiply per row.
+// tables) is a constant; the per-plane build's deeper tables (any D =
+// 128 n) pass D at run time, a multiply per row.
 #include "table_lookup.cuh"
 
 namespace {
 
 constexpr int kPlanes = 128;      // D of the rect build's tables
-constexpr int kMaxPlanes = 512;   // the deepest per-plane table
 
 template <int S>
 int launch(const void* tab, const void* f, void* out, unsigned n, int s,
@@ -41,11 +40,11 @@ int launch(const void* tab, const void* f, void* out, unsigned n, int s,
 
 }  // namespace
 
-// tab (p, d) u16 with d a multiple of 128 and <= 512, f (p, s) f32, out
+// tab (p, d) u16 with d a multiple of 128, f (p, s) f32, out
 // (p, s) f32; all contiguous, p * s and p * d < 2^31.
 HCMVS_API int hcmvs_volume_lookup(const void* tab, const void* f, void* out,
                                   long long p, int s, int d, void* stream) {
-  if (d % kPlanes != 0 || d < kPlanes || d > kMaxPlanes) {
+  if (d % kPlanes != 0 || d < kPlanes) {
     return (int)cudaErrorInvalidValue;
   }
   const unsigned n = (unsigned)(p * s);

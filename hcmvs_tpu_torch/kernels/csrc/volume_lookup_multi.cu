@@ -25,8 +25,6 @@
 
 namespace {
 
-constexpr int kMaxPlanes = 512;
-
 template <int M>
 int launch(const void* tab, const void* f, const void* bounds, void* out,
            unsigned n, int c, int d, cudaStream_t stream) {
@@ -36,7 +34,7 @@ int launch(const void* tab, const void* f, const void* bounds, void* out,
 
 }  // namespace
 
-// tab (p, d) u16 with d a multiple of 128 and <= 512; f (p, c) f32 (mode
+// tab (p, d) u16 with d a multiple of 128; f (p, c) f32 (mode
 // 0) or u16 (modes 1, 2); bounds (p, 128) u16 (mode 2, else null); out
 // (p, c) f32 (mode 0) or u16.  All contiguous, p * c < 2^31.
 HCMVS_API int hcmvs_volume_lookup_multi(const void* tab, const void* f,
@@ -44,7 +42,7 @@ HCMVS_API int hcmvs_volume_lookup_multi(const void* tab, const void* f,
                                         long long p, int c, int d, int mode,
                                         void* stream) {
   if (p <= 0 || c <= 0) return (int)cudaGetLastError();
-  if (d % 128 != 0 || d > kMaxPlanes || mode < hcmvs::kF32
+  if (d % 128 != 0 || d < 128 || mode < hcmvs::kF32
       || mode > hcmvs::kBounded) {
     return (int)cudaErrorInvalidValue;
   }

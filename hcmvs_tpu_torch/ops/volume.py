@@ -11,8 +11,8 @@ Two builds, chosen by ``use_rect_volume_build``:
 - the rect-frame build (``build_volume_tables_rect``, D = 128), where
   every pixel's sigma segment is a strided run of one rect row; its pixel
   order is tile-major (``to_volume_order``);
-- the per-plane build (``build_volume_tables``, D = 128, 256, 384 or
-  512: ``cfg.volume_planes``), one bilinear warp of the source per coarse
+- the per-plane build (``build_volume_tables``, D = 128 n:
+  ``table_chunks``), one bilinear warp of the source per coarse
   plane and Catmull-Rom along sigma between them; its pixel order is the
   image's (row-major).
 Every consumer of the tables (kernel B's and D's index fields, D's bounds
@@ -40,8 +40,10 @@ from hcmvs_tpu_torch.dense.types import mat3_apply
 from hcmvs_tpu_torch.ops.sampling import bicubic_sample_xy
 
 D_PLANES = 128          # sigma planes per table chunk (the rect build's D)
-MAX_PLANES = 512        # the deepest per-plane table kernels B and D take
 F_PACK_SCALE = 64       # packed index fields: u16 steps of 1/64 plane
+# the deepest table packed fields address: the last plane's index,
+# (D - 1) * 64, must stay below the 0xFFFF sentinel
+MAX_PACKED_PLANES = 65534 // F_PACK_SCALE + 1
 _SIGMA_MARGIN = 1.35    # widening of the sigma range for patch obliquity
 _CHUNK = 2048           # table rows are padded to a multiple of this
 
@@ -104,15 +106,10 @@ def _intersect_sigma(cons) -> Tuple[torch.Tensor, torch.Tensor]:
 
 
 def table_chunks(cfg) -> int:
-    """``cfg.volume_planes`` // 128, the per-plane build's ``n_chunks``;
-    raises for a plane count the kernels do not take (not a multiple of
-    128, or above 512)."""
-    d = cfg.volume_planes
-    if d % D_PLANES or not D_PLANES <= d <= MAX_PLANES:
-        raise NotImplementedError(
-            f"volume_planes={d} (tables take a multiple of 128 planes up to "
-            f"{MAX_PLANES})")
-    return d // D_PLANES
+    """The per-plane build's ``n_chunks`` for ``cfg.volume_planes``, as the
+    JAX package takes it (scene_driver.py): max(volume_planes // 128, 1),
+    so 200 builds 128 planes and 1024 builds 8 chunks."""
+    return max(cfg.volume_planes // D_PLANES, 1)
 
 
 def use_rect_volume_build(cfg, h: int, w: int) -> bool:
@@ -122,7 +119,7 @@ def use_rect_volume_build(cfg, h: int, w: int) -> bool:
     the per-plane build; "rect" and, in the port, "auto" the rect build on
     every device ("auto" with ``use_pallas=False`` the per-plane one)."""
     del h, w
-    if table_chunks(cfg) > 1:
+    if cfg.volume_planes > D_PLANES:
         return False
     if cfg.volume_build == "rect":
         return True
@@ -211,7 +208,7 @@ def volume_lookup_plain(tab: torch.Tensor, f: torch.Tensor) -> torch.Tensor:
 
 def volume_lookup(tab: torch.Tensor, f: torch.Tensor) -> torch.Tensor:
     """Lerp-sample per-pixel tables: tab (P_pad, D) u16, D a multiple of
-    128 up to 512, f (P_pad, S) contiguous f32 -> (P_pad, S).  Kernel B on
+    128, f (P_pad, S) contiguous f32 -> (P_pad, S).  Kernel B on
     CUDA, the plain version on the CPU."""
     if kernels.use_kernel(tab):
         return kernels.volume_lookup(tab, f)
@@ -363,9 +360,6 @@ def build_volume_tables(geom, src_grays: torch.Tensor, d_min, d_max,
     largest temporary).  ``row_range``: a row band's rows alone."""
     v, h, w = src_grays.shape
     n_planes = n_chunks * D_PLANES
-    if not 1 <= n_chunks <= MAX_PLANES // D_PLANES:
-        raise NotImplementedError(
-            f"{n_planes} sigma planes (tables take 128 to {MAX_PLANES})")
     sig0, dsig = sigma_grid(d_min, d_max, n_planes=n_planes)
     tabs, los, his = [], [], []
     for vi in range(v):

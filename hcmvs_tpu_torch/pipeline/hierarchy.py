@@ -263,8 +263,9 @@ def densify_hierarchical(scene_path: str, images_dir: str, out_dir: str,
                 score = pair_scores(scene.points, scene.point_view_counts,
                                     scene.point_view_ids, centers, n)
                 nbr1, _ = select_neighbors(score, 1)
-                flows = scene_flows(torch.as_tensor(np.stack(grays),
-                                                    device=dev), nbr1)
+                with stage_timer("hierarchy.flows", block_on=dev):
+                    flows = scene_flows(torch.as_tensor(np.stack(grays),
+                                                        device=dev), nbr1)
             semantic = (None if mask_paths is None
                         else load_scene_masks(mask_paths, grays[0].shape))
             tensors_per_level[lvl] = build_scene_tensors(

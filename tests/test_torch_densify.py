@@ -17,11 +17,12 @@ argmin between near-tied candidates may flip under reordered rounding;
 ``densify`` end to end, from the same init, by view 0's depth accuracy
 and the valid share (within 0.03) and the point count (within 2%).
 
-Run as a script, ``PYTHONPATH=. python tests/test_torch_densify.py H W``
-runs both packages' densify at DenseConfig() defaults plus
-resolution-level=0 on an H x W, 4-view plane scene on the CPU and prints
-view 0's depth_acc_2pct, the valid share, the point count and the fused
-cloud's median point-to-plane distance over the median depth.
+Run as a script, ``PYTHONPATH=. python tests/test_torch_densify.py H W
+[jax|jax-forced|port]`` runs the packages' densify at DenseConfig()
+defaults plus resolution-level=0 (Farneback flow in both) on an H x W,
+4-view plane scene on the CPU and prints view 0's depth_acc_2pct, the
+valid share, the point count and the fused cloud's median point-to-plane
+distance over the median depth.
 """
 
 import dataclasses
@@ -31,6 +32,7 @@ import sys
 import numpy as np
 import pytest
 import torch
+from test_torch_flow import flow_backend
 
 torch.set_num_threads(1)
 
@@ -57,12 +59,8 @@ def cloud_distance(points, sc) -> float:
 
 
 def _jax_densify(scene_path, img_dir, out_dir, cfg, **kw):
-    from hcmvs_tpu.dense import flow as jflow
     from hcmvs_tpu.pipeline import densify as jd
-    with pytest.MonkeyPatch.context() as mp:
-        mp.setattr(jflow, "_HAVE_CV2", False)
-        return jd.densify(scene_path, img_dir, out_dir, cfg, verbose=False,
-                          **kw)
+    return jd.densify(scene_path, img_dir, out_dir, cfg, verbose=False, **kw)
 
 
 @pytest.fixture(scope="module")
@@ -157,9 +155,9 @@ def test_point_filter_matches_jax():
 
 def _tensors(world):
     """Both packages' scene tensors of the written scene (flows from the
-    JAX package's LK, seeds splatted) and the JAX init state."""
+    JAX package's default backend, Farneback; seeds splatted) and the JAX
+    init state."""
     import jax
-    import jax.numpy as jnp
     from hcmvs_tpu.dense import flow as jflow
     from hcmvs_tpu.dense import scene_driver as jsd
     from hcmvs_tpu.dense.view_selection import pair_scores, select_neighbors
@@ -174,9 +172,7 @@ def _tensors(world):
     nbr1, _ = select_neighbors(pair_scores(
         scene.points, scene.point_view_counts, scene.point_view_ids,
         centers, N), 1)
-    flows = np.stack([np.asarray(jflow.lk_flow(jnp.asarray(grays[i]),
-                                               jnp.asarray(grays[j])))
-                      for i, j in enumerate(nbr1[:, 0])])
+    flows = jflow.scene_flows(np.stack(grays), nbr1)
     jscene = build_scene_tensors(scene, grays, world["jcfg"], flows)
     init = jsd.init_scene_state(jax.random.PRNGKey(0), jscene)
     return (jscene, scene_from_numpy(jscene, device="cpu"),
@@ -225,12 +221,27 @@ def _check_outputs(out_dir, stats, with_cloud):
 
 
 def test_densify_matches_jax(world):
+    """Both packages on their default flow, Farneback, from the same
+    init."""
+    _check_densify(world, "farneback")
+
+
+def test_densify_matches_jax_on_lk(world):
+    """The same on LK flow in both packages."""
+    _check_densify(world, "lk")
+
+
+def _check_densify(world, backend):
     from hcmvs_tpu_torch.pipeline.densify import densify
-    out_dir = str(world["root"] / "port0")
-    stats = densify(world["scene_path"], world["img_dir"], out_dir,
-                    world["tcfg"], verbose=False, device="cpu",
-                    init=world["init"])
-    ref, gt = world["ref"], world["sc"].depth_gt
+    out_dir = str(world["root"] / f"port0_{backend}")
+    with flow_backend(backend):
+        ref = world["ref"] if backend == "farneback" else _jax_densify(
+            world["scene_path"], world["img_dir"],
+            str(world["root"] / f"jax_{backend}"), world["jcfg"])
+        stats = densify(world["scene_path"], world["img_dir"], out_dir,
+                        world["tcfg"], verbose=False, device="cpu",
+                        init=world["init"])
+    gt = world["sc"].depth_gt
     acc_t, acc_j = _acc(stats["depth"][0], gt), _acc(ref["depth"][0], gt)
     assert acc_t > 0.7, acc_t
     assert abs(acc_t - acc_j) <= 0.03, (acc_t, acc_j)
@@ -383,6 +394,8 @@ def compare_at(h: int, w: int) -> None:
                     scene_path, img_dir, d, TConfig(resolution_level=0),
                     verbose=False, device="cpu"))]
         for name, run in runs:
+            if len(sys.argv) > 3 and name not in sys.argv[3:]:
+                continue
             out = os.path.join(root, name)
             t0 = time.perf_counter()
             st = run(out)

@@ -1,20 +1,30 @@
-"""PyTorch port vs the JAX package: the LK optical flow
-(``hcmvs_tpu_torch/dense/flow.py``) and the flow term of the cost
-(``score.flow_score`` and its blend in ``patchmatch.finish_cost``).
+"""PyTorch port vs the JAX package: the optical flow
+(``hcmvs_tpu_torch/dense/flow.py``: Farneback and LK) and the flow term
+of the cost (``score.flow_score`` and its blend in
+``patchmatch.finish_cost``).
 
-Inputs: views of the 96x128 plane scene (camera 0 against camera 1), the
-same numpy arrays through both packages (JAX on the CPU).
+Inputs: views of the 96x128 plane scene (camera 0 against camera 1), and
+for Farneback the committed JPEG photos p00 -> p01
+(tests/data/jpeg/photos, gray, reduced with INTER_AREA below 960x1280),
+the same numpy arrays through both packages (JAX on the CPU; its
+Farneback is cv2's).
 
 Tolerances: window sums within 1e-5 relative (float32 sums in another
 order); the flow upsampling within 5e-6 px of ``jax.image.resize`` at
 the pyramid sizes of 960x1280 and at odd sizes (the weights are
 computed in another order); the LK flow (up to 43 px here) within 1e-2
 px everywhere and 1e-3 px on >= 97% of pixels (the 2x2 solve divides by
-small determinants, which amplifies rounding over 15 iterations); the
-flow score and the blended cost within 1e-5.
+small determinants, which amplifies rounding over 15 iterations);
+Farneback's blur and resize within 1e-4 of cv2's on 0-255 values (one
+or two f32 ulps: sums in another order), its flow within 1e-3 px of
+cv2's up to 480x640 (1 to 4 pyramid levels, and an odd size), and at
+960x1280 within 5e-3 px with >= 99.9% of pixels within 1e-3 px; the flow
+score and the blended cost within 1e-5.
 """
 
+import contextlib
 import dataclasses
+import os
 
 import jax
 import jax.numpy as jnp
@@ -38,6 +48,21 @@ from hcmvs_tpu_torch.utils.synth import make_plane_scene
 
 torch.set_num_threads(1)
 H, W, N = 96, 128, 3
+BACKENDS = ("farneback", "lk")
+
+
+@contextlib.contextmanager
+def flow_backend(backend: str):
+    """Both packages' default flow backend set to ``backend``:
+    "farneback" is each package's own default (cv2 imports here), "lk"
+    patches the JAX package's ``_HAVE_CV2`` to False and the port's
+    ``DEFAULT_BACKEND`` to "lk"."""
+    assert backend in BACKENDS
+    with pytest.MonkeyPatch.context() as mp:
+        if backend == "lk":
+            mp.setattr(jflow, "_HAVE_CV2", False)
+            mp.setattr(tflow, "DEFAULT_BACKEND", "lk")
+        yield
 
 
 def _np(x):
@@ -86,10 +111,82 @@ def test_scene_flows_match(world):
     g = world["grays"]
     nbr = np.array([[1, 2], [0, 2], [1, 0]], np.int32)
     ref = jflow.scene_flows(g, nbr, backend="lk")
-    out = tflow.scene_flows(torch.from_numpy(g), nbr)
+    out = tflow.scene_flows(torch.from_numpy(g), nbr, backend="lk")
     assert out.shape == (N, 2, H, W)
     err = np.abs(out.numpy() - ref).max(1)
     assert (err <= 1e-3).mean() >= 0.97 and err.max() <= 1e-2
+
+
+def test_scene_flows_default_backend_matches(world):
+    """No backend named on either side: Farneback in both packages (cv2
+    imports here); under ``flow_backend("lk")`` both take LK."""
+    g = world["grays"]
+    nbr = np.array([[1, 2], [0, 2], [1, 0]], np.int32)
+    ref = jflow.scene_flows(g, nbr)
+    out = tflow.scene_flows(torch.from_numpy(g), nbr)
+    assert np.abs(out.numpy() - ref).max() <= 1e-3
+    assert np.abs(ref).max() > 1.0
+    assert np.array_equal(
+        ref, jflow.scene_flows(g, nbr, backend="farneback"))
+    with flow_backend("lk"):
+        lk = tflow.scene_flows(torch.from_numpy(g), nbr)
+        assert np.array_equal(lk.numpy(), tflow.scene_flows(
+            torch.from_numpy(g), nbr, backend="lk").numpy())
+        assert not jflow._HAVE_CV2
+    with pytest.raises(ValueError, match="backend"):
+        tflow.scene_flows(torch.from_numpy(g), nbr, backend="tvl1")
+
+
+def _photo(i: int, h: int, w: int) -> np.ndarray:
+    """Committed photo i in gray at (h, w) as [0, 1] f32 (INTER_AREA)."""
+    cv2 = pytest.importorskip("cv2")
+    path = os.path.join(os.path.dirname(__file__), "data", "jpeg", "photos",
+                        f"p{i:02d}.jpg")
+    g = cv2.imread(path, cv2.IMREAD_GRAYSCALE)
+    if g.shape != (h, w):
+        g = cv2.resize(g, (w, h), interpolation=cv2.INTER_AREA)
+    return g.astype(np.float32) / 255.0
+
+
+@pytest.mark.parametrize("hw,levels", [((48, 64), 1), ((96, 128), 2),
+                                       ((240, 320), 3), ((480, 640), 4),
+                                       ((97, 131), 2), ((960, 1280), 4)])
+def test_farneback_matches_cv2(hw, levels):
+    """The port's Farneback against cv2's through the JAX package, p00 ->
+    p01, at 1 to 4 pyramid levels and an odd size."""
+    a, b = _photo(0, *hw), _photo(1, *hw)
+    assert tflow.pyramid_levels(*hw) == levels
+    ref = jflow.farneback_flow(a, b)
+    out = tflow.farneback_flow(torch.from_numpy(a), torch.from_numpy(b))
+    assert out.dtype == torch.float32 and out.shape == (2,) + hw
+    err = np.abs(out.numpy() - ref).max(0)
+    if hw == (960, 1280):
+        assert err.max() <= 5e-3, err.max()
+        assert (err <= 1e-3).mean() >= 0.999, (err <= 1e-3).mean()
+    else:
+        assert err.max() <= 1e-3, err.max()
+    assert np.abs(ref).max() > 5.0          # the flow is far from zero
+
+
+def test_farneback_stages_match_cv2():
+    """The Gaussian blur of each pyramid level and the bilinear resize
+    (exact 2x, integer and odd ratios, and the flow's enlargement)
+    against cv2's own, on 0-255 values."""
+    cv2 = pytest.importorskip("cv2")
+    rng = np.random.default_rng(0)
+    img = rng.integers(0, 256, (97, 131)).astype(np.float32)
+    for ksize, sigma in ((3, 0.0), (3, 0.5), (9, 1.5), (19, 3.5)):
+        ref = cv2.GaussianBlur(img, (ksize, ksize), sigma, sigmaY=sigma)
+        out = tflow._gaussian_blur(torch.from_numpy(img),
+                                   tflow._gaussian_taps(ksize, sigma))
+        np.testing.assert_allclose(out.numpy(), ref, rtol=0, atol=1e-4)
+    for src, dst in (((96, 128), (48, 64)), ((96, 128), (24, 32)),
+                     ((97, 131), (48, 66)), ((97, 131), (12, 16)),
+                     ((24, 33), (48, 66))):
+        x = img[:src[0], :src[1]].copy()
+        ref = cv2.resize(x, dst[::-1], interpolation=cv2.INTER_LINEAR)
+        out = tflow._resize_linear(torch.from_numpy(x), *dst)
+        np.testing.assert_allclose(out.numpy(), ref, rtol=0, atol=1e-4)
 
 
 def _scene(world):

@@ -8,8 +8,9 @@ fused cloud.  JAX runs on the CPU with the table and rect engines forced
 on, as in tests/test_torch_slice.py.  The random streams differ, so the
 port's ``init_scene_state`` is patched inside a test to return the JAX
 package's init of the same stage (``fold_in(PRNGKey(0), stage)``), and
-random refinement is off; ``hcmvs_tpu.dense.flow._HAVE_CV2`` is patched
-to False where flows are on, so both packages compute LK flow.
+random refinement is off.  Where flows are on, both packages compute
+Farneback flow (each one's default), and the app's parity runs again on
+LK (``test_torch_flow.flow_backend``).
 
 Tolerances: the schedule exactly; resized maps at atol 1e-5; stage
 results by share of pixels (depth within 1e-3 on >= 99%), since an argmin
@@ -33,6 +34,7 @@ import sys
 import numpy as np
 import pytest
 import torch
+from test_torch_flow import flow_backend
 
 torch.set_num_threads(1)
 
@@ -244,16 +246,23 @@ def _jax_tensors_by_height(scene_path, img_dir, cfg, levels):
 
 
 def _jax_densify_hierarchical(*args, **kw):
-    from hcmvs_tpu.dense import flow as jflow
     from hcmvs_tpu.pipeline.hierarchy import densify_hierarchical
-    with pytest.MonkeyPatch.context() as mp:
-        mp.setattr(jflow, "_HAVE_CV2", False)
-        return densify_hierarchical(*args, verbose=False, **kw)
+    return densify_hierarchical(*args, verbose=False, **kw)
 
 
 def test_densify_hierarchical_matches_jax(written, monkeypatch):
     """.mvs + PNGs in; .dmap files and the fused cloud out; A at level 1,
-    then B and A at level 0, with LK flows and the mid-schedule filter."""
+    then B and A at level 0, with Farneback flows (both packages' default)
+    and the mid-schedule filter."""
+    _check_hierarchical(written, monkeypatch, "farneback")
+
+
+def test_densify_hierarchical_matches_jax_on_lk(written, monkeypatch):
+    """The same on LK flows in both packages."""
+    _check_hierarchical(written, monkeypatch, "lk")
+
+
+def _check_hierarchical(written, monkeypatch, backend):
     from hcmvs_tpu.core.config import DenseConfig as JConfig
     from hcmvs_tpu.pipeline import hierarchy as jhier
     from hcmvs_tpu_torch.core.config import DenseConfig as TConfig
@@ -267,13 +276,15 @@ def test_densify_hierarchical_matches_jax(written, monkeypatch):
         return [Stage(1, "A", cfg), Stage(0, "B", cfg), Stage(0, "A", cfg)]
 
     args = (written["scene_path"], written["img_dir"])
-    ref = _jax_densify_hierarchical(*args, str(written["root"] / "jax"),
-                                    jcfg, schedule=sched(jhier.Stage, jcfg))
-    _patch_init(monkeypatch, _jax_tensors_by_height(*args, jcfg, (1, 0)))
-    out_dir = str(written["root"] / "port")
-    stats = thier.densify_hierarchical(*args, out_dir, tcfg,
-                                       schedule=sched(thier.Stage, tcfg),
-                                       verbose=False, device="cpu")
+    out_dir = str(written["root"] / f"port_{backend}")
+    with flow_backend(backend):
+        ref = _jax_densify_hierarchical(
+            *args, str(written["root"] / f"jax_{backend}"), jcfg,
+            schedule=sched(jhier.Stage, jcfg))
+        _patch_init(monkeypatch, _jax_tensors_by_height(*args, jcfg, (1, 0)))
+        stats = thier.densify_hierarchical(*args, out_dir, tcfg,
+                                           schedule=sched(thier.Stage, tcfg),
+                                           verbose=False, device="cpu")
     gt = written["sc"].depth_gt
     acc_t, acc_j = _acc(stats["depth"][0], gt), _acc(ref["depth"][0], gt)
     assert acc_t > 0.5, acc_t

@@ -5,7 +5,9 @@ the init of ``init_triangulate=1``) and ``utils/synth.py``'s ridge scene,
 both numpy, must give what the JAX package gives; then
 ``init_triangulate=1`` through the DensifyPointCloud path (``.mvs`` +
 PNGs, 48x64, 3 views of the ridge scene) against the JAX package's,
-from the same (JAX) init, as tests/test_torch_densify.py runs it.
+from the same (JAX) init, as tests/test_torch_densify.py runs it: on
+Farneback flow (each package's default) and on LK
+(``test_torch_flow.flow_backend``).
 
 Tolerances: the numpy modules exactly (atol 1e-6 on floats); densify by
 view 0's depth accuracy and the valid share (within 0.03) and the point
@@ -17,6 +19,7 @@ import os
 import numpy as np
 import pytest
 import torch
+from test_torch_flow import flow_backend
 
 torch.set_num_threads(1)
 
@@ -135,10 +138,19 @@ def world(tmp_path_factory):
 
 def test_densify_init_triangulate_matches_jax(world):
     """The Delaunay seeds equal the JAX package's, and densify from them
-    (and from JAX's init) agrees with its run."""
+    (and from JAX's init) agrees with its run, on Farneback flow (both
+    packages' default)."""
+    _check_init_triangulate(world, "farneback")
+
+
+def test_densify_init_triangulate_matches_jax_on_lk(world):
+    """The same on LK flow in both packages."""
+    _check_init_triangulate(world, "lk")
+
+
+def _check_init_triangulate(world, backend):
     import jax
     from hcmvs_tpu.core.config import DenseConfig as JConfig
-    from hcmvs_tpu.dense import flow as jflow
     from hcmvs_tpu.dense import scene_driver as jsd
     from hcmvs_tpu.pipeline import densify as jd
     from hcmvs_tpu_torch.convert import state_from_numpy
@@ -155,15 +167,15 @@ def test_densify_init_triangulate_matches_jax(world):
     np.testing.assert_allclose(tt.seed_depth.numpy(),
                                np.asarray(jt.seed_depth), rtol=0, atol=1e-6)
     assert (tt.seed_depth.numpy() > 0).mean() > 0.9  # dense, not splatted
-    with pytest.MonkeyPatch.context() as mp:
-        mp.setattr(jflow, "_HAVE_CV2", False)
-        ref = jd.densify(world["scene_path"], world["img_dir"],
-                         str(world["root"] / "jax"), jcfg, verbose=False)
     init = state_from_numpy(jsd.init_scene_state(jax.random.PRNGKey(0), jt),
                             device="cpu")
-    stats = densify(world["scene_path"], world["img_dir"],
-                    str(world["root"] / "port"), tcfg, verbose=False,
-                    device="cpu", init=init)
+    with flow_backend(backend):
+        ref = jd.densify(world["scene_path"], world["img_dir"],
+                         str(world["root"] / f"jax_{backend}"), jcfg,
+                         verbose=False)
+        stats = densify(world["scene_path"], world["img_dir"],
+                        str(world["root"] / f"port_{backend}"), tcfg,
+                        verbose=False, device="cpu", init=init)
     gt = world["sc"].depth_gt
     acc_t, acc_j = _acc(stats["depth"][0], gt), _acc(ref["depth"][0], gt)
     assert acc_t > 0.5, acc_t

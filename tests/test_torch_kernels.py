@@ -277,7 +277,7 @@ def test_kernel_b_matches_plain(s, offset, monkeypatch):
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("s", [9, 16, 36, 64, 5])
-@pytest.mark.parametrize("d", [256, 384, 512])
+@pytest.mark.parametrize("d", [256, 384, 512, 1024])
 def test_kernel_b_deep_tables_match_plain(d, s):
     """Kernel B on the per-plane build's deeper tables (D passed at run
     time), with fields below 0, above D - 2 and at exact integers, and on
@@ -363,7 +363,7 @@ def test_launchers_d_and_e_refuse_cpu_tensors():
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("c", [81, 324, 7])
-@pytest.mark.parametrize("d", [128, 256, 512])
+@pytest.mark.parametrize("d", [128, 256, 512, 1024])
 @pytest.mark.parametrize("mode", ["f32", "packed", "bounded"])
 def test_kernel_d_matches_plain(mode, d, c, monkeypatch):
     """Kernel D in each mode, at each table depth, at the paths' column
@@ -470,6 +470,38 @@ def test_kernel_d_past_the_item_cap():
     assert kernels.launches["volume_lookup_multi"] == before + 2
     ref = _plain_by_rows(vol.volume_lookup_multi_plain, 400_000, tab, f,
                          bounds)
+    assert torch.equal(out.view(torch.int16), ref.view(torch.int16))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("kernel", ["volume_lookup", "volume_lookup_multi"])
+def test_kernels_b_d_at_1024_planes_past_the_item_cap(kernel):
+    """Kernels B (f32, 9 columns) and D (packed and bounded, 81 columns)
+    on a 1024-plane table (``volume_planes`` 1024: 8 chunks) of 2,200,000
+    rows (2.25 G entries, 4.5 GB): two row chunks, bit-equal to the plain
+    version."""
+    dev = _cuda()
+    torch.manual_seed(2)
+    p, d = 2_200_000, 1024
+    assert p * d > kernels.MAX_ITEMS
+    tab = torch.randint(-32768, 32768, (p, d), dtype=torch.int16,
+                        device=dev).view(torch.uint16)
+    before = kernels.launches[kernel]
+    if kernel == "volume_lookup":
+        f = torch.rand(p, 9, device=dev) * (d + 4) - 2
+        out = vol.volume_lookup(tab, f)
+        ref = _plain_by_rows(vol.volume_lookup_plain, 250_000, tab, f)
+    else:
+        f = _random_u16((p, 81), (d - 1) * vol.F_PACK_SCALE + 1, dev)
+        lo = torch.randint(0, 400 * vol.F_PACK_SCALE, (p, 1), device=dev)
+        hi = torch.randint(600 * vol.F_PACK_SCALE, 65535, (p, 1),
+                           device=dev)
+        bounds = torch.cat([lo.expand(p, 64), hi.expand(p, 64)],
+                           1).to(torch.uint16)
+        out = vol.volume_lookup_multi(tab, f, bounds)
+        ref = _plain_by_rows(vol.volume_lookup_multi_plain, 250_000, tab, f,
+                             bounds)
+    assert kernels.launches[kernel] == before + 2
     assert torch.equal(out.view(torch.int16), ref.view(torch.int16))
 
 
@@ -734,3 +766,42 @@ def test_jpeg_fixtures_match_their_manifest_on_the_card_machine():
     gray = torch.from_numpy(imread(str(root / "photos" / "p00.jpg"),
                                    "gray")).to(dev)
     assert gray.shape == (960, 1280) and int(gray.max()) > 0
+
+
+@pytest.mark.gpu
+def test_farneback_on_the_card_matches_cpu():
+    """The Farneback flow (plain PyTorch, no kernel of the port) on the
+    card against the port's own CPU run, on the committed photos p00 ->
+    p01 at 1280x960: within 5e-3 px, and 1e-3 px on >= 99.9% of pixels."""
+    from hcmvs_tpu_torch.dense.flow import farneback_flow
+    from hcmvs_tpu_torch.io.images import imread
+    dev = _cuda()
+    photos = Path(__file__).resolve().parent / "data" / "jpeg" / "photos"
+    a, b = (torch.from_numpy(imread(str(photos / f"p{i:02d}.jpg"), "gray")
+                             .astype(np.float32) / 255.0) for i in (0, 1))
+    cpu = farneback_flow(a, b)
+    card = farneback_flow(a.to(dev), b.to(dev))
+    assert card.device.type == "cuda" and card.shape == (2, 960, 1280)
+    err = (card.cpu() - cpu).abs().amax(0)
+    assert float(err.max()) <= 5e-3
+    assert float((err <= 1e-3).float().mean()) >= 0.999
+
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("c", [81, 324])
+def test_kernel_d_f32_past_the_packed_depth(c):
+    """Kernel D's f32 mode, which tables deeper than packed fields address
+    take (1152 planes: ``volume_planes`` 1152), equal to its plain
+    version, taps past plane 1024 included."""
+    dev = _cuda()
+    rng = np.random.default_rng(13)
+    p, d = 4099, 1152
+    tab = _u16(rng.integers(0, 65536, (p, d))).to(dev)
+    f = _field(rng, (p, c), 1000, d + 2, dev, 0)
+    before = kernels.launches["volume_lookup_multi"]
+    out = vol.volume_lookup_multi(tab, f)
+    assert kernels.launches["volume_lookup_multi"] == before + 1
+    with kernels.plain_versions():
+        ref = vol.volume_lookup_multi(tab, f)
+    assert torch.equal(out, ref)

@@ -19,8 +19,8 @@ prior maps and label projection, through densify and the hierarchy.
   colours in both packages, exactly.
 - The hierarchy with masks: tests/test_torch_masks_hierarchy.py.
 
-``hcmvs_tpu.dense.flow._HAVE_CV2`` is patched to False where flows are
-on, so both packages compute LK flow.
+Where flows are on, both packages compute Farneback flow, each one's
+default.
 
 Run as a script, ``PYTHONPATH=. python tests/test_torch_masks.py H W
 [jax|port ...]`` runs densify with masks and ``--priors-dir`` on
@@ -336,10 +336,7 @@ def _patch_draws(monkeypatch):
 
 
 def _jax_call(fn, *args, **kw):
-    from hcmvs_tpu.dense import flow as jflow
-    with pytest.MonkeyPatch.context() as mp:
-        mp.setattr(jflow, "_HAVE_CV2", False)
-        return fn(*args, verbose=False, **kw)
+    return fn(*args, verbose=False, **kw)
 
 
 def _jax_init(ridge, jcfg):

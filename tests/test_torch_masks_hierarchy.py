@@ -14,8 +14,8 @@ semantic masks and external prior maps.
   beside the images, ``--priors-dir``): view 0's accuracy and the valid
   share within 0.03 of JAX's, the point count within 2%.
 
-``hcmvs_tpu.dense.flow._HAVE_CV2`` is patched to False where flows are
-on, so both packages compute LK flow.
+Where flows are on, both packages compute Farneback flow, each one's
+default.
 """
 
 import os
@@ -154,7 +154,7 @@ def test_masked_hierarchy_matches_jax(monkeypatch, tmp_path, b_photo2geo):
 def test_masked_densify_hierarchical_matches_jax(tmp_path, monkeypatch):
     """From files (the written ridge scene at 48x64): masks beside the
     images and --priors-dir, A at level 1, then B and A at level 0 with
-    use_semantic and LK flows."""
+    use_semantic and Farneback flows."""
     from hcmvs_tpu.core.config import DenseConfig as JConfig
     from hcmvs_tpu.pipeline import hierarchy as jhier
     from hcmvs_tpu_torch.core.config import DenseConfig as TConfig

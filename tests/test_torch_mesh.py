@@ -11,12 +11,13 @@ max-flow, reconstruction, clean-up, sampling); labels equal on at least
 tie); UVs within 1e-6; the atlas within 1 LSB (the JAX package shrinks a
 chart with cv2.resize, the port with its own INTER_LINEAR).
 
-    PYTHONPATH=. python tests/test_torch_mesh.py H W [jax|port]
+    PYTHONPATH=. python tests/test_torch_mesh.py H W [jax|port] [lk]
 
 runs both packages' mesh chain on the ridge scene of phases 12 and 14 of
-chip_smoke.py at H x W (the masked densify, a 60,000-point subsample,
-reconstruct, refine) and prints the mesh F-scores before and after
-refine; chip_smoke.py's floor comes from these numbers.
+chip_smoke.py at H x W (the masked densify on Farneback flow, or on LK
+with ``lk``; a 60,000-point subsample, reconstruct, refine) and prints
+the mesh F-scores before and after refine; chip_smoke.py's floor comes
+from these numbers.
 """
 
 import filecmp
@@ -40,6 +41,7 @@ from hcmvs_tpu_torch.io import ply as tply
 from hcmvs_tpu_torch.mesh import delaunay as tdel
 from hcmvs_tpu_torch.mesh import mesh_ops as tops
 from hcmvs_tpu_torch.mesh import texture as ttex
+from test_torch_flow import flow_backend
 
 # pytest-xdist runs one process per core; torch's own intra-op pool in
 # each of them would oversubscribe the cores many times over.
@@ -419,10 +421,12 @@ def test_sample_mesh_matches(dense_scene):
 
 # ---- the mesh chain of chip_smoke.py's phase 14, at a size, as a script ----
 
-def _chain(h: int, w: int, which: str, root: str) -> dict:
+def _chain(h: int, w: int, which: str, root: str,
+           backend: str = "farneback") -> dict:
     """Phase 12's masked densify on its scene at h x w (as
-    tests/test_torch_masks.py's ``compare_at``: LK flow in both packages),
-    then phase 14's mesh chain on a 60,000-point subsample."""
+    tests/test_torch_masks.py's ``compare_at``, on the flow ``backend`` in
+    both packages), then phase 14's mesh chain on a 60,000-point
+    subsample."""
     import time
     from chip_smoke import mesh_fscore, subsample_mvs
     from hcmvs_tpu_torch.utils.synth import (make_ridge_scene,
@@ -445,11 +449,9 @@ def _chain(h: int, w: int, which: str, root: str) -> dict:
     t0 = time.perf_counter()
     if which == "jax":
         from hcmvs_tpu.core.config import DenseConfig
-        from hcmvs_tpu.dense import flow as jflow
         from hcmvs_tpu.pipeline import densify as jdens
         from hcmvs_tpu.pipeline import mesh_apps as apps
-        with pytest.MonkeyPatch.context() as mp:
-            mp.setattr(jflow, "_HAVE_CV2", False)
+        with flow_backend(backend):
             jdens.densify(path, img_dir, out,
                           DenseConfig(resolution_level=0, use_semantic=True),
                           priors_dir=priors, verbose=False)
@@ -458,9 +460,10 @@ def _chain(h: int, w: int, which: str, root: str) -> dict:
         from hcmvs_tpu_torch.core.config import DenseConfig
         from hcmvs_tpu_torch.pipeline import densify as tdens
         from hcmvs_tpu_torch.pipeline import mesh_apps as apps
-        tdens.densify(path, img_dir, out,
-                      DenseConfig(resolution_level=0, use_semantic=True),
-                      priors_dir=priors, verbose=False, device="cpu")
+        with flow_backend(backend):
+            tdens.densify(path, img_dir, out,
+                          DenseConfig(resolution_level=0, use_semantic=True),
+                          priors_dir=priors, verbose=False, device="cpu")
         dev = ["--device", "cpu"]
     t1 = time.perf_counter()
     mvs = os.path.join(out, "scene_mesh_input.mvs")
@@ -483,9 +486,11 @@ def _chain(h: int, w: int, which: str, root: str) -> dict:
 if __name__ == "__main__":
     import tempfile
     h, w = int(sys.argv[1]), int(sys.argv[2])
-    for which in sys.argv[3:] or ["jax", "port"]:
+    rest = sys.argv[3:]
+    backend = "lk" if "lk" in rest else "farneback"
+    for which in [a for a in rest if a != "lk"] or ["jax", "port"]:
         if which == "jax":
             import jax
             jax.config.update("jax_platforms", "cpu")
         with tempfile.TemporaryDirectory() as root:
-            print(_chain(h, w, which, root), flush=True)
+            print(_chain(h, w, which, root, backend), flush=True)

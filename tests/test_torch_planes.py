@@ -8,7 +8,13 @@ consumers of its image-order tables.
 - kernel D's plain version at D = 256 against its Pallas kernel in
   interpret mode, in the f32, packed and bounded modes;
 - the bounds panels in image order (``volume_bounds(vol, False)``);
-- table scoring on per-plane tables (``photometric_scores_volume``).
+- table scoring on per-plane tables (``photometric_scores_volume``);
+- ``estimate_scene`` at plane counts that are not a multiple of 128 or
+  exceed 512 (200: 128 planes, 640: 5 chunks), taken as the JAX package
+  takes them (``max(volume_planes // 128, 1)`` chunks);
+- 1152 planes with ``candidate_kernel="on"``, past the 1024 that packed
+  u16 index fields address: batched scoring and ``estimate_scene`` on f32
+  fields against the JAX package's route off the TPU.
 
 Scene: ``make_plane_scene`` at 48x64, 3 views, 2 neighbours; the JAX side
 builds the per-plane tables by its own gate (``volume_build="planes"`` or
@@ -18,7 +24,9 @@ Tolerances: tables within one u16 step (bilinear sums and Catmull-Rom
 weights in another order) and equal on >= 99% of entries; the sigma
 intervals at rtol 1e-5; lookups at atol 1e-6 (values in [0, 1], the
 JAX kernel's own test tolerance), u16 lookups exactly; scores at atol
-1e-4 (float32 sums in another order), as tests/test_torch_slice.py.
+1e-4 (float32 sums in another order), as tests/test_torch_slice.py;
+``estimate_scene`` from the same (JAX) init by share of pixels (depth
+within 1e-3 on >= 99%), as tests/test_torch_slice.py.
 """
 
 import dataclasses
@@ -38,8 +46,9 @@ from hcmvs_tpu.ops import volume as jvol
 from hcmvs_tpu.utils.synth import make_plane_scene
 
 from hcmvs_tpu_torch.convert import (geometry_from_numpy, scene_from_numpy,
-                                     tables_from_numpy)
+                                     state_from_numpy, tables_from_numpy)
 from hcmvs_tpu_torch.core.config import DenseConfig as TConfig
+from hcmvs_tpu_torch.dense import patchmatch as tpm
 from hcmvs_tpu_torch.dense import scene_driver as tsd
 from hcmvs_tpu_torch.dense import score as tscore
 from hcmvs_tpu_torch.ops import volume as tvol
@@ -208,16 +217,111 @@ def test_volume_scores_on_plane_tables_match(world, planes_scenes, planes):
 
 
 def test_plane_counts_the_tables_take():
+    """Every plane count, as the JAX package routes and chunks it."""
     cfg = TConfig()
     assert tvol.use_rect_volume_build(cfg, H, W)
     assert not tvol.use_rect_volume_build(cfg.replace(volume_build="planes"),
                                           H, W)
-    for planes in (256, 384, 512):
-        assert tvol.table_chunks(cfg.replace(volume_planes=planes)) \
-            == planes // 128
-        assert not tvol.use_rect_volume_build(
-            cfg.replace(volume_planes=planes), H, W)
-    for planes in (64, 200, 640):
-        with pytest.raises(NotImplementedError, match="volume_planes"):
-            tvol.use_rect_volume_build(cfg.replace(volume_planes=planes),
-                                       H, W)
+    for planes, chunks in ((64, 1), (128, 1), (200, 1), (256, 2), (384, 3),
+                           (512, 4), (640, 5), (1024, 8), (1100, 8)):
+        c = cfg.replace(volume_planes=planes)
+        j = JConfig(volume_planes=planes, volume_build="rect")
+        assert tvol.table_chunks(c) == chunks
+        assert tvol.use_rect_volume_build(c, H, W) \
+            == jvol.use_rect_volume_build(j, H, W) == (planes <= 128)
+
+
+@pytest.mark.parametrize("planes", [200, 640])
+def test_estimate_scene_at_any_plane_count_matches_jax(world, planes):
+    """The slice with per-plane tables of 128 (``volume_planes`` 200) and
+    640 planes, from the same (JAX) init, no random refinement."""
+    jcfg = JConfig(**SLICE, exact_backend="volume", geo_backend="rect",
+                   volume_planes=planes)
+    tcfg = TConfig(**SLICE, volume_planes=planes)
+    init = jsd.init_scene_state(jax.random.PRNGKey(0), world["scene"])
+    ref = jsd.estimate_scene(jax.random.PRNGKey(0), world["scene"], jcfg)
+    scene_t = tsd.attach_volumes(
+        scene_from_numpy(world["scene"], device="cpu"), tcfg)
+    assert scene_t.vols.tab.shape[-1] == 128 * max(planes // 128, 1)
+    out = tsd.estimate_scene(torch.Generator().manual_seed(0), scene_t,
+                             tcfg, init=state_from_numpy(init, device="cpu"))
+    d_ref, d_out = _np(ref.depth), out.depth.numpy()
+    close = np.abs(d_out - d_ref) <= 1e-3 * np.abs(d_ref)
+    assert close.mean() >= 0.99, close.mean()
+
+
+def test_batched_scores_past_the_packed_depth_match(world):
+    """Tables of 1152 planes (9 chunks), deeper than packed u16 index
+    fields address (1024): scoring with ``candidate_kernel="on"`` takes
+    f32 fields, as the JAX package off the TPU, and the packed builders
+    raise rather than wrap."""
+    planes = 1152
+    jcfg = JConfig(**SLICE, exact_backend="volume", geo_backend="rect",
+                   volume_planes=planes, candidate_kernel="on")
+    tcfg = TConfig(**SLICE, volume_planes=planes, candidate_kernel="on")
+    scene_v = jsd.attach_volumes(world["scene"], jcfg)
+    ctx_j = jsd._per_view_context(scene_v, 0, None, None, jcfg)
+    tscene = dataclasses.replace(
+        scene_from_numpy(world["scene"], device="cpu"),
+        vols=tables_from_numpy(scene_v.vols, device="cpu"))
+    ctx_t = tsd._per_view_context(tscene, 0, None, None, tcfg)
+    ctx_t = dataclasses.replace(
+        ctx_t, geom=geometry_from_numpy(ctx_j.geom, device="cpu"))
+    assert ctx_t.vol.tab.shape[-1] == planes
+    assert not tscore.packed_lookup(ctx_t.vol) and ctx_t.vol_bounds is None
+    offsets = jscore.patch_offsets(jcfg)
+    sc = world["sc"]
+    rng = np.random.default_rng(4)
+    # the ground truth, and depths whose sigma (1 / depth) falls across the
+    # grid's planes and on those past 1024
+    sig0 = float(ctx_t.vol.sig0[0])
+    dsig = 1.0 / float(ctx_t.vol.inv_dsig[0])
+    depths = np.stack([sc.depth_gt.astype(np.float32)] + [
+        (1.0 / (sig0 + dsig * rng.uniform(lo, planes - 1, (H, W))))
+        .astype(np.float32) for lo in (0, 1000)])
+    normals = np.broadcast_to(sc.normal_gt[None, :, None, None],
+                              (3, 3, H, W)).astype(np.float32)
+    dt, nt = torch.from_numpy(depths), torch.from_numpy(normals)
+    _, fwd = tscore._sample_sigmas(ctx_t.geom, dt[2], nt[2], ctx_t.rays,
+                                   offsets)
+    idx = (fwd - ctx_t.vol.sig0[0]) * ctx_t.vol.inv_dsig[0]
+    assert ((idx > 1024) & (idx <= planes - 1)).float().mean() > 0.3
+    sj, bj = jscore.photometric_scores_volume_batched(
+        ctx_j.geom, ctx_j.vol, ctx_j.stats, ctx_j.hw, jnp.asarray(depths),
+        jnp.asarray(normals), ctx_j.rays, offsets, jcfg)
+    st, bt = tscore.photometric_scores_volume_batched(
+        ctx_t.geom, ctx_t.vol, ctx_t.stats, ctx_t.hw, dt, nt, ctx_t.rays,
+        offsets, tcfg)
+    assert (bt.numpy() == _np(bj)).mean() >= 0.999
+    np.testing.assert_allclose(st.numpy(), _np(sj), rtol=0, atol=1e-4)
+    assert (st.numpy()[0] < 0.5).mean() > 0.5
+    with pytest.raises(ValueError, match="1024"):
+        tscore.volume_bounds(ctx_t.vol, False)
+    with pytest.raises(ValueError, match="1024"):
+        tscore.packed_fields(ctx_t.geom, ctx_t.vol, dt, nt, ctx_t.rays,
+                             offsets, False)
+
+
+def test_estimate_scene_past_the_packed_depth_matches_jax(world):
+    """The slice with 1152-plane tables and ``candidate_kernel="on"``
+    (f32 index fields, no bounds panels in either context the port
+    builds), from the same (JAX) init, no random refinement."""
+    planes = 1152
+    jcfg = JConfig(**SLICE, exact_backend="volume", geo_backend="rect",
+                   volume_planes=planes, candidate_kernel="on")
+    tcfg = TConfig(**SLICE, volume_planes=planes, candidate_kernel="on")
+    gray = torch.from_numpy(_np(world["scene"].gray))
+    sc = world["sc"]
+    ctx = tpm.make_context(geometry_from_numpy(world["geom"], device="cpu"),
+                           gray[0], gray[world["nbr"][0]], sc.d_min,
+                           sc.d_max, tcfg)
+    assert ctx.vol.tab.shape[-1] == planes and ctx.vol_bounds is None
+    init = jsd.init_scene_state(jax.random.PRNGKey(0), world["scene"])
+    ref = jsd.estimate_scene(jax.random.PRNGKey(0), world["scene"], jcfg)
+    scene_t = tsd.attach_volumes(
+        scene_from_numpy(world["scene"], device="cpu"), tcfg)
+    out = tsd.estimate_scene(torch.Generator().manual_seed(0), scene_t,
+                             tcfg, init=state_from_numpy(init, device="cpu"))
+    d_ref, d_out = _np(ref.depth), out.depth.numpy()
+    close = np.abs(d_out - d_ref) <= 1e-3 * np.abs(d_ref)
+    assert close.mean() >= 0.99, close.mean()

@@ -253,13 +253,11 @@ def test_aggregate_scores_match():
 def test_unported_knobs_raise(world):
     scene_t = scene_from_numpy(world["scene"], device="cpu")
     gen = torch.Generator().manual_seed(0)
-    # the retired batch_candidates, and plane counts the tables do not
-    # take (the direct routes, the per-plane build, streaming and view
-    # spread run: tests/test_torch_{direct,planes,streaming}.py)
+    # the retired batch_candidates (the direct routes, the per-plane build
+    # at any plane count, streaming and view spread run:
+    # tests/test_torch_{direct,planes,streaming}.py)
     for kw, what in ((dict(batch_candidates=True), "batch_candidates"),
                      (dict(batch_candidates=True, score_mode="warped"),
-                      "batch_candidates"),
-                     (dict(volume_planes=200), "volume_planes"),
-                     (dict(volume_planes=640), "volume_planes")):
+                      "batch_candidates")):
         with pytest.raises(NotImplementedError, match=what):
             tsd.estimate_scene(gen, scene_t, world["tcfg"].replace(**kw))
