@@ -13,8 +13,11 @@ Phases, each fatal on failure:
      at every index-field width: 36 and 9 offsets, and the densify
      path's 64 and 16 on a table at its depth range; D at 324 and 81
      columns and the view axis's 144), A, B (64, 16) and C also at the
-     hierarchy's 640x480 ones, and E also at 12 views (two launches),
-     with its device time (``cuda_ms``: launches queued
+     hierarchy's 640x480 ones, and E also at 12 views (two launches);
+     B, C and E also at ``batch_candidates``' stack of the eight
+     propagation candidates (B at 8 x 36 and 8 x 9 columns, C (8, 3, 2,
+     960, 1280), E (8, 3, 960, 1280), one launch each), with its device
+     time (``cuda_ms``: launches queued
      behind a spin kernel, so the host's launch work is not counted;
      checked against torch.profiler on kernel A), B's and D's earlier
      designs timed on the same inputs (``earlier_ms``), and the least
@@ -29,6 +32,7 @@ Phases, each fatal on failure:
      scoring in the photometric phase, batched table scoring in the
      geometric one); all five kernels must have launched;
   7. the same path through the plain versions, compared with phase 6;
+     then phase 29;
   8. first the Farneback flow (``dense.flow.farneback_flow``, plain
      PyTorch: the JAX package computes it on the host through OpenCV) on
      the card against the port's own CPU run, on the committed photos
@@ -155,10 +159,12 @@ Phases, each fatal on failure:
      fusion, graph cut, refine, texture): ATE, depth accuracy, mesh
      F-score and refine's drop against their gates, each stage's wall
      and the peak memory;
- 27. real photos: every JPEG fixture of tests/data/jpeg through
-     ``io.images.imread`` (the port's own decoder, native/jpeg.cpp, built
-     on first use) in its three modes against the manifest's cv2
-     digests, the decode's ms per megapixel and ``resize_image``'s time
+ 27. real photos: every image fixture of tests/data/jpeg (JPEG incl.
+     CMYK, YCCK and cut progressive files, PNG, and the TIFF and BMP kinds
+     of ``formats/``) through ``io.images.imread`` (the port's own
+     decoders; JPEG through native/jpeg.cpp, built on first use) in its
+     three modes against the manifest's cv2 digests (a raise where cv2
+     reads nothing), the decode's ms per megapixel and ``resize_image``'s time
      to halve a 6000x4000 gray and RGB image on this host; then the 8
      committed 1280x960 JPEG photos (phase 16's scene, EXIF focal
      33.75 mm) through ``mvgmvs.main`` as phase 16 runs them: K exactly
@@ -186,6 +192,17 @@ Phases, each fatal on failure:
      640x480, 8 views; ``eval.roofline`` of one bench round at 1280x960;
      ``eval.scaling.run_multiprocess`` on the view axis's scene with its
      value check.
+ 29. ``batch_candidates=True`` (the incumbent scored alone, every
+     propagation candidate in one cost call on the stack) on phase 4's
+     scene and config: the exact route through the kernels (A, B and C
+     launched) and through the plain versions (depth within 1% on >= 98%
+     of pixels), the warped route through the kernels (C and E) and its
+     per-candidate path beside it; each kernel launched (2 + R) / (1 + K
+     + R) as often as on the per-candidate path, at the stack's shapes
+     once for every K candidates that path scores; view 0 within 0.03 of
+     the per-candidate path on each route; each run's wall, peak memory
+     and launches, and the peak of one DenseConfig() geometric cost call
+     on eight candidates.  It runs right after phase 7.
 Phase 28 runs after phase 23 and 27's decoder check, alone.  Phases
 14-15, 17, 19, 21, 24-26 and 27's pipeline run last, after it, side by
 side, each in a process of its own (``chip_smoke.py --worker KIND OUT
@@ -573,7 +590,9 @@ def lookup_cases(sc, scene, cfg, geom, st, rays):
     B: a random (P_pad, 36) field, the fields of the random init ``st`` at
     the exact path's explore offsets (9), and, as the densify path runs
     it, at its final (64) and explore (16) offsets on a table at the depth
-    range densify takes from the scene's sparse points.  D: the packed,
+    range densify takes from the scene's sparse points; and, as
+    ``batch_candidates`` runs it, the eight propagation candidates' fields
+    as 8 x 36 and 8 x 9 columns of one lookup.  D: the packed,
     bounded field of view 0's nine propagation candidates at full (C =
     324) and explore (C = 81) sampling, and at the view axis's full
     sampling (``parallel.mh_check``'s window, C = 144)."""
@@ -628,6 +647,11 @@ def lookup_cases(sc, scene, cfg, geom, st, rays):
         for dy, dx in propagation_offsets(cfg)]
     depths = torch.stack([c[0] for c in cand])
     normals = torch.stack([c[1] for c in cand])
+    for offsets in (S.patch_offsets(cfg), S.patch_offsets(
+            cfg.replace(patch_step=cfg.explore_patch_step))):
+        b_cases.append((f"{len(cand) - 1} candidates", vt.tab[0],
+                        S.volume_fields(geom, vt, depths[1:], normals[1:],
+                                        rays, offsets)[2]))
     bounds0 = S.volume_bounds(vt, True)[0]
     d_cases = []
     for offsets in (S.patch_offsets(cfg), S.patch_offsets(
@@ -687,6 +711,19 @@ def hierarchy_lookup_cases(scene, nbr, geom, st):
         geom, vt, st.depth[0], st.normal[0], rays,
         S.patch_offsets(phase_cfg(cfg, 0, final)))[2])
         for final in (True, False)]
+
+
+def propagation_stack(st, rays, cfg):
+    """View 0's eight propagation candidates of the random init ``st``:
+    (depths (8, H, W), normals (8, 3, H, W)), the stack that
+    ``batch_candidates`` scores in one call."""
+    import torch
+    from hcmvs_tpu_torch.dense.patchmatch import (_propagate_from,
+                                                  propagation_offsets)
+    cand = [_propagate_from(st.depth[0], st.normal[0], rays, dy, dx)
+            for dy, dx in propagation_offsets(cfg)]
+    return (torch.stack([c[0] for c in cand]).contiguous(),
+            torch.stack([c[1] for c in cand]).contiguous())
 
 
 def kernel_parity(sc, scene, cfg, dev):
@@ -828,6 +865,30 @@ def kernel_parity(sc, scene, cfg, dev):
                 ctx.maps, ctx.rb, rg.BAND_ROWS),
             out[:, 0].numel(), shape=list(out.shape),
             field=label))
+        if label == "slice":
+            # the eight propagation candidates of batch_candidates' stack,
+            # in one launch
+            stack = propagation_stack(st_, rays, cfg)
+            sigma = (1.0 / stack[0]).contiguous()
+            out = rg.rect_lookup(ctx, sigma)
+            plain = rg.rect_lookup_plain(ctx, sigma)
+            same = torch.equal(out.view(torch.int32),
+                               plain.view(torch.int32))
+            log(f"[parity] C rect_lookup (slice, {sigma.shape[0]} "
+                f"candidates): out {tuple(out.shape)}, bit-equal {same}")
+            if not same:
+                raise AssertionError("kernel C differs from its plain "
+                                     "version on the candidate stack")
+            s_args = (ctx.maps, ctx.row_int, ctx.c0, ctx.k, ctx.rb, sigma)
+            shapes.append(measured(
+                "rect_lookup", 0.0,
+                cuda_ms(lambda: kernels.rect_lookup(*s_args), 20),
+                cuda_ms(lambda: rg.rect_lookup_plain(ctx, sigma), 5,
+                        host_bound_ok=True),
+                nbytes(*s_args[1:], out) + rect_rows_bytes(
+                    ctx.maps, ctx.rb, rg.BAND_ROWS),
+                out[:, :, 0].numel(), shape=list(out.shape),
+                field=f"slice, {sigma.shape[0]} candidates"))
         del ctx, out, plain
     row("rect_lookup", "hcmvs_tpu/ops/rect_gather.py:322", shapes=shapes)
     del levels
@@ -878,16 +939,21 @@ def kernel_parity(sc, scene, cfg, dev):
     # E: view 0's random init scored warped against its three neighbours
     # with the photometric phase's explore sampling (pad 5, 8 offsets), and
     # against twelve (the three, four times over): more views than one
-    # launch holds, so two launches
+    # launch holds, so two launches; then its eight propagation candidates
+    # against the three, in one launch
     cfg_x = cfg.replace(patch_step=cfg.explore_patch_step)
     offsets = S.patch_offsets(cfg_x)
     hw = S.halfwin_map(sobel_magnitude(scene.gray[0]), cfg_x)
     stats = S.ref_patch_stats(scene.gray[0], hw, offsets)
     shapes = []
-    for label, nbr_ in (("3 views", nbr), ("12 views", nbr.repeat(4))):
+    stack = propagation_stack(st, rays, cfg)
+    for label, nbr_, hyp in (
+            ("3 views", nbr, (st.depth[0], st.normal[0])),
+            ("12 views", nbr.repeat(4), (st.depth[0], st.normal[0])),
+            (f"3 views, {stack[0].shape[0]} candidates", nbr, stack)):
         geom_ = make_view_geometry(scene.cams[0], scene.cams[nbr_])
-        x = S.warped_inputs(geom_, scene.gray[nbr_], stats, hw, st.depth[0],
-                            st.normal[0], rays, offsets)
+        x = S.warped_inputs(geom_, scene.gray[nbr_], stats, hw, *hyp, rays,
+                            offsets)
         e_args = x[:9]
         before = kernels.launches["zncc_warped"]
         out_s, out_v = kernels.zncc_warped(*e_args)
@@ -900,6 +966,8 @@ def kernel_parity(sc, scene, cfg, dev):
             f"{x.pad}, max |kernel - plain| {err:.3g}")
         if err != 0:
             raise AssertionError(f"kernel E ({label}): max abs err {err}")
+        if n_launch != -(-len(nbr_) // kernels.ZNCC_MAX_VIEWS):
+            raise AssertionError(f"kernel E ({label}): {n_launch} launches")
         shapes.append(measured(
             "zncc_warped", err,
             cuda_ms(lambda: kernels.zncc_warped(*e_args), 20),
@@ -909,6 +977,7 @@ def kernel_parity(sc, scene, cfg, dev):
             out_s.numel() * len(x.scan_offsets), shape=list(out_s.shape),
             field=label))
         del x, e_args, out_s, out_v, plain_s, plain_v
+    del stack
     row("zncc_warped", "hcmvs_tpu/ops/pallas_zncc.py:43", shapes=shapes)
     for r in rows:
         for x in r.get("shapes", [r]):
@@ -1020,6 +1089,181 @@ def check_path(sc, scene, cfg, dev, label, path_kernels):
         "plain_total_s": sec_p, "depth_acc_2pct": acc_k,
         "plain_depth_acc_2pct": acc_p, "agree_1pct": agree,
         "launches_by_shape": shapes}, failed
+
+
+# phase 29: batch_candidates=True on the slice's scene: view 0 within
+# BATCH_PARITY of the per-candidate path on each route (the parity tests'
+# 0.03; tests/test_torch_batch_candidates.py holds both packages' runs
+# within it at 96x128)
+BATCH_PARITY = 0.03
+WARPED_KERNELS = ("rect_lookup", "zncc_warped")
+
+
+def _batch_run(scene, cfg, dev, label):
+    """run_path with launches by shape and the peak memory: (depth, keep,
+    seconds, peak GiB, launches, launches by shape)."""
+    import torch
+    from hcmvs_tpu_torch import kernels
+    kernels.reset_launches()
+    with launch_shapes() as shapes:
+        depth, keep, _, sec = run_path(scene, cfg, dev, label)
+    return (depth, keep, sec, torch.cuda.max_memory_allocated() / 2 ** 30,
+            dict(kernels.launches), shapes)
+
+
+def stack_peak(scene, dev) -> dict:
+    """The peak memory of one geometric-phase cost call of DenseConfig()
+    at this width (S = 64, full sampling) on view 0's eight propagation
+    candidates, against one call on a single candidate: GiB above what was
+    allocated before each call, and the whole peak."""
+    import torch
+    from hcmvs_tpu_torch.core.config import DenseConfig, window_cfg_for_width
+    from hcmvs_tpu_torch.dense import patchmatch as pm
+    from hcmvs_tpu_torch.dense import score as S
+    from hcmvs_tpu_torch.dense.scene_driver import (init_scene_state,
+                                                    phase_cfg)
+    from hcmvs_tpu_torch.dense.types import make_view_geometry
+    w = scene.gray.shape[2]
+    cfg = phase_cfg(window_cfg_for_width(DenseConfig(), w), 1, True)
+    st = init_scene_state(torch.Generator(device=dev).manual_seed(2), scene)
+    nbr = scene.nbr_idx[0]
+    ctx = pm.make_context(make_view_geometry(scene.cams[0], scene.cams[nbr]),
+                          scene.gray[0], scene.gray[nbr], scene.d_min[0],
+                          scene.d_max[0], cfg, nbr_depth=st.depth[nbr],
+                          nbr_normal=st.normal[nbr])
+    cd, cn = propagation_stack(st, ctx.rays, cfg)
+    cur_d, cur_n = st.depth[0], st.normal[0]
+    delta = pm.c2p_max(cur_d, cur_n, ctx.rays)
+    offsets = S.patch_offsets(cfg)
+    out = {"patch_offsets": len(offsets), "candidates": cd.shape[0]}
+    for key, d, n in (("single", cd[0], cn[0]), ("stack", cd, cn)):
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        cost = pm.compute_cost(ctx, d, n, cur_d, cur_n, delta, cfg, 1,
+                               offsets)
+        torch.cuda.synchronize()
+        peak = torch.cuda.max_memory_allocated()
+        if not torch.isfinite(cost).all():
+            raise AssertionError(f"DenseConfig() {key} cost not finite")
+        out[f"{key}_call_gib"] = (peak - base) / 2 ** 30
+        out[f"{key}_peak_gib"] = peak / 2 ** 30
+        del cost
+    log(f"[batch] DenseConfig() at {w} wide, geometric phase, "
+        f"{len(offsets)} patch offsets: one cost call on "
+        f"{cd.shape[0]} candidates takes {out['stack_call_gib']:.2f} GiB "
+        f"above its inputs (peak {out['stack_peak_gib']:.2f} GiB), on one "
+        f"candidate {out['single_call_gib']:.2f} GiB")
+    return out
+
+
+def check_batch_candidates(sc, scene, cfg, dev, exact):
+    """Phase 29: ``batch_candidates=True`` (the incumbent scored alone,
+    every propagation candidate in one cost call on the stack) on the
+    slice's scene: the exact route through the kernels and through the
+    plain versions, the warped route through the kernels, and the warped
+    route's per-candidate path beside it (the exact one is phase 4,
+    ``exact``: its (launches, summary, failed)).  Gates: the route's
+    kernels launched; the batched run launches each kernel (2 + R) / (1 +
+    K + R) times as often as the per-candidate run, and at the stack's
+    shapes once for every K candidates the per-candidate run scores;
+    kernel vs plain depth within 1% on >= 98% of pixels; view 0 within
+    BATCH_PARITY of the per-candidate path on each route.  Prints each
+    run's wall, peak memory and launches, and one DenseConfig() cost
+    call's peak (``stack_peak``).  Returns (launches, summary, failed)."""
+    import numpy as np
+    from hcmvs_tpu_torch import kernels
+    from hcmvs_tpu_torch.dense import score as S
+    from hcmvs_tpu_torch.dense.patchmatch import propagation_offsets
+
+    failed = []
+    k_cand = len(propagation_offsets(cfg))
+    per_cand = 1 + k_cand + cfg.random_iters    # cost calls a half-sweep
+    batched = 2 + cfg.random_iters
+    widths = {k_cand * len(S.patch_offsets(c)) for c in (
+        cfg, cfg.replace(patch_step=cfg.explore_patch_step))}
+
+    def stacked(name, key):
+        dims = key.split("x")
+        if name == "volume_lookup":
+            return int(dims[1]) in widths
+        return len(dims) == {"rect_lookup": 5, "zncc_warped": 4}.get(name)
+
+    bcfg = cfg.replace(batch_candidates=True)
+    wcfg = cfg.replace(score_mode="warped")
+    runs = {}
+    launches_all = collections.Counter()
+    by_shape = {name: collections.Counter() for name in SHAPE_OF}
+    for label, c in (("batch_exact", bcfg),
+                     ("batch_warped", wcfg.replace(batch_candidates=True)),
+                     ("warped", wcfg)):
+        depth, keep, sec, peak, launches, shapes = _batch_run(
+            scene, c, dev, label)
+        shapes = check_shapes(label, launches, shapes, failed)
+        launches_all.update(launches)
+        for name, counts in shapes.items():
+            by_shape[name].update(counts)
+        acc = depth_acc_2pct(depth[0], sc.depth_gt)
+        runs[label] = dict(depth=depth, acc=acc, seconds=sec, peak_gib=peak,
+                           launches=launches, shapes=shapes)
+        log(f"[{label}] view 0 interior depth_acc_2pct {acc:.4f}, {sec:.3f} "
+            f"s, peak memory {peak:.2f} GiB, launches {launches}")
+    runs["exact"] = dict(acc=exact[1]["depth_acc_2pct"], launches=exact[0])
+
+    for label, ref, path_kernels in (
+            ("batch_exact", "exact", EXACT_KERNELS),
+            ("batch_warped", "warped", WARPED_KERNELS)):
+        got, want = runs[label], runs[ref]
+        if min(got["launches"][k] for k in path_kernels) <= 0:
+            failed.append(f"{label}: a kernel of the route never launched: "
+                          f"{got['launches']}")
+        for name in path_kernels:
+            if name == "rect_build":     # once a stage, not per candidate
+                continue
+            n_stack = sum(v for key, v in got["shapes"][name].items()
+                          if stacked(name, key))
+            log(f"[{label}] {name}: {got['launches'][name]} launches "
+                f"({n_stack} on the stack), the per-candidate run "
+                f"{want['launches'][name]} ({per_cand} cost calls a "
+                f"half-sweep against {batched})")
+            if (got["launches"][name] * per_cand
+                    != want["launches"][name] * batched
+                    or n_stack * per_cand != want["launches"][name]):
+                failed.append(f"{label}: {name} launched "
+                              f"{got['launches'][name]} times, {n_stack} on "
+                              f"the stack, against {want['launches'][name]} "
+                              f"on the per-candidate path")
+        gap = abs(got["acc"] - want["acc"])
+        log(f"[{label}] view 0 {got['acc']:.4f}, the per-candidate path "
+            f"{want['acc']:.4f} ({gap:.4f} apart, at most {BATCH_PARITY})")
+        if gap > BATCH_PARITY:
+            failed.append(f"{label}: view 0 {got['acc']} against the "
+                          f"per-candidate path's {want['acc']}")
+
+    kernels.reset_launches()
+    with kernels.plain_versions():
+        depth_p, _, _, sec_p = run_path(scene, bcfg, dev, "batch_exact plain")
+    if any(kernels.launches.values()):
+        failed.append(f"batch_exact plain run launched kernels: "
+                      f"{kernels.launches}")
+    depth_k = runs["batch_exact"]["depth"]
+    agree = float((np.abs(depth_k - depth_p)
+                   <= 0.01 * np.abs(depth_p)).mean())
+    acc_p = depth_acc_2pct(depth_p[0], sc.depth_gt)
+    log(f"[batch_exact plain] view 0 interior depth_acc_2pct {acc_p:.4f}; "
+        f"depth within 1% of the kernel run on {agree:.5f} of pixels")
+    if agree < 0.98:
+        failed.append(f"batch_exact: kernel and plain runs agree on {agree}")
+    peak = stack_peak(scene, dev)
+    summary = {
+        label: {k: v for k, v in r.items() if k != "depth"}
+        for label, r in runs.items() if label != "exact"}
+    summary["batch_exact"].update(plain_seconds=sec_p,
+                                  plain_depth_acc_2pct=acc_p,
+                                  agree_1pct=agree)
+    summary.update(dense_config_stack=peak, launches_by_shape={
+        k: dict(v) for k, v in by_shape.items()})
+    return dict(launches_all), summary, failed
 
 
 def check_farneback(dev, failed) -> dict:
@@ -2390,9 +2634,10 @@ DEEP_RANDOM_COLUMNS = 324        # D: 9 candidates x 36 offsets
 # (v)) is held against the JAX package's own view-spread ladder on the CPU
 # (volume / rect backends forced): at 640x480 like for like, within the
 # parity tests' 0.03, and at 1280x960 against that 640x480 number less
-# 0.05.  The JAX package's view-spread accuracy falls with size (0.9274 at
-# 240x320, 0.9033 at 640x480; PERF.md), so its 240x320 number is no floor
-# at 1280x960.
+# 0.05 and, like for like, within the same 0.03 of the JAX package's own
+# reading at 1280x960.  The JAX package's view-spread accuracy falls with
+# size (0.9274 at 240x320, 0.9033 at 640x480, 0.8568 at 960x1280;
+# PERF.md), so its 240x320 number is no floor at 1280x960.
 LADDER_ARGS = ("--h", "960", "--w", "1280", "--fx", "1200", "--views", "5",
                "--ext", "3", "--iters", "2", "--device", "cuda")
 AT_640 = ("--h", "480", "--w", "640", "--fx", "600")
@@ -2412,6 +2657,8 @@ ROUTE_SPREAD = 0.01
 JAX_VIEW_SPREAD_640 = 0.9033   # hcmvs_tpu.eval.quality_ladder --h 480
                                # --w 640 --fx 600 --cpu, volume / rect
                                # backends, view_spread 1 (PERF.md)
+JAX_VIEW_SPREAD_1280 = 0.8568  # the same at --h 960 --w 1280 --fx 1200
+                               # (ROADMAP, Queue 3; 744.6 s on the CPU)
 VIEW_SPREAD_PARITY = 0.03
 VIEW_SPREAD_TOL = 0.05
 # phase 22: the reference's operating point, 10 neighbours a view
@@ -2697,6 +2944,15 @@ def check_routes():
         if finals[label]["acc2pct"] < floor:
             failed.append(f"{label}: acc2pct {finals[label]['acc2pct']} < "
                           f"{floor}")
+    acc_vs = finals["view_spread"]["acc2pct"]
+    gap = abs(acc_vs - JAX_VIEW_SPREAD_1280)
+    log(f"[view_spread] acc2pct {acc_vs:.4f}, {gap:.4f} from the JAX "
+        f"package's {JAX_VIEW_SPREAD_1280} at this size (at most "
+        f"{VIEW_SPREAD_PARITY})")
+    if gap > VIEW_SPREAD_PARITY:
+        failed.append(f"view_spread: acc2pct {acc_vs} more than "
+                      f"{VIEW_SPREAD_PARITY} from the JAX package's "
+                      f"{JAX_VIEW_SPREAD_1280} at 1280x960")
 
     kernels.reset_launches()
     with kernels.plain_versions():
@@ -3360,7 +3616,8 @@ def check_full_run(root):
 # 16's scene saved by tests/data/jpeg/make_fixtures.py as RGB 4:2:0 JPEGs
 # at quality 95 with FocalLengthIn35mmFilm = 33.75 in APP1).  First, in
 # this process: every fixture's decode in the three imread modes against
-# its cv2 digest in the manifest (no cv2 here), the decode's ms per
+# its cv2 digest in the manifest (no cv2 here; where cv2 reads nothing the
+# port must raise NotImplementedError), the decode's ms per
 # megapixel and resize_image's time to halve a 6000x4000 image; then, as
 # a worker: mvgmvs.main on the photos as phase 16 runs it.  Its gates:
 # phase 16's K, registration, k1 window and ATE, the refined rms within
@@ -3397,8 +3654,15 @@ def check_jpeg_decoder() -> tuple:
     bad = []
     for name, digests in manifest.items():
         for mode in JPEG_MODES:
-            img = imread(str(JPEG_DIR / name), mode)
             want = digests[mode]
+            if want is None:         # cv2 reads nothing: the port raises
+                try:
+                    imread(str(JPEG_DIR / name), mode)
+                    bad.append(f"{name} {mode} (no raise)")
+                except NotImplementedError:
+                    pass
+                continue
+            img = imread(str(JPEG_DIR / name), mode)
             if (list(img.shape) != want["shape"] or hashlib.sha256(
                     img.tobytes()).hexdigest() != want["sha256"]):
                 bad.append(f"{name} {mode}")
@@ -4114,10 +4378,14 @@ def main() -> int:
     paths["hybrid_batched"] = check_path(
         sc, scene, cfg.replace(score_mode="hybrid", candidate_kernel="on"),
         dev, "hybrid_batched", HYBRID_KERNELS)
+    torch.cuda.empty_cache()
+    phase_done("4-7")
+    # 29. batch_candidates=True, the exact and warped routes
+    paths["batch_candidates"] = check_batch_candidates(
+        sc, scene, cfg, dev, paths["exact"])
     del scene
     torch.cuda.empty_cache()
-
-    phase_done("4-7")
+    phase_done("29")
     # 8-9. the densify path, each through the kernels and the plain versions
     root = Path(tempfile.mkdtemp(prefix="_densify_smoke_",
                                  dir=Path(__file__).resolve().parent))

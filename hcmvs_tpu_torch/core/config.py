@@ -9,7 +9,8 @@ Routing (the accelerator knobs below): the port's "auto" means the sigma
 tables, the rect-frame build and the rect engine on every device (kernels
 on CUDA, plain versions on the CPU); the direct paths, the per-plane build
 and streaming are taken when the config names them, as in the JAX package.
-The retired ``batch_candidates`` raises ``NotImplementedError``;
+``batch_candidates`` scores every propagation candidate in one cost call
+on the candidate stack, as the JAX package's vmapped path does;
 ``volume_planes`` is taken as the JAX package takes it (max(volume_planes
 // 128, 1) chunks of 128 planes); nothing is silently rerouted.
 """
@@ -115,8 +116,10 @@ class DenseConfig:
                                        # builds resolve to the direct
                                        # paths and the per-plane build
     sweep_mode: str = "jacobi"         # "jacobi" | "redblack"
-    batch_candidates: bool = False     # retired path, not carried over:
-                                       # raises when set
+    batch_candidates: bool = False     # every propagation candidate in
+                                       # one cost call on the (K, H, W)
+                                       # stack (B, C, E launched as for
+                                       # one candidate)
     score_mode: str = "exact"          # "exact" | "warped" | "hybrid"
     exact_backend: str = "auto"        # "auto"/"volume": sigma tables on
                                        # every device (kernels B / D);

@@ -9,9 +9,14 @@ ladder (ref: DepthMap.cpp:384, :1441-1501).  Each candidate's full cost is
 computed, and the winner taken by argmin (the carry-free scan of the JAX
 package, written as a loop).  With ``candidate_kernel="on"`` the
 photometric term of all propagation candidates comes from one batched
-table lookup per view (``_batched_best``); ``refine_batched`` perturbs
-the post-propagation best at every refinement scale and scores the set
-together instead of one scale after another.
+table lookup per view (``_batched_best``); with ``batch_candidates``
+(and the candidate kernel off) the incumbent is scored alone and every
+propagation candidate in one ``compute_cost`` call on the (K, H, W)
+stack (the JAX package's ``vmap`` of the cost, the axis written out),
+the winner the first minimum over [incumbent, candidates].
+``refine_batched`` perturbs the post-propagation best at every
+refinement scale and scores the set together instead of one scale after
+another.
 
 With ``view_spread`` (and neighbour maps attached) every neighbour's
 hypothesis at the pixel's projection joins the propagation candidates,
@@ -92,11 +97,13 @@ def finish_cost(ctx: ScoreContext, ncc: torch.Tensor, bad: torch.Tensor,
                 phase: int) -> torch.Tensor:
     """Smoothness bonus, geometric, local-smoothness and flow blends, view
     aggregation and the prior (ref: DepthMap.cpp:890-958, :987-1046).
-    ``ncc``/``bad`` are (V, H, W)."""
+    ``ncc``/``bad`` are (V, H, W), or (K, V, H, W) for a candidate stack
+    (``depth`` (K, H, W), ``normal`` (K, 3, H, W)), which gives (K, H,
+    W)."""
     bonus = S.smoothness_bonus(cur_depth_map, cur_normal_map, ctx.rays,
                                depth, normal, cfg)
     # thRobust placeholders of OOB/textureless views stay flat
-    ncc = torch.where(bad, ncc, ncc * bonus[None])
+    ncc = torch.where(bad, ncc, ncc * bonus.unsqueeze(-3))
 
     if phase >= 1 and cfg.use_geo_consistency and ctx.nbr_depth is not None:
         geo = S.geometric_scores(ctx.geom, depth, normal, ctx.rays,
@@ -108,7 +115,7 @@ def finish_cost(ctx: ScoreContext, ncc: torch.Tensor, bad: torch.Tensor,
                                          delta_c2pmax)
         per_view = (1.0 - para_tapa)[None] * ncc + para_tapa[None] * geo
         per_view = ((1.0 - para_part)[None] * per_view
-                    + para_part[None] * gra_s[None])
+                    + para_part[None] * gra_s.unsqueeze(-3))
     else:
         per_view = ncc
 
@@ -116,8 +123,9 @@ def finish_cost(ctx: ScoreContext, ncc: torch.Tensor, bad: torch.Tensor,
         fs = S.flow_score(ctx.geom, depth, ctx.rays, ctx.flow, view_idx=0,
                           rows=ctx.rows)
         wt = cfg.photometric_flow
-        per_view = torch.cat([((1.0 - wt) * per_view[0] + wt * fs)[None],
-                              per_view[1:]])
+        per_view = torch.cat([
+            ((1.0 - wt) * per_view[..., 0, :, :] + wt * fs).unsqueeze(-3),
+            per_view[..., 1:, :, :]], dim=-3)
     agg = S.aggregate_scores(per_view, cfg)
     if phase >= 1 and ctx.prior_depth is not None:
         agg = S.prior_blend(agg, depth, ctx.prior_depth, cfg)
@@ -128,8 +136,10 @@ def compute_cost(ctx: ScoreContext, depth: torch.Tensor,
                  normal: torch.Tensor, cur_depth_map: torch.Tensor,
                  cur_normal_map: torch.Tensor, delta_c2pmax: torch.Tensor,
                  cfg: DenseConfig, phase: int, offsets) -> torch.Tensor:
-    """Aggregated per-pixel cost of a hypothesis field (H, W) -> (H, W);
-    ``phase`` 0 = photometric, 1 = geometric."""
+    """Aggregated per-pixel cost of a hypothesis field (H, W) -> (H, W),
+    or of a candidate stack (K, H, W) -> (K, H, W) in one call (each
+    kernel launched as for one field); ``phase`` 0 = photometric, 1 =
+    geometric."""
     ncc, bad = S.score_photometric(ctx.geom, ctx.src_grays, ctx.stats,
                                    ctx.hw, depth, normal, ctx.rays,
                                    offsets, cfg, phase, vol=ctx.vol,
@@ -241,6 +251,37 @@ def _batched_best(ctx: ScoreContext, cd: torch.Tensor, cn: torch.Tensor,
     return bc, bk
 
 
+def propagation_candidates(ctx: ScoreContext, cur_d: torch.Tensor,
+                           cur_n: torch.Tensor, prop_offsets: list,
+                           cfg: DenseConfig):
+    """The propagation stack (depths (1 + K, H, W), normals (1 + K, 3, H,
+    W), validity (1 + K, H, W)): the current state first, then the cross
+    pattern's plane propagations and, with ``view_spread`` (and neighbour
+    maps attached), each neighbour's hypothesis at this pixel's
+    projection turned to face the camera, each valid inside the depth
+    window."""
+    lo_ok, hi_ok = ctx.d_min * 0.8, ctx.d_max * 1.2
+    cand_d, cand_n, cand_v = [cur_d], [cur_n], [torch.ones_like(cur_d,
+                                                                dtype=bool)]
+    for dy, dx in prop_offsets:
+        d_p, n_p = _propagate_from(cur_d, cur_n, ctx.rays, dy, dx)
+        cand_d.append(d_p)
+        cand_n.append(n_p)
+        cand_v.append((d_p >= lo_ok) & (d_p <= hi_ok))
+    if cfg.view_spread and ctx.nbr_depth is not None:
+        vs_d, vs_n, vs_ok = S.view_spread_candidates(
+            ctx.geom, cur_d, ctx.rays, ctx.nbr_depth, ctx.nbr_normal,
+            rect=ctx.rect)
+        for v in range(vs_d.shape[0]):
+            cand_d.append(vs_d[v])
+            cand_n.append(torch.stack(face_camera_t(
+                (vs_n[v, 0], vs_n[v, 1], vs_n[v, 2]),
+                (ctx.rays[0], ctx.rays[1], ctx.rays[2]))))
+            cand_v.append(vs_ok[v] & (vs_d[v] >= lo_ok)
+                          & (vs_d[v] <= hi_ok))
+    return torch.stack(cand_d), torch.stack(cand_n), torch.stack(cand_v)
+
+
 def c2p_max(depth: torch.Tensor, normal: torch.Tensor,
             rays: torch.Tensor) -> torch.Tensor:
     """The largest camera-to-plane distance |(n . ray) d| of a state:
@@ -279,36 +320,22 @@ def half_sweep(state: PatchMatchState, ctx: ScoreContext, cfg: DenseConfig,
                             phase, offsets)
 
     # propagation: the current state is candidate 0
-    cand_d, cand_n, cand_v = [cur_d], [cur_n], [torch.ones_like(cur_d,
-                                                                dtype=bool)]
-    for dy, dx in prop_offsets:
-        d_p, n_p = _propagate_from(cur_d, cur_n, ctx.rays, dy, dx)
-        cand_d.append(d_p)
-        cand_n.append(n_p)
-        cand_v.append((d_p >= lo_ok) & (d_p <= hi_ok))
-    # view spread: each neighbour's hypothesis at this pixel's projection,
-    # turned to face the camera, inside the depth window
-    if cfg.view_spread and ctx.nbr_depth is not None:
-        vs_d, vs_n, vs_ok = S.view_spread_candidates(
-            ctx.geom, cur_d, ctx.rays, ctx.nbr_depth, ctx.nbr_normal,
-            rect=ctx.rect)
-        for v in range(vs_d.shape[0]):
-            cand_d.append(vs_d[v])
-            cand_n.append(torch.stack(face_camera_t(
-                (vs_n[v, 0], vs_n[v, 1], vs_n[v, 2]),
-                (ctx.rays[0], ctx.rays[1], ctx.rays[2]))))
-            cand_v.append(vs_ok[v] & (vs_d[v] >= lo_ok)
-                          & (vs_d[v] <= hi_ok))
-    cd, cn = torch.stack(cand_d), torch.stack(cand_n)
+    cd, cn, cv = propagation_candidates(ctx, cur_d, cur_n, prop_offsets,
+                                        cfg)
     if use_batch:
-        bc, k = _batched_best(ctx, cd, cn, torch.stack(cand_v), None, cur_d,
-                              cur_n, delta_c2pmax, cfg, phase, offsets)
+        bc, k = _batched_best(ctx, cd, cn, cv, None, cur_d, cur_n,
+                              delta_c2pmax, cfg, phase, offsets)
         k = torch.clamp_min(k, 0)
     else:
-        costs = torch.stack([torch.where(v_c, cost_of(d_c, n_c),
-                                         float("inf"))
-                             for d_c, n_c, v_c in zip(cand_d, cand_n,
-                                                      cand_v)])
+        if cfg.batch_candidates:
+            # the incumbent alone, then the K candidates in one cost call
+            costs = torch.cat([cost_of(cur_d, cur_n)[None],
+                               torch.where(cv[1:], cost_of(cd[1:], cn[1:]),
+                                           float("inf"))])
+        else:
+            costs = torch.stack([torch.where(v_c, cost_of(d_c, n_c),
+                                             float("inf"))
+                                 for d_c, n_c, v_c in zip(cd, cn, cv)])
         k = torch.argmin(costs, dim=0)
         bc = costs.amin(dim=0)
     bd = _select_by_index(cd, k)

@@ -21,8 +21,7 @@ under ``use_semantic`` (or ``self_priors``), or an external prior channel
 (``ext_prior_depth``), the planar-prior pass (``dense/priors.py``) runs
 once, before external iteration max(n - 2, 1), and its maps become the
 prior (ref: GenerateDepthPrior at it_external == n - 2,
-SceneDensify.cpp:983-1031).  The retired ``batch_candidates`` raises
-NotImplementedError instead of being skipped.  ``scene_sweeps`` can sweep
+SceneDensify.cpp:983-1031).  ``scene_sweeps`` can sweep
 a chunk of the views (``view_start``, ``view_chunk``) against the
 full-scene snapshot it is given; ``sweep_in_chunks`` chains such chunks
 over a scene, every view exactly once.  The random init and refinement

@@ -27,6 +27,15 @@ use_rect_volume_build``: tile-major for the rect build, image order for
 the per-plane one), and every consumer keys on the same gate.  Per-offset
 sums are accumulated in the JAX package's order, so CPU results agree with
 it to rounding.
+
+Candidate axis (``batch_candidates``, the JAX package's ``vmap`` of the
+cost): the terms that score a hypothesis take a depth field (..., H, W)
+and normals (..., 3, H, W) with an optional leading axis of K candidates,
+and return (..., V, H, W) per-view terms or (..., H, W) costs.  The axis
+is written out, not mapped (kernels B, C and E sit behind ctypes): B
+reads the K index fields as K * S columns of one table row, C and E take
+the candidates as a grid axis, so a call for the whole stack launches
+each kernel as often as a call for one hypothesis.
 """
 
 from __future__ import annotations
@@ -119,8 +128,8 @@ def ref_patch_stats(ref_gray: torch.Tensor, hw: torch.Tensor,
 def _bilinear_views(srcs: torch.Tensor, x: torch.Tensor, y: torch.Tensor
                     ) -> Tuple[torch.Tensor, torch.Tensor]:
     """``bilinear_sample_xy`` of V images (V, H, W) at per-view coordinates
-    (V, H', W') in one pass: each view's taps index its own image, with the
-    same clamps and arithmetic."""
+    (..., V, H', W') in one pass: each view's taps index its own image,
+    with the same clamps and arithmetic."""
     v, h, w = srcs.shape
     x0 = torch.floor(x)
     y0 = torch.floor(y)
@@ -129,8 +138,7 @@ def _bilinear_views(srcs: torch.Tensor, x: torch.Tensor, y: torch.Tensor
     valid = (x >= 0) & (y >= 0) & (x <= w - 1) & (y <= h - 1)
     x0c = torch.clamp(x0.to(torch.int64), 0, w - 2)
     y0c = torch.clamp(y0.to(torch.int64), 0, h - 2)
-    voff = (torch.arange(v, device=srcs.device) * (h * w)).reshape(
-        (v,) + (1,) * (x.dim() - 1))
+    voff = (torch.arange(v, device=srcs.device) * (h * w)).reshape(v, 1, 1)
     flat = srcs.reshape(-1)
     base = voff + y0c * w + x0c
     v00 = flat[base]
@@ -160,12 +168,15 @@ def photometric_scores(geom: ViewGeometry, src_grays: torch.Tensor,
     sample of every view per offset.  Returns ``(scores, bad)``, both
     (V, H, W): ``1 - zncc`` in [0, 2], and the flat thRobust cost where
     the centre warp leaves the source or lies behind it, or the patch is
-    textureless.  ``rows``: the fields are a row band of the image."""
-    h, w = depth.shape
+    textureless.  ``rows``: the fields are a row band of the image.  With
+    a candidate axis (depth (K, H, W)) both are (K, V, H, W)."""
+    h, w = depth.shape[-2:]
     pad = _pad_of(offsets)
     th_robust = cfg.ncc_threshold_keep * 1.2
     dev = depth.device
-    n_ray0, inv_dp, nk_x, nk_y = _plane_terms(geom, depth, normal, rays)
+    # the plane terms broadcast over the view axis
+    n_ray0, inv_dp, nk_x, nk_y = (t.unsqueeze(-3) for t in _plane_terms(
+        geom, depth, normal, rays))
     v_, u_ = pixel_grid(h, w, dev, rows)
     ref_center = _shifted(stats.ref_pad, pad, 0, 0, h, w)
     A, wv = geom.A, geom.wv                           # (V, 3, 3), (V, 3)
@@ -173,7 +184,8 @@ def photometric_scores(geom: ViewGeometry, src_grays: torch.Tensor,
     p0x = _col(A[:, 0, 0]) * u_ + _col(A[:, 0, 1]) * v_ + _col(A[:, 0, 2])
     p0y = _col(A[:, 1, 0]) * u_ + _col(A[:, 1, 1]) * v_ + _col(A[:, 1, 2])
     p0z = _col(A[:, 2, 0]) * u_ + _col(A[:, 2, 1]) * v_ + _col(A[:, 2, 2])
-    zeros = torch.zeros((A.shape[0], h, w), dtype=torch.float32, device=dev)
+    zeros = torch.zeros(depth.shape[:-2] + (A.shape[0], h, w),
+                        dtype=torch.float32, device=dev)
     num, s1, sq1, sw = zeros, zeros, zeros, zeros
     for dy, dx in offsets:
         dyf, dxf = float(dy), float(dx)
@@ -214,18 +226,22 @@ def photometric_scores(geom: ViewGeometry, src_grays: torch.Tensor,
 
 class WarpedInputs(NamedTuple):
     """Kernel E's arguments (``ops/zncc_warped.zncc_warped``) for one
-    hypothesis field, and the centre warp's out-of-bounds mask."""
+    hypothesis field, or a stack of K (each per-view field then has the
+    leading K axis), and the centre warp's out-of-bounds mask."""
 
     ref_pad: torch.Tensor     # (H+2P, W+2P) edge-padded reference
     tm: torch.Tensor          # (H, W)
     nsq0: torch.Tensor        # (H, W)
-    warped_pad: torch.Tensor  # (V, H+2P, W+2P) edge-padded warped sources
-    valid_pad: torch.Tensor   # (V, H+2P, W+2P) centre-warp validity, 0-pad
+    warped_pad: torch.Tensor  # ([K,] V, H+2P, W+2P) edge-padded warped
+                              # sources
+    valid_pad: torch.Tensor   # ([K,] V, H+2P, W+2P) centre-warp validity,
+                              # 0-padded
     hw: torch.Tensor          # (H, W)
-    acc: torch.Tensor         # (V, 4, H, W) exactly warped corner sums
+    acc: torch.Tensor         # ([K,] V, 4, H, W) exactly warped corner sums
     scan_offsets: tuple       # the offsets read from the warped images
     pad: int
-    oob: torch.Tensor         # (V, H, W) centre warp off-image or behind
+    oob: torch.Tensor         # ([K,] V, H, W) centre warp off-image or
+                              # behind
 
 
 def warped_inputs(geom: ViewGeometry, src_grays: torch.Tensor,
@@ -239,8 +255,9 @@ def warped_inputs(geom: ViewGeometry, src_grays: torch.Tensor,
     centre warp alone is normal-independent) into the starting sums.
     ``rows``: the fields are a row band of the image (the warped sources
     are then padded at the band's edges, which only the band's outer
-    ``pad`` rows read)."""
-    h, w = depth.shape
+    ``pad`` rows read).  With a candidate axis (depth (K, H, W)) every
+    per-view field has it too."""
+    h, w = depth.shape[-2:]
     pad = _pad_of(offsets)
     dev = depth.device
     n_ray0, inv_dp, nk_x, nk_y = _plane_terms(geom, depth, normal, rays)
@@ -283,15 +300,16 @@ def warped_inputs(geom: ViewGeometry, src_grays: torch.Tensor,
             s1 = s1 + wt * v1
             sq1 = sq1 + wt * v1 * v1
             sw = sw + wt
-        acc.append(torch.stack([num, s1, sq1, sw]))
-    warped_pad = pad_edge(torch.stack(warped), pad)
+        acc.append(torch.stack([num, s1, sq1, sw], dim=-3))
+    warped_pad = pad_edge(torch.stack(warped, dim=-3), pad)
     valid_pad = torch.nn.functional.pad(
-        torch.stack(valid).to(torch.float32), (pad, pad, pad, pad))
+        torch.stack(valid, dim=-3).to(torch.float32), (pad, pad, pad, pad))
     return WarpedInputs(
         ref_pad=stats.ref_pad.contiguous(), tm=stats.tm.contiguous(),
         nsq0=stats.norm_sq0.contiguous(), warped_pad=warped_pad,
-        valid_pad=valid_pad, hw=hw.contiguous(), acc=torch.stack(acc),
-        scan_offsets=scan_offsets, pad=pad, oob=torch.stack(oob))
+        valid_pad=valid_pad, hw=hw.contiguous(),
+        acc=torch.stack(acc, dim=-4), scan_offsets=scan_offsets, pad=pad,
+        oob=torch.stack(oob, dim=-3))
 
 
 def photometric_scores_warped(geom: ViewGeometry, src_grays: torch.Tensor,
@@ -304,7 +322,8 @@ def photometric_scores_warped(geom: ViewGeometry, src_grays: torch.Tensor,
     at the warp centre and the patch read from that image at static
     offsets (exact only where neighbouring pixels carry the same plane;
     the window corners are warped exactly).  Returns ``(scores, bad)``,
-    both (V, H, W), as ``photometric_scores_volume``."""
+    both ([K,] V, H, W), as ``photometric_scores_volume``; one launch of
+    kernel E (per ten views) for any K."""
     from hcmvs_tpu_torch.ops.zncc_warped import zncc_warped
     x = warped_inputs(geom, src_grays, stats, hw, depth, normal, rays,
                       offsets, rows)
@@ -543,13 +562,9 @@ def use_volume_tables(cfg: DenseConfig) -> bool:
     phase, "hybrid" in the geometric ones; "warped" never, and no tables
     are built for it): ``exact_backend`` "volume", or "auto" (tables on
     every device in the port, unless ``use_pallas=False``); "bilinear"
-    scores directly.  Raises for the retired ``batch_candidates``."""
+    scores directly."""
     if cfg.score_mode not in ("exact", "hybrid", "warped"):
         raise ValueError(f"unknown score_mode {cfg.score_mode!r}")
-    if cfg.batch_candidates:
-        raise NotImplementedError(
-            "batch_candidates (the retired vmapped candidate path, not "
-            "carried over; candidate_kernel='on' batches candidates)")
     if cfg.exact_backend not in ("auto", "volume", "bilinear"):
         raise ValueError(f"unknown exact_backend {cfg.exact_backend!r}")
     if cfg.score_mode == "warped" or cfg.exact_backend == "bilinear":
@@ -589,8 +604,8 @@ def _plane_terms(geom: ViewGeometry, depth: torch.Tensor,
     """(n_ray0, inv_dp, nk_x, nk_y) of the per-pixel plane hypotheses:
     a sample at offset (dy, dx) lies at the epipolar parameter
     ``s = (n_ray0 + nk_x*dx + nk_y*dy) * inv_dp``, the same for every
-    view."""
-    nx, ny, nz = normal[0], normal[1], normal[2]
+    view.  Any leading candidate axis is kept."""
+    nx, ny, nz = normal.unbind(-3)
     n_ray0 = nx * rays[0] + ny * rays[1] + nz * rays[2]
     d_plane = n_ray0 * depth
     inv_dp = 1.0 / torch.where(d_plane.abs() < 1e-12, 1e-12, d_plane)
@@ -603,11 +618,11 @@ def _plane_terms(geom: ViewGeometry, depth: torch.Tensor,
 def _sample_sigmas(geom: ViewGeometry, depth: torch.Tensor,
                    normal: torch.Tensor, rays: torch.Tensor, offsets
                    ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """The hypothesis' epipolar parameter at the centre, s_c (H, W), and
-    its forward-shifted sample fields (S, H, W): row q of field k holds
-    s(q - delta_k), so a table lookup lands on the row of the SAMPLE
+    """The hypothesis' epipolar parameter at the centre, s_c ([K,] H, W),
+    and its forward-shifted sample fields ([K,] S, H, W): row q of field k
+    holds s(q - delta_k), so a table lookup lands on the row of the SAMPLE
     pixel q = p + delta."""
-    h, w = depth.shape
+    h, w = depth.shape[-2:]
     pad = _pad_of(offsets)
     n_ray0, inv_dp, nk_x, nk_y = _plane_terms(geom, depth, normal, rays)
     s_c = n_ray0 * inv_dp
@@ -618,7 +633,7 @@ def _sample_sigmas(geom: ViewGeometry, depth: torch.Tensor,
         _shifted(s_cp, pad, -dy, -dx, h, w)
         + _shifted(gxp, pad, -dy, -dx, h, w) * dx
         + _shifted(gyp, pad, -dy, -dx, h, w) * dy
-        for dy, dx in offsets])
+        for dy, dx in offsets], dim=-3)
     return s_c, fwd
 
 
@@ -626,13 +641,15 @@ def volume_fields(geom: ViewGeometry, vol, depth: torch.Tensor,
                   normal: torch.Tensor, rays: torch.Tensor, offsets,
                   blocked: bool = True
                   ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """(s_c, fwd, f2): ``_sample_sigmas``'s centre parameter (H, W) and
-    sample fields (S, H, W), and kernel B's index field (P_pad, S): the
-    sample fields as fractional indices of the sigma grid (shared across
-    views), in the tables' row order (``blocked``: the rect build's
+    """(s_c, fwd, f2): ``_sample_sigmas``'s centre parameter ([K,] H, W)
+    and sample fields ([K,] S, H, W), and kernel B's index field (P_pad,
+    S), or (P_pad, K * S) with column k * S + j candidate k's sample j:
+    the sample fields as fractional indices of the sigma grid (shared
+    across views), in the tables' row order (``blocked``: the rect build's
     tile-major order; else the image's), zero rows past the image."""
     s_c, fwd = _sample_sigmas(geom, depth, normal, rays, offsets)
     f_flat = _table_rows((fwd - vol.sig0[0]) * vol.inv_dsig[0], blocked)
+    f_flat = f_flat.reshape(-1, f_flat.shape[-1])
     f2 = torch.nn.functional.pad(
         f_flat.T, (0, 0, 0, vol.tab.shape[1] - f_flat.shape[1]))
     return s_c, fwd, f2.contiguous()
@@ -652,11 +669,12 @@ def photometric_scores_volume(geom: ViewGeometry, vol, stats: RefPatchStats,
     the analytic valid-sigma interval.  Returns ``(scores, bad)``, both
     (V, H, W): ``1 - zncc`` in [0, 2], with the flat thRobust cost where
     ``bad``.  The tables' row order (and D, read from the table) follow
-    ``cfg``'s build gate.
+    ``cfg``'s build gate.  K candidates (depth (K, H, W)) give (K, V, H,
+    W), their K * S index columns read in one lookup per view.
     """
     from hcmvs_tpu_torch.ops.volume import (use_rect_volume_build,
                                             volume_lookup)
-    h, w = depth.shape
+    h, w = depth.shape[-2:]
     blocked = use_rect_volume_build(cfg, h, w)
     pad = _pad_of(offsets)
     th_robust = cfg.ncc_threshold_keep * 1.2
@@ -676,14 +694,15 @@ def photometric_scores_volume(geom: ViewGeometry, vol, stats: RefPatchStats,
     for vi in range(vol.tab.shape[0]):
         lo_v, hi_v = vol.sig_lo[vi], vol.sig_hi[vi]
         out2 = volume_lookup(vol.tab[vi], f2)
-        v3 = _image_of_rows(out2, h, w, blocked)         # (S, H, W)
+        v3 = _image_of_rows(out2, h, w, blocked).reshape(
+            fwd.shape)                                   # ([K,] S, H, W)
         # validity: the in-image sigma interval AND the grid's own range
         ok3 = (fwd >= lo_v) & (fwd <= hi_v) & in_grid
         score, bad = _zncc_of_samples(v3, ok3, s_c, lo_v, hi_v, stats, coef,
                                       offsets, th_robust, min_var_bad)
         scores.append(score)
         bads.append(bad)
-    return torch.stack(scores), torch.stack(bads)
+    return torch.stack(scores, dim=-3), torch.stack(bads, dim=-3)
 
 
 def _zncc_of_samples(v3: torch.Tensor, ok3: torch.Tensor, s_c: torch.Tensor,
@@ -694,8 +713,9 @@ def _zncc_of_samples(v3: torch.Tensor, ok3: torch.Tensor, s_c: torch.Tensor,
     """One hypothesis' (score, bad) in one view, both (H, W), from its
     looked-up samples ``v3`` (S, H, W) f32 and their validity ``ok3``
     (S, H, W) bool in the fields' forward-shifted rows; ``coef`` the
-    numerator weights wts * (v_d - tm)."""
-    h, w = s_c.shape
+    numerator weights wts * (v_d - tm).  K hypotheses: ``v3``, ``ok3``
+    (K, S, H, W), ``s_c`` (K, H, W) -> (K, H, W)."""
+    h, w = s_c.shape[-2:]
     pad = _pad_of(offsets)
     # consumption shift: centre p reads sample row p + delta (zero
     # validity where the sample pixel falls off the image)
@@ -705,8 +725,8 @@ def _zncc_of_samples(v3: torch.Tensor, ok3: torch.Tensor, s_c: torch.Tensor,
     zeros = torch.zeros_like(s_c)
     num, s1, sq1, sw = zeros, zeros, zeros, zeros
     for k, (dy, dx) in enumerate(offsets):
-        v1 = _shifted(v3p[k], pad, dy, dx, h, w)
-        ok = _shifted(ok3p[k], pad, dy, dx, h, w)
+        v1 = _shifted(v3p[..., k, :, :], pad, dy, dx, h, w)
+        ok = _shifted(ok3p[..., k, :, :], pad, dy, dx, h, w)
         wt = stats.wts[k] * ok
         num = num + coef[k] * ok * v1
         s1 = s1 + wt * v1
@@ -753,17 +773,18 @@ def score_photometric(geom: ViewGeometry, src_grays: torch.Tensor,
 def aggregate_scores(scores: torch.Tensor, cfg: DenseConfig) -> torch.Tensor:
     """Min-mean aggregation over views (ref: ScorePixel
     DENSE_AGGNCC_MINMEAN, DepthMap.cpp:1015-1032): mean of the best two
-    view scores, dropping the second if beyond thRobust."""
+    view scores, dropping the second if beyond thRobust.  ``scores``
+    ([K,] V, H, W) -> ([K,] H, W)."""
     th_robust = cfg.ncc_threshold_keep * 1.2
-    if scores.shape[0] <= 2:
-        return scores.amin(dim=0)
+    if scores.shape[-3] <= 2:
+        return scores.amin(dim=-3)
     # the two smallest values over views (what top-k of the negated scores
     # gives); torch.topk along the short leading axis measured 2.8 ms per
     # call at 1280x960 on the H100, this form a few elementwise passes
-    best0, k0 = scores.min(dim=0)
-    views = torch.arange(scores.shape[0], device=scores.device)
-    best1 = torch.where(views[:, None, None] == k0, float("inf"),
-                        scores).amin(dim=0)
+    best0, k0 = scores.min(dim=-3)
+    views = torch.arange(scores.shape[-3], device=scores.device)
+    best1 = torch.where(views[:, None, None] == k0.unsqueeze(-3),
+                        float("inf"), scores).amin(dim=-3)
     use1 = best1 < th_robust
     total = best0 + torch.where(use1, best1, 0.0)
     return total / (1.0 + use1.to(torch.float32))
@@ -778,10 +799,10 @@ def flow_score(geom: ViewGeometry, depth: torch.Tensor, rays: torch.Tensor,
     Compares the hypothesis' motion vector (its projection into the
     neighbour minus the pixel) with the dense flow ``flow`` (2, H, W),
     scoring direction and length agreement.  ``rows``: the fields are a
-    row band of the image."""
-    w = depth.shape[1]
-    h = depth.shape[0] if rows is None else rows.height
-    v_, u_ = pixel_grid(depth.shape[0], w, depth.device, rows)
+    row band of the image.  A depth stack (K, H, W) gives (K, H, W)."""
+    w = depth.shape[-1]
+    h = depth.shape[-2] if rows is None else rows.height
+    v_, u_ = pixel_grid(depth.shape[-2], w, depth.device, rows)
     X0 = (rays[0] * depth, rays[1] * depth, rays[2] * depth)
     X1 = mat3_apply(geom.R_rel[view_idx], X0)
     t = geom.t_rel[view_idx]
@@ -811,17 +832,22 @@ def flow_score(geom: ViewGeometry, depth: torch.Tensor, rays: torch.Tensor,
 
 def _rect_taps(rect, depth: torch.Tensor
                ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """(V, 4, H, W) neighbour (depth, normal) samples at each pixel's
-    forward projection, via the rect engine; valid = depth tap > 0."""
+    """([K,] V, 4, H, W) neighbour (depth, normal) samples at each pixel's
+    forward projection, via the rect engine (one lookup for all K
+    candidates); valid = depth tap > 0."""
     from hcmvs_tpu_torch.ops.rect_gather import rect_lookup, unpack_taps
     sigma = 1.0 / torch.clamp_min(depth, 1e-9)
-    return unpack_taps(rect_lookup(rect, sigma))
+    taps = rect_lookup(rect, sigma)                      # ([K,] V, 2, H, W)
+    lead = taps.shape[:-3]
+    out, ok = unpack_taps(taps.reshape(-1, *taps.shape[-3:]))
+    return (out.reshape(*lead, *out.shape[1:]),
+            ok.reshape(*lead, *ok.shape[1:]))
 
 
 def _forward_projections(geom: ViewGeometry, depth: torch.Tensor,
                          rays: torch.Tensor):
     """Each pixel projected into every neighbour with the hypothesis
-    depth: [(u1, v1, z1)] per view, (H, W) each."""
+    depth: [(u1, v1, z1)] per view, ([K,] H, W) each."""
     X0 = (rays[0] * depth, rays[1] * depth, rays[2] * depth)
     out = []
     for vi in range(geom.R_rel.shape[0]):
@@ -838,11 +864,15 @@ def _forward_projections(geom: ViewGeometry, depth: torch.Tensor,
 def _direct_taps(nbr_depth: torch.Tensor, nbr_normal: torch.Tensor,
                  u1_all: torch.Tensor, v1_all: torch.Tensor
                  ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """(V, 4, H, W) neighbour (depth, normal) samples at rounded positions
-    by nearest gathers (the reference's integer-pixel reads,
-    DepthMap.cpp:652-655), and their in-image mask (V, H, W)."""
-    return nearest_sample_planes_batched(
-        torch.cat([nbr_depth[:, None], nbr_normal], dim=1), u1_all, v1_all)
+    """([K,] V, 4, H, W) neighbour (depth, normal) samples at rounded
+    positions ``u1_all``, ``v1_all`` ([K,] V, H, W) by nearest gathers (the
+    reference's integer-pixel reads, DepthMap.cpp:652-655), and their
+    in-image mask ([K,] V, H, W)."""
+    # the sampler takes the view axis first
+    taps, ok = nearest_sample_planes_batched(
+        torch.cat([nbr_depth[:, None], nbr_normal], dim=1),
+        u1_all.movedim(-3, 0), v1_all.movedim(-3, 0))
+    return taps.movedim((0, 1), (-4, -3)), ok.movedim(0, -3)
 
 
 def geometric_scores(geom: ViewGeometry, depth: torch.Tensor,
@@ -857,13 +887,15 @@ def geometric_scores(geom: ViewGeometry, depth: torch.Tensor,
     ``geo_backend="direct"``, by nearest gathers of ``nbr_depth`` /
     ``nbr_normal``), back-projects, and scores the reprojection error
     against the epipolar-distance normaliser plus normal agreement.
-    ``rows``: the fields (and ``rect``'s) are a row band of the image."""
-    w = depth.shape[1]
-    h = depth.shape[0] if rows is None else rows.height
+    ``rows``: the fields (and ``rect``'s) are a row band of the image.
+    A candidate stack (depth (K, H, W)) gives (K, V, H, W), its
+    neighbour reads in one lookup."""
+    w = depth.shape[-1]
+    h = depth.shape[-2] if rows is None else rows.height
     if rect is None and use_rect_backend(cfg, h, w):
         raise ValueError("geometric scoring needs a rect context "
                          "(ops/rect_gather.build_rect_context)")
-    v_, u_ = pixel_grid(depth.shape[0], w, depth.device, rows)
+    v_, u_ = pixel_grid(depth.shape[-2], w, depth.device, rows)
     max_dist = float(math.hypot(w / 2, h / 2))
     fwd = _forward_projections(geom, depth, rays)
     if rect is not None:
@@ -871,8 +903,9 @@ def geometric_scores(geom: ViewGeometry, depth: torch.Tensor,
     else:
         taps_all, vd_all = _direct_taps(
             nbr_depth, nbr_normal,
-            torch.round(torch.stack([f[0] for f in fwd])),
-            torch.round(torch.stack([f[1] for f in fwd])))
+            torch.round(torch.stack([f[0] for f in fwd], dim=-3)),
+            torch.round(torch.stack([f[1] for f in fwd], dim=-3)))
+    nx, ny, nz = normal.unbind(-3)
 
     out = []
     for vi in range(geom.R_rel.shape[0]):
@@ -881,9 +914,9 @@ def geometric_scores(geom: ViewGeometry, depth: torch.Tensor,
         in1 = ((u1 >= 0) & (u1 <= w - 1) & (v1c >= 0) & (v1c <= h - 1)
                & (z1 > 0))
 
-        taps, vd = taps_all[vi], vd_all[vi]
-        d1 = taps[0]
-        n1 = normalize3((taps[1], taps[2], taps[3]))
+        taps, vd = taps_all[..., vi, :, :, :], vd_all[..., vi, :, :]
+        d1 = taps[..., 0, :, :]
+        n1 = normalize3(tuple(taps[..., i, :, :] for i in (1, 2, 3)))
         # back-project via the neighbour's depth
         ray1 = mat3_apply(geom.K_inv_src[vi], (u1, v1c, torch.ones_like(u1)))
         X1b = (ray1[0] * d1, ray1[1] * d1, ray1[2] * d1)
@@ -904,13 +937,12 @@ def geometric_scores(geom: ViewGeometry, depth: torch.Tensor,
         dis = torch.clamp_min(dis, 0.5)
         # normal agreement in the ref frame
         n1_ref = mat3_apply_t(R_rel, n1)
-        cos_n = (normal[0] * n1_ref[0] + normal[1] * n1_ref[1]
-                 + normal[2] * n1_ref[2]).abs()
+        cos_n = (nx * n1_ref[0] + ny * n1_ref[1] + nz * n1_ref[2]).abs()
         score = torch.where(err < dis * cfg.maxgeo_proportion,
                             err / dis + (1.0 - cos_n), 2.0)
         bad = (~in1) | (~in0) | (d1 <= 0) | (~vd) | (err > max_dist)
         out.append(torch.where(bad, 1.0, torch.clamp_max(score, 2.0)))
-    return torch.stack(out)
+    return torch.stack(out, dim=-3)
 
 
 def view_spread_candidates(geom: ViewGeometry, depth: torch.Tensor,
@@ -956,10 +988,11 @@ def local_smoothness_score(depth_map: torch.Tensor, normal_map: torch.Tensor,
                            normal: torch.Tensor, d_max: torch.Tensor,
                            delta_c2pmax: torch.Tensor) -> torch.Tensor:
     """Local depth / normal / plane-distance consistency over a 4x4
-    neighbourhood: (H, W) in [0, 2] (ref: DepthMap.cpp:798-887)."""
-    h, w = depth.shape
-    c2p_cur = (normal[0] * rays[0] + normal[1] * rays[1]
-               + normal[2] * rays[2]) * depth
+    neighbourhood: ([K,] H, W) in [0, 2] for hypotheses ([K,] H, W) (ref:
+    DepthMap.cpp:798-887)."""
+    h, w = depth.shape[-2:]
+    nx, ny, nz = normal.unbind(-3)
+    c2p_cur = (nx * rays[0] + ny * rays[1] + nz * rays[2]) * depth
     pad = 2
     dm_pad = pad_edge(depth_map, pad)
     nm_pad = pad_edge(normal_map, pad)
@@ -973,11 +1006,10 @@ def local_smoothness_score(depth_map: torch.Tensor, normal_map: torch.Tensor,
             r_n = _shifted(rays_pad, pad, dy, dx, h, w)
             ok = (d_n > 0).to(torch.float32)
             diff = diff + ok * (depth - d_n).abs()
-            nd = ((normal[0] - n_n[0]).abs() + (normal[1] - n_n[1]).abs()
-                  + (normal[2] - n_n[2]).abs())
+            nd = ((nx - n_n[0]).abs() + (ny - n_n[1]).abs()
+                  + (nz - n_n[2]).abs())
             ndiff = ndiff + ok * nd
-            c2p_n = (normal[0] * r_n[0] + normal[1] * r_n[1]
-                     + normal[2] * r_n[2]) * d_n
+            c2p_n = (nx * r_n[0] + ny * r_n[1] + nz * r_n[2]) * d_n
             c2pdiff = c2pdiff + ok * (c2p_cur - c2p_n).abs()
             cnt = cnt + ok
     cnt = torch.clamp_min(cnt, 1.0)
@@ -995,8 +1027,9 @@ def smoothness_bonus(depth_map: torch.Tensor, normal_map: torch.Tensor,
                      rays: torch.Tensor, depth: torch.Tensor,
                      normal: torch.Tensor, cfg: DenseConfig) -> torch.Tensor:
     """Multiplicative smoothness bonus from the 4-adjacent neighbours
-    (ref: DepthMap.cpp:605-617)."""
-    h, w = depth.shape
+    (ref: DepthMap.cpp:605-617), ([K,] H, W) for hypotheses ([K,] H,
+    W)."""
+    h, w = depth.shape[-2:]
     bonus_d = 1.0 - cfg.random_smooth_bonus
     bonus_n = (1.0 - cfg.random_smooth_bonus) * 0.96
     sigma_d = -1.0 / (2.0 * cfg.random_smooth_depth ** 2)
@@ -1005,8 +1038,8 @@ def smoothness_bonus(depth_map: torch.Tensor, normal_map: torch.Tensor,
     nm_pad = pad_edge(normal_map, 1)
     rays_pad = pad_edge(rays, 1)
     factor = torch.ones_like(depth)
-    n_dot_ray = (normal[0] * rays[0] + normal[1] * rays[1]
-                 + normal[2] * rays[2])
+    nx, ny, nz = normal.unbind(-3)
+    n_dot_ray = nx * rays[0] + ny * rays[1] + nz * rays[2]
     plane_d = n_dot_ray * depth
     inv_depth = 1.0 / torch.clamp_min(depth, 1e-9)
     for dy, dx in ((0, 1), (0, -1), (1, 0), (-1, 0)):
@@ -1014,12 +1047,11 @@ def smoothness_bonus(depth_map: torch.Tensor, normal_map: torch.Tensor,
         n_n = _shifted(nm_pad, 1, dy, dx, h, w)
         r_n = _shifted(rays_pad, 1, dy, dx, h, w)
         # distance of the neighbour's point to the hypothesis plane, / depth
-        nX = (normal[0] * r_n[0] + normal[1] * r_n[1]
-              + normal[2] * r_n[2]) * d_n
+        nX = (nx * r_n[0] + ny * r_n[1] + nz * r_n[2]) * d_n
         dist = (nX - plane_d) * inv_depth
         f_d = torch.exp(dist ** 2 * sigma_d)
-        cos = torch.clamp(normal[0] * n_n[0] + normal[1] * n_n[1]
-                          + normal[2] * n_n[2], -1.0, 1.0)
+        cos = torch.clamp(nx * n_n[0] + ny * n_n[1] + nz * n_n[2], -1.0,
+                          1.0)
         f_n = torch.exp(torch.arccos(cos) ** 2 * sigma_n)
         ok = (d_n > 0).to(torch.float32)
         factor = factor * (1.0 - bonus_d * f_d * ok) \

@@ -16,6 +16,10 @@ kernel's.
 
     python -m hcmvs_tpu_torch.eval.roofline           # the card
     python -m hcmvs_tpu_torch.eval.roofline --cpu --h 48 --w 64
+    python -m hcmvs_tpu_torch.eval.roofline --batch-candidates
+
+``--batch-candidates`` scores the propagation candidates as one stack
+(``DenseConfig.batch_candidates``) instead of one after another.
 
 With ``--cpu`` the spans are host seconds of the plain versions and no
 share is given (a CPU run gives no device metric).  Prints one JSON
@@ -67,6 +71,9 @@ def main(argv=None) -> dict:
     ap.add_argument("--cpu", action="store_true",
                     help="run on the CPU (default: the card)")
     ap.add_argument("--rounds", type=int, default=3)
+    ap.add_argument("--batch-candidates", action="store_true",
+                    help="score the propagation candidates as one stack "
+                         "(one cost call, no loop over candidates)")
     args = ap.parse_args(argv)
 
     import torch
@@ -81,7 +88,7 @@ def main(argv=None) -> dict:
     dev = resolve_device("cpu" if args.cpu else "cuda")
     on_card = dev.type == "cuda"
     n, h, w, v = args.views, args.h, args.w, args.nbrs
-    cfg = bench_cfg()
+    cfg = bench_cfg().replace(batch_candidates=args.batch_candidates)
     scene = build_scene(n, h, w, dev, n_nbr=v)
 
     def timed(fn):
@@ -105,6 +112,7 @@ def main(argv=None) -> dict:
         return best, out
 
     report = {"w": w, "h": h, "views": n, "nbrs": v,
+              "batch_candidates": args.batch_candidates,
               "platform": (torch.cuda.get_device_name(dev) if on_card
                            else "cpu"),
               "clock": "cuda_events" if on_card else "host",

@@ -10,9 +10,11 @@ mode)`` with mode "color" (IMREAD_COLOR: (H, W, 3) BGR uint8), "gray"
 stored channels and depth, colour in BGR(A) order).
 
 - JPEG: ``native/jpeg.cpp`` (baseline, extended and progressive Huffman,
-  8-bit, 1 or 3 components, any integral chroma sampling, restart
-  markers), bit-equal to libjpeg-turbo's ISLOW IDCT, fancy upsampling
-  and colour tables; gray is the Y plane.
+  8-bit, 1, 3 or 4 components (gray, YCbCr or RGB, CMYK or YCCK), any
+  integral chroma sampling, restart markers, progressive files whose
+  scans stop early, block-smoothed as libjpeg-turbo does), bit-equal to
+  libjpeg-turbo's ISLOW IDCT, fancy upsampling and colour tables; gray is
+  the Y plane (OpenCV's BT.601 of the BGR for CMYK).
 - PNG: every colour type and bit depth (gray at 1/2/4/8/16 bits, gray +
   alpha, RGB and RGBA at 8/16, palette at 1/2/4/8 with its ``tRNS``
   alpha), non-interlaced or Adam7 (seven passes, each unfiltered on its
@@ -21,11 +23,18 @@ stored channels and depth, colour in BGR(A) order).
 - PNM: P1-P6; ASCII samples scaled to 0-255 (``v * 255 // maxval``) when
   maxval < 256, binary ones raw; maxval 256-65535 gives 16-bit samples.
 - BMP: 1/4/8-bit palette (a gray palette reads as one channel unchanged),
-  24- and 32-bit, bottom-up and top-down, RLE8 and RLE4.
-- TIFF: strips and tiles, uncompressed, LZW, Deflate and PackBits,
-  predictor 1 and 2, 8- and 16-bit gray, RGB and RGBA, chunky and planar;
-  RGBA premultiplied by its alpha and 16-bit RGB rounded to 8 bits as
-  libtiff's RGBA interface does them.
+  16-bit 5-5-5 and 5-6-5 (bit fields), 24- and 32-bit (bit fields read
+  as BGRA), bottom-up and top-down, RLE8 and RLE4, Windows and OS/2
+  headers (an OS/2 file reads gray unchanged, as OpenCV's reader leaves
+  it unmarked as colour).
+- TIFF: strips and tiles, uncompressed, LZW, JPEG (with its JPEGTables),
+  Deflate and PackBits, predictor 1 and 2, 1-, 8- and 16-bit gray
+  (min-is-black or min-is-white), RGB and RGBA, palette, CMYK, YCbCr
+  (JPEG-compressed), signed 16-bit and float32 samples, chunky and
+  planar; RGBA premultiplied by its alpha, 16-bit RGB rounded to 8 bits,
+  palette, CMYK, bilevel and min-is-white as libtiff's RGBA interface
+  does them; signed samples read as their bits (int16 unchanged), float
+  only unchanged (cv2 reads no 8-bit image of it).
 
 Gray of a colour file: PNG through libpng's rgb_to_gray, the others
 through OpenCV's BT.601 fixed point (16-bit samples cut to 8 first).
@@ -33,9 +42,11 @@ EXIF orientation (IFD0 tag 274) is applied in the color and gray modes to
 JPEG (its first APP1) and PNG (``eXIf``), as cv2 applies it, never in the
 unchanged mode; a TIFF's orientation tag flips it (2-4), and 5-8 raise,
 where cv2 5.0 fails.  Whatever is outside this scope raises
-NotImplementedError naming it (arithmetic, lossless, hierarchical,
-12-bit or CMYK JPEG; JPEG-in-TIFF, float, palette or CMYK TIFF; BMP bit
-fields); a corrupt file raises ValueError.
+NotImplementedError naming it (arithmetic, lossless, hierarchical or
+12-bit JPEG, a JPEG height from a DNL marker or fractional sampling, on
+which cv2 fails too; old-style JPEG, uncompressed YCbCr, CIELab or
+mask TIFF, other inks than CMYK; 16-bit BMP bit fields other than 5-5-5
+and 5-6-5, on which cv2 fails); a corrupt file raises ValueError.
 
 ``load_image`` lays ``imread`` out as the JAX package's: (H, W, 3) RGB
 float32 in [0, 1], or (H, W) with ``gray=True``; ``load_semantic_mask``
@@ -379,33 +390,69 @@ def _bmp_rle(data: bytes, pos: int, w: int, h: int, four: bool
     return idx
 
 
+def _bmp_pixels16(rows: np.ndarray, w: int, five65: bool) -> np.ndarray:
+    """(H, W, 3) RGB of 16-bit BMP rows as OpenCV expands them
+    (icvCvt_BGR5552BGR / BGR5652BGR: each field shifted to the top of its
+    byte, the low bits zero)."""
+    t = rows[:, :2 * w].copy().view("<u2").astype(np.int64)
+    b = (t << 3) & 0xF8
+    if five65:
+        g, r = (t >> 3) & 0xFC, (t >> 8) & 0xF8
+    else:
+        g, r = (t >> 2) & 0xF8, (t >> 7) & 0xF8
+    return np.stack([r, g, b], -1).astype(np.uint8)
+
+
 def _decode_bmp(data: bytes, path: str) -> Tuple[np.ndarray, bool]:
-    """(H, W, 3) RGB samples of a BMP and whether it reads as gray
-    unchanged (a palette whose 2**bpp entries are all gray)."""
+    """(H, W, 3|4) RGB(A) samples of a BMP and whether it reads as gray
+    unchanged (through OpenCV's BT.601 gray, which leaves a gray palette's
+    values as they are): a palette whose 2**bpp entries are all gray, or
+    any OS/2 file (OpenCV's reader leaves those unmarked as colour).
+
+    Headers as OpenCV's BmpDecoder reads them: the OS/2 core header (12
+    bytes: 16-bit sizes, 3-byte palette entries) and every header of 36
+    bytes or more (Windows 3 to 5, OS/2 2), whose bit fields OpenCV reads
+    just past the header; 16-bit pixels as 5-5-5 (no bit fields, or those
+    masks) or 5-6-5, other 16-bit masks failing in cv2; 32-bit bit
+    fields read as BGRA whatever the masks, and four channels unchanged."""
     (offset,) = struct.unpack_from("<I", data, 10)
     (hsize,) = struct.unpack_from("<I", data, 14)
-    if hsize < 40:
-        raise NotImplementedError(f"{path}: OS/2 BMP header")
-    w, h, _, bpp, comp = struct.unpack_from("<iiHHI", data, 18)
-    (colours,) = struct.unpack_from("<I", data, 46)
+    if hsize == 12:
+        w, h, _, bpp = struct.unpack_from("<HHHH", data, 18)
+        comp, colours, entry = 0, 0, 3
+        if bpp not in (1, 4, 8, 24, 32):
+            raise NotImplementedError(f"{path}: {bpp}-bit OS/2 BMP")
+    elif hsize >= 36:
+        w, h, _, bpp, comp = struct.unpack_from("<iiHHI", data, 18)
+        (colours,) = struct.unpack_from("<I", data, 46)
+        entry = 4
+    else:
+        raise NotImplementedError(f"{path}: BMP header of {hsize} bytes")
     top_down, h = h < 0, abs(h)
-    if comp == 3 or comp == 6:
-        raise NotImplementedError(f"{path}: BMP bit fields")
-    if bpp not in (1, 4, 8, 24, 32) or comp not in (0, 1, 2) or \
-            (comp == 1 and bpp != 8) or (comp == 2 and bpp != 4):
+    if bpp not in (1, 4, 8, 16, 24, 32) or comp not in (0, 1, 2, 3) or \
+            (comp == 1 and bpp != 8) or (comp == 2 and bpp != 4) or \
+            (comp == 3 and bpp not in (16, 32)):
         raise NotImplementedError(f"{path}: {bpp}-bit BMP of compression "
                                   f"{comp}")
-    gray = False
+    five65 = False
+    if bpp == 16 and comp == 3:
+        masks = struct.unpack_from("<III", data, 14 + hsize)
+        if masks not in ((0x7C00, 0x3E0, 0x1F), (0xF800, 0x7E0, 0x1F)):
+            raise NotImplementedError(
+                f"{path}: 16-bit BMP bit fields "
+                f"{', '.join(hex(m) for m in masks)} (cv2 fails on them)")
+        five65 = masks[0] == 0xF800
+    gray = hsize == 12
+    stride = ((w * bpp + 31) // 32) * 4
     if bpp <= 8:
-        count = colours or (1 << bpp)
+        count = (1 << bpp) if hsize == 12 else (colours or (1 << bpp))
         pal = np.zeros((256, 3), np.uint8)
-        entries = np.frombuffer(data, np.uint8, count * 4, 14 + hsize)
-        pal[:count] = entries.reshape(-1, 4)[:, 2::-1]
-        gray = bool((pal[:1 << bpp] == pal[:1 << bpp, :1]).all())
+        entries = np.frombuffer(data, np.uint8, count * entry, 14 + hsize)
+        pal[:count] = entries.reshape(-1, entry)[:, 2::-1]
+        gray = gray or bool((pal[:1 << bpp] == pal[:1 << bpp, :1]).all())
         if comp:
             idx = _bmp_rle(data, offset, w, h, comp == 2)
         else:
-            stride = ((w * bpp + 31) // 32) * 4
             rows = np.frombuffer(data, np.uint8, stride * h,
                                  offset).reshape(h, stride)
             if bpp == 8:
@@ -416,11 +463,14 @@ def _decode_bmp(data: bytes, path: str) -> Tuple[np.ndarray, bool]:
                 idx = idx[:, :w].astype(np.uint8)
         rgb = pal[idx]
     else:
-        c = bpp // 8
-        stride = ((w * bpp + 31) // 32) * 4
         rows = np.frombuffer(data, np.uint8, stride * h,
                              offset).reshape(h, stride)
-        rgb = rows[:, :w * c].reshape(h, w, c)[..., 2::-1]
+        if bpp == 16:
+            rgb = _bmp_pixels16(rows, w, five65)
+        else:
+            c = bpp // 8
+            order = [2, 1, 0, 3] if bpp == 32 and comp == 3 else [2, 1, 0]
+            rgb = rows[:, :w * c].reshape(h, w, c)[..., order]
     if not top_down:
         rgb = rgb[::-1]
     return np.ascontiguousarray(rgb), gray
@@ -432,10 +482,16 @@ _T_PHOTOMETRIC, _T_STRIPS, _T_ORIENT, _T_SPP, _T_ROWS = 262, 273, 274, 277, 278
 _T_STRIP_BYTES, _T_PLANAR, _T_PREDICTOR, _T_TILE_W = 279, 284, 317, 322
 _T_TILE_H, _T_TILES, _T_TILE_BYTES, _T_EXTRA, _T_FORMAT = (323, 324, 325,
                                                          338, 339)
-# none, LZW, Deflate (two codes), PackBits
-_TIFF_CODECS = (1, 5, 8, 32946, 32773)
-_TIFF_PHOTOMETRIC = {0: "min-is-white", 3: "palette", 4: "mask",
-                     5: "CMYK (separated)", 6: "YCbCr", 8: "CIELab"}
+_T_COLORMAP, _T_INKSET, _T_JPEG_TABLES = 320, 332, 347
+# none, LZW, JPEG, Deflate (two codes), PackBits
+_TIFF_CODECS = (1, 5, 7, 8, 32946, 32773)
+# photometric interpretations outside the module's scope
+_TIFF_PHOTOMETRIC = {4: "mask", 8: "CIELab"}
+# (photometric, samples a pixel) -> the bit depths read: min-is-white and
+# min-is-black gray, RGB(A), palette, CMYK, YCbCr (JPEG-compressed only)
+_TIFF_LAYOUTS = {(0, 1): (1, 8), (1, 1): (1, 8, 16, 32), (2, 3): (8, 16, 32),
+                 (2, 4): (8, 16), (3, 1): (1, 2, 4, 8), (5, 4): (8,),
+                 (6, 3): (8,)}
 
 
 def _lzw(src: bytes) -> bytes:
@@ -486,7 +542,21 @@ def _packbits(src: bytes) -> bytes:
     return bytes(out)
 
 
-def _tiff_chunk(raw: bytes, comp: int) -> bytes:
+def _tiff_chunk(raw: bytes, comp: int, tables: bytes = b"",
+                ycbcr: bool = False, path: str = "TIFF") -> bytes:
+    """A strip's or tile's samples: decompressed, or a JPEG one decoded
+    (``tables`` the JPEGTables stream its abbreviated stream leans on) as
+    libtiff's RGBA interface has libjpeg decode it: without colour
+    conversion for an RGB or gray image, through libjpeg's YCbCr -> RGB
+    for a YCbCr one (``ycbcr``)."""
+    if comp == 7:
+        body = raw[2:] if raw[:2] == b"\xff\xd8" else raw
+        head = tables[:-2] if tables[-2:] == b"\xff\xd9" else tables
+        stream = (head or b"\xff\xd8") + body
+        if ycbcr:
+            return native.jpeg_decode(stream, "color", path)[
+                ..., ::-1].tobytes()
+        return native.jpeg_decode(stream, "raw", path).tobytes()
     if comp == 5:
         if raw[:2] == b"\x00\x01":
             raise NotImplementedError("old-style (LSB-first) LZW TIFF")
@@ -502,12 +572,58 @@ def _as_tuple(v) -> tuple:
     return v if isinstance(v, tuple) else (v,)
 
 
-def _decode_tiff(data: bytes, path: str) -> Tuple[np.ndarray, bool]:
-    """(H, W, C) samples of a TIFF's first image in RGB(A) order (uint8 or
-    uint16), as cv2 reads them: flipped by the orientation tag, 8-bit
-    unassociated alpha premultiplied (libtiff's RGBA interface), the
-    predictor undone only under LZW or Deflate (libtiff ignores it
-    elsewhere); and whether the image is tiled."""
+def _tiff_samples(chunk: bytes, rows: int, cols: int, cpp: int,
+                  bits: int, stored: np.dtype) -> np.ndarray:
+    """(rows, cols, cpp) samples of a decompressed strip or tile; below 8
+    bits each row starts on a byte (MSB first)."""
+    if bits >= 8:
+        return np.frombuffer(chunk, stored, rows * cols * cpp).reshape(
+            rows, cols, cpp)
+    stride = -(-cols * cpp * bits // 8)
+    packed = np.frombuffer(chunk, np.uint8, rows * stride).reshape(
+        rows, stride)
+    unpacked = np.unpackbits(packed, axis=1)[:, :cols * cpp * bits]
+    weights = 1 << np.arange(bits - 1, -1, -1)
+    return (unpacked.reshape(rows, cols * cpp, bits) * weights).sum(
+        -1).astype(np.uint8).reshape(rows, cols, cpp)
+
+
+def _tiff_rgba(img: np.ndarray, photo: int, bits: int, tags: dict
+               ) -> np.ndarray:
+    """libtiff's RGBA interface (tif_getimage.c), which cv2 reads these
+    through: min-is-white inverted, bilevel and palette indices through
+    their maps (a colormap of 16-bit entries cut to its high byte unless
+    every entry is below 256), CMYK as (255 - k) (255 - c) / 255 per
+    channel with opaque alpha.  Other images pass unchanged."""
+    top = (1 << bits) - 1
+    if photo in (0, 1) and bits < 8:
+        scale = 255 // top
+        img = (img if photo else top - img) * scale
+        return img.astype(np.uint8)
+    if photo == 0:
+        return (top - img).astype(img.dtype)
+    if photo == 3:
+        cmap = np.asarray(tags[_T_COLORMAP], np.int64).reshape(3, -1)
+        if (cmap >= 256).any():
+            cmap = cmap >> 8
+        return np.moveaxis(cmap[:, img[..., 0]].astype(np.uint8), 0, -1)
+    if photo == 5:
+        k = 255 - img[..., 3:].astype(np.int64)
+        rgb = k * (255 - img[..., :3].astype(np.int64)) // 255
+        alpha = np.full(k.shape, 255)
+        return np.concatenate([rgb, alpha], -1).astype(np.uint8)
+    return img
+
+
+def _decode_tiff(data: bytes, path: str) -> Tuple[np.ndarray, bool, int]:
+    """(H, W, C) samples of a TIFF's first image in RGB(A) order (uint8,
+    uint16 (signed samples as their bits) or float32), as cv2 reads them:
+    flipped by the orientation tag, 8-bit unassociated alpha
+    premultiplied, min-is-white, bilevel, palette and CMYK images as
+    libtiff's RGBA interface gives them, JPEG strips decoded with the
+    JPEGTables, the predictor undone only under LZW or Deflate (libtiff
+    ignores it elsewhere); whether the image is tiled; and its sample
+    format (1 unsigned, 2 signed, 3 float)."""
     end = "<" if data[:2] == b"II" else ">"
     tags = _read_ifd(data, struct.unpack_from(end + "I", data, 4)[0], end)
     w, h = tags.get(_T_WIDTH), tags.get(_T_HEIGHT)
@@ -519,30 +635,46 @@ def _decode_tiff(data: bytes, path: str) -> Tuple[np.ndarray, bool]:
     pred = tags.get(_T_PREDICTOR, 1)
     fmt = set(_as_tuple(tags.get(_T_FORMAT, 1)))
     orient = tags.get(_T_ORIENT, 1)
-    if comp in (6, 7):
-        raise NotImplementedError(f"{path}: JPEG-in-TIFF")
+    if comp == 6:
+        raise NotImplementedError(f"{path}: old-style JPEG-in-TIFF")
     if comp not in _TIFF_CODECS:
         raise NotImplementedError(f"{path}: TIFF compression {comp}")
     if photo in _TIFF_PHOTOMETRIC:
         raise NotImplementedError(f"{path}: {_TIFF_PHOTOMETRIC[photo]} "
                                   f"TIFF")
-    if fmt != {1}:
-        raise NotImplementedError(f"{path}: TIFF sample format "
-                                  f"{sorted(fmt)} (float or signed)")
-    if len(bits) != 1 or bits.pop() not in (8, 16):
-        raise NotImplementedError(f"{path}: TIFF of "
-                                  f"{tags.get(_T_BITS)}-bit samples")
-    depth = _as_tuple(tags.get(_T_BITS))[0]
-    if (photo, spp) not in ((1, 1), (2, 3), (2, 4)):
+    if len(bits) != 1 or len(fmt) != 1:
+        raise NotImplementedError(f"{path}: TIFF of mixed samples "
+                                  f"{tags.get(_T_BITS)} / {sorted(fmt)}")
+    depth, fmt = bits.pop(), fmt.pop()
+    if (photo, spp) not in _TIFF_LAYOUTS:
         raise NotImplementedError(f"{path}: TIFF of {spp} samples a pixel "
-                                  f"(gray, RGB or RGBA only)")
-    if pred not in (1, 2):
-        raise NotImplementedError(f"{path}: TIFF predictor {pred}")
+                                  f"and photometric {photo} (gray, RGB, "
+                                  f"RGBA, palette or CMYK only)")
+    if depth not in _TIFF_LAYOUTS[photo, spp] or \
+            (fmt, depth) not in ((1, depth), (2, 16), (3, 32)) or \
+            (depth == 32) != (fmt == 3):
+        kind = {1: "unsigned", 2: "signed", 3: "float"}.get(fmt, fmt)
+        raise NotImplementedError(f"{path}: TIFF of {depth}-bit {kind} "
+                                  f"samples, photometric {photo}")
+    if photo == 5 and tags.get(_T_INKSET, 1) != 1:
+        raise NotImplementedError(f"{path}: TIFF separated into inks "
+                                  f"other than CMYK")
+    if comp == 7 and (depth != 8 or photo not in (1, 2, 6) or planar):
+        raise NotImplementedError(f"{path}: JPEG-in-TIFF of photometric "
+                                  f"{photo}, {depth}-bit"
+                                  + (", planar" if planar else ""))
+    if photo == 6 and comp != 7:
+        raise NotImplementedError(f"{path}: YCbCr TIFF not JPEG-compressed")
+    if pred not in (1, 2) or (pred == 2 and depth not in (8, 16)):
+        raise NotImplementedError(f"{path}: TIFF predictor {pred} on "
+                                  f"{depth}-bit samples")
     if orient not in (1, 2, 3, 4):
         raise NotImplementedError(f"{path}: TIFF orientation {orient} "
                                   f"(cv2 fails on it)")
-    stored = np.dtype(end + ("u2" if depth == 16 else "u1"))
+    code = {8: "u1", 16: "u2", 32: "f4"}.get(depth, "u1")
+    stored = np.dtype(end + code)
     dtype = stored.newbyteorder("=")
+    tables = bytes(tags.get(_T_JPEG_TABLES, ())) if comp == 7 else b""
     nplanes, cpp = (spp, 1) if planar else (1, spp)
     tiled = _T_TILES in tags
     if tiled:
@@ -560,14 +692,16 @@ def _decode_tiff(data: bytes, path: str) -> Tuple[np.ndarray, bool]:
         if plane >= nplanes:
             break
         try:
-            raw = _tiff_chunk(data[off:off + cnt], comp)
+            raw = _tiff_chunk(data[off:off + cnt], comp, tables,
+                              photo == 6, path)
         except (ValueError, zlib.error) as exc:
             raise ValueError(f"{path}: {exc}") from None
         rows = th if tiled else min(th, h - ty * th)
-        if len(raw) < rows * tw * cpp * dtype.itemsize:
+        need = rows * -(-tw * cpp * depth // 8)
+        if len(raw) < need:
             raise ValueError(f"{path}: truncated TIFF strip or tile")
-        chunk = np.frombuffer(raw, stored, rows * tw * cpp).astype(
-            dtype).reshape(rows, tw, cpp)
+        chunk = _tiff_samples(raw, rows, tw, cpp, depth, stored).astype(
+            dtype)
         if pred == 2 and comp in (5, 8, 32946):
             chunk = np.cumsum(chunk, axis=1, dtype=dtype)
         out[plane, ty * th:ty * th + rows, tx * tw:(tx + 1) * tw] = chunk
@@ -575,9 +709,11 @@ def _decode_tiff(data: bytes, path: str) -> Tuple[np.ndarray, bool]:
     img = np.moveaxis(out[..., 0], 0, -1) if planar else out[0]
     img = {1: img, 2: img[:, ::-1], 3: img[::-1, ::-1],
            4: img[::-1]}[orient]
-    if spp == 4 and depth == 8 and _as_tuple(tags.get(_T_EXTRA, 0))[0] == 2:
+    img = _tiff_rgba(img, photo, depth, tags)
+    if photo == 2 and spp == 4 and depth == 8 and \
+            _as_tuple(tags.get(_T_EXTRA, 0))[0] == 2:
         img = _premultiply(img)
-    return np.ascontiguousarray(img), tiled
+    return np.ascontiguousarray(img), tiled, fmt
 
 
 def _bt601(rgb: np.ndarray) -> np.ndarray:
@@ -660,16 +796,24 @@ def imread(path: str, mode: str = "color") -> np.ndarray:
         raw, gray_file = _decode_bmp(data, path)
     elif data[:4] in (b"II*\0", b"MM\0*"):
         fmt = "tiff"
-        raw, tiled = _decode_tiff(data, path)
-        if tiled and raw.dtype == np.uint16 and raw.shape[2] == 1 and \
-                mode != "unchanged":
-            raise NotImplementedError(f"{path}: 16-bit gray tiled TIFF "
-                                      f"read as 8-bit (cv2 misreads it)")
+        raw, tiled, sample_format = _decode_tiff(data, path)
+        if mode != "unchanged":
+            if sample_format == 3:
+                raise NotImplementedError(f"{path}: float TIFF read as "
+                                          f"8-bit (cv2 fails on it)")
+            if tiled and raw.dtype == np.uint16 and raw.shape[2] == 1:
+                raise NotImplementedError(f"{path}: 16-bit gray tiled TIFF "
+                                          f"read as 8-bit (cv2 misreads "
+                                          f"it)")
+        elif sample_format == 2:
+            raw = raw.view(np.int16)
     else:
         raise NotImplementedError(f"{path}: unknown image format (JPEG, "
                                   f"PNG, PNM, BMP, TIFF only)")
     if mode == "unchanged":
-        if gray_file or raw.shape[2] == 1:
+        if gray_file:
+            return _bt601(raw[..., :3])
+        if raw.shape[2] == 1:
             return np.ascontiguousarray(raw[..., 0])
         return np.ascontiguousarray(raw[..., [2, 1, 0, 3][:raw.shape[2]]])
     if raw.shape[2] in (2, 4):

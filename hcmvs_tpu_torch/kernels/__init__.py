@@ -11,7 +11,8 @@ Each launcher below checks device, dtype, shape and contiguity, allocates
 its output with ``torch.empty``, launches on the current stream, raises if
 the launch was refused, and adds one to its entry of ``launches`` for each
 launch (kernels B and D launch once per row chunk, E once per chunk of
-views).
+views).  C and E take an optional leading axis of K candidates as a grid
+axis: a stack launches them as often as one hypothesis does.
 
 ``csrc/earlier/`` keeps the designs that kernels B and D had before their
 redesign.  They are built into a library of their own and taken only
@@ -177,9 +178,10 @@ def _load(path: Path) -> ctypes.CDLL:
     signatures = {
         "volume_lookup": [p, p, p, i64, i, i, p],
         "rect_build": [p, p, p, p, p, p, p, i, i, i, i, i64, p],
-        "rect_lookup": [p, p, p, p, p, p, p, i, i, i, i, i, i, p],
+        "rect_lookup": [p, p, p, p, p, p, p, i, i, i, i, i, i, i, p],
         "volume_lookup_multi": [p, p, p, p, i64, i, i, i, p],
-        "zncc_warped": [p, p, p, p, p, p, p, p, p, p, i, i, i, i, i, p]}
+        "zncc_warped": [p, p, p, p, p, p, p, p, p, p, i, i, i, i, i, i,
+                        p]}
     for name, argtypes in signatures.items():
         if hasattr(lib, f"hcmvs_{name}"):
             fn = getattr(lib, f"hcmvs_{name}")
@@ -310,23 +312,29 @@ def rect_lookup(maps: torch.Tensor, row_int: torch.Tensor,
                 c0: torch.Tensor, k: torch.Tensor, rb: torch.Tensor,
                 sigma: torch.Tensor) -> torch.Tensor:
     """Kernel C: maps (V, C, H_r, W_r) read at every pixel's rect position
-    for inverse depth sigma (H, W) -> (V, C, H, W)."""
+    for inverse depth sigma (H, W) -> (V, C, H, W), or for K candidates'
+    (K, H, W) -> (K, V, C, H, W) in the same one launch."""
     if maps.device.type != "cuda":
         raise ValueError("rect_lookup kernel needs CUDA tensors")
     v, c, h_r, w_r = maps.shape
-    h, w = sigma.shape
+    if sigma.dim() not in (2, 3):
+        raise ValueError(f"sigma has shape {tuple(sigma.shape)}, expected "
+                         "(H, W) or (K, H, W)")
+    lead = tuple(sigma.shape[:-2])
+    n_cand = lead[0] if lead else 1
+    h, w = sigma.shape[-2:]
     dev = maps.device
     _check_tensor("maps", maps, torch.float32, (v, c, h_r, w_r), dev)
     _check_tensor("row_int", row_int, torch.int32, (v, h, w), dev)
     _check_tensor("c0", c0, torch.float32, (v, h, w), dev)
     _check_tensor("k", k, torch.float32, (v, h, w), dev)
     _check_tensor("rb", rb, torch.int32, (v, -(-h // 8), -(-w // 128)), dev)
-    _check_tensor("sigma", sigma, torch.float32, (h, w), dev)
-    out = torch.empty((v, c, h, w), dtype=torch.float32, device=dev)
+    _check_tensor("sigma", sigma, torch.float32, lead + (h, w), dev)
+    out = torch.empty(lead + (v, c, h, w), dtype=torch.float32, device=dev)
     _launch("rect_lookup", dev,
             maps.data_ptr(), row_int.data_ptr(), c0.data_ptr(),
             k.data_ptr(), rb.data_ptr(), sigma.data_ptr(), out.data_ptr(),
-            v, c, h, w, h_r, w_r)
+            n_cand, v, c, h, w, h_r, w_r)
     return out
 
 
@@ -390,20 +398,30 @@ def zncc_warped(ref_pad: torch.Tensor, tm: torch.Tensor, nsq0: torch.Tensor,
                 pad: int):
     """Kernel E: (score, var1), both (V, H, W), from the padded reference
     (H+2p, W+2p), tm/nsq0/hw (H, W), the padded warped sources and their
-    validity (V, H+2p, W+2p) and the corner sums acc (V, 4, H, W).  Each
-    view's output depends on that view's inputs only, so more than
-    ``ZNCC_MAX_VIEWS`` views go in launches of that many, exactly."""
+    validity (V, H+2p, W+2p) and the corner sums acc (V, 4, H, W); or for
+    K candidates against the same reference (warped_pad, valid_pad (K, V,
+    H+2p, W+2p), acc (K, V, 4, H, W)), both (K, V, H, W) from the same
+    launches.  Each view's output depends on that view's inputs only, so
+    more than ``ZNCC_MAX_VIEWS`` views go in launches of that many,
+    exactly."""
     if tm.device.type != "cuda":
         raise ValueError("zncc_warped kernel needs CUDA tensors")
-    v = warped_pad.shape[0]
+    if warped_pad.dim() not in (3, 4):
+        raise ValueError(f"warped_pad has shape {tuple(warped_pad.shape)},"
+                         " expected (V, H', W') or (K, V, H', W')")
+    lead = tuple(warped_pad.shape[:-3])
+    n_cand = lead[0] if lead else 1
+    v = warped_pad.shape[-3]
     if v > ZNCC_MAX_VIEWS:
-        parts = [zncc_warped(ref_pad, tm, nsq0,
-                             warped_pad[s:s + ZNCC_MAX_VIEWS],
-                             valid_pad[s:s + ZNCC_MAX_VIEWS], hw,
-                             acc[s:s + ZNCC_MAX_VIEWS], scan_offsets, pad)
+        def views(x, s):
+            return x[..., s:s + ZNCC_MAX_VIEWS, :, :].contiguous()
+        parts = [zncc_warped(ref_pad, tm, nsq0, views(warped_pad, s),
+                             views(valid_pad, s), hw,
+                             acc[..., s:s + ZNCC_MAX_VIEWS, :, :, :]
+                             .contiguous(), scan_offsets, pad)
                  for s in range(0, v, ZNCC_MAX_VIEWS)]
-        return (torch.cat([p[0] for p in parts]),
-                torch.cat([p[1] for p in parts]))
+        return (torch.cat([p[0] for p in parts], dim=-3),
+                torch.cat([p[1] for p in parts], dim=-3))
     h, w = tm.shape
     dev = tm.device
     padded = (h + 2 * pad, w + 2 * pad)
@@ -411,20 +429,23 @@ def zncc_warped(ref_pad: torch.Tensor, tm: torch.Tensor, nsq0: torch.Tensor,
     for name, t in (("tm", tm), ("nsq0", nsq0), ("hw", hw)):
         _check_tensor(name, t, torch.float32, (h, w), dev)
     for name, t in (("warped_pad", warped_pad), ("valid_pad", valid_pad)):
-        _check_tensor(name, t, torch.float32, (v, *padded), dev)
-    _check_tensor("acc", acc, torch.float32, (v, 4, h, w), dev)
-    if v < 1:
-        raise ValueError("kernel E takes at least one view")
+        _check_tensor(name, t, torch.float32, lead + (v, *padded), dev)
+    _check_tensor("acc", acc, torch.float32, lead + (v, 4, h, w), dev)
+    if v < 1 or n_cand < 1:
+        raise ValueError("kernel E takes at least one view and candidate")
+    if n_cand > 65535:
+        raise ValueError(f"kernel E takes at most 65535 candidates, got "
+                         f"{n_cand}")
     offs = tuple(int(x) for o in scan_offsets for x in o)
     if any(abs(x) > pad for x in offs):
         raise ValueError(f"kernel E takes offsets within the pad {pad}, "
                          f"got {list(scan_offsets)}")
     offs_dev = _offset_buffer(offs, dev)
-    score = torch.empty((v, h, w), dtype=torch.float32, device=dev)
-    var1 = torch.empty((v, h, w), dtype=torch.float32, device=dev)
+    score = torch.empty(lead + (v, h, w), dtype=torch.float32, device=dev)
+    var1 = torch.empty(lead + (v, h, w), dtype=torch.float32, device=dev)
     _launch("zncc_warped", dev,
             ref_pad.data_ptr(), tm.data_ptr(), nsq0.data_ptr(),
             warped_pad.data_ptr(), valid_pad.data_ptr(), hw.data_ptr(),
             acc.data_ptr(), score.data_ptr(), var1.data_ptr(),
-            offs_dev.data_ptr(), len(offs) // 2, v, h, w, pad)
+            offs_dev.data_ptr(), len(offs) // 2, n_cand, v, h, w, pad)
     return score, var1

@@ -54,6 +54,13 @@
 // time taken from launches queued behind a spin kernel: the first design
 // 0.111 ms, this one 0.063 ms at the phase-0 shapes above (65% of the byte
 // bound).
+//
+// A stack of K candidates scored against the same reference (the JAX
+// package's vmap of the cost, which gives the Pallas call one more grid
+// axis) runs on the grid's z axis: block z reads candidate z's warped
+// images, validity and corner sums and writes its outputs, at offsets of
+// whole candidates from the bases; everything within a candidate is as
+// for one hypothesis, so one launch serves the stack.
 #include "common.cuh"
 
 namespace {
@@ -84,6 +91,16 @@ __global__ void __launch_bounds__(kTileX * kThreadsY)
                        const int* __restrict__ offsets, int n_offsets, int h,
                        int w, int pad) {
   extern __shared__ float tile[];
+  {
+    // candidate blockIdx.z's planes
+    const long long cand = blockIdx.z;
+    const long long padded = (long long)(h + 2 * pad) * (w + 2 * pad);
+    warped_pad += cand * NV * padded;
+    valid_pad += cand * NV * padded;
+    acc += cand * NV * 4 * (long long)h * w;
+    score += cand * NV * (long long)h * w;
+    var_out += cand * NV * (long long)h * w;
+  }
   const int tw = kTileX + 2 * pad;
   const int th = kTileY + 2 * pad;
   const int tsz = tw * th;
@@ -193,15 +210,16 @@ template <int NV>
 int launch(const float* ref_pad, const float* tm, const float* nsq0,
            const float* warped_pad, const float* valid_pad, const float* hw,
            const float* acc, float* score, float* var_out,
-           const int* offsets, int n_offsets, int h, int w, int pad, int smem,
-           cudaStream_t stream) {
+           const int* offsets, int n_offsets, int n_cand, int h, int w,
+           int pad, int smem, cudaStream_t stream) {
   if (smem > 48 * 1024) {
     cudaError_t rc = cudaFuncSetAttribute(
         zncc_warped_kernel<NV>, cudaFuncAttributeMaxDynamicSharedMemorySize,
         smem);
     if (rc != cudaSuccess) return (int)rc;
   }
-  const dim3 grid((w + kTileX - 1) / kTileX, (h + kTileY - 1) / kTileY);
+  const dim3 grid((w + kTileX - 1) / kTileX, (h + kTileY - 1) / kTileY,
+                  n_cand);
   zncc_warped_kernel<NV><<<grid, dim3(kTileX, kThreadsY), smem, stream>>>(
       ref_pad, tm, nsq0, warped_pad, valid_pad, hw, acc, score, var_out,
       offsets, n_offsets, h, w, pad);
@@ -211,23 +229,24 @@ int launch(const float* ref_pad, const float* tm, const float* nsq0,
 }  // namespace
 
 // ref_pad (h + 2 pad, w + 2 pad); tm, nsq0, hw (h, w); warped_pad,
-// valid_pad (v, h + 2 pad, w + 2 pad); acc (v, 4, h, w); score, var_out
-// (v, h, w); all f32, contiguous.  offsets: device array of n (dy, dx)
-// int pairs, every |dy|, |dx| <= pad (checked by the Python launcher);
-// 1 <= v <= 10; every array's element count below 2^31; the (1 + 2 v)
-// haloed tiles and the 12 n bytes of the offset table within a block's
-// shared memory.
+// valid_pad (n_cand, v, h + 2 pad, w + 2 pad); acc (n_cand, v, 4, h, w);
+// score, var_out (n_cand, v, h, w); all f32, contiguous.  offsets: device
+// array of n (dy, dx) int pairs, every |dy|, |dx| <= pad (checked by the
+// Python launcher); 1 <= v <= 10; 1 <= n_cand <= 65535; a candidate's
+// element count of every array below 2^31; the (1 + 2 v) haloed tiles and
+// the 12 n bytes of the offset table within a block's shared memory.
 HCMVS_API int hcmvs_zncc_warped(const void* ref_pad, const void* tm,
                                 const void* nsq0, const void* warped_pad,
                                 const void* valid_pad, const void* hw,
                                 const void* acc, void* score, void* var_out,
-                                const int* offsets, int n_offsets, int v,
-                                int h, int w, int pad, void* stream) {
+                                const int* offsets, int n_offsets, int n_cand,
+                                int v, int h, int w, int pad, void* stream) {
   const long long tile = (long long)(kTileX + 2 * pad) * (kTileY + 2 * pad);
   const long long smem = (1 + 2LL * v) * tile * (long long)sizeof(float) +
                          12LL * n_offsets;
   const long long padded = (long long)(h + 2 * pad) * (w + 2 * pad);
-  if (n_offsets < 0 || v < 1 || v > kMaxViews ||
+  if (n_offsets < 0 || v < 1 || v > kMaxViews || n_cand < 1 ||
+      n_cand > 65535 ||
       pad < 0 || smem > kMaxSmemBytes || (long long)v * padded >= (1LL << 31) ||
       4LL * v * h * w >= (1LL << 31)) {
     return (int)cudaErrorInvalidValue;
@@ -245,7 +264,7 @@ HCMVS_API int hcmvs_zncc_warped(const void* ref_pad, const void* tm,
 #define HCMVS_ZNCC_CASE(NV)                                                \
   case NV:                                                                 \
     return launch<NV>(a[0], a[1], a[2], a[3], a[4], a[5], a[6], s, o,     \
-                      offsets, n_offsets, h, w, pad, sm, st);
+                      offsets, n_offsets, n_cand, h, w, pad, sm, st);
     HCMVS_ZNCC_CASE(1)
     HCMVS_ZNCC_CASE(2)
     HCMVS_ZNCC_CASE(3)

@@ -24,15 +24,18 @@ def _d_mode(a) -> tuple:
 
 # each kernel's output shape, read from its launcher's arguments: A (V,
 # P_pad, 128), B (P, S) and D (P, C) with the table's depth D appended
-# (P, S, D) / (P, C, D) (D's mode after that unless bounded), C (V, 2, H,
-# W), E (V, H, W)
+# (P, S, D) / (P, C, D) (D's mode after that unless bounded), C ([K,] V,
+# 2, H, W), E ([K,] V, H, W), K a candidate stack's size
 SHAPE_OF = {
     "rect_build": lambda a: (a[0].shape[0], a[6], 128),
     "volume_lookup": lambda a: tuple(a[1].shape) + (a[0].shape[1],),
-    "rect_lookup": lambda a: tuple(a[0].shape[:2]) + tuple(a[5].shape),
+    "rect_lookup": lambda a: (tuple(a[5].shape[:-2])
+                              + tuple(a[0].shape[:2])
+                              + tuple(a[5].shape[-2:])),
     "volume_lookup_multi": lambda a: (tuple(a[1].shape) + (a[0].shape[1],)
                                       + _d_mode(a)),
-    "zncc_warped": lambda a: (a[3].shape[0],) + tuple(a[1].shape)}
+    "zncc_warped": lambda a: (tuple(a[3].shape[:max(a[3].dim() - 2, 1)])
+                              + tuple(a[1].shape))}
 
 
 def shape_key(shape) -> str:

@@ -125,7 +125,7 @@ def library(name: str) -> ctypes.CDLL:
     return _libs[name]
 
 
-JPEG_MODES = {"color": 0, "gray": 1, "unchanged": 2}
+JPEG_MODES = {"color": 0, "gray": 1, "unchanged": 2, "raw": 3}
 
 
 def _jpeg_status(rc: int, msg, path: str) -> None:
@@ -159,14 +159,18 @@ def jpeg_decode(data: bytes, mode: str = "color",
                 path: str = "JPEG") -> np.ndarray:
     """The samples ``cv2.imread`` gives for a JPEG file's bytes, without
     EXIF orientation: ``mode`` "color" (H, W, 3) BGR, "gray" (H, W) (the Y
-    plane of a YCbCr file) or "unchanged" (gray for one component, else
-    BGR).  Raises NotImplementedError naming an unsupported feature and
-    ValueError naming the fault of a corrupt or truncated stream."""
+    plane of a YCbCr file), "unchanged" (gray for one component, else
+    BGR) or "raw" (H, W, components): the decoded samples without colour
+    conversion, as libtiff reads a JPEG-in-TIFF strip.  Raises
+    NotImplementedError naming an unsupported feature and ValueError
+    naming the fault of a corrupt or truncated stream."""
     head = jpeg_header(data, path)
     h, w = head["height"], head["width"]
     gray = mode == "gray" or (mode == "unchanged"
                               and head["components"] == 1)
-    out = np.empty((h, w) if gray else (h, w, 3), np.uint8)
+    shape = ((h, w, head["components"]) if mode == "raw"
+             else (h, w) if gray else (h, w, 3))
+    out = np.empty(shape, np.uint8)
     msg = ctypes.create_string_buffer(256)
     _jpeg_status(library("jpeg").hcmvs_jpeg_decode(
         data, len(data), JPEG_MODES[mode], out, out.size, msg, len(msg)),

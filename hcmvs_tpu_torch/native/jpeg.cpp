@@ -4,24 +4,30 @@
 // the colour space decided as jdapimin.c decides it.
 //
 // Scope: SOF0 / SOF1 / SOF2 (baseline, extended Huffman, progressive) at
-// 8-bit precision, 1 or 3 components, sampling factors 1-4 with integral
-// ratios; DHT, DQT (8- and 16-bit), DRI with RSTn, SOS; APPn and COM are
-// skipped (APP0 JFIF, APP14 Adobe and the first APP1 are noted).  The
-// whole image is entropy-decoded into coefficient planes, then each
-// component goes through the IDCT into a sample plane, is upsampled to
-// full size and converted.  Arithmetic coding, lossless and hierarchical
-// processes, 12-bit precision and four-component (CMYK / YCCK) files are
-// reported as unsupported; a truncated or corrupt stream as corrupt.
+// 8-bit precision, 1, 3 or 4 components (gray, YCbCr or RGB, CMYK or
+// YCCK, converted to BGR or gray as OpenCV converts libjpeg's CMYK
+// output), sampling factors 1-4 with integral ratios; DHT, DQT (8- and
+// 16-bit), DRI with RSTn, SOS; APPn and COM are skipped (APP0 JFIF,
+// APP14 Adobe and the first APP1 are noted).  The whole image is
+// entropy-decoded into coefficient planes, then each component goes
+// through the IDCT into a sample plane, is upsampled to full size and
+// converted.  Arithmetic coding, lossless and hierarchical processes and
+// 12-bit precision are reported as unsupported; a truncated or corrupt
+// stream as corrupt.
 //
 // Entry points (ctypes):
 //   int hcmvs_jpeg_header(data, n, info[10], msg, msg_len)
 //     info = width, height, components, precision, SOF marker, colour
-//     space (0 gray, 1 YCbCr, 2 RGB), offset and length of the first
-//     APP1 segment's body (0, 0 if none), progressive, restart interval;
+//     space (0 gray, 1 YCbCr, 2 RGB, 3 CMYK, 4 YCCK), offset and length
+//     of the first APP1 segment's body (0, 0 if none), progressive,
+//     restart interval;
 //   int hcmvs_jpeg_decode(data, n, mode, out, out_size, msg, msg_len)
 //     mode 0: BGR (gray files replicated); 1: gray (the Y plane of a
-//     YCbCr file, jdcolor.c's rgb_gray_convert of an RGB one); 2: as
-//     stored (gray for one component, else BGR).
+//     YCbCr file, jdcolor.c's rgb_gray_convert of an RGB one, OpenCV's
+//     of a CMYK one); 2: as stored (gray for one component, else BGR);
+//     3: the components' samples as decoded, interleaved, no colour
+//     conversion (libjpeg's JCS_UNKNOWN, as libtiff decodes the JPEG
+//     strips of an RGB or gray TIFF).
 //   Both return 0 on success, 1 for an unsupported feature, 2 for a
 //   corrupt or truncated stream (msg names it).
 
@@ -243,8 +249,12 @@ struct Decoder {
     }
   }
 
+  // jdapimin.c's default_decompress_parms: 0 gray, 1 YCbCr, 2 RGB, 3
+  // CMYK, 4 YCCK (four components: YCCK unless an Adobe marker says
+  // transform 0, straight CMYK without one)
   int colour_space() const {
     if (ncomp == 1) return 0;
+    if (ncomp == 4) return adobe && adobe_transform != 0 ? 4 : 3;
     if (jfif) return 1;
     if (adobe) return adobe_transform == 0 ? 2 : 1;
     if (comp[0].id == 82 && comp[1].id == 71 && comp[2].id == 66) return 2;
@@ -263,11 +273,9 @@ struct Decoder {
     if (precision != 8)
       fail(kUnsupported, std::to_string(precision) +
                              "-bit JPEG (8-bit precision only)");
-    if (ncomp == 4)
-      fail(kUnsupported, "CMYK / YCCK JPEG (4 components)");
-    if (ncomp != 1 && ncomp != 3)
+    if (ncomp != 1 && ncomp != 3 && ncomp != 4)
       fail(kUnsupported, "JPEG with " + std::to_string(ncomp) +
-                             " components (1 or 3 only)");
+                             " components (1, 3 or 4 only)");
     if (height == 0)
       fail(kUnsupported, "JPEG height given by a DNL marker");
     if (width == 0) fail(kCorrupt, "JPEG of width 0");
@@ -609,14 +617,28 @@ struct Decoder {
       if (m == 0xD9) break;
       pos -= 2;
     }
-    for (int c = 0; c < ncomp; c++) {
+    for (int c = 0; c < ncomp; c++)
       if (comp[c].coef.empty()) fail(kCorrupt, "JPEG component never coded");
-      if (progressive)
-        for (int j = 0; j < 10; j++)
-          if (comp[c].coef_bits[j] != 0)
-            fail(kUnsupported, "progressive JPEG with incomplete scans "
-                               "(block smoothing)");
+    smooth = smoothing_ok();
+  }
+
+  // jdcoefct.c's smoothing_ok: a progressive file whose scans left some
+  // of the first ten coefficients (zigzag order) of a component not fully
+  // known is block-smoothed, if every component's DC is at least partly
+  // known and its quantizers at those ten positions are nonzero
+  bool smooth = false;
+  bool smoothing_ok() const {
+    if (!progressive) return false;
+    bool useful = false;
+    for (int c = 0; c < ncomp; c++) {
+      const Component& k = comp[c];
+      for (int j = 0; j < 10; j++)
+        if (k.q[kNatural[j]] == 0) return false;
+      if (k.coef_bits[0] < 0) return false;
+      for (int j = 1; j < 10; j++)
+        if (k.coef_bits[j] != 0) useful = true;
     }
+    return useful;
   }
 };
 
@@ -753,6 +775,167 @@ struct Plane {
   uint8_t at(int x, int y) const { return px[(size_t)y * stride + x]; }
 };
 
+// jdcoefct.c's decompress_smooth_data (libjpeg-turbo 2.1 and later): each
+// block's still-zero, not fully known coefficients among the first ten
+// estimated from the DC values of the 5 x 5 blocks around it (DC01-DC25,
+// row by row), and, when a component has no AC data at all, its DC too
+// ("DC interpolation"); an estimate is capped below 2^Al when its
+// coefficient is partly known.  The neighbourhood's columns are clamped
+// to the component's real blocks, its rows as libjpeg-turbo takes them
+// (see the row loop).  Held to cv2 on cuts after every scan of cv2's and
+// Pillow's progressive files at every chroma sampling, gray and CMYK.
+int smooth_pred(int64_t num, int64_t q, int al) {
+  int pred;
+  if (num >= 0) {
+    pred = (int)(((q << 7) + num) / (q << 8));
+    if (al > 0 && pred >= (1 << al)) pred = (1 << al) - 1;
+  } else {
+    pred = (int)(((q << 7) - num) / (q << 8));
+    if (al > 0 && pred >= (1 << al)) pred = (1 << al) - 1;
+    pred = -pred;
+  }
+  return pred;
+}
+
+Plane inverse_dct_smoothed(const Component& k, int imcu_rows) {
+  Plane p;
+  const int nbx = (k.dw + 7) / 8, nby = (k.dh + 7) / 8;
+  p.w = k.dw;
+  p.h = k.dh;
+  p.stride = nbx * 8;
+  p.px.assign((size_t)p.stride * nby * 8, 0);
+  const int* cb = k.coef_bits;
+  bool change_dc = true;
+  for (int j = 1; j < 10; j++) change_dc = change_dc && cb[j] == -1;
+  const int64_t Q00 = k.q[0], Q01 = k.q[1], Q10 = k.q[8], Q20 = k.q[16],
+                Q11 = k.q[9], Q02 = k.q[2];
+  const int64_t Q03 = change_dc ? k.q[3] : 0, Q12 = change_dc ? k.q[10] : 0,
+                Q21 = change_dc ? k.q[17] : 0, Q30 = change_dc ? k.q[24] : 0;
+  auto dc = [&](int row, int col) {
+    return (int)k.coef[((size_t)row * k.bw + col) * 64];
+  };
+  const int last_row = imcu_rows - 1, last_col = nbx - 1;
+  int16_t ws[64];
+  for (int im = 0; im < imcu_rows; im++) {
+    int block_rows = k.v;
+    if (im == last_row) {
+      block_rows = nby % k.v;
+      if (block_rows == 0) block_rows = k.v;
+    }
+    for (int br = 0; br < block_rows; br++) {
+      const int r = im * k.v + br;
+      // the neighbours libjpeg-turbo takes: the rows up to two away,
+      // clamped in a frame of B = block_rows rows an iMCU row, which is
+      // the component's whole MCU-padded grid above the last iMCU row
+      // (its dummy rows included) and shrinks with B in a short last one
+      const int g = block_rows * im + br, n_rows = block_rows * imcu_rows;
+      const int prev = g > 0 ? r - 1 : r;
+      const int pprev = g > 1 ? r - 2 : prev;
+      const int next = g < n_rows - 1 ? r + 1 : r;
+      const int nnext = g < n_rows - 2 ? r + 2 : next;
+      const int rows[5] = {pprev, prev, r, next, nnext};
+      int D[5][5];   // D[i][j] = DC(i * 5 + j + 1) of jdcoefct.c
+      for (int b = 0; b < nbx; b++) {
+        memcpy(ws, &k.coef[((size_t)r * k.bw + b) * 64], sizeof(ws));
+        for (int i = 0; i < 5; i++)
+          for (int j = 0; j < 5; j++)
+            D[i][j] = dc(rows[i], std::min(std::max(b + j - 2, 0),
+                                           last_col));
+        const int DC01 = D[0][0], DC02 = D[0][1], DC03 = D[0][2],
+                  DC04 = D[0][3], DC05 = D[0][4], DC06 = D[1][0],
+                  DC07 = D[1][1], DC08 = D[1][2], DC09 = D[1][3],
+                  DC10 = D[1][4], DC11 = D[2][0], DC12 = D[2][1],
+                  DC13 = D[2][2], DC14 = D[2][3], DC15 = D[2][4],
+                  DC16 = D[3][0], DC17 = D[3][1], DC18 = D[3][2],
+                  DC19 = D[3][3], DC20 = D[3][4], DC21 = D[4][0],
+                  DC22 = D[4][1], DC23 = D[4][2], DC24 = D[4][3],
+                  DC25 = D[4][4];
+        int al;
+        int64_t num;
+        if ((al = cb[1]) != 0 && ws[1] == 0) {         // AC01
+          num = Q00 * (change_dc
+                           ? (-DC01 - DC02 + DC04 + DC05 - 3 * DC06 +
+                              13 * DC07 - 13 * DC09 + 3 * DC10 -
+                              3 * DC11 + 38 * DC12 - 38 * DC14 +
+                              3 * DC15 - 3 * DC16 + 13 * DC17 -
+                              13 * DC19 + 3 * DC20 - DC21 - DC22 +
+                              DC24 + DC25)
+                           : (-7 * DC11 + 50 * DC12 - 50 * DC14 +
+                              7 * DC15));
+          ws[1] = (int16_t)smooth_pred(num, Q01, al);
+        }
+        if ((al = cb[2]) != 0 && ws[8] == 0) {         // AC10
+          num = Q00 * (change_dc
+                           ? (-DC01 - 3 * DC02 - 3 * DC03 - 3 * DC04 -
+                              DC05 - DC06 + 13 * DC07 + 38 * DC08 +
+                              13 * DC09 - DC10 + DC16 - 13 * DC17 -
+                              38 * DC18 - 13 * DC19 + DC20 + DC21 +
+                              3 * DC22 + 3 * DC23 + 3 * DC24 + DC25)
+                           : (-7 * DC03 + 50 * DC08 - 50 * DC18 +
+                              7 * DC23));
+          ws[8] = (int16_t)smooth_pred(num, Q10, al);
+        }
+        if ((al = cb[3]) != 0 && ws[16] == 0) {        // AC20
+          num = Q00 * (change_dc
+                           ? (DC03 + 2 * DC07 + 7 * DC08 + 2 * DC09 -
+                              5 * DC12 - 14 * DC13 - 5 * DC14 +
+                              2 * DC17 + 7 * DC18 + 2 * DC19 + DC23)
+                           : (-DC03 + 13 * DC08 - 24 * DC13 +
+                              13 * DC18 - DC23));
+          ws[16] = (int16_t)smooth_pred(num, Q20, al);
+        }
+        if ((al = cb[4]) != 0 && ws[9] == 0) {         // AC11
+          num = Q00 * (change_dc
+                           ? (-DC01 + DC05 + 9 * DC07 - 9 * DC09 -
+                              9 * DC17 + 9 * DC19 + DC21 - DC25)
+                           : (DC10 + DC16 - 10 * DC17 + 10 * DC19 -
+                              DC02 - DC20 + DC22 - DC24 + DC04 - DC06 +
+                              10 * DC07 - 10 * DC09));
+          ws[9] = (int16_t)smooth_pred(num, Q11, al);
+        }
+        if ((al = cb[5]) != 0 && ws[2] == 0) {         // AC02
+          num = Q00 * (change_dc
+                           ? (2 * DC07 - 5 * DC08 + 2 * DC09 + DC11 +
+                              7 * DC12 - 14 * DC13 + 7 * DC14 + DC15 +
+                              2 * DC17 - 5 * DC18 + 2 * DC19)
+                           : (-DC11 + 13 * DC12 - 24 * DC13 +
+                              13 * DC14 - DC15));
+          ws[2] = (int16_t)smooth_pred(num, Q02, al);
+        }
+        if (change_dc) {
+          if ((al = cb[6]) != 0 && ws[3] == 0) {       // AC03
+            num = Q00 * (DC07 - DC09 + 2 * DC12 - 2 * DC14 + DC17 - DC19);
+            ws[3] = (int16_t)smooth_pred(num, Q03, al);
+          }
+          if ((al = cb[7]) != 0 && ws[10] == 0) {      // AC12
+            num = Q00 * (DC07 - 3 * DC08 + DC09 - DC17 + 3 * DC18 - DC19);
+            ws[10] = (int16_t)smooth_pred(num, Q12, al);
+          }
+          if ((al = cb[8]) != 0 && ws[17] == 0) {      // AC21
+            num = Q00 * (DC07 - DC09 - 3 * DC12 + 3 * DC14 + DC17 - DC19);
+            ws[17] = (int16_t)smooth_pred(num, Q21, al);
+          }
+          if ((al = cb[9]) != 0 && ws[24] == 0) {      // AC30
+            num = Q00 * (DC07 + 2 * DC08 + DC09 - DC17 - 2 * DC18 - DC19);
+            ws[24] = (int16_t)smooth_pred(num, Q30, al);
+          }
+          num = Q00 * (-2 * DC01 - 6 * DC02 - 8 * DC03 - 6 * DC04 -
+                       2 * DC05 - 6 * DC06 + 6 * DC07 + 42 * DC08 +
+                       6 * DC09 - 6 * DC10 - 8 * DC11 + 42 * DC12 +
+                       152 * DC13 + 42 * DC14 - 8 * DC15 - 6 * DC16 +
+                       6 * DC17 + 42 * DC18 + 6 * DC19 - 6 * DC20 -
+                       2 * DC21 - 6 * DC22 - 8 * DC23 - 6 * DC24 -
+                       2 * DC25);
+          ws[0] = (int16_t)smooth_pred(num, Q00, 0);
+        }
+        idct_islow(ws, k.q, &p.px[(size_t)r * 8 * p.stride + b * 8],
+                   p.stride);
+      }
+    }
+  }
+  return p;
+}
+
 Plane inverse_dct(const Component& k) {
   Plane p;
   int nbx = (k.dw + 7) / 8, nby = (k.dh + 7) / 8;
@@ -867,17 +1050,53 @@ void decode_into(const uint8_t* data, size_t n, int mode, uint8_t* out,
   const int space = dec.colour_space();
   const bool gray_out = mode == 1 || (mode == 2 && dec.ncomp == 1);
   const size_t npx = (size_t)W * H;
-  if (out_size != npx * (gray_out ? 1 : 3))
+  const int channels = mode == 3 ? dec.ncomp : gray_out ? 1 : 3;
+  if (out_size != npx * channels)
     fail(kCorrupt, "output buffer of the wrong size");
   // components the output needs (jdcolor.c: gray from YCbCr reads Y only)
-  int needed = (gray_out && space != 2) ? 1 : dec.ncomp;
+  int needed = (gray_out && space <= 1 && mode != 3) ? 1 : dec.ncomp;
   std::vector<std::vector<uint8_t>> full(needed);
   for (int c = 0; c < needed; c++) {
     const Component& k = dec.comp[c];
     if (dec.hmax % k.h || dec.vmax % k.v)
       fail(kUnsupported, "JPEG with fractional sampling ratios");
-    Plane p = inverse_dct(k);
+    Plane p = dec.smooth ? inverse_dct_smoothed(k, dec.mcuy)
+                         : inverse_dct(k);
     full[c] = upsample(p, dec.hmax / k.h, dec.vmax / k.v, W, H);
+  }
+  if (mode == 3) {
+    for (size_t i = 0; i < npx; i++)
+      for (int c = 0; c < channels; c++) out[channels * i + c] = full[c][i];
+    return;
+  }
+  if (dec.ncomp == 4) {
+    // libjpeg's CMYK output (YCCK through jdcolor.c's ycck_cmyk_convert:
+    // the YCbCr -> RGB tables, inverted; K as stored), then OpenCV's
+    // icvCvt_CMYK2BGR_8u_C4C3R / icvCvt_CMYK2Gray_8u_C4C1R (BT.601 at
+    // 14 bits, rounded)
+    for (size_t i = 0; i < npx; i++) {
+      int c = full[0][i], m = full[1][i], y = full[2][i];
+      const int k = full[3][i];
+      if (space == 4) {
+        const int yy = c, cb = m, cr = y;
+        c = 255 - clamp255(yy + kYcc.cr_r[cr]);
+        m = 255 - clamp255(
+            yy + (int)((kYcc.cb_g[cb] + kYcc.cr_g[cr]) >> kScaleBits));
+        y = 255 - clamp255(yy + kYcc.cb_b[cb]);
+      }
+      const int r = k - (((255 - c) * k) >> 8);
+      const int g = k - (((255 - m) * k) >> 8);
+      const int b = k - (((255 - y) * k) >> 8);
+      if (gray_out) {
+        out[i] = (uint8_t)((b * 1868 + g * 9617 + r * 4899 + (1 << 13)) >>
+                           14);
+      } else {
+        out[3 * i] = (uint8_t)b;
+        out[3 * i + 1] = (uint8_t)g;
+        out[3 * i + 2] = (uint8_t)r;
+      }
+    }
+    return;
   }
   if (gray_out) {
     if (space != 2) {

@@ -262,7 +262,7 @@ def unpack_taps(taps: torch.Tensor
 
 
 def _icol(ctx: RectContext, sigma: torch.Tensor) -> torch.Tensor:
-    col = ctx.c0 + ctx.k * sigma[None]
+    col = ctx.c0 + ctx.k * sigma.unsqueeze(-3)
     return torch.round(torch.clamp(col, -2.0 * _INVALID, 2.0 * _INVALID)
                        ).to(torch.int32)
 
@@ -281,11 +281,15 @@ def _col_bases(ctx: RectContext, icol: torch.Tensor) -> torch.Tensor:
 def rect_lookup_plain(ctx: RectContext, sigma: torch.Tensor) -> torch.Tensor:
     """Plain version of kernel C (the JAX package's rect_lookup_xla): every
     rect channel at (row(p), round(c0(p) + k(p) * sigma(p))) for all V
-    views, 0 where the read misses its tile's band/window or the frame."""
+    views, 0 where the read misses its tile's band/window or the frame.
+    ``sigma`` (H, W) -> (V, C, H, W), or K candidates' (K, H, W) -> (K, V,
+    C, H, W), each candidate with its own column bases."""
     v, c, h_r, w_r = ctx.maps.shape
     _, h, w = ctx.row_int.shape
-    icol = _icol(ctx, sigma)
-    cb_full = _from_tiles(_col_bases(ctx, icol), h, w)
+    lead = sigma.shape[:-2]
+    icol = _icol(ctx, sigma)                             # ([K,] V, H, W)
+    flat = icol.reshape(-1, h, w)          # candidates x views as "views"
+    cb_full = _from_tiles(_col_bases(ctx, flat), h, w).reshape(icol.shape)
     rb_full = _from_tiles(ctx.rb, h, w)
     iwin = icol - cb_full * COLS_HALF
     roff = ctx.row_int - rb_full * ROWS_HALF
@@ -294,14 +298,19 @@ def rect_lookup_plain(ctx: RectContext, sigma: torch.Tensor) -> torch.Tensor:
           & (ctx.row_int <= h_r - 1))
     rc = torch.clamp(ctx.row_int, 0, h_r - 1).to(torch.int64)
     cc = torch.clamp(icol, 0, w_r - 1).to(torch.int64)
-    idx = (rc * w_r + cc).reshape(v, 1, h * w).expand(v, c, h * w)
-    taps = torch.gather(ctx.maps.reshape(v, c, h_r * w_r), 2, idx)
-    return torch.where(ok[:, None], taps.reshape(v, c, h, w), 0.0)
+    idx = (rc * w_r + cc).reshape(*lead, v, 1, h * w).expand(
+        *lead, v, c, h * w)
+    maps = ctx.maps.reshape(v, c, h_r * w_r).expand(*lead, v, c, h_r * w_r)
+    taps = torch.gather(maps, -1, idx)
+    return torch.where(ok.unsqueeze(-3), taps.reshape(*lead, v, c, h, w),
+                       0.0)
 
 
 def rect_lookup(ctx: RectContext, sigma: torch.Tensor) -> torch.Tensor:
     """Per-candidate lookup for inverse depth ``sigma`` (H, W) ->
-    (V, C, H, W).  Kernel C on CUDA, the plain version on the CPU."""
+    (V, C, H, W), or for K candidates at once, (K, H, W) -> (K, V, C, H,
+    W).  Kernel C on CUDA (one launch either way), the plain version on
+    the CPU."""
     if kernels.use_kernel(sigma):
         return kernels.rect_lookup(ctx.maps, ctx.row_int, ctx.c0, ctx.k,
                                    ctx.rb, sigma.contiguous())

@@ -34,7 +34,9 @@ def zncc_warped_plain(ref_pad: torch.Tensor, tm: torch.Tensor,
     ``warped_pad``, ``valid_pad`` (V, H+2p, W+2p); ``acc`` (V, 4, H, W)
     initial (num, s1, sq1, sw).  Returns (score, var1), both (V, H, W):
     ``1 - clip(num / sqrt(nsq0 * var1))`` before robust masking, and the
-    warped patch variance."""
+    warped patch variance.  K candidates against the same reference:
+    ``warped_pad``, ``valid_pad`` (K, V, H+2p, W+2p), ``acc`` (K, V, 4, H,
+    W) -> (K, V, H, W) each."""
     h, w = tm.shape
 
     def shifted(x, dy, dx):
@@ -44,12 +46,12 @@ def zncc_warped_plain(ref_pad: torch.Tensor, tm: torch.Tensor,
     inv_2sc2 = -1.0 / (2.0 * _SIGMA_COLOR ** 2)
     inv_2hw2 = -0.5 * torch.reciprocal(hw * hw)
     scores, var1s = [], []
-    for vi in range(warped_pad.shape[0]):
-        num, s1, sq1, sw = acc[vi].unbind(0)
+    for vi in range(warped_pad.shape[-3]):
+        num, s1, sq1, sw = acc[..., vi, :, :, :].unbind(-3)
         for dy, dx in scan_offsets:
             v_d = shifted(ref_pad, dy, dx)
-            w_d = shifted(warped_pad[vi], dy, dx)
-            ok = shifted(valid_pad[vi], dy, dx)
+            w_d = shifted(warped_pad[..., vi, :, :], dy, dx)
+            ok = shifted(valid_pad[..., vi, :, :], dy, dx)
             w_color = (v_d - ref_c) ** 2 * inv_2sc2
             w_sp = float(dy * dy + dx * dx) * inv_2hw2
             in_win = (max(abs(dy), abs(dx)) <= hw).to(torch.float32)
@@ -62,7 +64,7 @@ def zncc_warped_plain(ref_pad: torch.Tensor, tm: torch.Tensor,
         denom = torch.sqrt(torch.clamp_min(nsq0 * var1, 1e-16))
         scores.append(1.0 - torch.clamp(num / denom, -1.0, 1.0))
         var1s.append(var1)
-    return torch.stack(scores), torch.stack(var1s)
+    return torch.stack(scores, dim=-3), torch.stack(var1s, dim=-3)
 
 
 def zncc_warped(ref_pad: torch.Tensor, tm: torch.Tensor, nsq0: torch.Tensor,

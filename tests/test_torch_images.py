@@ -7,11 +7,15 @@ Every decoder is held byte-equal to ``cv2.imread`` in its three modes
 JPEGs by ``cv2.imwrite`` (qualities 50 / 95 / 100, 4:4:4 / 4:2:2 /
 4:2:0 / 4:4:0 / 4:1:1, progressive, optimized Huffman tables, restart
 markers, gray) at sizes 1x1, 7x9, 17x33 and 61x83 (partial MCUs) and by
-Pillow (an RGB-transform file, progressive 4:2:0); the 8 EXIF
-orientations on JPEG and PNG (Pillow); BMP and TIFF variants by
-``cv2.imwrite`` and Pillow and by the small writers below (4-bit and RLE
-BMP, top-down rows; tiled, planar and predictor-2 TIFF); Adam7 PNG by the
-writer below (neither library writes it); P1-P6 PNM at several maxvals.
+Pillow (an RGB-transform file, progressive 4:2:0, CMYK, and YCCK by a
+byte edit); progressive files cut after each of their scans (read
+block-smoothed); the 8 EXIF orientations on JPEG and PNG (Pillow); BMP
+and TIFF variants by ``cv2.imwrite`` and Pillow and by the small writers
+below (4-bit and RLE BMP, top-down rows, 16-bit, bit fields and OS/2
+headers; tiled, planar and predictor-2 TIFF), JPEG-in-TIFF (RGB, gray,
+YCbCr, tiled), palette, CMYK, float, signed, bilevel and min-is-white
+TIFF; Adam7 PNG by the writer below (neither library writes it); P1-P6
+PNM at several maxvals.
 The committed fixtures of ``tests/data/jpeg/`` match their manifest's
 digests, which are re-derived from cv2 here, so the manifest cannot go
 stale.  ``build_pyramid`` and ``pad_to_multiple`` equal the JAX
@@ -38,6 +42,16 @@ FLAGS = {"color": cv2.IMREAD_COLOR, "gray": cv2.IMREAD_GRAYSCALE,
 SIZES = ((1, 1), (7, 9), (17, 33), (61, 83))
 JPEG_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)), "data",
                         "jpeg")
+
+
+def _fixtures():
+    """tests/data/jpeg/make_fixtures.py as a module (its writers)."""
+    import importlib.util
+    spec = importlib.util.spec_from_file_location(
+        "make_fixtures", os.path.join(JPEG_DIR, "make_fixtures.py"))
+    module = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(module)
+    return module
 
 
 def pattern(h: int, w: int, c: int = 3, seed: int = 0) -> np.ndarray:
@@ -152,6 +166,88 @@ def test_truncated_jpegs(tmp_path, progressive):
             timg.imread(path)
 
 
+FOUR_COMPONENTS = {"cmyk": dict(), "cmyk_s420": dict(subsampling=2),
+                   "cmyk_progressive": dict(progressive=True),
+                   "ycck": dict(), "no_adobe": dict()}
+
+
+@pytest.mark.parametrize("kind", sorted(FOUR_COMPONENTS))
+def test_four_component_jpegs_match_opencv(tmp_path, kind):
+    """Pillow's CMYK JPEGs (Adobe APP14, transform 0, inverted), the same
+    with the transform byte set to 2 (YCCK) or with no APP14 at all
+    (straight CMYK), through OpenCV's CMYK -> BGR / gray."""
+    import io
+    for h, w in SIZES:
+        buf = io.BytesIO()
+        Image.fromarray(pattern(h, w, seed=h + w)).convert("CMYK").save(
+            buf, "JPEG", quality=85, **FOUR_COMPONENTS[kind])
+        data = buf.getvalue()
+        at = data.index(b"Adobe")
+        if kind == "ycck":
+            data = data[:at + 11] + b"\2" + data[at + 12:]
+        elif kind == "no_adobe":
+            (length,) = struct.unpack_from(">H", data, at - 2)
+            data = data[:at - 4] + data[at - 2 + length:]
+        path = str(tmp_path / f"{kind}_{h}x{w}.jpg")
+        with open(path, "wb") as f:
+            f.write(data)
+        assert_like_cv2(path)
+
+
+@pytest.mark.parametrize("case", ["s444", "s422", "s420", "s440", "s411",
+                                  "gray"])
+def test_progressive_cuts_match_opencv(tmp_path, case):
+    """cv2's progressive files cut after each of their scans, an EOI
+    appended: libjpeg-turbo block-smooths the coefficients the cut left
+    not fully known (and interpolates DC where a component has no AC
+    yet); heights 40 and 17 end on a short iMCU row at 4:2:0 / 4:4:0."""
+    cut = _fixtures().cut_after_scans
+    gray = case == "gray"
+    params = [cv2.IMWRITE_JPEG_PROGRESSIVE, 1]
+    if not gray:
+        params += [cv2.IMWRITE_JPEG_SAMPLING_FACTOR,
+                   JPEG_CASES[case][1]]
+    for h, w in ((7, 9), (17, 33), (40, 72), (61, 83)):
+        img = pattern(h, w, 1 if gray else 3, seed=h * w)
+        for q in (50, 90):
+            ok, enc = cv2.imencode(".jpg", img[..., 0] if gray else img,
+                                   [cv2.IMWRITE_JPEG_QUALITY, q] + params)
+            data = enc.tobytes()
+            k = 1
+            while True:
+                try:
+                    part = cut(data, k)
+                except ValueError:
+                    break
+                path = str(tmp_path / f"{case}_{h}x{w}_q{q}_k{k}.jpg")
+                with open(path, "wb") as f:
+                    f.write(part)
+                assert_like_cv2(path)
+                k += 1
+            assert k > 3, k
+
+
+@pytest.mark.parametrize("what", ["DNL", "fractional"])
+def test_jpegs_cv2_fails_on_raise(tmp_path, what):
+    """A height given by a DNL marker, and sampling factors whose ratios
+    are not whole (Y 3x1 against 2x1 chroma), byte-edited into a 4:4:4
+    file: cv2 reads neither, and the port raises naming the feature."""
+    ok, enc = cv2.imencode(".jpg", pattern(16, 16, seed=2),
+                           [cv2.IMWRITE_JPEG_SAMPLING_FACTOR, 0x111111])
+    data = bytearray(enc.tobytes())
+    sof = data.index(b"\xff\xc0")
+    if what == "DNL":
+        data[sof + 5:sof + 7] = b"\0\0"
+        data = data[:-2] + b"\xff\xdc\x00\x04\x00\x10\xff\xd9"
+    else:
+        data[sof + 11], data[sof + 14], data[sof + 17] = 0x31, 0x21, 0x11
+    path = str(tmp_path / f"{what}.jpg")
+    _write(path, bytes(data))
+    assert cv2.imread(path) is None
+    with pytest.raises(NotImplementedError, match=what):
+        timg.imread(path)
+
+
 # ---- BMP ----
 
 def _rle8(rows: np.ndarray) -> bytes:
@@ -244,6 +340,43 @@ def _bmp_cases():
         "bits32": _bmp(np.concatenate([rgb, rgb[..., :1]], -1), 32),
         "bits8_top_down": _bmp(idx256, 8, _palette(256, True),
                                top_down=True),
+        **_bmp_header_cases(),
+    }
+
+
+def _bmp_header_cases():
+    """16-bit pixels (5-5-5 plain and as bit fields, 5-6-5), 32-bit bit
+    fields (masks in either order: OpenCV reads BGRA whatever they are)
+    and OS/2 core headers, written by make_fixtures' BMP writer."""
+    fx = _fixtures()
+    rng = np.random.default_rng(14)
+    words = rng.integers(0, 1 << 16, (13, 11))
+    rgb = pattern(13, 11, 4, seed=15)
+    idx = pattern(13, 11, 1, 16)[..., 0]
+    w, h = 11, 13
+    pal3 = bytes(rng.integers(0, 256, 768).astype(np.uint8))
+    gray3 = bytes(np.repeat(np.arange(256, dtype=np.uint8), 3))
+    return {
+        "bits16": fx.bmp(w, h, 16, fx.bmp_rows(words, 16)),
+        "bitfields555": fx.bmp(w, h, 16, fx.bmp_rows(words, 16), 3,
+                               (0x7C00, 0x3E0, 0x1F)),
+        "bitfields565": fx.bmp(w, h, 16, fx.bmp_rows(words, 16), 3,
+                               (0xF800, 0x7E0, 0x1F)),
+        "bitfields32": fx.bmp(w, h, 32, fx.bmp_rows(rgb, 32), 3,
+                              (0xFF0000, 0xFF00, 0xFF)),
+        "bitfields32_swapped": fx.bmp(w, h, 32, fx.bmp_rows(rgb, 32), 3,
+                                      (0xFF, 0xFF00, 0xFF0000)),
+        "os2_24": fx.bmp(w, h, 24, fx.bmp_rows(rgb[..., :3], 24),
+                         core=True),
+        "os2_8": fx.bmp(w, h, 8, fx.bmp_rows(idx, 8), palette=pal3,
+                        core=True),
+        "os2_8_gray": fx.bmp(w, h, 8, fx.bmp_rows(idx, 8), palette=gray3,
+                             core=True),
+        "os2_4": fx.bmp(w, h, 4, b"".join(
+            bytes((a << 4) | b for a, b in zip(r[0::2], r[1::2])).ljust(
+                8, b"\0") for r in (np.concatenate(
+                    [idx >> 4, np.zeros((h, 1), np.uint8)], 1)[::-1])),
+            palette=pal3[:48], core=True),
     }
 
 
@@ -276,10 +409,12 @@ def test_bmp_matches_opencv(tmp_path, case):
 
 def _tiff(img: np.ndarray, tile=None, planar: bool = False,
           predictor: int = 1, deflate: bool = False, rows: int = 3,
-          big_endian: bool = False, orientation=None) -> bytes:
+          big_endian: bool = False, orientation=None, photometric=None,
+          compression=None) -> bytes:
     """A TIFF of (h, w, c) uint8 / uint16 samples (gray, RGB or RGBA with
     unassociated alpha): strips of ``rows`` rows or ``tile`` (tw, th)
-    tiles, chunky or planar, predictor 1 or 2, raw or Deflate."""
+    tiles, chunky or planar, predictor 1 or 2, raw or Deflate; the
+    photometric and compression tags can be named outright."""
     end = ">" if big_endian else "<"
     h, w, c = img.shape
     depth = img.dtype.itemsize * 8
@@ -313,8 +448,9 @@ def _tiff(img: np.ndarray, tile=None, planar: bool = False,
     field(256, 4, [w])
     field(257, 4, [h])
     field(258, 3, [depth] * c)
-    field(259, 3, [8 if deflate else 1])
-    field(262, 3, [1 if c == 1 else 2])
+    field(259, 3, [compression or (8 if deflate else 1)])
+    field(262, 3, [photometric if photometric is not None
+                   else 1 if c == 1 else 2])
     if orientation:
         field(274, 3, [orientation])
     field(277, 3, [c])
@@ -413,15 +549,24 @@ def test_tiff_matches_opencv(tmp_path, case):
     assert_like_cv2(path)
 
 
+def _write(path, data):
+    with open(path, "wb") as f:
+        f.write(data)
+
+
 @pytest.mark.parametrize("what,make", [
     ("orientation 6", lambda p: Image.fromarray(pattern(4, 5)).save(
         p, tiffinfo={274: 6})),
-    ("JPEG-in-TIFF", lambda p: Image.fromarray(pattern(16, 16)).save(
-        p, compression="jpeg")),
-    ("palette", lambda p: Image.fromarray(pattern(4, 5)).convert("P").save(
-        p)),
+    # new-style JPEG-in-TIFF (compression 7) reads; the old style does not
+    ("JPEG-in-TIFF", lambda p: _write(p, _tiff(pattern(8, 8),
+                                               compression=6))),
+    # palette images read; a palette with an extra sample does not
+    ("palette", lambda p: _write(p, _tiff(pattern(4, 5, 2),
+                                          photometric=3))),
+    # CMYK reads; other inks do not
     ("CMYK", lambda p: Image.fromarray(pattern(4, 5)).convert("CMYK").save(
-        p)),
+        p, tiffinfo={332: 2})),
+    # float reads unchanged; cv2 fails on it as 8-bit
     ("float", lambda p: Image.fromarray(pattern(4, 5, 1)[..., 0].astype(
         np.float32)).save(p))])
 def test_tiff_outside_scope_raises(tmp_path, what, make):
@@ -429,6 +574,66 @@ def test_tiff_outside_scope_raises(tmp_path, what, make):
     make(path)
     with pytest.raises(NotImplementedError, match=what.split()[0]):
         timg.imread(path)
+
+
+def _tiff_kind(kind: str, h: int, w: int, tmp_path) -> str:
+    """A TIFF of ``kind`` at h x w written by cv2 or Pillow; its path."""
+    import io
+    rgb = pattern(h, w, seed=h * w + len(kind))
+    path = str(tmp_path / f"{kind}_{h}x{w}.tif")
+    pil = Image.fromarray(rgb)
+    if kind.startswith("jpeg_cv2"):
+        cv2.imwrite(path, rgb[..., 0] if kind.endswith("gray") else rgb,
+                    [cv2.IMWRITE_TIFF_COMPRESSION,
+                     cv2.IMWRITE_TIFF_COMPRESSION_JPEG])
+    elif kind in ("float32", "int16"):
+        img = (rgb.astype(np.float32) / 7.0 - 3.0 if kind == "float32"
+               else rgb.astype(np.int16) * 250 - 30000)
+        cv2.imwrite(path, img if w % 2 else img[..., 0])
+    elif kind == "min_is_white":
+        buf = io.BytesIO()
+        (pil.convert("1") if w % 2 else pil.convert("L")).save(buf, "TIFF")
+        _write(path, _fixtures().min_is_white(buf.getvalue()))
+    else:
+        im, kw = {
+            "jpeg_rgb": (pil, dict(compression="jpeg", quality=70)),
+            "jpeg_gray": (pil.convert("L"), dict(compression="jpeg")),
+            "jpeg_ycbcr": (pil.convert("YCbCr"), dict(compression="jpeg")),
+            "jpeg_tiles": (pil, dict(compression="jpeg", tile=(16, 16))),
+            "palette": (pil.convert("P"), dict(compression="tiff_lzw")),
+            "palette4": (pil.convert("P", palette=Image.ADAPTIVE,
+                                     colors=16), {}),
+            "cmyk": (pil.convert("CMYK"),
+                     dict(compression="tiff_adobe_deflate")),
+            "bilevel": (pil.convert("1"), {})}[kind]
+        im.save(path, **kw)
+    return path
+
+
+TIFF_KINDS = ("jpeg_rgb", "jpeg_gray", "jpeg_ycbcr", "jpeg_tiles",
+              "jpeg_cv2", "jpeg_cv2_gray", "palette", "palette4", "cmyk",
+              "float32", "int16", "bilevel", "min_is_white")
+
+
+@pytest.mark.parametrize("kind", TIFF_KINDS)
+def test_tiff_kinds_match_opencv(tmp_path, kind):
+    """JPEG-in-TIFF (strips of an RGB or gray image decoded raw, a YCbCr
+    one through libjpeg's colour conversion, with the JPEGTables), palette
+    (8- and 4-bit), CMYK, float32 and signed 16-bit (cv2's writes),
+    bilevel and min-is-white (1- and 8-bit) TIFFs as cv2 reads them;
+    float as 8-bit is where cv2 reads nothing and the port raises."""
+    sizes = ((17, 23), (33, 47), (40, 64)) if kind.startswith(
+        "jpeg_cv2") else ((1, 1), (7, 9), (33, 47), (40, 70))
+    for h, w in sizes:
+        path = _tiff_kind(kind, h, w, tmp_path)
+        if kind == "float32":
+            assert_like_cv2(path, ("unchanged",))
+            for mode in ("color", "gray"):
+                assert cv2.imread(path, FLAGS[mode]) is None
+                with pytest.raises(NotImplementedError, match="float"):
+                    timg.imread(path, mode)
+            continue
+        assert_like_cv2(path)
 
 
 # ---- PNG (Adam7) ----
@@ -545,12 +750,9 @@ def test_pnm_matches_opencv(tmp_path, case):
 
 def test_fixture_manifest_matches_opencv_and_port():
     """The manifest's digests are cv2's (re-derived here), and the port's
-    decodes give them in all three modes."""
-    import importlib.util
-    spec = importlib.util.spec_from_file_location(
-        "make_fixtures", os.path.join(JPEG_DIR, "make_fixtures.py"))
-    fixtures = importlib.util.module_from_spec(spec)
-    spec.loader.exec_module(fixtures)
+    decodes give them in all three modes (and raise where cv2 reads
+    nothing)."""
+    fixtures = _fixtures()
     with open(os.path.join(JPEG_DIR, "manifest.json")) as f:
         manifest = json.load(f)["files"]
     assert manifest == fixtures.manifest_entries(JPEG_DIR)
@@ -560,6 +762,10 @@ def test_fixture_manifest_matches_opencv_and_port():
     assert size < 2 * 2 ** 20
     for name, digests in manifest.items():
         for mode, want in digests.items():
+            if want is None:
+                with pytest.raises(NotImplementedError):
+                    timg.imread(os.path.join(JPEG_DIR, name), mode)
+                continue
             img = timg.imread(os.path.join(JPEG_DIR, name), mode)
             assert list(img.shape) == want["shape"], (name, mode)
             assert hashlib.sha256(img.tobytes()).hexdigest() \

@@ -290,10 +290,12 @@ def _jpeg_frame(marker: int, precision: int = 8, n_comp: int = 3) -> bytes:
             + struct.pack(">H", len(body) + 2) + body + b"\xff\xd9")
 
 
-def _tiff_compressed(compression: int) -> bytes:
-    """A little-endian TIFF header and IFD naming ``compression``."""
-    tags = ((256, 2), (257, 2), (258, 8), (259, compression), (262, 1),
-            (273, 8), (277, 1), (279, 4))
+def _tiff_compressed(compression: int, extra=()) -> bytes:
+    """A little-endian TIFF header and IFD naming ``compression``, its
+    tags replaced or joined by the (tag, value) pairs ``extra``."""
+    tags = dict(((256, 2), (257, 2), (258, 8), (259, compression),
+                 (262, 1), (273, 8), (277, 1), (279, 4)))
+    tags = sorted({**tags, **dict(extra)}.items())
     ifd = struct.pack("<H", len(tags)) + b"".join(
         struct.pack("<HHII", t, 4, 1, v) for t, v in tags)
     return b"II*\0" + struct.pack("<I", 12) + bytes(4) + ifd + bytes(4)
@@ -302,11 +304,17 @@ def _tiff_compressed(compression: int) -> bytes:
 @pytest.mark.parametrize("data,what", [
     (_jpeg_frame(0xC9), "arithmetic"), (_jpeg_frame(0xC3), "lossless"),
     (_jpeg_frame(0xC1, precision=12), "12-bit"),
-    (_jpeg_frame(0xC0, n_comp=4), "CMYK"),
+    # four components read (CMYK / YCCK); a TIFF separated into other inks
+    # does not
+    (_tiff_compressed(1, ((277, 4), (258, 8), (262, 5), (332, 2))),
+     "CMYK"),
     (_jpeg_frame(0xDE), "hierarchical"),
-    (_tiff_compressed(7), "JPEG-in-TIFF"),
-    (b"BM" + bytes(12) + struct.pack("<IiiHHI", 40, 2, 2, 1, 32, 3)
-     + bytes(20), "bit fields"),
+    # new-style JPEG-in-TIFF (7) reads; the old style (6) does not
+    (_tiff_compressed(6), "JPEG-in-TIFF"),
+    # 16-bit 5-5-5 / 5-6-5 and 32-bit bit fields read; other 16-bit masks
+    # fail in cv2
+    (b"BM" + bytes(12) + struct.pack("<IiiHHI", 40, 2, 2, 1, 16, 3)
+     + bytes(20) + struct.pack("<III", 0xF00, 0xF0, 0xF), "bit fields"),
     (b"GIF89a" + bytes(16), "unknown")])
 def test_unsupported_images_raise(tmp_path, data, what):
     path = str(tmp_path / "x.img")

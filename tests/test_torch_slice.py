@@ -251,13 +251,16 @@ def test_aggregate_scores_match():
 
 
 def test_unported_knobs_raise(world):
+    """Every knob of the JAX package runs in the port: batch_candidates,
+    the last one that raised, completes on the exact and warped routes
+    (its parity with the JAX package: tests/test_torch_batch_candidates.py;
+    the direct routes, the per-plane build at any plane count, streaming
+    and view spread: tests/test_torch_{direct,planes,streaming}.py)."""
     scene_t = scene_from_numpy(world["scene"], device="cpu")
-    gen = torch.Generator().manual_seed(0)
-    # the retired batch_candidates (the direct routes, the per-plane build
-    # at any plane count, streaming and view spread run:
-    # tests/test_torch_{direct,planes,streaming}.py)
-    for kw, what in ((dict(batch_candidates=True), "batch_candidates"),
-                     (dict(batch_candidates=True, score_mode="warped"),
-                      "batch_candidates")):
-        with pytest.raises(NotImplementedError, match=what):
-            tsd.estimate_scene(gen, scene_t, world["tcfg"].replace(**kw))
+    for kw in (dict(batch_candidates=True),
+               dict(batch_candidates=True, score_mode="warped")):
+        out = tsd.estimate_scene(torch.Generator().manual_seed(0), scene_t,
+                                 world["tcfg"].replace(**kw))
+        assert tuple(out.depth.shape) == (N, H, W)
+        assert torch.isfinite(out.depth).all()
+        assert torch.isfinite(out.cost).all()
