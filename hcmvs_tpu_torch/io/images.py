@@ -34,7 +34,14 @@ stored channels and depth, colour in BGR(A) order).
   planar; RGBA premultiplied by its alpha, 16-bit RGB rounded to 8 bits,
   palette, CMYK, bilevel and min-is-white as libtiff's RGBA interface
   does them; signed samples read as their bits (int16 unchanged), float
-  only unchanged (cv2 reads no 8-bit image of it).
+  only unchanged (cv2 reads no 8-bit image of it); uncompressed, LZW and
+  Deflate YCbCr (1x1 sampling) through libtiff's float tables.
+- WebP: ``native/webp.cpp`` (lossy, lossless, alpha, the first frame of
+  an animation, EXIF orientation in the colour and gray modes).
+- GIF, Radiance HDR, PFM, PAM, Sun raster: ``io/image_formats.py``, each
+  with the rules its cv2 reader follows.
+- JPEG 2000 and AVIF, which cv2 also reads, raise NotImplementedError
+  naming them.
 
 Gray of a colour file: PNG through libpng's rgb_to_gray, the others
 through OpenCV's BT.601 fixed point (16-bit samples cut to 8 first).
@@ -44,8 +51,8 @@ unchanged mode; a TIFF's orientation tag flips it (2-4), and 5-8 raise,
 where cv2 5.0 fails.  Whatever is outside this scope raises
 NotImplementedError naming it (arithmetic, lossless, hierarchical or
 12-bit JPEG, a JPEG height from a DNL marker or fractional sampling, on
-which cv2 fails too; old-style JPEG, uncompressed YCbCr, CIELab or
-mask TIFF, other inks than CMYK; 16-bit BMP bit fields other than 5-5-5
+which cv2 fails too; old-style JPEG, subsampled uncompressed YCbCr,
+CIELab or mask TIFF, other inks than CMYK; 16-bit BMP bit fields other than 5-5-5
 and 5-6-5, on which cv2 fails); a corrupt file raises ValueError.
 
 ``load_image`` lays ``imread`` out as the JAX package's: (H, W, 3) RGB
@@ -82,6 +89,7 @@ from typing import List, Optional, Tuple
 import numpy as np
 
 from hcmvs_tpu_torch import native
+from hcmvs_tpu_torch.io import image_formats
 from hcmvs_tpu_torch.io.exif import _exif_block, _read_ifd, orientation
 
 _PNG_SIGNATURE = b"\x89PNG\r\n\x1a\n"
@@ -90,10 +98,8 @@ _PNG_TYPES = {0: (1, (1, 2, 4, 8, 16)), 2: (3, (8, 16)), 3: (1, (1, 2, 4, 8)),
               4: (2, (8, 16)), 6: (4, (8, 16))}
 # cv2's gray conversions of colour files with IMREAD_GRAYSCALE (a JPEG
 # gives its Y plane): PNM, BMP and TIFF through OpenCV's BT.601 fixed
-# point (R, G, B scaled by 2**14, rounded), PNG through libpng's
-# rgb_to_gray(0.299, 0.587) (scaled by 2**15, truncated; grey pixels pass
-# unchanged)
-_GRAY_CV = (4899, 9617, 1868, 14, 1 << 13)
+# point (``image_formats.bt601``), PNG through libpng's rgb_to_gray(0.299,
+# 0.587) (scaled by 2**15, truncated; grey pixels pass unchanged)
 _GRAY_PNG = (9797, 19234, 3737, 15, 0)
 
 
@@ -483,12 +489,13 @@ _T_STRIP_BYTES, _T_PLANAR, _T_PREDICTOR, _T_TILE_W = 279, 284, 317, 322
 _T_TILE_H, _T_TILES, _T_TILE_BYTES, _T_EXTRA, _T_FORMAT = (323, 324, 325,
                                                          338, 339)
 _T_COLORMAP, _T_INKSET, _T_JPEG_TABLES = 320, 332, 347
+_T_LUMA, _T_SUBSAMPLING, _T_REF_BW = 529, 530, 532
 # none, LZW, JPEG, Deflate (two codes), PackBits
 _TIFF_CODECS = (1, 5, 7, 8, 32946, 32773)
 # photometric interpretations outside the module's scope
 _TIFF_PHOTOMETRIC = {4: "mask", 8: "CIELab"}
 # (photometric, samples a pixel) -> the bit depths read: min-is-white and
-# min-is-black gray, RGB(A), palette, CMYK, YCbCr (JPEG-compressed only)
+# min-is-black gray, RGB(A), palette, CMYK, YCbCr
 _TIFF_LAYOUTS = {(0, 1): (1, 8), (1, 1): (1, 8, 16, 32), (2, 3): (8, 16, 32),
                  (2, 4): (8, 16), (3, 1): (1, 2, 4, 8), (5, 4): (8,),
                  (6, 3): (8,)}
@@ -615,6 +622,48 @@ def _tiff_rgba(img: np.ndarray, photo: int, bits: int, tags: dict
     return img
 
 
+def _ycbcr_rgb(img: np.ndarray, tags: dict) -> np.ndarray:
+    """8-bit YCbCr samples to RGB as libtiff's RGBA interface converts
+    them (tif_color.c, TIFFYCbCrToRGBInit / TIFFYCbCrtoRGB): the luma
+    coefficients (tag 529, default 0.299, 0.587, 0.114) give 16-bit
+    fixed-point factors from float32 arithmetic; ReferenceBlackWhite (tag
+    532, default 0, 255, 128, 255, 128, 255) maps each code through
+    float32 ``(c - black) * range / (white - black)``, truncated, into
+    integer tables; the sums are clamped to 0..255."""
+    f = np.float32
+    lr, lg, lb = (f(v) for v in _as_tuple(tags.get(_T_LUMA,
+                                                   (0.299, 0.587, 0.114))))
+    ref = [f(v) for v in _as_tuple(tags.get(
+        _T_REF_BW, (0.0, 255.0, 128.0, 255.0, 128.0, 255.0)))]
+
+    def fix(x):                     # libtiff's FIX: float product, + 0.5
+        x = min(max(x, f(0)), f(2))
+        return int(float(x * f(65536)) + 0.5)
+
+    f1 = f(2) - f(2) * lr
+    f3 = f(2) - f(2) * lb
+    d1, d2 = fix(f1), -fix(lr * f1 / lg)
+    d3, d4 = fix(f3), -fix(lb * f3 / lg)
+
+    def code2v(c, black, white, scale):
+        span = white - black
+        v = (c.astype(f) - black) * f(scale) / (span if span != 0 else f(1))
+        return np.trunc(np.clip(v, f(-4096), f(4096))).astype(np.int64)
+
+    x = np.arange(-128, 128)
+    cr = code2v(x, ref[4] - f(128), ref[5] - f(128), 127)
+    cb = code2v(x, ref[2] - f(128), ref[3] - f(128), 127)
+    y_tab = code2v(x + 128, ref[0], ref[1], 255)
+    half = 1 << 15
+    cr_r, cb_b = (d1 * cr + half) >> 16, (d3 * cb + half) >> 16
+    cr_g, cb_g = d2 * cr, d4 * cb + half
+    yy = y_tab[img[..., 0]]
+    cbi, cri = img[..., 1], img[..., 2]
+    rgb = np.stack([yy + cr_r[cri], yy + ((cb_g[cbi] + cr_g[cri]) >> 16),
+                    yy + cb_b[cbi]], -1)
+    return np.clip(rgb, 0, 255).astype(np.uint8)
+
+
 def _decode_tiff(data: bytes, path: str) -> Tuple[np.ndarray, bool, int]:
     """(H, W, C) samples of a TIFF's first image in RGB(A) order (uint8,
     uint16 (signed samples as their bits) or float32), as cv2 reads them:
@@ -663,8 +712,11 @@ def _decode_tiff(data: bytes, path: str) -> Tuple[np.ndarray, bool, int]:
         raise NotImplementedError(f"{path}: JPEG-in-TIFF of photometric "
                                   f"{photo}, {depth}-bit"
                                   + (", planar" if planar else ""))
-    if photo == 6 and comp != 7:
-        raise NotImplementedError(f"{path}: YCbCr TIFF not JPEG-compressed")
+    if photo == 6 and comp != 7 and \
+            _as_tuple(tags.get(_T_SUBSAMPLING, (2, 2))) != (1, 1):
+        raise NotImplementedError(
+            f"{path}: YCbCr TIFF subsampled "
+            f"{_as_tuple(tags.get(_T_SUBSAMPLING, (2, 2)))} (1, 1 only)")
     if pred not in (1, 2) or (pred == 2 and depth not in (8, 16)):
         raise NotImplementedError(f"{path}: TIFF predictor {pred} on "
                                   f"{depth}-bit samples")
@@ -710,18 +762,12 @@ def _decode_tiff(data: bytes, path: str) -> Tuple[np.ndarray, bool, int]:
     img = {1: img, 2: img[:, ::-1], 3: img[::-1, ::-1],
            4: img[::-1]}[orient]
     img = _tiff_rgba(img, photo, depth, tags)
+    if photo == 6 and comp != 7:
+        img = _ycbcr_rgb(img, tags)
     if photo == 2 and spp == 4 and depth == 8 and \
             _as_tuple(tags.get(_T_EXTRA, 0))[0] == 2:
         img = _premultiply(img)
     return np.ascontiguousarray(img), tiled, fmt
-
-
-def _bt601(rgb: np.ndarray) -> np.ndarray:
-    """OpenCV's BT.601 gray of 8-bit RGB samples (R, G, B scaled by
-    2**14, rounded: icvCvt_BGR2Gray_8u_C3C1R)."""
-    r, g, b = (rgb[..., k].astype(np.int64) for k in range(3))
-    cr, cg, cb, shift, rnd = _GRAY_CV
-    return ((r * cr + g * cg + b * cb + rnd) >> shift).astype(np.uint8)
 
 
 def _png_gray(rgb: np.ndarray) -> np.ndarray:
@@ -767,6 +813,54 @@ def _jpeg(data: bytes, mode: str, path: str) -> np.ndarray:
     return img
 
 
+def _other_format(data: bytes, path: str):
+    """The decoder ``(data, mode, path) -> array`` of the formats whose
+    modes follow their own rules (WebP, GIF, Radiance HDR, PFM, PAM, Sun
+    raster), by signature; None for the rest.  Raises NotImplementedError
+    for a format cv2 reads and the port does not (JPEG 2000, AVIF)."""
+    if data[:4] == b"RIFF" and data[8:12] == b"WEBP":
+        return _webp
+    if data[:6] in (b"GIF87a", b"GIF89a"):
+        return image_formats.decode_gif
+    if data[:2] in (b"PF", b"Pf"):
+        return image_formats.decode_pfm
+    if data[:2] == b"P7":
+        return image_formats.decode_pam
+    if data.startswith((b"#?RADIANCE", b"#?RGBE")):
+        return image_formats.decode_hdr
+    if data[:4] == image_formats.SUN_MAGIC:
+        return image_formats.decode_sun
+    if data[:12] == b"\0\0\0\x0cjP  \r\n\x87\n" or \
+            data[:4] == b"\xff\x4f\xff\x51":
+        raise NotImplementedError(f"{path}: JPEG 2000 (decoding it needs a "
+                                  f"port of OpenJPEG, its 9/7 float "
+                                  f"wavelet included)")
+    if data[4:8] == b"ftyp" and data[8:12] in (b"avif", b"avis"):
+        raise NotImplementedError(f"{path}: AVIF (decoding it needs an AV1 "
+                                  f"decoder)")
+    return None
+
+
+def _webp(data: bytes, mode: str, path: str) -> np.ndarray:
+    """A WebP's ``imread``: the native decode (``native/webp.cpp``), BGRA
+    unchanged where the file has alpha, else BGR; gray through cvtColor;
+    turned by the orientation in its EXIF chunk unless ``mode`` is
+    "unchanged"."""
+    head = native.webp_info(data, path)
+    channels = {"gray": 1, "color": 3}.get(
+        mode, 4 if head["has_alpha"] else 3)
+    img = native.webp_decode(data, channels, path)
+    if mode == "unchanged":
+        return img
+    off, n = head["exif"]
+    if n:
+        block = data[off:off + n]
+        if block.startswith(b"Exif\0\0"):
+            block = block[6:]
+        img = _orient(img, orientation(block))
+    return img
+
+
 MODES = ("color", "gray", "unchanged")
 
 
@@ -784,6 +878,9 @@ def imread(path: str, mode: str = "color") -> np.ndarray:
         data = f.read()
     if data[:2] == b"\xff\xd8":
         return _jpeg(data, mode, path)
+    other = _other_format(data, path)
+    if other is not None:
+        return other(data, mode, path)
     gray_file = False
     if data[:8] == _PNG_SIGNATURE:
         fmt = "png"
@@ -808,11 +905,12 @@ def imread(path: str, mode: str = "color") -> np.ndarray:
         elif sample_format == 2:
             raw = raw.view(np.int16)
     else:
-        raise NotImplementedError(f"{path}: unknown image format (JPEG, "
-                                  f"PNG, PNM, BMP, TIFF only)")
+        raise NotImplementedError(
+            f"{path}: unknown image format (JPEG, PNG, PNM, PAM, PFM, BMP, "
+            f"TIFF, WebP, GIF, Radiance HDR and Sun raster only)")
     if mode == "unchanged":
         if gray_file:
-            return _bt601(raw[..., :3])
+            return image_formats.bt601(raw[..., :3])
         if raw.shape[2] == 1:
             return np.ascontiguousarray(raw[..., 0])
         return np.ascontiguousarray(raw[..., [2, 1, 0, 3][:raw.shape[2]]])
@@ -828,7 +926,8 @@ def imread(path: str, mode: str = "color") -> np.ndarray:
         if raw.shape[2] == 1:
             img = raw[..., 0]
         else:
-            img = _png_gray(raw) if fmt == "png" else _bt601(raw)
+            img = (_png_gray(raw) if fmt == "png"
+                   else image_formats.bt601(raw))
     else:
         img = (np.repeat(raw, 3, axis=2) if raw.shape[2] == 1
                else raw[..., ::-1])

@@ -9,11 +9,15 @@
   :3532-3586);
 - ``jpeg.cpp``: baseline, extended and progressive Huffman JPEG decoding
   to the samples ``cv2.imread`` gives with libjpeg-turbo (its ISLOW IDCT,
-  fancy upsampling and colour tables), behind ``io.images``.
+  fancy upsampling and colour tables), behind ``io.images``;
+- ``webp.cpp``: WebP decoding (lossy VP8, lossless VP8L, alpha, the
+  first frame of an animation) to the samples ``cv2.imread`` gives with
+  libwebp (its fancy upsampling and fixed-point colour conversion).
 
 ``maxflow.cpp`` and ``raster.cpp`` are byte-for-byte the JAX package's;
-``jpeg.cpp`` is the port's own (the JAX package decodes with OpenCV,
-which the port's machine does not have).  All three are compiled with
+``jpeg.cpp`` and ``webp.cpp`` are the port's own (the JAX package decodes
+with OpenCV, which the port's machine does not have).  All four are
+compiled with
 the JAX package's flags, ``g++ -O3 -march=native -std=c++17 -shared
 -fPIC`` (the flags matter: without ``-march=native`` g++ forms no fused
 multiply-adds on x86 and the barycentrics differ in the last bit), so the
@@ -24,7 +28,7 @@ resolves to, so a copy of the tree on another machine builds anew) and
 loaded with ctypes.  A failed build raises with the compiler's output;
 there is no fallback.  The plain versions, scipy's integer max-flow
 (``maxflow_scipy``) and the numpy rasterizer of ``mesh.mesh_ops``, are
-reached only by asking for them; the JPEG decoder has none.
+reached only by asking for them; the image decoders have none.
 """
 from __future__ import annotations
 
@@ -108,12 +112,17 @@ _SIGNATURES = {
              ("hcmvs_jpeg_decode", ctypes.c_int,
               [_BYTES, ctypes.c_int64, ctypes.c_int32, _U8, ctypes.c_int64,
                _MSG, ctypes.c_int])],
+    "webp": [("hcmvs_webp_info", ctypes.c_int,
+              [_BYTES, ctypes.c_int64, _I64, _MSG, ctypes.c_int]),
+             ("hcmvs_webp_decode", ctypes.c_int,
+              [_BYTES, ctypes.c_int64, ctypes.c_int32, _U8, ctypes.c_int64,
+               _MSG, ctypes.c_int])],
 }
 
 
 def library(name: str) -> ctypes.CDLL:
-    """The loaded library of ``<name>.cpp`` ("maxflow", "raster" or
-    "jpeg"), built on first use, with its functions' argument types
+    """The loaded library of ``<name>.cpp`` ("maxflow", "raster", "jpeg"
+    or "webp"), built on first use, with its functions' argument types
     declared."""
     if name not in _libs:
         lib = ctypes.CDLL(str(build(name)))
@@ -175,6 +184,38 @@ def jpeg_decode(data: bytes, mode: str = "color",
     _jpeg_status(library("jpeg").hcmvs_jpeg_decode(
         data, len(data), JPEG_MODES[mode], out, out.size, msg, len(msg)),
         msg, path)
+    return out
+
+
+def webp_info(data: bytes, path: str = "WebP") -> Dict[str, int]:
+    """The canvas of a WebP file: width, height, has_alpha (the BGRA cv2
+    reads unchanged), animated, and exif (offset, length) of its EXIF
+    chunk ((0, 0) without one).  Raises as ``webp_decode`` does."""
+    info = np.zeros(8, np.int64)
+    msg = ctypes.create_string_buffer(256)
+    _jpeg_status(library("webp").hcmvs_webp_info(
+        data, len(data), info, msg, len(msg)), msg, path)
+    keys = ("width", "height", "has_alpha", "animated")
+    out = {k: int(v) for k, v in zip(keys, info)}
+    out["exif"] = (int(info[4]), int(info[5]))
+    return out
+
+
+def webp_decode(data: bytes, channels: int = 4,
+                path: str = "WebP") -> np.ndarray:
+    """A WebP file's canvas as libwebp decodes it for cv2 (a still image;
+    the first frame of an animation on a transparent canvas): (H, W, 4)
+    BGRA with alpha 255 where the file has none, (H, W, 3) BGR, or for
+    ``channels`` 1 (H, W) gray as cv2's cvtColor computes it from the
+    BGR.  Raises NotImplementedError naming an unsupported feature and
+    ValueError naming the fault of a corrupt or truncated file."""
+    head = webp_info(data, path)
+    shape = (head["height"], head["width"]) + (
+        (channels,) if channels > 1 else ())
+    out = np.empty(shape, np.uint8)
+    msg = ctypes.create_string_buffer(256)
+    _jpeg_status(library("webp").hcmvs_webp_decode(
+        data, len(data), channels, out, out.size, msg, len(msg)), msg, path)
     return out
 
 

@@ -294,6 +294,492 @@ def write_formats(fmt_dir: str):
     return out
 
 
+def libwebp():
+    """Pillow's bundled libwebp, for its advanced encoding API (token
+    partitions, the simple loop filter, sharpness, alpha options)."""
+    import ctypes
+    import glob
+    import PIL
+    libs = os.path.join(os.path.dirname(os.path.dirname(PIL.__file__)),
+                        "pillow.libs")
+    for dep in glob.glob(os.path.join(libs, "libsharpyuv-*.so*")):
+        ctypes.CDLL(dep, mode=ctypes.RTLD_GLOBAL)
+    return ctypes.CDLL(glob.glob(os.path.join(libs, "libwebp-*.so*"))[0])
+
+
+# WebPConfig's fields (libwebp 1.x): byte offsets of the int fields set
+_WEBP_CONFIG = {"lossless": 0, "method": 8, "segments": 24, "sns": 28,
+                "strength": 32, "sharpness": 36, "filter_type": 40,
+                "autofilter": 44, "alpha_compression": 48,
+                "alpha_filtering": 52, "alpha_quality": 56,
+                "partitions": 72, "near_lossless": 92, "exact": 96}
+
+
+def webp_encode(img: np.ndarray, quality: float = 80.0, **options) -> bytes:
+    """(H, W, 3) RGB or (H, W, 4) RGBA uint8 as a WebP through libwebp's
+    WebPEncode with the WebPConfig ``options`` (the keys of
+    ``_WEBP_CONFIG``; token partitions need method 0-2, where libwebp
+    writes tokens straight to their partitions)."""
+    import ctypes
+    lib = libwebp()
+    h, w, c = img.shape
+    cfg = ctypes.create_string_buffer(512)
+    pic = ctypes.create_string_buffer(1024)
+    abi = 0x0209
+    if not lib.WebPConfigInitInternal(cfg, 0, ctypes.c_float(quality), abi):
+        raise RuntimeError("WebPConfigInit failed")
+    for key, value in options.items():
+        struct.pack_into("<i", cfg, _WEBP_CONFIG[key], int(value))
+    if not lib.WebPValidateConfig(cfg) or \
+            not lib.WebPPictureInitInternal(pic, abi):
+        raise RuntimeError(f"invalid WebP options {options}")
+    struct.pack_into("<iiii", pic, 0, 0, 0, w, h)
+    buf = np.ascontiguousarray(img)
+    imp = lib.WebPPictureImportRGB if c == 3 else lib.WebPPictureImportRGBA
+    if not imp(pic, buf.ctypes.data_as(ctypes.c_void_p), w * c):
+        raise RuntimeError("WebPPictureImport failed")
+    writer = ctypes.create_string_buffer(64)
+    lib.WebPMemoryWriterInit(writer)
+    # WebPPicture's writer and custom_ptr
+    struct.pack_into("<QQ", pic, 96,
+                     ctypes.cast(lib.WebPMemoryWrite, ctypes.c_void_p).value,
+                     ctypes.addressof(writer))
+    ok = lib.WebPEncode(cfg, pic)
+    mem, size = struct.unpack_from("<QQ", writer, 0)
+    out = ctypes.string_at(mem, size)
+    lib.WebPMemoryWriterClear(writer)
+    lib.WebPPictureFree(pic)
+    if not ok:
+        raise RuntimeError(f"WebPEncode failed ({options})")
+    return out
+
+
+def riff_chunk(tag: bytes, body: bytes) -> bytes:
+    return tag + struct.pack("<I", len(body)) + body + b"\0" * (len(body) & 1)
+
+
+def riff_chunks(data: bytes) -> list:
+    """(tag, body) of a WebP file's chunks."""
+    out, pos = [], 12
+    while pos + 8 <= len(data):
+        (n,) = struct.unpack_from("<I", data, pos + 4)
+        out.append((data[pos:pos + 4], data[pos + 8:pos + 8 + n]))
+        pos += 8 + n + (n & 1)
+    return out
+
+
+def webp_file(chunks: bytes) -> bytes:
+    return b"RIFF" + struct.pack("<I", 4 + len(chunks)) + b"WEBP" + chunks
+
+
+def vp8x(flags: int, w: int, h: int) -> bytes:
+    return riff_chunk(b"VP8X", struct.pack("<I", flags)
+                      + (w - 1).to_bytes(3, "little")
+                      + (h - 1).to_bytes(3, "little"))
+
+
+def alpha_filtered(alpha: np.ndarray, kind: int) -> np.ndarray:
+    """The residuals of the ALPH filter ``kind`` (0 none, 1 horizontal, 2
+    vertical, 3 gradient) of an (H, W) alpha plane: the first row from
+    its left neighbour, the first column (below the first row) from the
+    pixel above."""
+    a = alpha.astype(np.int64)
+    pred = np.zeros_like(a)
+    if kind:
+        pred[0, 1:] = a[0, :-1]
+        pred[1:, 0] = a[:-1, 0]
+        if kind == 1:
+            pred[1:, 1:] = a[1:, :-1]
+        elif kind == 2:
+            pred[1:, 1:] = a[:-1, 1:]
+        else:
+            pred[1:, 1:] = np.clip(a[1:, :-1] + a[:-1, 1:] - a[:-1, :-1],
+                                   0, 255)
+    return ((a - pred) & 0xFF).astype(np.uint8)
+
+
+def webp_with_alpha(rgb: np.ndarray, alpha: np.ndarray, kind: int,
+                    compressed: bool, quality: float = 80.0) -> bytes:
+    """A VP8X file: libwebp's lossy ``rgb`` and an ALPH chunk written
+    here, its ``alpha`` under filter ``kind``, raw or (``compressed``)
+    as a lossless stream (Pillow's lossless encode of the residuals as
+    green, its 5-byte VP8L header dropped); the chunk's pre-processing
+    bits say level reduction when ``compressed``."""
+    import io
+    from PIL import Image
+    h, w = alpha.shape
+    res = alpha_filtered(alpha, kind)
+    if compressed:
+        buf = io.BytesIO()
+        zeros = np.zeros_like(res)
+        Image.fromarray(np.stack([zeros, res, zeros], -1)).save(
+            buf, "WEBP", lossless=True, quality=100, method=6)
+        vp8l = dict(riff_chunks(buf.getvalue()))[b"VP8L"]
+        body = bytes([1 | kind << 2 | 1 << 4]) + vp8l[5:]
+    else:
+        body = bytes([kind << 2]) + res.tobytes()
+    vp8 = dict(riff_chunks(webp_encode(rgb, quality)))[b"VP8 "]
+    return webp_file(vp8x(0x10, w, h) + riff_chunk(b"ALPH", body)
+                     + riff_chunk(b"VP8 ", vp8))
+
+
+def webp_animation(canvas_hw, frames, alpha: bool) -> bytes:
+    """An animated WebP of ``frames`` ((still WebP bytes, x, y) each, x
+    and y even) on a canvas of ``canvas_hw``."""
+    h, w = canvas_hw
+    body = vp8x(0x02 | (0x10 if alpha else 0), w, h)
+    body += riff_chunk(b"ANIM", struct.pack("<IH", 0, 0))
+    for data, x, y in frames:
+        inner = [(t, b) for t, b in riff_chunks(data)
+                 if t in (b"ALPH", b"VP8 ", b"VP8L")]
+        fw, fh = _webp_size(data)
+        head = b"".join(v.to_bytes(3, "little")
+                        for v in (x // 2, y // 2, fw - 1, fh - 1, 100))
+        body += riff_chunk(b"ANMF", head + b"\0" + b"".join(
+            riff_chunk(t, b) for t, b in inner))
+    return webp_file(body)
+
+
+def _webp_size(data: bytes):
+    chunks = dict(riff_chunks(data))
+    if b"VP8L" in chunks:
+        (bits,) = struct.unpack_from("<I", chunks[b"VP8L"], 1)
+        return (bits & 0x3FFF) + 1, ((bits >> 14) & 0x3FFF) + 1
+    frame = chunks[b"VP8 "]
+    return (struct.unpack_from("<H", frame, 6)[0] & 0x3FFF,
+            struct.unpack_from("<H", frame, 8)[0] & 0x3FFF)
+
+
+def lzw_gif(idx: np.ndarray, min_size: int) -> bytes:
+    """GIF's LZW of a run of indices (codes least significant bit first,
+    a Clear first and whenever the table is full)."""
+    clear, eoi = 1 << min_size, (1 << min_size) + 1
+    out, acc, nbits = bytearray(), 0, 0
+
+    def emit(code, width):
+        nonlocal acc, nbits
+        acc |= code << nbits
+        nbits += width
+        while nbits >= 8:
+            out.append(acc & 255)
+            acc >>= 8
+            nbits -= 8
+
+    width, table, nxt = min_size + 1, {}, eoi + 1
+    emit(clear, width)
+    prev = None
+    for p in idx.reshape(-1).tolist():
+        if prev is None:
+            prev = (p,)
+            continue
+        key = prev + (p,)
+        if key in table:
+            prev = key
+            continue
+        emit(table[prev] if len(prev) > 1 else prev[0], width)
+        if nxt < 4096:
+            table[key] = nxt
+            nxt += 1
+            if nxt > (1 << width) and width < 12:
+                width += 1
+        else:
+            emit(clear, width)
+            table, nxt, width = {}, eoi + 1, min_size + 1
+        prev = (p,)
+    if prev is not None:
+        emit(table[prev] if len(prev) > 1 else prev[0], width)
+    emit(eoi, width)
+    if nbits:
+        out.append(acc & 255)
+    return bytes(out)
+
+
+def gif_frame(idx: np.ndarray, left: int = 0, top: int = 0, local=None,
+              interlace: bool = False, control=None) -> bytes:
+    """A GIF image (graphic control extension (disposal, transparent
+    index or None) first when ``control``)."""
+    h, w = idx.shape
+    out = b""
+    if control is not None:
+        disposal, transparent = control
+        flags = disposal << 2 | (transparent is not None)
+        out += b"\x21\xf9\x04" + bytes([flags]) + struct.pack(
+            "<HB", 5, transparent or 0) + b"\0"
+    flags = 0x40 if interlace else 0
+    if local is not None:
+        flags |= 0x80 | (int(np.log2(len(local))) - 1)
+    out += b"\x2c" + struct.pack("<4HB", left, top, w, h, flags)
+    if local is not None:
+        out += np.asarray(local, np.uint8).tobytes()
+    rows = idx
+    if interlace:
+        rows = idx[np.concatenate([np.arange(0, h, 8), np.arange(4, h, 8),
+                                   np.arange(2, h, 4), np.arange(1, h, 2)])]
+    min_size = max(2, int(np.ceil(np.log2(max(2, int(idx.max()) + 1)))))
+    data = lzw_gif(rows, min_size)
+    blocks = b"".join(bytes([len(data[i:i + 255])]) + data[i:i + 255]
+                      for i in range(0, len(data), 255))
+    return out + bytes([min_size]) + blocks + b"\0"
+
+
+def gif(w: int, h: int, frames, table=None, background: int = 0,
+        version: bytes = b"89a") -> bytes:
+    flags = 0
+    if table is not None:
+        flags = 0xF0 | (int(np.log2(len(table))) - 1)
+    out = b"GIF" + version + struct.pack("<2H3B", w, h, flags, background, 0)
+    if table is not None:
+        out += np.asarray(table, np.uint8).tobytes()
+    return out + b"".join(frames) + b"\x3b"
+
+
+def sun(w: int, h: int, depth: int, rows: np.ndarray, kind: int = 1,
+        cmap=None) -> bytes:
+    """A Sun raster written here: ``rows`` (h, bytes) padded to 16 bits
+    a row (type 2: then run-length coded), ``cmap`` (n, 3) RGB written as
+    three planes."""
+    pitch = ((w * depth + 7) // 8 + 1) & ~1
+    body = b"".join(r.tobytes().ljust(pitch, b"\0") for r in rows)
+    if kind == 2:                      # byte-encoded: 0x80 runs
+        out, i = bytearray(), 0
+        while i < len(body):
+            j = i
+            while j < len(body) and body[j] == body[i] and j - i < 256:
+                j += 1
+            if j - i >= 3 or body[i] == 0x80:    # a run, or one 0x80
+                out += (bytes([0x80, j - i - 1, body[i]]) if j - i > 1
+                        else b"\x80\0")
+                i = j
+            else:
+                out.append(body[i])
+                i += 1
+        body = bytes(out)
+    cm = b"" if cmap is None else np.asarray(cmap, np.uint8).T.tobytes()
+    return struct.pack(">8I", 0x59A66A95, w, h, depth, len(body), kind,
+                       1 if cmap is not None else 0, len(cm)) + cm + body
+
+
+def pam(w: int, h: int, depth: int, maxval: int, kind, raster: bytes
+        ) -> bytes:
+    head = f"P7\nWIDTH {w}\nHEIGHT {h}\nDEPTH {depth}\nMAXVAL {maxval}\n"
+    if kind:
+        head += f"TUPLTYPE {kind}\n"
+    return (head + "ENDHDR\n").encode() + raster
+
+
+def write_image_kinds(fmt_dir: str):
+    """The WebP, GIF, Radiance HDR, PFM, PAM, Sun raster and YCbCr TIFF
+    kinds; returns their paths."""
+    import io
+    import cv2
+    from PIL import Image
+    os.makedirs(fmt_dir, exist_ok=True)
+    rgb = pattern()
+    bgr = np.ascontiguousarray(rgb[..., ::-1])
+    h, w = rgb.shape[:2]
+    rng = np.random.default_rng(14)
+    y, x = np.mgrid[0:h, 0:w]
+    alpha = np.clip(128 + 120 * np.sin(x / 5) * np.cos(y / 7)
+                    + rng.normal(0, 12, (h, w)), 0, 255).astype(np.uint8)
+    rgba = np.concatenate([rgb, alpha[..., None]], -1)
+    files = {}
+
+    def pil(im, fmt, **kw):
+        buf = io.BytesIO()
+        im.save(buf, fmt, **kw)
+        return buf.getvalue()
+
+    # lossy WebP: cv2's own, then libwebp's encoder at several qualities
+    # and methods (segments, 1-8 token partitions, both loop filters,
+    # sharpness, the loop filter off)
+    ok, enc = cv2.imencode(".webp", bgr)
+    files["webp_cv2.webp"] = enc.tobytes()
+    for name, quality, opts in (
+            ("webp_q5_m0_p8_simple", 5, dict(method=0, partitions=3,
+                                              filter_type=0)),
+            ("webp_q30_m1_p2_simple", 30, dict(method=1, partitions=1,
+                                               filter_type=0, sharpness=3)),
+            ("webp_q60_m2_p4_sharp6", 60, dict(method=2, partitions=2,
+                                               sharpness=6, strength=90)),
+            ("webp_q90_m4_seg4", 90, dict(method=4, segments=4, sns=100,
+                                          autofilter=1)),
+            ("webp_q100_m6_seg1", 100, dict(method=6, segments=1)),
+            ("webp_q75_nofilter", 75, dict(method=3, strength=0))):
+        files[name + ".webp"] = webp_encode(rgb, quality, **opts)
+    # a flat half: skipped macroblocks (the skip probability) and DC
+    # prediction on the left edge
+    flat = rgb.copy()
+    flat[:, :w // 2] = 120
+    files["webp_flat_m0.webp"] = webp_encode(flat, 80, method=0)
+    # lossy with alpha: libwebp's own alpha, and ALPH chunks written here
+    # under each filter, raw and compressed
+    files["webp_alpha_libwebp.webp"] = webp_encode(
+        rgba, 80, alpha_filtering=2, alpha_quality=60)
+    for kind, fname in enumerate(("none", "horizontal", "vertical",
+                                  "gradient")):
+        for comp in (False, True):
+            files[f"webp_alpha_{fname}_{'vp8l' if comp else 'raw'}.webp"] \
+                = webp_with_alpha(rgb, alpha, kind, comp)
+    # lossless: RGB and RGBA (predictors, cross colour, subtract green,
+    # colour cache, meta prefix codes), and palettes of 2, 4, 16 and 200
+    # colours (colour indexing bundling 8, 4, 2 and 1 pixels)
+    files["webp_lossless.webp"] = pil(Image.fromarray(rgb), "WEBP",
+                                      lossless=True, quality=100, method=6)
+    files["webp_lossless_alpha.webp"] = pil(Image.fromarray(rgba), "WEBP",
+                                            lossless=True, quality=50,
+                                            method=4)
+    files["webp_lossless_fast.webp"] = webp_encode(rgba, 0, lossless=1,
+                                                   method=0, exact=1)
+    # a mosaic whose tiles take the predictors the pattern does not (above,
+    # above-right, above-left, the clamped gradient)
+    quads = [np.sin(x * 1.7), np.sin((x + y) * 1.3), np.sin((x - y) * 1.1)]
+    mosaic = np.stack([q * 100 + 128 for q in quads], -1)
+    mosaic[24:, 32:] = np.stack([x * 3 + y * 2, x * 2 + y * 4,
+                                 255 - x - y * 3], -1)[24:, 32:]
+    mosaic[:24, :32] = mosaic[:24, :32, :1]
+    mosaic[:24, 32:] = mosaic[:24, 32:, 1:2]
+    mosaic[24:, :32] = mosaic[24:, :32, 2:]
+    files["webp_lossless_mosaic.webp"] = pil(
+        Image.fromarray(np.clip(mosaic, 0, 255).astype(np.uint8)), "WEBP",
+        lossless=True, quality=100, method=6)
+    for n in (2, 4, 16, 200):
+        pal = rng.integers(0, 256, (n, 4)).astype(np.uint8)
+        pal[:, 3] = 255 if n != 4 else pal[:, 3]
+        idx = (x // 3 + y // 5 + rng.integers(0, 2, (h, w))) % n
+        files[f"webp_palette{n}.webp"] = pil(Image.fromarray(pal[idx]),
+                                             "WEBP", lossless=True,
+                                             quality=100, method=5)
+    # EXIF orientation 6, and animations (the first frame is what cv2
+    # reads: one lossy on a larger canvas, at an offset; one lossless
+    # with alpha)
+    exif = Image.Exif()
+    exif[274] = 6
+    files["webp_orient6.webp"] = pil(Image.fromarray(rgb), "WEBP",
+                                     quality=80, exif=exif.tobytes())
+    files["webp_anim.webp"] = webp_animation(
+        (h + 8, w + 6), [(webp_encode(rgb, 70), 4, 6),
+                         (webp_encode(rgb[::-1], 70), 0, 0)], alpha=False)
+    small = rgba[:24, :32]
+    files["webp_anim_alpha.webp"] = webp_animation(
+        (24, 32), [(pil(Image.fromarray(small), "WEBP", lossless=True), 0,
+                    0), (pil(Image.fromarray(small[::-1]), "WEBP",
+                             lossless=True), 0, 0)], alpha=True)
+    # GIF: 87a and 89a, global and local tables, interlaced, transparent
+    # (BGRA unchanged), a logical screen larger than the frame (the
+    # background colour around it), an animation, 2- to 12-bit codes
+    pal = rng.integers(0, 256, (256, 3))
+    idx16 = (x // 4 + y // 3) % 16
+    files["gif87a.gif"] = gif(w, h, [gif_frame(idx16)], pal[:16],
+                              version=b"87a")
+    files["gif_local_interlaced.gif"] = gif(
+        w, h, [gif_frame(idx16, local=pal[16:32], interlace=True)])
+    files["gif_transparent.gif"] = gif(w, h, [gif_frame(idx16,
+                                                        control=(0, 5))],
+                                       pal[:16])
+    files["gif_screen.gif"] = gif(w + 10, h + 6, [gif_frame(
+        idx16[:40, :50], left=7, top=3, control=(2, None))], pal[:16],
+        background=9)
+    files["gif_anim.gif"] = gif(w, h, [gif_frame(idx16, control=(1, None)),
+                                       gif_frame(idx16[::-1],
+                                                 control=(0, 3))],
+                                pal[:16])
+    files["gif_2color.gif"] = gif(w, h, [gif_frame(
+        rng.integers(0, 2, (h, w)))], pal[:2])
+    files["gif_256.gif"] = gif(64, 64, [gif_frame(
+        rng.integers(0, 256, (64, 64)))], pal)
+    files["gif_pillow.gif"] = pil(Image.fromarray(rgb).convert("P"), "GIF")
+    # Radiance HDR: cv2's run-length file and flat file; every exponent
+    # and the mantissa edges (written flat); a run-length file whose last
+    # scanline is flat (cv2 reads the rest flat)
+    hdr_img = np.exp(rng.normal(0, 2.5, (h, w, 3))).astype(np.float32)
+    files["hdr_rle.hdr"] = cv2.imencode(".hdr", hdr_img)[1].tobytes()
+    files["hdr_flat.hdr"] = cv2.imencode(".hdr", hdr_img, [
+        cv2.IMWRITE_HDR_COMPRESSION,
+        cv2.IMWRITE_HDR_COMPRESSION_NONE])[1].tobytes()
+    head = b"#?RADIANCE\nFORMAT=32-bit_rle_rgbe\n\n-Y 32 +X 32\n"
+    e = np.arange(1024) % 256
+    mant = np.array([0, 1, 2, 127, 128, 129, 254, 255])
+    px = np.stack([mant[np.arange(1024) % 8], mant[(np.arange(1024) // 8)
+                                                   % 8],
+                   255 - mant[np.arange(1024) % 8], e], -1)
+    files["hdr_exponents.hdr"] = head + px.astype(np.uint8).tobytes()
+    top = cv2.imencode(".hdr", hdr_img[:-1])[1].tobytes()
+    files["hdr_rle_then_flat.hdr"] = top.replace(
+        f"-Y {h - 1} +X {w}\n".encode(), f"-Y {h} +X {w}\n".encode()) + \
+        px[:w].astype(np.uint8).tobytes()
+    # PFM (little- and big-endian, colour and gray) and PAM
+    flt = (rgb[:24, :32].astype(np.float32) / 37.0 - 2.0)
+    files["pfm_color.pfm"] = cv2.imencode(".pfm", flt[..., ::-1].copy())[
+        1].tobytes()
+    files["pfm_gray_be.pfm"] = "Pf\n32 24\n2.5\n".encode() + \
+        flt[::-1, :, 1].astype(">f4").tobytes()
+    files["pam_rgb.pam"] = pam(w, h, 3, 255, "RGB", rgb.tobytes())
+    files["pam_gray16.pam"] = pam(w, h, 1, 65535, "GRAYSCALE",
+                                  (rgb[..., 0].astype(">u2") * 257
+                                   + x.astype(">u2")).tobytes())
+    files["pam_bw.pam"] = pam(w, h, 1, 1, "BLACKANDWHITE",
+                              (rgb[..., :1] > 128).astype(np.uint8)
+                              .tobytes())
+    files["pam_gray_alpha_bw.pam"] = pam(w, h, 2, 1, "GRAYSCALE_ALPHA",
+                                         (rgb[..., :2] > 100).astype(
+                                             np.uint8).tobytes())
+    for c in (3, 4):
+        files[f"pam_cv2_{c}ch.pam"] = cv2.imencode(
+            ".pam", np.ascontiguousarray(rgba[..., :c]))[1].tobytes()
+    # Sun raster: cv2's 8- and 24-bit; 1- and 8-bit with colour maps (one
+    # all gray), 1-bit without, 24-bit of an odd width (rows padded to 16
+    # bits), 32-bit; byte-encoded and RGB-order files, on which cv2 fails
+    files["sun_cv2_24.ras"] = cv2.imencode(".ras", bgr)[1].tobytes()
+    files["sun_cv2_8.ras"] = cv2.imencode(".ras", rgb[..., 1])[1].tobytes()
+    bits = np.packbits(rgb[..., 0] > 128, axis=1)
+    files["sun_1bit.ras"] = sun(w, h, 1, bits)
+    files["sun_1bit_map.ras"] = sun(w, h, 1, bits,
+                                    cmap=[[200, 30, 40], [10, 220, 90]])
+    cmap = rng.integers(0, 256, (256, 3))
+    files["sun_8bit_map.ras"] = sun(w, h, 8, rgb[..., 2], cmap=cmap)
+    files["sun_8bit_graymap.ras"] = sun(w, h, 8, rgb[..., 2],
+                                        cmap=np.repeat(cmap[:, :1], 3, 1))
+    files["sun_24_odd.ras"] = sun(w - 1, h, 24, bgr[:, :w - 1].reshape(
+        h, -1))
+    xbgr = np.concatenate([alpha[..., None], bgr], -1)
+    files["sun_32.ras"] = sun(w, h, 32, xbgr.reshape(h, -1))
+    files["sun_rle.ras"] = sun(w, h, 8, rgb[..., 2], kind=2)
+    files["sun_rgb.ras"] = sun(w, h, 24, rgb.reshape(h, -1), kind=3)
+    # YCbCr TIFF, uncompressed (Pillow writes ReferenceBlackWhite), LZW
+    # and Deflate (libtiff's default ReferenceBlackWhite), and one with
+    # other references and luma coefficients
+    ycc = Image.fromarray(rgb).convert("YCbCr")
+    files["ycbcr.tif"] = pil(ycc, "TIFF")
+    files["ycbcr_lzw.tif"] = pil(ycc, "TIFF", compression="tiff_lzw")
+    files["ycbcr_deflate.tif"] = pil(ycc, "TIFF",
+                                     compression="tiff_adobe_deflate")
+    files["ycbcr_refbw.tif"] = pil(ycc, "TIFF", tiffinfo={
+        532: (16.0, 235.0, 128.0, 240.0, 128.0, 240.0),
+        529: (0.2126, 0.7152, 0.0722)})
+    out = []
+    for name, data in files.items():
+        out.append(os.path.join(fmt_dir, name))
+        with open(out[-1], "wb") as f:
+            f.write(data)
+    return out
+
+
+def photo_webps(fmt_dir: str):
+    """p00 (the committed 1280x960 photo) as a lossy WebP at quality 90
+    and as a lossless one; returns their paths."""
+    from PIL import Image
+    im = Image.open(os.path.join(HERE, "photos", "p00.jpg"))
+    out = [os.path.join(fmt_dir, "p00_q90.webp"),
+           os.path.join(fmt_dir, "p00_lossless.webp")]
+    im.save(out[0], "WEBP", quality=90)
+    im.save(out[1], "WEBP", lossless=True)
+    return out
+
+
+IMAGE_EXTENSIONS = (".jpg", ".png", ".tif", ".bmp", ".webp", ".gif",
+                    ".hdr", ".pfm", ".pam", ".ras")
+
+
 def cv2_digests(path: str) -> dict:
     """{mode: {"shape", "sha256"} or None} of ``cv2.imread``'s three
     reads (None where cv2 returns none)."""
@@ -316,7 +802,7 @@ def manifest_entries(root: str = HERE) -> dict:
     """{relative path: cv2_digests} of every fixture under ``root``."""
     files = sorted(os.path.relpath(os.path.join(d, f), root)
                    for d, _, names in os.walk(root) for f in names
-                   if f.endswith((".jpg", ".png", ".tif", ".bmp")))
+                   if f.endswith(IMAGE_EXTENSIONS))
     return {f: cv2_digests(os.path.join(root, f)) for f in files}
 
 
@@ -330,6 +816,8 @@ def main(argv=()) -> int:
     write_variants(os.path.join(HERE, "variants"))
     write_jpeg_kinds(os.path.join(HERE, "variants"))
     write_formats(os.path.join(HERE, "formats"))
+    write_image_kinds(os.path.join(HERE, "formats"))
+    photo_webps(os.path.join(HERE, "formats"))
     manifest = {"cv2": cv2.__version__, "files": manifest_entries()}
     with open(os.path.join(HERE, "manifest.json"), "w") as f:
         json.dump(manifest, f, indent=1, sort_keys=True)

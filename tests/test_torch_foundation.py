@@ -419,7 +419,10 @@ _NO_JAX_SCRIPT = textwrap.dedent("""
         hcmvs_tpu_torch.__file__)), "tests", "data", "jpeg")
     with open(os.path.join(jdir, "manifest.json")) as f:
         manifest = json.load(f)["files"]
-    for name in ("variants/s420.jpg", "variants/orient6.jpg"):
+    # and a WebP (native/webp.cpp) and a GIF (io/image_formats.py)
+    for name in ("variants/s420.jpg", "variants/orient6.jpg",
+                 "formats/webp_q90_m4_seg4.webp",
+                 "formats/gif_transparent.gif"):
         for mode, want in manifest[name].items():
             img = imread(os.path.join(jdir, name), mode)
             assert hashlib.sha256(img.tobytes()).hexdigest() \

@@ -338,10 +338,14 @@ def test_densify_hierarchical_raises_for_unported(written, tmp_path):
             densify_hierarchical(*args)
 
 
-def compare_at(h: int, w: int) -> None:
+def compare_at(h: int, w: int, which=("jax", "port"),
+               external_iters=None) -> None:
     """Both packages' densify_hierarchical at DenseConfig() on an h x w,
-    4-view ridge scene; prints what chip_smoke.py's hierarchy floor rests
-    on."""
+    4-view ridge scene (the JAX package with the volume / rect backends,
+    as the parity tests force them; ``external_iters`` sets both
+    packages' n-EstimationIters-external, as chip_smoke.py's HIER_FLAGS
+    does); prints what chip_smoke.py's hierarchy gate rests on: view 0's
+    accuracy against the ground truth at the last stage's size."""
     import tempfile
     import time
     from hcmvs_tpu.core.config import DenseConfig as JConfig
@@ -351,35 +355,48 @@ def compare_at(h: int, w: int) -> None:
     from hcmvs_tpu_torch.utils.synth import (make_ridge_scene,
                                              sinusoid_texture_fn,
                                              write_ridge_scene)
-    sc = make_ridge_scene(np.random.default_rng(0), h=h, w=w, n_views=4,
-                          fx=180.0 * w / 192.0,
-                          texture_fn=sinusoid_texture_fn(
-                              np.random.default_rng(12345)))
+
+    def ridge(hh, ww, textured=True):
+        tex = sinusoid_texture_fn(np.random.default_rng(12345)) \
+            if textured else (lambda xy: np.zeros(xy.shape[:-1], np.float32))
+        return make_ridge_scene(np.random.default_rng(0), h=hh, w=ww,
+                                n_views=4, fx=180.0 * ww / 192.0,
+                                texture_fn=tex)
+
+    extra = ({} if external_iters is None
+             else dict(estimation_iters_external=external_iters))
+    sc = ridge(h, w)
     with tempfile.TemporaryDirectory() as root:
         scene_path, img_dir = write_ridge_scene(root, sc)
         runs = [("jax", lambda d: _jax_densify_hierarchical(
-                    scene_path, img_dir, d, JConfig())),
+                    scene_path, img_dir, d, JConfig(**FORCED, **extra))),
                 ("port", lambda d: densify_hierarchical(
-                    scene_path, img_dir, d, TConfig(), verbose=False,
+                    scene_path, img_dir, d, TConfig(**extra), verbose=False,
                     device="cpu"))]
         for name, run in runs:
-            if len(sys.argv) > 3 and name not in sys.argv[3:]:
+            if name not in which:
                 continue
             out = os.path.join(root, name)
             t0 = time.perf_counter()
             st = run(out)
             sec = time.perf_counter() - t0
             pts, _ = read_ply(os.path.join(out, "scene_dense.ply"))
+            d0 = st["depth"][0]
+            gt = ridge(*d0.shape, textured=False).depth_gt
             dist = np.median(sc.surface_dist(pts.astype(np.float64)))
-            print(f"{name} {h}x{w}: depth_acc_2pct "
-                  f"{_acc(st['depth'][0], sc.depth_gt):.4f}, valid "
+            print(f"{name} {h}x{w} (depth {d0.shape[0]}x{d0.shape[1]}): "
+                  f"depth_acc_2pct {_acc(d0, gt):.4f}, valid "
                   f"{st['valid_frac']:.4f}, points {st['n_points']}, "
                   f"cloud distance / median depth "
-                  f"{dist / np.median(sc.depth_gt):.5f}, {sec:.1f} s",
-                  flush=True)
+                  f"{dist / np.median(gt):.5f}, {sec:.1f} s", flush=True)
 
 
 if __name__ == "__main__":
+    # python tests/test_torch_hierarchy.py H W [jax|port] [external=N]
     import jax
     jax.config.update("jax_platforms", "cpu")
-    compare_at(int(sys.argv[1]), int(sys.argv[2]))
+    opts = sys.argv[3:]
+    ext = [int(a.split("=")[1]) for a in opts if a.startswith("external=")]
+    compare_at(int(sys.argv[1]), int(sys.argv[2]),
+               [a for a in opts if a in ("jax", "port")] or ("jax", "port"),
+               ext[0] if ext else None)

@@ -15,7 +15,13 @@ below (4-bit and RLE BMP, top-down rows, 16-bit, bit fields and OS/2
 headers; tiled, planar and predictor-2 TIFF), JPEG-in-TIFF (RGB, gray,
 YCbCr, tiled), palette, CMYK, float, signed, bilevel and min-is-white
 TIFF; Adam7 PNG by the writer below (neither library writes it); P1-P6
-PNM at several maxvals.
+PNM at several maxvals; WebP by cv2, Pillow and libwebp's own encoder
+(through make_fixtures' ctypes binding: token partitions, both loop
+filters, sharpness, segments) and with ALPH chunks, animations and EXIF
+written by make_fixtures; GIF, Sun raster and PAM by its writers, Radiance
+HDR and PFM by cv2 and by hand, YCbCr TIFF by Pillow; JPEG 2000 and AVIF,
+which cv2 reads, raise naming themselves.  A scene's images as WebP and
+GIF load as the JAX package loads them.
 The committed fixtures of ``tests/data/jpeg/`` match their manifest's
 digests, which are re-derived from cv2 here, so the manifest cannot go
 stale.  ``build_pyramid`` and ``pad_to_multiple`` equal the JAX
@@ -746,6 +752,349 @@ def test_pnm_matches_opencv(tmp_path, case):
     assert_like_cv2(path)
 
 
+# ---- WebP, GIF, Radiance HDR, PFM, PAM, Sun raster, YCbCr TIFF ----
+
+def assert_like_cv2_or_refused(path: str, undefined=()):
+    """Each mode equals cv2's read, or raises NotImplementedError where cv2
+    returns nothing; in the ``undefined`` modes (where cv2 returns memory
+    it never wrote) the port raises NotImplementedError saying so."""
+    for mode in FLAGS:
+        if mode in undefined:
+            with pytest.raises(NotImplementedError, match="unwritten"):
+                timg.imread(path, mode)
+            continue
+        ref = cv2.imread(path, FLAGS[mode])
+        if ref is None:
+            with pytest.raises(NotImplementedError):
+                timg.imread(path, mode)
+            continue
+        ours = timg.imread(path, mode)
+        assert ours.dtype == ref.dtype and ours.shape == ref.shape, \
+            (path, mode, ours.shape, ref.shape)
+        assert np.array_equal(ours, ref, equal_nan=True), (path, mode)
+
+
+def _smooth(h: int, w: int, seed: int) -> np.ndarray:
+    """(h, w, 3) uint8: sines plus a little noise (lossy coders keep
+    structure, so every prediction mode and filter gets used)."""
+    rng = np.random.default_rng(seed)
+    y, x = np.mgrid[0:h, 0:w].astype(np.float64)
+    img = np.stack([128 + 100 * np.sin(x / 3 + y / 7),
+                    128 + 90 * np.cos(y / 4 - x / 9),
+                    128 + 80 * np.sin((x + y) / 5)], -1)
+    return np.clip(img + rng.normal(0, 12, img.shape), 0,
+                   255).astype(np.uint8)
+
+
+# (h, w, quality, libwebp options): edge sizes, 1-8 token partitions,
+# both loop filters, sharpness, segments, the filter off
+WEBP_LOSSY = {
+    "1x1": (1, 1, 80, {}),
+    "3x17_p8_simple": (3, 17, 20, dict(method=0, partitions=3,
+                                       filter_type=0)),
+    "33x19_p4_sharp": (33, 19, 50, dict(method=2, partitions=2,
+                                        sharpness=7, strength=100)),
+    "61x47_seg": (61, 47, 95, dict(method=6, segments=4, sns=100,
+                                   autofilter=1)),
+    "17x64_q0": (17, 64, 0, dict(method=1, partitions=1, filter_type=0,
+                                 sharpness=2)),
+}
+
+
+@pytest.mark.parametrize("case", sorted(WEBP_LOSSY))
+def test_lossy_webp_matches_opencv(tmp_path, case):
+    h, w, quality, opts = WEBP_LOSSY[case]
+    path = str(tmp_path / f"{case}.webp")
+    _write(path, _fixtures().webp_encode(_smooth(h, w, 3), quality, **opts))
+    assert_like_cv2(path)
+
+
+@pytest.mark.parametrize("kind", [0, 1, 2, 3])
+def test_webp_alpha_filters_match_opencv(tmp_path, kind):
+    """ALPH chunks under each filter (none, horizontal, vertical,
+    gradient), raw and lossless-coded, at an odd size."""
+    fx = _fixtures()
+    rgb = _smooth(21, 35, 4)
+    alpha = _smooth(21, 35, 5)[..., 1]
+    for comp in (False, True):
+        path = str(tmp_path / f"a{kind}{comp}.webp")
+        _write(path, fx.webp_with_alpha(rgb, alpha, kind, comp, 60.0))
+        assert_like_cv2(path)
+
+
+@pytest.mark.parametrize("colors", [1, 3, 12, 60, 0])
+def test_lossless_webp_matches_opencv(tmp_path, colors):
+    """Lossless files (Pillow, and libwebp's fastest method): palettes of
+    1 to 60 colours (colour indexing bundling 8 to 1 pixels), and a photo
+    (0) with alpha."""
+    rng = np.random.default_rng(colors)
+    if colors:
+        pal = rng.integers(0, 256, (colors, 4)).astype(np.uint8)
+        idx = rng.integers(0, colors, (29, 37))
+        img = pal[idx]
+    else:
+        img = np.concatenate([_smooth(29, 37, 6), _smooth(29, 37, 7)[..., :1]],
+                             -1)
+    for k, data in enumerate((
+            _pil_bytes(Image.fromarray(img), "WEBP", lossless=True,
+                       quality=100, method=6),
+            _fixtures().webp_encode(img, 0, lossless=1, method=0))):
+        path = str(tmp_path / f"l{k}.webp")
+        _write(path, data)
+        assert_like_cv2(path)
+
+
+def _pil_bytes(im, fmt, **kw) -> bytes:
+    import io
+    buf = io.BytesIO()
+    im.save(buf, fmt, **kw)
+    return buf.getvalue()
+
+
+def test_webp_orientation_and_animation_match_opencv(tmp_path):
+    """EXIF orientations 3 and 8 (turned in the colour and gray modes),
+    and an animation whose first frame lies at an offset of a larger
+    canvas: cv2 reads that frame on a transparent canvas."""
+    fx = _fixtures()
+    rgb = _smooth(20, 30, 8)
+    for orient in (3, 8):
+        exif = Image.Exif()
+        exif[274] = orient
+        path = str(tmp_path / f"o{orient}.webp")
+        _write(path, _pil_bytes(Image.fromarray(rgb), "WEBP", quality=70,
+                                exif=exif.tobytes()))
+        assert_like_cv2(path)
+    rgba = np.concatenate([rgb, _smooth(20, 30, 9)[..., :1]], -1)
+    for alpha in (False, True):
+        path = str(tmp_path / f"anim{alpha}.webp")
+        _write(path, fx.webp_animation(
+            (26, 40), [(fx.webp_encode(rgba if alpha else rgb, 60), 2, 4),
+                       (fx.webp_encode(rgb, 60), 0, 0)], alpha))
+        assert_like_cv2(path)
+
+
+@pytest.mark.parametrize("seed", range(4))
+def test_gif_matches_opencv(tmp_path, seed):
+    """Random GIFs of the fixture writer: table sizes 2-256 (2- to 8-bit
+    minimum code sizes, codes up to 12 bits), global or local tables (or
+    none: cv2's default table),
+    interlaced or not, transparency and disposal, frames smaller than the
+    logical screen, a second frame, 87a and 89a."""
+    fx = _fixtures()
+    rng = np.random.default_rng(seed)
+    for k in range(6):
+        n = int(2 ** rng.integers(1, 9))
+        table = rng.integers(0, 256, (n, 3))
+        h, w = (int(v) for v in rng.integers(1, 40, 2))
+        sh, sw = h + int(rng.integers(0, 5)), w + int(rng.integers(0, 5))
+        top, left = int(rng.integers(0, sh - h + 1)), \
+            int(rng.integers(0, sw - w + 1))
+        idx = rng.integers(0, n, (h, w))
+        local = rng.random() < 0.4
+        control = (int(rng.integers(0, 4)),
+                   int(rng.integers(0, n)) if rng.random() < 0.6 else None)
+        frames = [fx.gif_frame(idx, left, top, table if local else None,
+                               bool(rng.random() < 0.5),
+                               control if rng.random() < 0.8 else None)]
+        if rng.random() < 0.4:
+            frames.append(fx.gif_frame(rng.integers(0, n, (h, w)), left, top,
+                                       control=(1, int(rng.integers(0, n)))))
+        path = str(tmp_path / f"{k}.gif")
+        _write(path, fx.gif(sw, sh, frames,
+                            None if local or k == 5 else table,
+                            int(rng.integers(0, n)),
+                            b"87a" if rng.random() < 0.3 else b"89a"))
+        assert_like_cv2(path)
+
+
+def test_pillow_gifs_match_opencv(tmp_path):
+    """Pillow's GIFs: interlaced (its default from 16 rows), transparent,
+    animated."""
+    rgb = _smooth(40, 50, 10)
+    im = Image.fromarray(rgb).convert("P")
+    frames = [Image.fromarray(_smooth(40, 50, s)).convert("P")
+              for s in (11, 12)]
+    for name, data in (
+            ("plain", _pil_bytes(im, "GIF")),
+            ("transparent", _pil_bytes(im, "GIF", transparency=7)),
+            ("anim", _pil_bytes(frames[0], "GIF", save_all=True,
+                                append_images=frames[1:], duration=40))):
+        path = str(tmp_path / f"{name}.gif")
+        _write(path, data)
+        assert_like_cv2(path)
+
+
+def test_hdr_matches_opencv(tmp_path):
+    """cv2's run-length and flat files (widths below 8 are flat), every
+    exponent with mantissas 0-255, and a run-length file with a flat last
+    scanline."""
+    rng = np.random.default_rng(15)
+    for w in (1, 7, 8, 33):
+        img = np.exp(rng.normal(0, 3, (5, w, 3))).astype(np.float32)
+        img[0, 0] = 0
+        for params in ([], [cv2.IMWRITE_HDR_COMPRESSION,
+                            cv2.IMWRITE_HDR_COMPRESSION_NONE]):
+            path = str(tmp_path / f"{w}_{len(params)}.hdr")
+            _write(path, cv2.imencode(".hdr", img, params)[1].tobytes())
+            assert_like_cv2(path)
+    px = np.stack([np.arange(256 * 4) % 256, (np.arange(256 * 4) * 7) % 256,
+                   255 - np.arange(256 * 4) % 256,
+                   np.repeat(np.arange(256), 4)], -1).astype(np.uint8)
+    path = str(tmp_path / "all.hdr")
+    _write(path, b"#?RGBE\nEXPOSURE=1.5\nFORMAT=32-bit_rle_rgbe\n\n"
+           b"-Y 32 +X 32\n" + px.tobytes())
+    assert_like_cv2(path)
+
+
+@pytest.mark.parametrize("case", ["pfm", "pam", "sun", "hdr_header"])
+def test_small_formats_match_opencv(tmp_path, case):
+    """PFM (colour and gray, both byte orders, several scales), PAM (every
+    tuple type, 8- and 16-bit, maxval 1; the alpha types' colour read, and
+    RGB_ALPHA's gray, are memory cv2 never wrote), Sun raster (1, 8, 24 and 32
+    bits, colour maps, odd widths, types 0-3) and Radiance headers cv2
+    refuses (other orientations, no FORMAT line): equal to cv2, or
+    NotImplementedError where cv2 reads nothing."""
+    fx = _fixtures()
+    rng = np.random.default_rng(16)
+    files, undefined = [], {}
+    if case == "pfm":
+        for c, scale, w in ((3, -1.0, 5), (1, 2.5, 6), (3, 4.0, 1),
+                            (1, -0.25, 9)):
+            vals = rng.normal(0, 200, (4, w, c)).astype(np.float32)
+            vals.flat[0] = 2.5
+            vals.flat[-1] = np.nan
+            files.append((b"PF\n" if c == 3 else b"Pf\n")
+                         + f"{w} 4\n{scale}\n".encode()
+                         + vals.astype("<f4" if scale < 0 else ">f4")
+                         .tobytes())
+        files.append(cv2.imencode(".pfm", rng.normal(0, 3, (4, 5, 3))
+                                  .astype(np.float32))[1].tobytes())
+    elif case == "pam":
+        for kind, depth in (("GRAYSCALE", 1), ("RGB", 3),
+                            ("GRAYSCALE_ALPHA", 2), ("RGB_ALPHA", 4),
+                            (None, 1), (None, 3), (None, 4),
+                            ("BLACKANDWHITE", 1), ("FOO", 3)):
+            for maxval in (1, 100, 255, 1000, 65535):
+                raster = rng.integers(0, maxval + 1, (4, 7, depth))
+                files.append(fx.pam(7, 4, depth, maxval, kind, raster.astype(
+                    ">u2" if maxval > 255 else np.uint8).tobytes()))
+                undefined[len(files) - 1] = (
+                    () if maxval == 1 or not kind or "ALPHA" not in kind
+                    else ("color",) if depth == 2 else ("color", "gray"))
+    elif case == "sun":
+        for depth in (1, 8, 24, 32):
+            for kind in (0, 1, 2, 3):
+                for mapped in (False, True):
+                    w = int(rng.integers(1, 20))
+                    nbytes = (w * depth + 7) // 8
+                    rows = rng.integers(0, 256, (5, nbytes)).astype(np.uint8)
+                    cmap = (rng.integers(0, 256, (1 << depth, 3))
+                            if mapped and depth <= 8 else None)
+                    files.append(fx.sun(w, 5, depth, rows, kind, cmap))
+        gray = rng.integers(0, 256, (1 << 8, 1)).repeat(3, 1)
+        files.append(fx.sun(9, 3, 8, rng.integers(0, 256, (3, 9)).astype(
+            np.uint8), 1, gray))
+    else:
+        body = b"\x10\x20\x30\x81" * 6
+        for head in (b"+Y 2 +X 3", b"-Y 2 -X 3", b"+X 3 -Y 2", b"-Y2+X3"):
+            files.append(b"#?RADIANCE\nFORMAT=32-bit_rle_rgbe\n\n" + head
+                         + b"\n" + body)
+        files.append(b"#?RADIANCE\n\n-Y 2 +X 3\n" + body)
+    for k, data in enumerate(files):
+        path = str(tmp_path / f"{k}.{case[:3]}")
+        _write(path, data)
+        assert_like_cv2_or_refused(path, undefined.get(k, ()))
+
+
+def test_ycbcr_tiff_matches_opencv(tmp_path):
+    """YCbCr TIFF (Pillow's): uncompressed with every Y, Cb and Cr code,
+    also under other ReferenceBlackWhite and luma coefficients; LZW and
+    Deflate."""
+    y, cb = np.mgrid[0:256, 0:256]
+    codes = np.stack([y, cb, (y * 7 + cb * 13) % 256], -1).astype(np.uint8)
+    small = Image.fromarray(_smooth(23, 31, 17)).convert("YCbCr")
+    for k, (im, kw) in enumerate((
+            (Image.fromarray(codes, "YCbCr"), {}),
+            (Image.fromarray(codes, "YCbCr"),
+             {"tiffinfo": {532: (16.0, 235.0, 128.0, 240.0, 128.0, 240.0),
+                           529: (0.2126, 0.7152, 0.0722)}}),
+            (small, {"compression": "tiff_lzw"}),
+            (small, {"compression": "tiff_adobe_deflate"}))):
+        path = str(tmp_path / f"{k}.tif")
+        im.save(path, "TIFF", **kw)
+        assert_like_cv2(path)
+
+
+def test_jpeg2000_and_avif_are_refused_by_name(tmp_path):
+    """cv2 reads JPEG 2000 (the JP2 box and a raw codestream) and AVIF;
+    the port raises NotImplementedError naming each."""
+    jp2 = cv2.imencode(".jp2", pattern(64, 64))[1].tobytes()
+    img = pattern(16, 24)
+    cases = [("x.jp2", jp2, "JPEG 2000"),
+             ("x.j2k", jp2[jp2.index(b"\xff\x4f\xff\x51"):], "JPEG 2000"),
+             ("x.avif", _pil_bytes(Image.fromarray(img), "AVIF"), "AVIF")]
+    for name, data, what in cases:
+        path = str(tmp_path / name)
+        _write(path, data)
+        assert cv2.imread(path) is not None, name
+        with pytest.raises(NotImplementedError, match=what):
+            timg.imread(path)
+
+
+@pytest.mark.parametrize("kind", ["webp_lossy", "webp_lossless", "gif"])
+def test_scene_webp_and_gif_load_like_jax(tmp_path, kind):
+    """A 96x128 plane scene's images rewritten as WebP (cv2's lossy, a
+    lossless one with alpha) or GIF (Pillow's palette) and renamed in its
+    scene.mvs: both packages' load_image give equal arrays, and the port's
+    densify loading step (``pipeline.densify._load_images``) gives the
+    images the JAX package's densify computes from them (load, scale to
+    the working resolution, gray by BT.601)."""
+    from hcmvs_tpu.core.config import DenseConfig as JConfig
+    from hcmvs_tpu.io import images as jimg
+    from hcmvs_tpu_torch.core.config import DenseConfig
+    from hcmvs_tpu_torch.io.mvs import read_mvs, write_mvs
+    from hcmvs_tpu_torch.pipeline.densify import _load_images
+    from hcmvs_tpu_torch.utils.synth import (make_plane_scene,
+                                             write_plane_scene)
+    sc = make_plane_scene(np.random.default_rng(0), h=96, w=128, n_views=3)
+    scene_path, img_dir = write_plane_scene(str(tmp_path / "s"), sc)
+    scene = read_mvs(scene_path)
+    ext = ".gif" if kind == "gif" else ".webp"
+    for k, im in enumerate(scene.images):
+        png = os.path.join(img_dir, os.path.basename(im.name))
+        rgb = np.repeat(cv2.imread(png, cv2.IMREAD_GRAYSCALE)[..., None], 3,
+                        -1)
+        rgb[..., 0] = np.roll(rgb[..., 0], 3 + k, axis=1)   # some colour
+        im.name = os.path.splitext(im.name)[0] + ext
+        out = os.path.join(img_dir, os.path.basename(im.name))
+        if kind == "webp_lossy":
+            cv2.imwrite(out, rgb[..., ::-1], [cv2.IMWRITE_WEBP_QUALITY, 90])
+        elif kind == "webp_lossless":
+            alpha = np.full(rgb.shape[:2] + (1,), 200, np.uint8)
+            Image.fromarray(np.concatenate([rgb, alpha], -1)).save(
+                out, "WEBP", lossless=True)
+        else:
+            Image.fromarray(rgb).convert("P").save(out)
+        for gray in (False, True):
+            assert np.array_equal(timg.load_image(out, gray),
+                                  jimg.load_image(out, gray)), (out, gray)
+    write_mvs(scene_path, scene)
+    cfg, jcfg = DenseConfig(), JConfig()
+    grays, colors = _load_images(read_mvs(scene_path), img_dir, cfg)
+    scale = None
+    for k, im in enumerate(scene.images):
+        img = jimg.load_image(os.path.join(img_dir, im.name))
+        if scale is None:
+            scale = jimg.compute_resolution_scale(
+                img.shape[1], img.shape[0], jcfg.resolution_level,
+                jcfg.max_resolution, jcfg.min_resolution)
+        img = jimg.resize_image(img, scale)
+        assert colors[k].dtype == img.dtype and np.array_equal(colors[k],
+                                                               img), k
+        assert np.array_equal(grays[k], jimg.to_gray(img).astype(
+            np.float32)), k
+
+
 # ---- fixtures, helpers, build ----
 
 def test_fixture_manifest_matches_opencv_and_port():
@@ -787,6 +1136,20 @@ def test_build_pyramid_and_pad_match_jax(dtype):
             (pa, hw_a), (pb, hw_b) = (timg.pad_to_multiple(img, m, 0.5),
                                       jimg.pad_to_multiple(img, m, 0.5))
             assert hw_a == hw_b and np.array_equal(pa, pb)
+
+
+def test_webp_build_failure_raises(tmp_path, monkeypatch):
+    """A failed g++ build of the WebP decoder raises with g++'s output;
+    nothing falls back to another decoder."""
+    from hcmvs_tpu_torch import native
+    path = str(tmp_path / "x.webp")
+    _write(path, cv2.imencode(".webp", pattern(8, 8))[1].tobytes())
+    monkeypatch.setattr(native, "_libs", {})
+    monkeypatch.setattr(native, "BUILD_DIR", tmp_path / "build")
+    monkeypatch.setattr(native, "GXX_FLAGS",
+                        native.GXX_FLAGS + ("-fno-such-flag",))
+    with pytest.raises(RuntimeError, match="g\\+\\+ failed"):
+        timg.imread(path)
 
 
 def test_jpeg_build_failure_raises(tmp_path, monkeypatch):

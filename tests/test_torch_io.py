@@ -315,7 +315,10 @@ def _tiff_compressed(compression: int, extra=()) -> bytes:
     # fail in cv2
     (b"BM" + bytes(12) + struct.pack("<IiiHHI", 40, 2, 2, 1, 16, 3)
      + bytes(20) + struct.pack("<III", 0xF00, 0xF0, 0xF), "bit fields"),
-    (b"GIF89a" + bytes(16), "unknown")])
+    # GIF reads now; JPEG 2000 (its box, or a raw codestream) and AVIF,
+    # which cv2 reads too, are refused by name
+    (b"\0\0\0\x0cjP  \r\n\x87\n" + bytes(20), "JPEG 2000"),
+    (b"\0\0\0\x1cftypavif" + bytes(20), "AVIF")])
 def test_unsupported_images_raise(tmp_path, data, what):
     path = str(tmp_path / "x.img")
     with open(path, "wb") as f:
@@ -324,6 +327,23 @@ def test_unsupported_images_raise(tmp_path, data, what):
         timg.load_image(path)
     with pytest.raises(FileNotFoundError):
         timg.load_image(str(tmp_path / "missing.png"))
+
+
+def test_truncated_gif_raises(tmp_path):
+    """A GIF cut inside its image data, or before its first image, is
+    corrupt: ValueError."""
+    path = str(tmp_path / "x.gif")
+    Image = pytest.importorskip("PIL.Image")
+    rng = np.random.default_rng(3)
+    Image.fromarray(rng.integers(0, 256, (20, 30, 3)).astype(np.uint8)
+                    ).convert("P").save(path)
+    with open(path, "rb") as f:
+        data = f.read()
+    for cut in (len(data) // 2, 13 + 3 * 256 + 4):
+        with open(path, "wb") as f:
+            f.write(data[:cut])
+        with pytest.raises(ValueError):
+            timg.load_image(path)
 
 
 def test_png_depths_and_palette_decode(tmp_path):

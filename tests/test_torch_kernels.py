@@ -848,9 +848,11 @@ def test_sfm_features_and_ransac_on_cuda_match_cpu():
 @pytest.mark.gpu
 def test_jpeg_fixtures_match_their_manifest_on_the_card_machine():
     """The port's decodes of every committed fixture of tests/data/jpeg
-    (native/jpeg.cpp, built on first use) equal the manifest's cv2
-    digests on the card's machine, where no cv2 exists (and raise where
-    cv2 reads nothing); the photos' gray decodes then go to the card."""
+    (JPEG, PNG, TIFF, BMP, WebP, GIF, HDR, PFM, PAM, Sun raster;
+    native/jpeg.cpp and native/webp.cpp built on first use) equal the
+    manifest's cv2 digests on the card's machine, where no cv2 exists (and
+    raise where cv2 reads nothing); the photos' gray decodes then go to
+    the card."""
     import hashlib
     import json
     from hcmvs_tpu_torch.io.images import imread

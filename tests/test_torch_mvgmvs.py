@@ -285,15 +285,17 @@ def _photo_chain(h: int, w: int, which: str, root: str,
     return run_chain(sc, photos, which, root, presets)
 
 
-def run_chain(sc, photos: str, which: str, root: str, presets=()) -> dict:
+def run_chain(sc, photos: str, which: str, root: str, presets=(),
+              extra_flags=None) -> dict:
     """The chain of ``_photo_chain`` on the photo directory ``photos`` of
-    the ridge scene ``sc`` through one package."""
+    the ridge scene ``sc`` through one package (``extra_flags``: more CLI
+    flags for its dense step, as chip_smoke.py's PHOTO_FLAGS add)."""
     from hcmvs_tpu_torch.core.config import config_from_cli_flags
     from hcmvs_tpu_torch.eval.pose_eval import umeyama_align
     h, w = sc.depth_gt.shape
     if presets:
         return _photo_sfm(sc, photos, which, presets)
-    flags = {"resolution-level": "0"}
+    flags = {"resolution-level": "0", **(extra_flags or {})}
     if which == "jax":
         from hcmvs_tpu.core.config import config_from_cli_flags as jflags
         out = jmvg.run_pipeline_photos(

@@ -12,9 +12,12 @@ tests/test_torch_densify.py.
 
 Run as a script, ``PYTHONPATH=. python tests/test_torch_photos_jpeg.py
 resize`` prints ``resize_image``'s seconds to halve a 6000x4000 gray and
-RGB image (3 calls each); ``... H W [jax|port] [sfm|incremental|global]``
+RGB image (3 calls each); ``... H W [jax|port] [sfm|incremental|global]
+[FLAG=VALUE ...]``
 runs tests/test_torch_mvgmvs.py's chain (``run_pipeline_photos`` at
-DenseConfig() plus resolution-level=0, or with ``sfm`` / a preset SfM
+DenseConfig() plus resolution-level=0 and the FLAG=VALUE CLI flags
+given, as ``n-EstimationIters-external=2`` (chip_smoke.py's
+PHOTO_FLAGS), or with ``sfm`` / a preset SfM
 and the distortion refinement alone) on JPEG photos: at 960 1280 the committed ones, at any other size phase 27's
 scene rendered at H x W and saved as the committed ones were
 (``make_fixtures.save_jpeg_photos``).  chip_smoke.py's phase-27 gates
@@ -139,8 +142,10 @@ if __name__ == "__main__":
     presets = [a for a in args if a in ("incremental", "global")]
     if "sfm" in args:
         presets = ["incremental", "global"]
+    extra = dict(a.split("=", 1) for a in args if "=" in a)
     for which in [a for a in args if a in ("jax", "port")] or ["jax",
                                                                "port"]:
         with tempfile.TemporaryDirectory() as root:
             sc, photos = photo_set(h, w, root)
-            print(run_chain(sc, photos, which, root, presets), flush=True)
+            print(run_chain(sc, photos, which, root, presets, extra),
+                  flush=True)
