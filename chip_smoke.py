@@ -6,21 +6,23 @@
 Phases, each fatal on failure:
   1. device: the card's name and power limit (nvidia-smi), torch / CUDA;
   2. build: compile the CUDA kernels from hcmvs_tpu_torch/kernels/csrc,
-     and the earlier designs of kernels B and D from csrc/earlier into a
-     library of their own (one nvcc per source, all started together);
+     and the earlier designs of kernels B, C and D from csrc/earlier into
+     a library of their own (one nvcc per source, all started together);
   3. kernel parity: each of the five kernels against its plain PyTorch
      version on the card, at the 1280x960 shapes the paths give it (B
      at every index-field width: 36 and 9 offsets, and the densify
      path's 64 and 16 on a table at its depth range; D at 324 and 81
      columns and the view axis's 144), A, B (64, 16) and C also at the
-     hierarchy's 640x480 ones, and E also at 12 views (two launches);
-     B, C and E also at ``batch_candidates``' stack of the eight
-     propagation candidates (B at 8 x 36 and 8 x 9 columns, C (8, 3, 2,
-     960, 1280), E (8, 3, 960, 1280), one launch each), with its device
-     time (``cuda_ms``: launches queued
+     hierarchy's 640x480 ones, A and C at the operating point's 10
+     pairs a launch (phase 22's scene), and E also at 12 views (two
+     launches); B, C and E also at ``batch_candidates``' stack of the
+     eight propagation candidates (B at 8 x 36 and 8 x 9 columns, C (8,
+     3, 2, 960, 1280), E (8, 3, 960, 1280), one launch each), with its
+     device time (``cuda_ms``: launches queued
      behind a spin kernel, so the host's launch work is not counted;
-     checked against torch.profiler on kernel A), B's and D's earlier
-     designs timed on the same inputs (``earlier_ms``), and the least
+     checked against torch.profiler on kernel A), B's, C's and D's
+     earlier designs timed on the same inputs (``earlier_ms``; C bit-equal
+     to its earlier design at every shape), and the least
      time the card could take (bound: B's and D's table bytes are the
      sectors this run's lookups read);
   4. the exact path through the kernels: estimate_scene + finalize at
@@ -187,18 +189,20 @@ Phases, each fatal on failure:
      planes: A, B, C; 256 planes, the per-plane build: B, C; hybrid and
      candidate-batched: A, C, D, E), on the view axis as two processes
      sharing the card over Gloo (and the first config at NCCL world size
-     1), and on the
+     1, in the script's own process), and on the
      (2 x 2) mesh (two row bands a view, a halo exchange after every
      half-sweep) as four processes over Gloo (and over NCCL across two
      cards, and the (2 x 2) mesh across four, when there are that many):
      maps, keep and points bit-equal to one process, every kernel of each
      config launched by every process, every band shape held in the
      parity check, walls, collective and halo seconds and peak memory per
-     process; bundle adjustment sharded over two processes at phase
-     18's problem within rel 1e-3 of one process; ``eval.refine_bench`` at
-     640x480, 8 views; ``eval.roofline`` of one bench round at 1280x960;
-     ``eval.scaling.run_multiprocess`` on the view axis's scene with its
-     value check.
+     process; in the view axis's first launch (two processes over Gloo),
+     after its configs, the scaling check's timed stage (its schedule on
+     the view axis's scene with 8 views, held bit-equal to one process)
+     and bundle adjustment sharded at phase 18's problem within rel 1e-3
+     of one process; ``eval.refine_bench`` at 640x480, 8 views;
+     ``eval.roofline`` of one bench round at 1280x960;
+     ``eval.scaling.run_multiprocess`` read from that timed stage.
  29. ``batch_candidates=True`` (the incumbent scored alone, every
      propagation candidate in one cost call on the stack) on phase 4's
      scene and config: the exact route through the kernels (A, B and C
@@ -739,14 +743,58 @@ def propagation_stack(st, rays, cfg):
             torch.stack([c[1] for c in cand]).contiguous())
 
 
+def rect_lookup_case(ctx, sigma, field, plain_reps: int = 5) -> dict:
+    """Kernel C on the rect context ``ctx`` and inverse depths ``sigma``
+    ((H, W) or a stack (K, H, W)), held bit-equal to its plain version and
+    to its earlier design (``kernels.earlier_designs()``), and timed in
+    both designs: its ``shapes`` entry (shape, field, max_abs_err, ms,
+    earlier_ms, plain_ms, bound_ms, bound_by).  Bound: the fields, sigma
+    and rb once, the output, and the rect rows the tiles' bases reach."""
+    import torch
+    from hcmvs_tpu_torch import kernels
+    from hcmvs_tpu_torch.ops import rect_gather as rg
+    c_args = (ctx.maps, ctx.row_int, ctx.c0, ctx.k, ctx.rb, sigma)
+    out = kernels.rect_lookup(*c_args)
+    plain = rg.rect_lookup_plain(ctx, sigma)
+    with kernels.earlier_designs():
+        earlier = kernels.rect_lookup(*c_args)
+    same = torch.equal(out.view(torch.int32), plain.view(torch.int32))
+    same_earlier = torch.equal(out.view(torch.int32),
+                               earlier.view(torch.int32))
+    hit = float((out[..., 0, :, :] != 0).float().mean())
+    # the words are bit-packed: compare the depths and normals they carry
+    flat = out.shape[-3:]
+    err = float((rg.unpack_taps(out.reshape(-1, *flat))[0]
+                 - rg.unpack_taps(plain.reshape(-1, *flat))[0]).abs().max())
+    log(f"[parity] C rect_lookup ({field}): out {tuple(out.shape)}, "
+        f"bit-equal {same}, max |taps kernel - plain| {err:.3g}, equal to "
+        f"the earlier design {same_earlier}, reads hit {hit:.4f}")
+    if not (same and same_earlier):
+        raise AssertionError(f"kernel C ({field}): bit-equal to its plain "
+                             f"version {same}, to its earlier design "
+                             f"{same_earlier}")
+    ms = cuda_ms(lambda: kernels.rect_lookup(*c_args), 20)
+    with kernels.earlier_designs():
+        earlier_ms = cuda_ms(lambda: kernels.rect_lookup(*c_args), 20)
+    b_ms, b_by = bound("rect_lookup", nbytes(*c_args[1:], out)
+                       + rect_rows_bytes(ctx.maps, ctx.rb, rg.BAND_ROWS),
+                       out[..., 0, :, :].numel())
+    return dict(shape=list(out.shape), field=field, max_abs_err=err, ms=ms,
+                earlier_ms=earlier_ms,
+                plain_ms=cuda_ms(lambda: rg.rect_lookup_plain(ctx, sigma),
+                                 plain_reps, host_bound_ok=True),
+                bound_ms=b_ms, bound_by=b_by)
+
+
 def kernel_parity(sc, scene, cfg, dev):
     """Phase 3: each kernel vs its plain version at the paths' shapes.
     Returns one row per kernel (name, source, replaces, max_abs_err, ms,
     plain_ms, bound_ms, bound_by, library_ms, and for A-D ``shapes``: the
-    same numbers at each shape the paths give the kernel, with, for B and
-    D, the earlier design's time ``earlier_ms``; the row's own are its
+    same numbers at each shape the paths give the kernel, with, for B, C
+    and D, the earlier design's time ``earlier_ms``; the row's own are its
     first shape's).  A, B and C are held at the slice's 1280x960 shapes
-    and at the hierarchy's 640x480 ones."""
+    and at the hierarchy's 640x480 ones, A and C also at the operating
+    point's 10 pairs a launch (phase 22's scene)."""
     import torch
     from hcmvs_tpu_torch import kernels
     from hcmvs_tpu_torch.dense import score as S
@@ -775,10 +823,11 @@ def kernel_parity(sc, scene, cfg, dev):
             # no single PyTorch call computes any of these functions
             library_ms=None))
 
-    # view 0 of the slice's scene and of the hierarchy's coarse levels,
-    # each with a random init
+    # view 0 of the slice's scene, of the hierarchy's coarse levels and of
+    # the operating point's (10 neighbours), each with a random init
     levels = []
-    for label, sc_ in (("slice", scene), ("hierarchy", hierarchy_level(dev))):
+    for label, sc_ in (("slice", scene), ("hierarchy", hierarchy_level(dev)),
+                       ("operating point", op_scene(H, W, dev)[1])):
         nbr = sc_.nbr_idx[0]
         geom = make_view_geometry(sc_.cams[0], sc_.cams[nbr])
         st = init_scene_state(torch.Generator(device=dev).manual_seed(2), sc_)
@@ -849,60 +898,21 @@ def kernel_parity(sc, scene, cfg, dev):
     row("volume_lookup", "hcmvs_tpu/ops/volume.py:211", shapes=shapes)
     del b_cases, tab0, f, out, plain, earlier
 
-    # C: the neighbour maps of view 0 (random init) at the init depths
+    # C: the neighbour maps of view 0 (random init) at the init depths,
+    # and on the slice the eight propagation candidates of
+    # batch_candidates' stack in one launch
     shapes = []
     for label, _, nbr_, geom_, st_ in levels:
         ctx = rg.build_rect_context(geom_, rg.pack_depth_normals(
             st_.depth[nbr_], st_.normal[nbr_]))
-        sigma = (1.0 / st_.depth[0]).contiguous()
-        out = rg.rect_lookup(ctx, sigma)
-        plain = rg.rect_lookup_plain(ctx, sigma)
-        same = torch.equal(out.view(torch.int32), plain.view(torch.int32))
-        hit = float((out[:, 0] != 0).float().mean())
-        # the words are bit-packed: compare the depths and normals they
-        # carry
-        err = float((rg.unpack_taps(out)[0] - rg.unpack_taps(plain)[0])
-                    .abs().max())
-        log(f"[parity] C rect_lookup ({label}): out {tuple(out.shape)}, "
-            f"bit-equal {same}, max |taps kernel - plain| {err:.3g}, reads "
-            f"hit {hit:.4f}")
-        if not same:
-            raise AssertionError("kernel C differs from its plain version")
-        c_args = (ctx.maps, ctx.row_int, ctx.c0, ctx.k, ctx.rb, sigma)
-        shapes.append(measured(
-            "rect_lookup", err,
-            cuda_ms(lambda: kernels.rect_lookup(*c_args), 20),
-            cuda_ms(lambda: rg.rect_lookup_plain(ctx, sigma), 10,
-                    host_bound_ok=True),
-            nbytes(*c_args[1:], out) + rect_rows_bytes(
-                ctx.maps, ctx.rb, rg.BAND_ROWS),
-            out[:, 0].numel(), shape=list(out.shape),
-            field=label))
+        sigmas = [(label, (1.0 / st_.depth[0]).contiguous())]
         if label == "slice":
-            # the eight propagation candidates of batch_candidates' stack,
-            # in one launch
-            stack = propagation_stack(st_, rays, cfg)
-            sigma = (1.0 / stack[0]).contiguous()
-            out = rg.rect_lookup(ctx, sigma)
-            plain = rg.rect_lookup_plain(ctx, sigma)
-            same = torch.equal(out.view(torch.int32),
-                               plain.view(torch.int32))
-            log(f"[parity] C rect_lookup (slice, {sigma.shape[0]} "
-                f"candidates): out {tuple(out.shape)}, bit-equal {same}")
-            if not same:
-                raise AssertionError("kernel C differs from its plain "
-                                     "version on the candidate stack")
-            s_args = (ctx.maps, ctx.row_int, ctx.c0, ctx.k, ctx.rb, sigma)
-            shapes.append(measured(
-                "rect_lookup", 0.0,
-                cuda_ms(lambda: kernels.rect_lookup(*s_args), 20),
-                cuda_ms(lambda: rg.rect_lookup_plain(ctx, sigma), 5,
-                        host_bound_ok=True),
-                nbytes(*s_args[1:], out) + rect_rows_bytes(
-                    ctx.maps, ctx.rb, rg.BAND_ROWS),
-                out[:, :, 0].numel(), shape=list(out.shape),
-                field=f"slice, {sigma.shape[0]} candidates"))
-        del ctx, out, plain
+            stack = propagation_stack(st_, rays, cfg)[0]
+            sigmas.append((f"slice, {stack.shape[0]} candidates",
+                           (1.0 / stack).contiguous()))
+        for field, sigma in sigmas:
+            shapes.append(rect_lookup_case(ctx, sigma, field))
+        del ctx, sigmas
     row("rect_lookup", "hcmvs_tpu/ops/rect_gather.py:322", shapes=shapes)
     del levels
 
@@ -1462,7 +1472,7 @@ def check_densify(sc, root):
         "stage_s": {k: v["total_s"] for k, v in rep_k.items()},
         "peak_gib": peak_k, "valid_frac": st_k["valid_frac"],
         "n_points": st_k["n_points"], "depth_acc_2pct": acc_k,
-        "jax_cpu_depth_acc_2pct": HIER_JAX_ACC_HD,
+        "jax_cpu_depth_acc_2pct": DENSIFY_JAX_ACC,
         "cloud_distance": cloud, "plain_total_s": sec_p,
         "plain_stage_s": {k: v["total_s"] for k, v in rep_p.items()},
         "plain_depth_acc_2pct": acc_p, "plain_n_points": st_p["n_points"],
@@ -3863,11 +3873,13 @@ def check_photos_jpeg(root):
 # processes over Gloo (over NCCL too with four cards), every kernel first
 # held against its plain version at the band shapes (band_parity); process 0
 # of each reruns it in one process and the maps, keep and points must be
-# bit-equal.  Then bundle adjustment sharded over two processes at phase
+# bit-equal.  The first launch (Gloo x 2) goes on, in the same processes,
+# to scaling.run_multiprocess's timed stage on the view axis's scene (8
+# views) with its value check, and to bundle adjustment sharded at phase
 # 18's problem, held within rel 1e-3 of one process
-# (tests/test_sharding.py:128-131), the refine benchmark, the roofline of
-# one bench round and scaling.run_multiprocess on the view axis's scene with
-# its value check.
+# (tests/test_sharding.py:128-131): a launch of their own cost each ~30-45
+# s of process start-up for ~1-6 s of work.  Then the refine benchmark and
+# the roofline of one bench round.
 VIEW_AXIS_FX = 1200.0
 VIEW_AXIS_ARGS = ("--views", "4", "--nbrs", "3", "--h", str(H), "--w",
                   str(W), "--fx", str(VIEW_AXIS_FX), "--backend", "volume")
@@ -3889,7 +3901,8 @@ def view_axis_runs(device: str = "cuda"):
     runs on ``device``: two processes over Gloo (the view axis) and four
     over Gloo on the (2 x 2) mesh (the tile axis) in every config of
     VIEW_AXIS_CFGS, NCCL at one process in the first config alone (the
-    NCCL path on one card; on the CPU, for a rehearsal, Gloo), and, with
+    NCCL path on one card, run in this process; on the CPU, for a
+    rehearsal, Gloo), and, with
     a card for each, two over NCCL and four over NCCL on the (2 x 2)
     mesh in every config."""
     import torch
@@ -4030,22 +4043,20 @@ def band_parity(rows, dev, args=VIEW_AXIS_ARGS):
                         torch.floor(f), 0, tab0.shape[1] - 2).long()),
                     out.numel(), tuple(f.shape) + (tab0.shape[1],))
                 del f, out
-            if "rect_lookup" in kernels_of:
-                rc = rg.rect_rows(rect_all, lo, hi)
-                sigma = (1.0 / d_w).contiguous()
-                c_args = (rc.maps, rc.row_int, rc.c0, rc.k, rc.rb, sigma)
-                out = kernels.rect_lookup(*c_args)
-                same = torch.equal(out.view(torch.int32),
-                                   rg.rect_lookup_plain(rc, sigma)
-                                   .view(torch.int32))
-                add("rect_lookup", field, 0.0 if same else float("inf"),
-                    cuda_ms(lambda: kernels.rect_lookup(*c_args), 20),
-                    cuda_ms(lambda: rg.rect_lookup_plain(rc, sigma), 10,
-                            host_bound_ok=True),
-                    nbytes(*c_args[1:], out) + rect_rows_bytes(
-                        rc.maps, rc.rb, rg.BAND_ROWS),
-                    out[:, 0].numel(), out.shape)
-                del out, rc
+            key = shape_key(rect_all.maps.shape[:2] + (hi - lo, w))
+            if "rect_lookup" in kernels_of and key not in held[
+                    "rect_lookup"]:
+                # bit-equal to its plain version and its earlier design
+                # (rect_lookup_case raises otherwise), timed in both
+                held["rect_lookup"].add(key)
+                x = rect_lookup_case(rg.rect_rows(rect_all, lo, hi),
+                                     (1.0 / d_w).contiguous(), field, 10)
+                by_name["rect_lookup"].setdefault("shapes", []).append(x)
+                log(f"[parity] rect_lookup at {key} ({field}): kernel "
+                    f"{x['ms']:.3f} ms, earlier design {x['earlier_ms']:.3f}"
+                    f" ms, plain {x['plain_ms']:.3f} ms, bound "
+                    f"{x['bound_ms']:.3f} ms ({x['bound_by']}), "
+                    f"{100 * x['bound_ms'] / x['ms']:.1f}% of the bound")
             if "volume_lookup_multi" in kernels_of:
                 cand = [(d_w, n_w)] + [
                     _propagate_from(d_w, n_w, rays, dy, dx)
@@ -4094,14 +4105,38 @@ def band_parity(rows, dev, args=VIEW_AXIS_ARGS):
     return {k: sorted(v) for k, v in held.items()}
 
 
+def mh_check_here(argv) -> list:
+    """``parallel.mh_check`` as a group of one process, this one (no
+    process of its own to start: the card and the kernels are loaded
+    already); its output, as ``mh_check.launch`` returns it."""
+    import io
+    from hcmvs_tpu_torch.parallel import mh_check
+    buf = io.StringIO()
+    with tempfile.TemporaryDirectory(prefix="mh_check_", dir=HERE) as tmp:
+        with contextlib.redirect_stdout(buf):
+            rc = mh_check.main(["--process-id", "0", "--num-processes", "1",
+                                "--init-method",
+                                (Path(tmp) / "rendezvous").as_uri(), *argv])
+    if rc:
+        raise RuntimeError(f"mh_check in this process: return code {rc}\n"
+                           f"{buf.getvalue()}")
+    return [buf.getvalue()]
+
+
 def check_view_axis(device: str = "cuda", args=VIEW_AXIS_ARGS,
-                    held=None):
+                    before=None, stages=()):
     """Phase 28, the dense schedule on the mesh: each run of
-    ``view_axis_runs`` in its own processes (``mh_check.launch``), its
-    configs one after another in them; launches, in all
-    and by output shape, are counted by each process around its mesh run
-    alone.  Every shape a tile-axis run launches a kernel at must be one
-    of ``held`` ({kernel: shape keys}, from ``band_parity``)."""
+    ``view_axis_runs`` in its own processes, its configs one after
+    another in them; launches, in all and by output shape, are counted by
+    each process around its mesh run alone.  Each run's processes start
+    ahead of their turn (``mh_check.Launch``): the first while ``before``
+    runs, the next while a run runs (a run of one process goes in this
+    one).  ``before`` returns ``held`` ({kernel: shape keys}, from
+    ``band_parity``): every shape a tile-axis run launches a kernel at must
+    be one of them.  The first run (two processes over Gloo) goes on to
+    ``stages`` (more ``mh_check`` arguments: the timed stage, sharded BA)
+    in the same processes.  Returns (launches, summary, failed, that run's
+    lines of those stages)."""
     from hcmvs_tpu_torch.parallel import mh_check
 
     label = "view_axis"
@@ -4109,19 +4144,38 @@ def check_view_axis(device: str = "cuda", args=VIEW_AXIS_ARGS,
     launches = collections.Counter()
     by_shape = {name: collections.Counter() for name in SHAPE_OF}
     summary = {}
-    for run, n_proc, backend, n_tile, names in view_axis_runs(device):
+    stage_lines = []
+    runs = view_axis_runs(device)
+
+    def argv_of(i):
+        _, _, backend, n_tile, names = runs[i]
         cfg_args = []
         for name in names:
             cfg_args += ["--cfg", json.dumps(VIEW_AXIS_CFGS[name][0])]
-        t0 = time.perf_counter()
-        outs = mh_check.launch(n_proc, ["--device", device, "--dist-backend",
-                                        backend, "--n-tile", str(n_tile),
-                                        *args, *cfg_args],
-                               timeout=VIEW_AXIS_TIMEOUT_S, workdir=HERE)
-        wall = time.perf_counter() - t0
+        return ["--device", device, "--dist-backend", backend, "--n-tile",
+                str(n_tile), *args, *cfg_args, *(stages if i == 0 else ())]
+
+    def start(i):
+        if i < len(runs) and runs[i][1] > 1:
+            return mh_check.Launch(runs[i][1], argv_of(i), workdir=HERE)
+        return None
+
+    def record(i, outs, wall, held):
+        """Checks and logs run ``i``'s lines; adds to the counts."""
+        nonlocal stage_lines
+        run, n_proc, _, n_tile, names = runs[i]
         lines = mh_check.parse_lines(outs)
+        if i == 0:
+            stage_lines = [x for x in lines if x["stage"] != "dense"]
+        lines = [x for x in lines if x["stage"] == "dense"]
         summary[run] = {"wall_s": wall, "mesh": lines[0]["mesh"],
                         "configs": {}}
+        if i == 0 and stages:
+            log(f"[{label}] {run}: one launch of {n_proc} processes for the "
+                f"dense configs, the timed stage and sharded BA, {wall:.1f} "
+                f"s; stages " + ", ".join(
+                    f"{x['stage']} {x['stage_s']:.1f} s"
+                    for x in lines + stage_lines if x["rank"] == 0))
         for name in names:
             over, kernels_of = VIEW_AXIS_CFGS[name]
             per = [x for x in lines if x["cfg"] == over]
@@ -4180,6 +4234,22 @@ def check_view_axis(device: str = "cuda", args=VIEW_AXIS_ARGS,
                 "peak_gib": [x["peak_gib"] for x in per],
                 "by_collective": [x["by_collective"] for x in per],
                 "launches": dict(got)}
+
+    started = {0: start(0)}
+    try:
+        held = before() if before else None
+        for i, (run, n_proc, backend, n_tile, names) in enumerate(runs):
+            started[i + 1] = start(i + 1)
+            t0 = time.perf_counter()
+            current = started.pop(i)
+            outs = (current.wait(VIEW_AXIS_TIMEOUT_S) if current
+                    else mh_check_here(argv_of(i)))
+            wall = time.perf_counter() - t0
+            record(i, outs, wall, held)
+    finally:
+        for pending in started.values():
+            if pending:
+                pending.close()
     for k in ("rect_build", "volume_lookup", "rect_lookup",
               "volume_lookup_multi", "zncc_warped"):
         launches.setdefault(k, 0)
@@ -4187,25 +4257,21 @@ def check_view_axis(device: str = "cuda", args=VIEW_AXIS_ARGS,
             failed.append(f"{label}: {k} never launched under the view axis")
     summary["launches_by_shape"] = check_shapes(label, launches, by_shape,
                                                 failed)
-    return dict(launches), summary, failed
+    return dict(launches), summary, failed, stage_lines
 
 
-BA_SHARDED_PROCS = 2
+def ba_stage_args(size=BA_SIZE) -> list:
+    """``mh_check``'s arguments of sharded BA at phase 18's problem."""
+    return ["--ba-size", *map(str, size), "--ba-iters", str(BA_ITERS)]
 
 
-def check_ba_sharded(device: str = "cuda", size=BA_SIZE):
-    """Phase 28, bundle adjustment sharded over two processes sharing the
-    card (Gloo) at phase 18's problem, against one process."""
-    import torch
-    from hcmvs_tpu_torch.parallel import mh_check
-    backend = ("nccl" if device == "cuda"
-               and torch.cuda.device_count() >= 2 else "gloo")
-    outs = mh_check.launch(BA_SHARDED_PROCS, [
-        "--device", device, "--dist-backend", backend, "--ba-size",
-        *map(str, size), "--ba-iters", str(BA_ITERS)],
-        timeout=VIEW_AXIS_TIMEOUT_S, workdir=HERE)
-    lines = mh_check.parse_lines(outs)
+def check_ba_sharded(lines):
+    """Phase 28, bundle adjustment sharded over the view axis's two
+    processes sharing the card (Gloo) at phase 18's problem, against one
+    process: the ``MHJSON`` lines of the BA stage among ``lines``."""
+    lines = [x for x in lines if x["stage"] == "ba"]
     p0 = next(x for x in lines if x["rank"] == 0)
+    backend = p0["dist_backend"]
     m = p0["observations"]
     log(f"[ba_sharded] {p0['cams']} cameras, {p0['points']} points, {m} "
         f"observations over {p0['world']} processes ({backend}): rms "
@@ -4217,23 +4283,24 @@ def check_ba_sharded(device: str = "cuda", size=BA_SIZE):
         + " / ".join(f"{x['collectives']} in {x['collective_s']:.4f} s"
                      for x in lines)
         + "; peak " + " / ".join(f"{x['peak_gib'] or 0:.2f}" for x in lines)
-        + " GiB")
+        + f" GiB; the stage {p0['stage_s']:.1f} s in the view axis's launch")
     failed = [] if p0["within"] else [
         f"ba_sharded: outside rel 1e-3 / atol 1e-4 of one process: {p0}"]
     return {"backend": backend, **{k: [x[k] for x in lines] for k in (
         "wall_s", "collective_s", "collectives", "peak_gib",
         "local_observations")}, **{k: p0[k] for k in (
             "cams", "points", "observations", "cost", "one_process_cost",
-            "cost_rel", "pt_diff", "one_process_wall_s")}}, failed
+            "cost_rel", "pt_diff", "one_process_wall_s", "stage_s")}}, failed
 
 
-def check_parallel_evals(device: str = "cuda", refine_hw=(480, 640),
+def check_parallel_evals(lines, device: str = "cuda", refine_hw=(480, 640),
                          roofline_args=("--rounds", "1"),
-                         scaling_hw=(H, W)):
+                         dense_args=VIEW_AXIS_ARGS):
     """Phase 28's harness lines: ``eval.refine_bench`` at 640x480 and 8
     views, ``eval.roofline`` of one bench round at 1280x960 and
     ``eval.scaling.run_multiprocess`` on the view axis's scene (8 views
-    at 1280x960, 3 neighbours, the tables' route) with its value check."""
+    at 1280x960, 3 neighbours, the tables' route) with its value check,
+    read from the view axis's timed stage among ``lines``."""
     import io
     from hcmvs_tpu_torch.eval import refine_bench, roofline, scaling
     failed = []
@@ -4248,12 +4315,16 @@ def check_parallel_evals(device: str = "cuda", refine_hw=(480, 640),
                              + ([] if device == "cuda" else ["--cpu"]))
     log(f"[roofline] {buf.getvalue().strip()} ({time.perf_counter() - t0:.1f}"
         f" s)")
-    t0 = time.perf_counter()
-    sc = scaling.run_multiprocess(reps=1, timeout=VIEW_AXIS_TIMEOUT_S,
-                                  device=device, h=scaling_hw[0],
-                                  w=scaling_hw[1], backend="volume",
-                                  fx=VIEW_AXIS_FX * scaling_hw[1] / W)
-    log(f"[scaling] {json.dumps(sc)} ({time.perf_counter() - t0:.1f} s)")
+    opt = dict(zip(dense_args[::2], dense_args[1::2]))
+    line = scaling.bench_line(lines)
+    sc = scaling.run_multiprocess(
+        device=device, h=int(opt["--h"]), w=int(opt["--w"]),
+        nbrs=int(opt["--nbrs"]), backend=opt["--backend"],
+        fx=float(opt["--fx"]) if "--fx" in opt else None, line=line)
+    log(f"[scaling] {json.dumps(sc)} (in the view axis's launch: the timed "
+        f"run {line['bench_wall_s']:.1f} s, one process "
+        f"{line['one_process_wall_s']:.1f} s, the stage {line['stage_s']:.1f}"
+        f" s)")
     if sc["value_check"] != "OK":
         failed.append(f"scaling.run_multiprocess value check {sc}")
     return {"refine_bench": ref, "roofline": roof, "scaling": sc}, failed
@@ -4261,24 +4332,32 @@ def check_parallel_evals(device: str = "cuda", refine_hw=(480, 640),
 
 def check_phase_28(rows, device: str = "cuda", dense_args=VIEW_AXIS_ARGS,
                    ba_size=BA_SIZE, refine_hw=(480, 640),
-                   roofline_args=("--rounds", "1"), scaling_hw=(H, W)):
+                   roofline_args=("--rounds", "1")):
     """Phase 28 in order, nothing else running in this process: the
-    kernels at the tile axis's band shapes (into ``rows``), the dense
-    schedule on the view axis and the (2 x 2) mesh, sharded BA, the
-    harness lines."""
+    kernels at the tile axis's band shapes (into ``rows``; the view
+    axis's first processes start meanwhile), the dense schedule on the
+    view axis and the (2 x 2) mesh, with the scaling check's timed stage
+    and sharded BA in the view axis's first launch, the harness lines."""
     import torch
+    from hcmvs_tpu_torch.eval import scaling
+
+    def band_check():
+        t0 = time.perf_counter()
+        held = band_parity(rows, torch.device(device), dense_args)
+        torch.cuda.empty_cache()
+        log(f"[view_axis] band parity {time.perf_counter() - t0:.1f} s")
+        return held
+
     t0 = time.perf_counter()
-    held = band_parity(rows, torch.device(device), dense_args)
-    torch.cuda.empty_cache()
-    log(f"[view_axis] band parity {time.perf_counter() - t0:.1f} s")
-    t0 = time.perf_counter()
-    launches, summary, failed = check_view_axis(device, dense_args, held)
-    log(f"[view_axis] dense runs {time.perf_counter() - t0:.1f} s")
-    t0 = time.perf_counter()
-    ba_summary, ba_failed = check_ba_sharded(device, ba_size)
-    log(f"[ba_sharded] {time.perf_counter() - t0:.1f} s")
-    evals, evals_failed = check_parallel_evals(device, refine_hw,
-                                               roofline_args, scaling_hw)
+    # the scaling check runs on the view axis's scene, with 8 views
+    launches, summary, failed, lines = check_view_axis(
+        device, dense_args, band_check,
+        scaling.bench_stage_args(1) + ba_stage_args(ba_size))
+    log(f"[view_axis] band parity, dense runs, the timed stage and sharded "
+        f"BA {time.perf_counter() - t0:.1f} s")
+    ba_summary, ba_failed = check_ba_sharded(lines)
+    evals, evals_failed = check_parallel_evals(lines, device, refine_hw,
+                                               roofline_args, dense_args)
     return launches, dict(summary, ba_sharded=ba_summary, **evals), \
         failed + ba_failed + evals_failed
 
@@ -4428,8 +4507,8 @@ def main() -> int:
                                   (kernels.CSRC, kernels.EARLIER)))
     kernels.library()
     kernels.earlier_library()
-    log(f"[build] {lib_paths[0].name} and the earlier designs of B and D "
-        f"ready in {time.perf_counter() - t0:.1f} s")
+    log(f"[build] {lib_paths[0].name} and the earlier designs of B, C and "
+        f"D ready in {time.perf_counter() - t0:.1f} s")
     for path in lib_paths:
         for line in (path.parent / "build.log").read_text().splitlines():
             if "registers" in line or "spill" in line:
@@ -4437,10 +4516,12 @@ def main() -> int:
                       file=sys.stderr)
 
     # 3. kernel parity at the paths' shapes
+    t0 = time.perf_counter()
     sc, scene = make_scene(dev)
     cfg = slice_cfg()
     rows = kernel_parity(sc, scene, cfg, dev)
     torch.cuda.empty_cache()
+    log(f"[parity] phase 3 in {time.perf_counter() - t0:.1f} s")
 
     phase_done("3")
     # 4-7. the two paths, each through the kernels and the plain versions

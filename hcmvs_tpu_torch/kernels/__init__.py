@@ -11,12 +11,13 @@ Each launcher below checks device, dtype, shape and contiguity, allocates
 its output with ``torch.empty``, launches on the current stream, raises if
 the launch was refused, and adds one to its entry of ``launches`` for each
 launch (kernels B and D launch once per row chunk, E once per chunk of
-views).  C and E take an optional leading axis of K candidates as a grid
-axis: a stack launches them as often as one hypothesis does.
+views).  C and E take an optional leading axis of K candidates (C in
+groups of 8 on the grid, E as a grid axis): a stack launches them as
+often as one hypothesis does.
 
-``csrc/earlier/`` keeps the designs that kernels B and D had before their
-redesign.  They are built into a library of their own and taken only
-inside ``earlier_designs()``, so that the two designs can be timed
+``csrc/earlier/`` keeps the designs that kernels B, C and D had before
+their redesign.  They are built into a library of their own and taken
+only inside ``earlier_designs()``, so that the two designs can be timed
 against each other on the card; no path calls them.
 
 The callers in ``hcmvs_tpu_torch.ops`` choose between a launcher and the
@@ -87,7 +88,7 @@ def plain_versions():
 
 @contextlib.contextmanager
 def earlier_designs():
-    """Inside this block kernels B and D launch their earlier designs
+    """Inside this block kernels B, C and D launch their earlier designs
     (``csrc/earlier/``, built on first use), for timing them against the
     current ones; the launchers and their checks are the same."""
     old = _state["earlier"]
@@ -201,7 +202,7 @@ def library() -> ctypes.CDLL:
 
 
 def earlier_library() -> ctypes.CDLL:
-    """The library of the earlier designs of kernels B and D (built on
+    """The library of the earlier designs of kernels B, C and D (built on
     first use)."""
     if _state["earlier_lib"] is None:
         _state["earlier_lib"] = _load(build(EARLIER))

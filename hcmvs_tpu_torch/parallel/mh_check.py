@@ -2,7 +2,9 @@
 ``hcmvs_tpu/parallel/mh_check.py``).
 
 One process a rank; ``launch`` starts them (a ``file://`` rendezvous in
-a temporary directory), ``torchrun --nproc-per-node N -m
+a temporary directory; ``Launch`` holds them at a gate until its
+``wait``, so that their start-up overlaps other work), ``torchrun
+--nproc-per-node N -m
 hcmvs_tpu_torch.parallel.mh_check`` does, or by hand:
 
     python -m hcmvs_tpu_torch.parallel.mh_check --process-id 0 \\
@@ -24,20 +26,29 @@ generators and compares: depth, normal and cost maps and the fused
 ``MHCHECK FAIL`` (exit 1) on every process, with ``depth_mismatch`` (the
 share of depth pixels that differ), ``keep_agree`` and ``pt_diff``.
 
-With ``--ba-size C P`` (``eval.ba_bench``'s problem) or ``--ba-problem
-NPZ`` it checks sharded bundle adjustment instead: points split over the
-processes (``sharding.shard_ba``), the LM run of ``sharding.run_ba``,
-the points gathered (after one untimed step); process 0 reruns
-``sfm.ba.run_ba`` in one process,
-and the cost must agree within rel 1e-3 and the points within rtol 1e-3
-/ atol 1e-4 (the camera sums add in another order, so not bit for bit).
-
 ``--cfg`` (JSON DenseConfig overrides, repeatable) runs several configs
 one after another; each prints an ``MHJSON`` line per process (walls,
 launches per kernel and by output shape, peak memory, collective
 seconds, calls and bytes by collective: ``parallel.halo``, the halo
-exchange, ``parallel.all_gather``, the rest).  ``--bench-reps N``
-also times N runs of the sharded schedule (``MHBENCH``).  ``--device``
+exchange, ``parallel.all_gather``, the rest).
+
+Two more stages can follow in the same processes, in this order (each
+``MHJSON`` line names its ``stage``: "dense", "bench" or "ba"):
+``--bench-reps N`` times N runs of the sharded schedule of
+``--bench-cfg`` (JSON overrides, none by default) on ``--bench-views``
+views with ``--bench-iters`` sweeps a phase (the dense stage's by
+default), the first of them held against one process as above
+(``MHBENCH``; ``eval.scaling`` reads it).  ``--ba-size C P``
+(``eval.ba_bench``'s problem) or ``--ba-problem NPZ`` checks sharded
+bundle adjustment: points split over the processes
+(``sharding.shard_ba``), the LM run of ``sharding.run_ba``, the points
+gathered (after one untimed step); process 0 reruns ``sfm.ba.run_ba`` in
+one process, and the cost must agree within rel 1e-3 and the points
+within rtol 1e-3 / atol 1e-4 (the camera sums add in another order, so
+not bit for bit).  Without ``--cfg`` the dense stage runs only when
+neither of the others is asked for, with no overrides.  Each line also
+has its stage's seconds, set-up and one-process rerun included
+(``stage_s``).  ``--device``
 is ``cuda`` by default: ranks on a one-card machine share the card and
 must name ``--dist-backend gloo`` (NCCL refuses two ranks on one card).
 On ``cpu``, ``--ranks-per-process`` gives each process several shards
@@ -180,7 +191,8 @@ def check_ba(args, mesh, dev) -> dict:
     points = P.gather_points(out.points, n_pts, mesh)
     _sync(dev)
     rep = profiling.report()
-    line = {"rank": mesh.rank, "world": mesh.world, "ba": True,
+    line = {"rank": mesh.rank, "world": mesh.world, "stage": "ba",
+            "dist_backend": torch.distributed.get_backend(),
             "device": str(dev), "cams": int(state.rvecs.shape[0]),
             "points": n_pts, "observations": len(a["obs_cam"]),
             "local_observations": int(local_p.obs_cam.shape[0]),
@@ -257,21 +269,30 @@ def main(argv=None) -> int:
     ap.add_argument("--ba-out", default=None,
                     help="process 0 writes the sharded and one-process "
                          "results here (.npz)")
+    ap.add_argument("--start-after", default=None,
+                    help="wait until this file exists before joining the "
+                         "group (a launcher starts the processes ahead of "
+                         "their turn)")
     ap.add_argument("--bench-reps", type=int, default=0,
-                    help="also time N runs of the sharded schedule and "
-                         "print an MHBENCH line")
+                    help="then time N runs of the sharded schedule of "
+                         "--bench-cfg and print an MHBENCH line")
+    ap.add_argument("--bench-cfg", default="{}",
+                    help="JSON DenseConfig overrides of the timed runs")
+    ap.add_argument("--bench-views", type=int, default=None,
+                    help="views of the timed runs (default --views)")
+    ap.add_argument("--bench-iters", type=int, default=None,
+                    help="sweeps a phase of the timed runs (default "
+                         "--iters)")
     args = ap.parse_args(argv)
     if args.ranks_per_process != 1 and args.device != "cpu":
         ap.error("--ranks-per-process is for --device cpu")
 
     import torch
     from hcmvs_tpu_torch import kernels
-    from hcmvs_tpu_torch.dense.bands import halo_rows
     from hcmvs_tpu_torch.entry import build_scene
-    from hcmvs_tpu_torch.kernels.shapes import launch_shapes
     from hcmvs_tpu_torch.parallel import distributed as D
-    from hcmvs_tpu_torch.parallel import sharding as P
-    from hcmvs_tpu_torch.utils import profiling
+    while args.start_after and not os.path.exists(args.start_after):
+        time.sleep(0.05)
     if args.device == "cpu":
         torch.set_num_threads(1)        # processes share the host's cores
     elif not torch.cuda.is_available():
@@ -288,144 +309,218 @@ def main(argv=None) -> int:
         kernels.library()
     mesh = D.global_mesh(n_tile=args.n_tile, device=dev,
                          shards_per_process=args.ranks_per_process)
-    rank, world = D.world()
-    backend = torch.distributed.get_backend()
-    if args.ba_size or args.ba_problem:
-        line = check_ba(args, mesh, dev)
-        verdict = torch.tensor([int(line.get("within", 0))])
-        ok = bool(D.replicated(verdict.to(dev)).cpu()[0])
-        print("MHJSON " + json.dumps(line), flush=True)
-        print(f"[p{rank}] MHCHECK {'OK' if ok else 'FAIL'} ba "
-              f"cost_rel={line.get('cost_rel', 0):.2e} "
-              f"pt_diff={line.get('pt_diff', 0):.2e}", flush=True)
-        D.shutdown()
-        return 0 if ok else 1
-    scene = build_scene(args.views, args.h, args.w, dev, n_nbr=args.nbrs,
-                        fx=args.fx)
+    rank = D.world()[0]
+    ba = bool(args.ba_size or args.ba_problem)
+    cfgs = args.cfg or ([] if ba or args.bench_reps else ["{}"])
     ok = True
-    for text in args.cfg or ["{}"]:
-        cfg = base_cfg(args.backend, json.loads(text), args.iters)
-        kernels.reset_launches()
-        profiling.reset_report()
-        if dev.type == "cuda":
-            torch.cuda.reset_peak_memory_stats(dev)
-        torch.distributed.barrier()
+    dense = []
+    scenes = {}
+
+    def scene_of(n_views):
+        if n_views not in scenes:
+            scenes[n_views] = build_scene(n_views, args.h, args.w, dev,
+                                          n_nbr=args.nbrs, fx=args.fx)
+        return scenes[n_views]
+
+    def stage(run, verdict):
+        """Runs one stage, prints its line with its seconds (set-up and
+        the one-process rerun included) and returns it."""
+        nonlocal ok
         t0 = time.perf_counter()
-        with launch_shapes() as shapes:
-            st, fused = run_schedule(scene, cfg, SEED, mesh, args.iters)
-            _sync(dev)
-        wall = time.perf_counter() - t0
-        launches = dict(kernels.launches)
-        rep = profiling.report()
-        bands = (P.scene_bands(mesh, args.h, cfg) if mesh.n_tile > 1
-                 else None)
-        line = {"rank": rank, "world": world, "dist_backend": backend,
-                "device": str(dev), "cfg": json.loads(text),
-                "mesh": [mesh.n_view, mesh.n_tile],
-                "views": list(mesh.sweep_views(args.views)),
-                "bands": [[bands[b].start, bands[b].stop]
-                          for b in mesh.tile_bands()] if bands else None,
-                "halo_rows": halo_rows(cfg) if bands else None,
-                "wall_s": wall, "launches": launches,
-                "launches_by_shape": {k: dict(v) for k, v in shapes.items()},
-                "collective_s": sum(v["total_s"] for k, v in rep.items()
-                                    if k.startswith("parallel.")),
-                "collectives": sum(v["calls"] for k, v in rep.items()
-                                   if k.startswith("parallel.")),
-                "by_collective": {k: {"calls": v["calls"],
-                                      "s": v["total_s"],
-                                      "bytes": v.get("bytes")}
-                                  for k, v in rep.items()
-                                  if k.startswith("parallel.")},
-                "peak_gib": (torch.cuda.max_memory_allocated(dev) / 2 ** 30
-                             if dev.type == "cuda" else None)}
-        if args.bench_reps:
-            torch.distributed.barrier()
-            t0 = time.perf_counter()
-            for _ in range(args.bench_reps):
-                run_schedule(scene, cfg, SEED, mesh, args.iters)
-                _sync(dev)
-            line["bench_wall_s"] = (time.perf_counter() - t0) / args.bench_reps
-            print(f"MHBENCH wall_s={line['bench_wall_s']:.6f} "
-                  f"reps={args.bench_reps} procs={world}", flush=True)
-        verdict = torch.zeros(1, dtype=torch.int64)
-        if rank == 0:
-            t0 = time.perf_counter()
-            st_ref, fused_ref = run_schedule(scene, cfg, SEED, None,
-                                             args.iters)
-            _sync(dev)
-            line["one_process_wall_s"] = time.perf_counter() - t0
-            line.update(compare(st, fused, st_ref, fused_ref))
-            verdict[0] = int(line["equal"])
-            del st_ref, fused_ref
-        del st, fused
-        verdict = D.replicated(verdict.to(dev)).cpu()
-        ok = ok and bool(verdict[0])
+        line = run()
+        line["stage_s"] = time.perf_counter() - t0
         print("MHJSON " + json.dumps(line), flush=True)
-        if dev.type == "cuda":
-            torch.cuda.empty_cache()
-    if rank == 0:
-        print(f"[p{rank}] MHCHECK {'OK' if ok else 'FAIL'} "
-              f"depth_mismatch={line['depth_mismatch']:.4f} "
-              f"keep_agree={line['keep_agree']:.4f} "
-              f"pt_diff={line['pt_diff']:.2e} kept={line['kept']}",
-              flush=True)
-    else:
-        print(f"[p{rank}] MHCHECK {'OK' if ok else 'FAIL'}", flush=True)
+        ok = _agreed(line.get(verdict, 0), dev) and ok
+        return line
+
+    for text in cfgs:
+        dense.append(stage(lambda: run_config(
+            scene_of(args.views), text, args.iters, args, mesh, dev),
+            "equal"))
+    if args.bench_reps:
+        stage(lambda: run_config(
+            scene_of(args.bench_views or args.views), args.bench_cfg,
+            args.bench_iters or args.iters, args, mesh, dev,
+            args.bench_reps), "equal")
+    scenes.clear()
+    if ba:
+        line = stage(lambda: check_ba(args, mesh, dev), "within")
+    said = f"[p{rank}] MHCHECK {'OK' if ok else 'FAIL'}"
+    if rank == 0 and dense:
+        last = dense[-1]
+        said += (f" depth_mismatch={last['depth_mismatch']:.4f} "
+                 f"keep_agree={last['keep_agree']:.4f} "
+                 f"pt_diff={last['pt_diff']:.2e} kept={last['kept']}")
+    if rank == 0 and ba:
+        said += (f" ba cost_rel={line['cost_rel']:.2e} "
+                 f"pt_diff={line['pt_diff']:.2e}")
+    print(said, flush=True)
     D.shutdown()
     return 0 if ok else 1
+
+
+def _agreed(verdict, dev) -> bool:
+    """Process 0's verdict (0 or 1), the same on every process."""
+    import torch
+    from hcmvs_tpu_torch.parallel import distributed as D
+    t = torch.tensor([int(verdict)], dtype=torch.int64)
+    return bool(D.replicated(t.to(dev)).cpu()[0])
+
+
+def run_config(scene, text: str, iters: int, args, mesh, dev,
+               bench_reps: int = 0) -> dict:
+    """The sharded schedule of config ``text`` (JSON overrides of route
+    ``args.backend``) on ``scene`` (launches counted around it alone),
+    with ``bench_reps`` timed as that many runs, this one the first
+    (``MHBENCH``), then on process 0 the same schedule in one process,
+    compared; returns this process's ``MHJSON`` line."""
+    import torch
+    from hcmvs_tpu_torch import kernels
+    from hcmvs_tpu_torch.dense.bands import halo_rows
+    from hcmvs_tpu_torch.kernels.shapes import launch_shapes
+    from hcmvs_tpu_torch.parallel import distributed as D
+    from hcmvs_tpu_torch.parallel import sharding as P
+    from hcmvs_tpu_torch.utils import profiling
+    rank, world = D.world()
+    backend = torch.distributed.get_backend()
+    n_views = scene.gray.shape[0]
+    cfg = base_cfg(args.backend, json.loads(text), iters)
+    kernels.reset_launches()
+    profiling.reset_report()
+    if dev.type == "cuda":
+        torch.cuda.reset_peak_memory_stats(dev)
+    torch.distributed.barrier()
+    t0 = time.perf_counter()
+    with launch_shapes() as shapes:
+        st, fused = run_schedule(scene, cfg, SEED, mesh, iters)
+        _sync(dev)
+    wall = time.perf_counter() - t0
+    launches = dict(kernels.launches)
+    rep = profiling.report()
+    bands = P.scene_bands(mesh, args.h, cfg) if mesh.n_tile > 1 else None
+    line = {"rank": rank, "world": world,
+            "stage": "bench" if bench_reps else "dense",
+            "dist_backend": backend, "device": str(dev),
+            "cfg": json.loads(text), "mesh": [mesh.n_view, mesh.n_tile],
+            "views": list(mesh.sweep_views(n_views)),
+            "bands": [[bands[b].start, bands[b].stop]
+                      for b in mesh.tile_bands()] if bands else None,
+            "halo_rows": halo_rows(cfg) if bands else None,
+            "wall_s": wall, "launches": launches,
+            "launches_by_shape": {k: dict(v) for k, v in shapes.items()},
+            "collective_s": sum(v["total_s"] for k, v in rep.items()
+                                if k.startswith("parallel.")),
+            "collectives": sum(v["calls"] for k, v in rep.items()
+                               if k.startswith("parallel.")),
+            "by_collective": {k: {"calls": v["calls"], "s": v["total_s"],
+                                  "bytes": v.get("bytes")}
+                              for k, v in rep.items()
+                              if k.startswith("parallel.")},
+            "peak_gib": (torch.cuda.max_memory_allocated(dev) / 2 ** 30
+                         if dev.type == "cuda" else None)}
+    if bench_reps:
+        torch.distributed.barrier()
+        t0 = time.perf_counter()
+        for _ in range(bench_reps - 1):
+            run_schedule(scene, cfg, SEED, mesh, iters)
+            _sync(dev)
+        line["bench_wall_s"] = (wall + time.perf_counter() - t0) / bench_reps
+        print(f"MHBENCH wall_s={line['bench_wall_s']:.6f} "
+              f"reps={bench_reps} procs={world}", flush=True)
+    if rank == 0:
+        t0 = time.perf_counter()
+        st_ref, fused_ref = run_schedule(scene, cfg, SEED, None, iters)
+        _sync(dev)
+        line["one_process_wall_s"] = time.perf_counter() - t0
+        line.update(compare(st, fused, st_ref, fused_ref))
+        del st_ref, fused_ref
+    del st, fused
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+    return line
+
+
+class Launch:
+    """``mh_check`` (``args`` after the rendezvous ones) as
+    ``n_processes`` processes joined through a ``file://`` rendezvous in
+    a temporary directory (under ``workdir`` if given), started ahead of
+    their turn: they load Python and PyTorch, then wait at a gate until
+    ``wait`` opens it, so their start-up overlaps whatever runs
+    meanwhile.  A CUDA run's kernels are built here first, so that the
+    processes do not build them side by side."""
+
+    def __init__(self, n_processes: int, args: List[str],
+                 workdir: Optional[str] = None, env: Optional[dict] = None):
+        if "cpu" not in args:
+            from hcmvs_tpu_torch import kernels
+            kernels.build()
+        repo = str(Path(__file__).resolve().parents[2])
+        env = dict(os.environ if env is None else env)
+        env["PYTHONPATH"] = repo + os.pathsep + env.get("PYTHONPATH", "")
+        self._tmp = tempfile.TemporaryDirectory(prefix="mh_check_",
+                                                dir=workdir)
+        tmp = Path(self._tmp.name)
+        self.gate = tmp / "go"
+        self.logs = [tmp / f"rank{r}.log" for r in range(n_processes)]
+        self.procs = []
+        try:
+            for r in range(n_processes):
+                with self.logs[r].open("w") as fh:
+                    self.procs.append(subprocess.Popen(
+                        [sys.executable, "-m",
+                         "hcmvs_tpu_torch.parallel.mh_check",
+                         "--process-id", str(r), "--num-processes",
+                         str(n_processes), "--init-method",
+                         (tmp / "rendezvous").as_uri(), "--start-after",
+                         str(self.gate), *args],
+                        stdout=fh, stderr=subprocess.STDOUT, env=env,
+                        cwd=repo))
+        except BaseException:
+            self.close()
+            raise
+
+    def wait(self, timeout: float = 600.0) -> List[str]:
+        """Opens the gate and returns each process's output in rank
+        order; raises, with the outputs, as soon as one process fails or
+        when ``timeout`` seconds pass.  Every process is ended before this
+        returns."""
+        try:
+            self.gate.touch()
+            t_end = time.monotonic() + timeout
+            while any(p.poll() is None for p in self.procs):
+                failed = [r for r, p in enumerate(self.procs)
+                          if p.poll() not in (None, 0)]
+                if failed or time.monotonic() > t_end:
+                    break
+                time.sleep(0.2)
+            self._end()
+            outs = [log.read_text() for log in self.logs]
+        finally:
+            self.close()
+        rcs = [p.returncode for p in self.procs]
+        if any(rcs):
+            raise RuntimeError(f"mh_check: return codes {rcs}\n" + "\n".join(
+                f"--- rank {r} ---\n{o}" for r, o in enumerate(outs)))
+        return outs
+
+    def _end(self) -> None:
+        for p in self.procs:
+            if p.poll() is None:
+                p.kill()
+            p.wait()
+
+    def close(self) -> None:
+        """Ends every process and removes the launch's directory."""
+        self._end()
+        self._tmp.cleanup()
 
 
 def launch(n_processes: int, args: List[str], timeout: float = 600.0,
            workdir: Optional[str] = None, env: Optional[dict] = None
            ) -> List[str]:
-    """Run ``mh_check`` (``args`` after the rendezvous ones) as
-    ``n_processes`` processes joined through a ``file://`` rendezvous in
-    a temporary directory (under ``workdir`` if given); returns each
-    process's output in rank order.  Raises, with the outputs, as soon as
-    one process fails or when ``timeout`` seconds pass; every process is
-    ended before this returns.  A CUDA run's kernels are built here
-    first, so that the processes do not build them side by side."""
-    if "cpu" not in args:
-        from hcmvs_tpu_torch import kernels
-        kernels.build()
-    repo = str(Path(__file__).resolve().parents[2])
-    env = dict(os.environ if env is None else env)
-    env["PYTHONPATH"] = repo + os.pathsep + env.get("PYTHONPATH", "")
-    with tempfile.TemporaryDirectory(prefix="mh_check_",
-                                     dir=workdir) as tmp:
-        rdv = Path(tmp) / "rendezvous"
-        logs = [Path(tmp) / f"rank{r}.log" for r in range(n_processes)]
-        procs = []
-        try:
-            for r in range(n_processes):
-                with logs[r].open("w") as fh:
-                    procs.append(subprocess.Popen(
-                        [sys.executable, "-m",
-                         "hcmvs_tpu_torch.parallel.mh_check",
-                         "--process-id", str(r), "--num-processes",
-                         str(n_processes), "--init-method",
-                         rdv.as_uri(), *args],
-                        stdout=fh, stderr=subprocess.STDOUT, env=env,
-                        cwd=repo))
-            t_end = time.monotonic() + timeout
-            while any(p.poll() is None for p in procs):
-                failed = [r for r, p in enumerate(procs)
-                          if p.poll() not in (None, 0)]
-                if failed or time.monotonic() > t_end:
-                    break
-                time.sleep(0.2)
-        finally:
-            for p in procs:
-                if p.poll() is None:
-                    p.kill()
-                p.wait()
-        outs = [log.read_text() for log in logs]
-    rcs = [p.returncode for p in procs]
-    if any(rcs):
-        raise RuntimeError(f"mh_check: return codes {rcs}\n" + "\n".join(
-            f"--- rank {r} ---\n{o}" for r, o in enumerate(outs)))
-    return outs
+    """``Launch`` and its ``wait``: each process's output in rank
+    order."""
+    return Launch(n_processes, args, workdir, env).wait(timeout)
 
 
 def parse_lines(outs: List[str], tag: str = "MHJSON") -> List[dict]:

@@ -115,7 +115,7 @@ def test_failed_build_raises_with_compiler_output(tmp_path, monkeypatch):
 
 
 def test_earlier_designs_build_apart(tmp_path, monkeypatch):
-    """The earlier designs of kernels B and D build into a library of
+    """The earlier designs of kernels B, C and D build into a library of
     their own, from csrc/earlier/*.cu alone (with the shared headers),
     and each build is found again by its hash."""
     log = tmp_path / "nvcc.log"
@@ -132,7 +132,7 @@ def test_earlier_designs_build_apart(tmp_path, monkeypatch):
     units = [Path(line.split()[-1]) for line in log.read_text().splitlines()
              if " -c " in line]
     assert sorted(u.name for u in units if u.parent == kernels.EARLIER) == [
-        "volume_lookup.cu", "volume_lookup_multi.cu"]
+        "rect_lookup.cu", "volume_lookup.cu", "volume_lookup_multi.cu"]
     assert sorted(u for u in units if u.parent == kernels.CSRC) == sorted(
         kernels.CSRC.glob("*.cu"))
     n_lines = len(log.read_text().splitlines())
@@ -260,7 +260,7 @@ def test_kernel_b_matches_plain(s, offset, monkeypatch):
     assert torch.equal(out, ref)
     with pytest.raises(ValueError):
         kernels.volume_lookup(tab, f[:, ::2])          # not contiguous
-    for d in (192, 640):        # depths the per-plane build never makes
+    for d in (64, 192):         # depths no table build makes (128 n only)
         with pytest.raises(ValueError):
             kernels.volume_lookup(_u16(np.zeros((8, d))).to(dev),
                                   torch.zeros(8, 9, device=dev))
@@ -617,6 +617,53 @@ def test_kernel_c_candidate_axis_matches_plain():
     single = torch.stack([rg.rect_lookup(ctx, s.contiguous())
                           for s in sigma])
     assert torch.equal(out.view(torch.int32), single.view(torch.int32))
+
+
+def _rect_edge_case(device, case):
+    """Kernel C's rect context and sigma of a case of
+    tests/rect_edge_cases.py, built by the port on ``device``."""
+    from rect_edge_cases import edge_inputs, edge_sigma
+    h, w, v, n_cand, mode, depth, n, base = edge_inputs(case)
+    sc = make_plane_scene(np.random.default_rng(3), h=h, w=w, n_views=v + 1)
+    cams = Camera(*(torch.stack([getattr(c, f) for c in sc.cameras])
+                    for f in "KRC")).to(device)
+    geom = make_view_geometry(cams[0], cams[1:])
+    ctx = rg.build_rect_context(geom, rg.pack_depth_normals(
+        torch.from_numpy(depth).to(device), torch.from_numpy(n).to(device)))
+    sigma = torch.from_numpy(edge_sigma(
+        ctx.c0[0].cpu().numpy(), ctx.k[0].cpu().numpy(),
+        ctx.frame_shape[1], base, mode)).to(device)
+    if mode == "unaligned":          # a view 4 bytes into its storage
+        buf = torch.empty(sigma.numel() + 1, device=device)
+        buf[1:].copy_(sigma.reshape(-1))
+        sigma = buf[1:].view(sigma.shape)
+        assert sigma.is_contiguous() and sigma.data_ptr() % 16
+    return ctx, sigma if n_cand else sigma[0]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", ["61x203, K = 1", "61x203, a stack of 1",
+                                  "61x331, K = 9", "a tile all out of frame",
+                                  "columns past the frame", "V = 10",
+                                  "K = 17", "unaligned sigma"])
+def test_kernel_c_edge_cases_match_plain_and_earlier_design(case):
+    """Kernel C in one launch on the edge cases that
+    tests/test_torch_rect_gather.py holds the plain version to the JAX
+    package on, and on more views, three groups of candidates and an
+    unaligned sigma: bit-equal to the plain version and to the earlier
+    design (``earlier_designs()``)."""
+    dev = _cuda()
+    ctx, sigma = _rect_edge_case(dev, case)
+    c_args = (ctx.maps, ctx.row_int, ctx.c0, ctx.k, ctx.rb, sigma)
+    before = kernels.launches["rect_lookup"]
+    out = kernels.rect_lookup(*c_args)
+    assert kernels.launches["rect_lookup"] == before + 1
+    with kernels.earlier_designs():
+        earlier = kernels.rect_lookup(*c_args)
+    ref = rg.rect_lookup_plain(ctx, sigma)
+    assert torch.equal(out.view(torch.int32), ref.view(torch.int32))
+    assert torch.equal(out.view(torch.int32), earlier.view(torch.int32))
+    assert (out[..., 0, :, :] != 0).float().mean() > 0.5
 
 
 @pytest.mark.gpu

@@ -25,6 +25,7 @@ fails the test, it does not hang it).
 """
 
 import json
+import time
 
 import jax
 import jax.numpy as jnp
@@ -385,6 +386,65 @@ def test_scaling_run_returns_its_keys():
     assert set(out) == {"wall_s_1dev", "wall_s_2dev", "ratio_1dev",
                         "ratio_2dev"}
     assert out["ratio_1dev"] == 1.0 and out["wall_s_2dev"] > 0
+
+
+def test_dense_timed_and_ba_stages_in_one_launch(tmp_path):
+    """A dense config, the scaling check's timed stage and sharded BA one
+    after another in the same two processes (as chip_smoke.py's phase 28
+    runs them on the card), each stage's lines tagged, and
+    ``scaling.run_multiprocess`` reading the timed stage's line."""
+    from hcmvs_tpu_torch.eval import scaling
+    np.savez(tmp_path / "ba.npz", **_ba_problem())
+    outs = M.launch(2, ["--device", "cpu", "--views", "4", "--cfg", "{}",
+                        *scaling.bench_stage_args(1),
+                        "--ba-problem", str(tmp_path / "ba.npz"),
+                        "--ba-iters", "3"],
+                    timeout=TIMEOUT, workdir=str(tmp_path))
+    assert all("MHCHECK OK" in o for o in outs), outs
+    assert "ba cost_rel=" in outs[0] and "MHBENCH" in outs[0]
+    lines = M.parse_lines(outs)
+    assert [(x["rank"], x["stage"]) for x in lines] == [
+        (0, "dense"), (0, "bench"), (0, "ba"),
+        (1, "dense"), (1, "bench"), (1, "ba")]
+    dense, bench, ba = lines[:3]
+    assert dense["equal"] and dense["views"] == [0, 1]
+    assert bench["equal"] and bench["views"] == list(range(4))
+    assert bench["cfg"] == {"random_iters": 2} and bench["bench_wall_s"] > 0
+    assert ba["within"] and ba["dist_backend"] == "gloo"
+    rep = scaling.run_multiprocess(device="cpu", h=H, w=W,
+                                   line=scaling.bench_line(lines))
+    assert rep["value_check"] == "OK" and rep["wall_s_2proc_1dev"] > 0
+    assert rep["dist_backend"] == "gloo" and rep["size"] == f"{W}x{H}"
+
+
+def test_started_processes_wait_at_the_gate(tmp_path):
+    """``mh_check.Launch`` holds its processes at a gate, before they
+    join the group, until ``wait``: their start-up can overlap other
+    work."""
+    started = M.Launch(2, ["--device", "cpu", "--views", "2", "--nbrs",
+                           "1"], workdir=str(tmp_path))
+    try:
+        time.sleep(3.0)
+        assert all(p.poll() is None for p in started.procs)
+        assert not started.gate.exists()
+        # none has joined the group: the rendezvous file is not made yet
+        assert not list(started.gate.parent.glob("rendezvous*"))
+    except BaseException:
+        started.close()
+        raise
+    outs = started.wait(TIMEOUT)
+    assert all("MHCHECK OK" in o for o in outs), outs
+    assert all(p.poll() is not None for p in started.procs)
+    assert not started.gate.parent.exists()
+
+
+def test_scaling_run_multiprocess_on_the_cpu():
+    """``scaling.run_multiprocess`` in a launch of its own: two processes
+    of four view shards each, as the JAX module's 2 x 4 devices."""
+    from hcmvs_tpu_torch.eval import scaling
+    rep = scaling.run_multiprocess(reps=1, timeout=TIMEOUT, device="cpu")
+    assert rep["value_check"] == "OK" and rep["wall_s_2proc_4dev"] > 0
+    assert rep["device"] == "cpu" and rep["nbrs"] == 3
 
 
 def test_one_process_needs_no_group(monkeypatch):

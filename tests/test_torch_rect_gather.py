@@ -138,3 +138,72 @@ def test_rect_lookup_plain_equals_jax_exactly(setup):
     assert np.array_equal(out.view(np.uint32), ref_pl.view(np.uint32))
     hit = out[:, 0] != 0
     assert hit.mean() > 0.8          # the window covers most reads
+
+
+# --- kernel C's edge cases (tests/rect_edge_cases.py) -----------------------
+
+@pytest.fixture(scope="module")
+def edge_contexts():
+    """{case: (JAX context, port context, sigma)} for each edge case, built
+    by the JAX package from the same seeded inputs."""
+    from rect_edge_cases import CASES, edge_inputs, edge_sigma
+    out = {}
+    for case in CASES:
+        h, w, v, n_cand, mode, depth, n, base = edge_inputs(case)
+        sc = make_plane_scene(np.random.default_rng(3), h=h, w=w,
+                              n_views=v + 1)
+        cams = JCamera(K=jnp.stack([c.K for c in sc.cameras]),
+                       R=jnp.stack([c.R for c in sc.cameras]),
+                       C=jnp.stack([c.C for c in sc.cameras]))
+        geom = j_geometry(jax.tree.map(lambda x: x[0], cams),
+                          jax.tree.map(lambda x: x[1:], cams))
+        ctx_j = jrg.build_rect_context(geom, jrg.pack_depth_normals(
+            jnp.asarray(depth), jnp.asarray(n)))
+        sigma = edge_sigma(np.asarray(ctx_j.c0)[0], np.asarray(ctx_j.k)[0],
+                           ctx_j.frame_shape[1], base, mode)
+        out[case] = (ctx_j, rect_context_from_numpy(ctx_j, device="cpu"),
+                     sigma if n_cand else sigma[0])
+    return out
+
+
+_XLA_STACK = jax.jit(jax.vmap(jrg.rect_lookup_xla, in_axes=(None, 0)))
+_PALLAS = jax.jit(lambda ctx, s: jrg.rect_lookup(ctx, s, interpret=True))
+
+
+@pytest.mark.parametrize("case", ["61x203, K = 1", "61x203, a stack of 1",
+                                  "61x331, K = 9", "a tile all out of frame",
+                                  "columns past the frame"])
+def test_rect_lookup_plain_equals_jax_on_edge_cases(edge_contexts, case):
+    """Kernel C's plain version bit-equal to ``rect_lookup_xla`` (under
+    ``jax.vmap`` for a stack) and to the Pallas kernel in interpret mode
+    (one candidate at a time) where the CUDA kernel has its edges: H and
+    W no multiple of 8, 128 or 4, K = 1 and one past a group of 8, a tile
+    with no in-frame read (the sentinel base), columns past both ends of
+    the frame."""
+    ctx_j, ctx_t, sigma = edge_contexts[case]
+    h_r, w_r = ctx_t.frame_shape
+    out = trg.rect_lookup(ctx_t, torch.from_numpy(sigma)).numpy()
+    stack = sigma if sigma.ndim == 3 else sigma[None]
+    flat = out.reshape((len(stack),) + out.shape[-4:])
+    ref = np.asarray(_XLA_STACK(ctx_j, jnp.asarray(stack)))
+    assert out.shape == sigma.shape[:-2] + (3, 2) + sigma.shape[-2:]
+    assert np.array_equal(flat.view(np.uint32), ref.view(np.uint32))
+    for i, s in enumerate(stack):
+        ref_pl = np.asarray(_PALLAS(ctx_j, jnp.asarray(s)))
+        assert np.array_equal(flat[i].view(np.uint32),
+                              ref_pl.view(np.uint32))
+    assert (flat[:, :, 0] != 0).mean() > 0.5
+    # the case reaches the edge it is named for
+    icol = trg._icol(ctx_t, torch.from_numpy(stack)).numpy()
+    if case == "a tile all out of frame":
+        first = icol[0, :, :8, :128]
+        assert ((first < 0) | (first > w_r - 1)).all()
+        assert not flat[0, :, :, :8, :128].any()
+        assert flat[1, :, 0, :8, :128].any()
+    if case == "columns past the frame":
+        band = icol[:, 0, 8:24]
+        for col in (-1, 0, w_r - 1, w_r):
+            assert (band == col).any(), col
+        read = flat[:, 0, 0, 8:24] != 0
+        assert read[(band == 0) | (band == w_r - 1)].any()
+        assert not read[(band < 0) | (band > w_r - 1)].any()
