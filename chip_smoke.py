@@ -166,11 +166,13 @@ Phases, each fatal on failure:
      gates, each stage's wall and the peak memory;
  27. real photos: every image fixture of tests/data/jpeg (JPEG incl.
      CMYK, YCCK and cut progressive files, PNG, the TIFF and BMP kinds of
-     ``formats/`` and its WebP, GIF, HDR, PFM, PAM and Sun raster files)
-     through ``io.images.imread`` (the port's own decoders; JPEG and WebP
-     through native/jpeg.cpp and native/webp.cpp, built on first use) in
-     its three modes against the manifest's cv2 digests (a raise where cv2
-     reads nothing), the JPEG and WebP decodes' ms per megapixel, the two
+     ``formats/``, its WebP, GIF, HDR, PFM, PAM and Sun raster files, its
+     66 JPEG 2000 kinds and the 4 JPEG 2000 views of ``jp2_views/``)
+     through ``io.images.imread`` (the port's own decoders; JPEG, WebP
+     and JPEG 2000 through native/jpeg.cpp, native/webp.cpp and
+     native/jpeg2000.cpp, built on first use) in its three modes against
+     the manifest's cv2 digests (a raise where cv2 reads nothing), the
+     JPEG, WebP and JPEG 2000 decodes' ms per megapixel, the three
      decoders' build times and ``resize_image``'s time to halve a
      6000x4000 gray and RGB image on this host; then the 8
      committed 1280x960 JPEG photos (phase 16's scene, EXIF focal
@@ -179,7 +181,11 @@ Phases, each fatal on failure:
      0.025, the refined rms within 0.05 px of the JAX package's on these
      JPEGs, view 0 at its floor and within 0.03 of the JAX package's
      reading of these JPEGs at these flags on the CPU, kernels A, B and C
-     launched.
+     launched; and ``densify.main`` on the 4 JPEG 2000 views (the ridge
+     scene undistorted, colour 9/7 in two layers, RPCL, 512x512 tiles)
+     through a scene.mvs written here, resolution-level 0 on the default
+     routes: kernels A, B and C launched, view 0 within 0.03 of the JAX
+     package's densify of the same files on the CPU.
  28. the (view, tile) mesh (``hcmvs_tpu_torch.parallel``): first each
      kernel against its plain version at the tile axis's band shapes
      (view 0 cut to each band's window of the (2 x 2) mesh); then
@@ -3666,10 +3672,12 @@ def check_full_run(root):
 # 16's scene saved by tests/data/jpeg/make_fixtures.py as RGB 4:2:0 JPEGs
 # at quality 95 with FocalLengthIn35mmFilm = 33.75 in APP1).  First, in
 # this process: every fixture's decode in the three imread modes against
-# its cv2 digest in the manifest (no cv2 here; where cv2 reads nothing the
-# port must raise NotImplementedError), the decode's ms per
+# its cv2 digest in the manifest (the JPEG 2000 kinds and views included;
+# no cv2 here; where cv2 reads nothing the port must raise
+# NotImplementedError), the JPEG, WebP and JPEG 2000 decodes' ms per
 # megapixel and resize_image's time to halve a 6000x4000 image; then, as
-# a worker: mvgmvs.main on the photos as phase 16 runs it.  Its gates:
+# workers: mvgmvs.main on the photos as phase 16 runs it, and densify.main
+# on the JPEG 2000 views (check_densify_jp2).  Its gates:
 # phase 16's K, registration, k1 window and ATE, the refined rms within
 # PHOTO_RMS_TOL of the JAX package's own on these JPEGs (its
 # incremental_sfm + refine_with_distortion on the CPU, tests/
@@ -3690,6 +3698,16 @@ RESIZE_SHAPES = ((4000, 6000), (4000, 6000, 3))
 # the WebP decode's time: p00 as a lossy WebP at quality 90 and as a
 # lossless one (tests/data/jpeg/formats, make_fixtures.photo_webps)
 WEBP_PHOTOS = {"lossy_q90": "p00_q90.webp", "lossless": "p00_lossless.webp"}
+# phase 27's JPEG 2000 run: the committed views (make_fixtures.jp2_views:
+# views 0-3 of the photos' ridge scene at 1280x960, undistorted, colour
+# 9/7 in two layers, RPCL, 512x512 tiles and precincts, 97,803 bytes in
+# all) through densify.main at DENSIFY_FLAGS on the default routes.  Its
+# gate: view 0 within JP2_JAX_TOL of the JAX package's densify of the same
+# files on the CPU, cv2 decoding them, volume and rect backends forced
+# (PYTHONPATH=. python tests/test_torch_jpeg2000.py 960 1280 jax)
+JP2_VIEW_DIR = JPEG_DIR / "jp2_views"
+JP2_JAX_ACC = 0.8221051458158634
+JP2_JAX_TOL = 0.03
 
 
 def check_jpeg_decoder() -> tuple:
@@ -3697,7 +3715,9 @@ def check_jpeg_decoder() -> tuple:
     WebP, GIF, HDR, PFM, PAM, Sun raster) through ``io.images.imread``
     against the manifest's cv2 digests, the JPEG decode's ms per megapixel
     (the 8 photos in color mode, median of 3 rounds), the WebP decode's
-    (WEBP_PHOTOS, median of 3), the two native decoders' build times and
+    (WEBP_PHOTOS, median of 3), the JPEG 2000 decode's (the views of
+    JP2_VIEW_DIR, median of 3), the three native decoders' build times (built
+    side by side) and
     ``resize_image``'s seconds to halve RESIZE_SHAPES (median of 3).
     Returns (summary, failed checks)."""
     import hashlib
@@ -3706,12 +3726,14 @@ def check_jpeg_decoder() -> tuple:
     from hcmvs_tpu_torch.io.images import imread, resize_image
     label = "photos_jpeg"
     failed = []
-    t0 = time.perf_counter()
-    native.library("jpeg")
-    build_s = time.perf_counter() - t0
-    t0 = time.perf_counter()
-    native.library("webp")
-    webp_build_s = time.perf_counter() - t0
+
+    def timed_build(name):
+        t0 = time.perf_counter()
+        native.build(name)
+        return time.perf_counter() - t0
+    with concurrent.futures.ThreadPoolExecutor(3) as pool:   # one g++ each
+        build_s, webp_build_s, jp2_build_s = pool.map(
+            timed_build, ("jpeg", "webp", "jpeg2000"))
     manifest = json.loads((JPEG_DIR / "manifest.json").read_text())["files"]
     bad = []
     for name, digests in manifest.items():
@@ -3748,6 +3770,15 @@ def check_jpeg_decoder() -> tuple:
             times.append(time.perf_counter() - t0)
         webp_ms[kind] = float(np.median(times)) * 1e3 / (
             img.shape[0] * img.shape[1] / 1e6)
+    views = sorted(JP2_VIEW_DIR.glob("v*.jp2"))
+    times = []
+    for _ in range(3):
+        for path in views:
+            t0 = time.perf_counter()
+            img = imread(str(path), "color")
+            times.append(time.perf_counter() - t0)
+    jp2_ms_per_mp = float(np.median(times)) * 1e3 / (
+        img.shape[0] * img.shape[1] / 1e6)
     rng = np.random.default_rng(0)
     resize_s = {}
     for shape in RESIZE_SHAPES:
@@ -3758,19 +3789,26 @@ def check_jpeg_decoder() -> tuple:
             resize_image(img, 0.5)
             times.append(time.perf_counter() - t0)
         resize_s["x".join(map(str, shape))] = float(np.median(times))
-    log(f"[{label}] jpeg.cpp built in {build_s:.3f} s, webp.cpp in "
-        f"{webp_build_s:.3f} s; {len(manifest)} "
-        f"fixtures x {len(JPEG_MODES)} modes, {len(bad)} differ from "
+    n_jp2 = sum(name.endswith((".jp2", ".j2k")) for name in manifest)
+    log(f"[{label}] built side by side: jpeg.cpp in {build_s:.3f} s, "
+        f"webp.cpp in {webp_build_s:.3f} s, jpeg2000.cpp in "
+        f"{jp2_build_s:.3f} s; "
+        f"{len(manifest)} fixtures ({n_jp2} JPEG 2000) x {len(JPEG_MODES)} "
+        f"modes, {len(bad)} differ from "
         f"their cv2 digests; decode {ms_per_mp:.3f} ms per megapixel (the "
         f"{len(photos)} photos, {pw}x{ph} colour, median of 3 rounds); WebP "
         f"decode {webp_ms} ms per megapixel (p00 at 1280x960, colour, "
-        f"median of 3); resize_image at 0.5 {resize_s} s "
+        f"median of 3); JPEG 2000 decode {jp2_ms_per_mp:.3f} ms per "
+        f"megapixel (the {len(views)} views, colour, median of 3 rounds); "
+        f"resize_image at 0.5 {resize_s} s "
         f"(median of 3) on this host; {smi_line()}")
     return {"build_s": build_s, "webp_build_s": webp_build_s,
-            "fixtures": len(manifest),
+            "jpeg2000_build_s": jp2_build_s,
+            "fixtures": len(manifest), "jpeg2000_fixtures": n_jp2,
             "modes": list(JPEG_MODES), "differ": bad,
             "decode_ms_per_mp": ms_per_mp,
             "webp_decode_ms_per_mp": webp_ms,
+            "jpeg2000_decode_ms_per_mp": jp2_ms_per_mp,
             "resize_half_s": resize_s}, failed
 
 
@@ -3856,6 +3894,68 @@ def check_photos_jpeg(root):
         "valid_frac": float((d0 > 0).mean()),
         "n_points": len(out["cloud"]["points"]), "total_s": seconds,
         "stage_s": stages, "peak_gib": peak,
+        "launches_by_shape": shapes}, failed
+
+
+def jp2_fixtures():
+    """tests/data/jpeg/make_fixtures.py as a module (numpy alone at
+    import): the JPEG 2000 views' scene writer."""
+    import importlib.util
+    spec = importlib.util.spec_from_file_location(
+        "make_fixtures", JPEG_DIR / "make_fixtures.py")
+    module = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(module)
+    return module
+
+
+def check_densify_jp2(root):
+    """Phase 27, its JPEG 2000 run: ``pipeline.densify.main`` on the
+    committed JPEG 2000 views (JP2_VIEW_DIR) through a scene.mvs written
+    here, DENSIFY_FLAGS on the default routes, counts reset just before,
+    read just after.  Returns (launches, JSON summary, failed checks)."""
+    import torch
+    from hcmvs_tpu_torch import kernels
+    from hcmvs_tpu_torch.pipeline import densify as D
+    from hcmvs_tpu_torch.utils import profiling
+    label = "densify_jp2"
+    failed = []
+    scene_path, sc = jp2_fixtures().jp2_view_scene(str(root))
+    profiling.reset_report()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    kernels.reset_launches()
+    with launch_shapes() as shapes:
+        t0 = time.perf_counter()
+        stats = D.main(["--input-file", scene_path, "--images-dir",
+                        str(JP2_VIEW_DIR), "-w", str(root / "out"),
+                        "--flags", *DENSIFY_FLAGS])
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+    launches = dict(kernels.launches)
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    shapes = check_shapes(label, launches, shapes, failed)
+    if min(launches[k] for k in EXACT_KERNELS) <= 0:
+        failed.append(f"{label}: a kernel of the path never launched: "
+                      f"{launches}")
+    stages = _stage_lines(label, profiling.report(), (
+        "densify.load_images", "densify.flows", "densify.scene_tensors",
+        "densify.estimate", "densify.fuse"))
+    acc = depth_acc_2pct(stats["depth"][0], sc.depth_gt)
+    log(f"[{label}] {len(sc.cameras)} JPEG 2000 views at {PHOTO_HW[1]}x"
+        f"{PHOTO_HW[0]}: view 0 depth_acc_2pct {acc:.4f} (the JAX "
+        f"package's {JP2_JAX_ACC:.4f} on the CPU, within {JP2_JAX_TOL}); "
+        f"valid {stats['valid_frac']:.4f}; {stats['n_points']} points; "
+        f"launches {launches}; total {seconds:.3f} s, peak memory "
+        f"{peak:.2f} GiB; {smi_line()}")
+    if abs(acc - JP2_JAX_ACC) > JP2_JAX_TOL:
+        failed.append(f"{label}: view 0 accuracy {acc} against the JAX "
+                      f"package's {JP2_JAX_ACC} misses its gate")
+    return launches, {
+        "views": len(sc.cameras), "h": PHOTO_HW[0], "w": PHOTO_HW[1],
+        "flags": list(DENSIFY_FLAGS), "depth_acc_2pct": acc,
+        "jax_cpu_depth_acc_2pct": JP2_JAX_ACC,
+        "valid_frac": stats["valid_frac"], "n_points": stats["n_points"],
+        "total_s": seconds, "stage_s": stages, "peak_gib": peak,
         "launches_by_shape": shapes}, failed
 
 
@@ -4372,7 +4472,7 @@ def check_phase_28(rows, device: str = "cuda", dense_args=VIEW_AXIS_ARGS,
 # whose attached tables take 67 GiB of the card, ends before they start.)
 WORKERS = ("mesh", "full_run", "golden_full_stack", "routes", "chain",
            "sgm", "golden_hierarchy", "golden_run", "photos_jpeg",
-           "sfm_again")
+           "sfm_again", "densify_jp2")
 WORKER_TIMEOUT_S = 600
 
 
@@ -4404,6 +4504,8 @@ def _worker(kind: str, out_path: str, roots: str = "{}") -> int:
             result = check_sfm_again(Path(roots["photos"]), dev)
         elif kind == "photos_jpeg":
             result = check_photos_jpeg(root)
+        elif kind == "densify_jp2":
+            result = check_densify_jp2(root)
         else:
             result = check_golden(dev, (kind[len("golden_"):],))
     finally:
@@ -4611,9 +4713,10 @@ def main() -> int:
     # phase 16's photos; 19. the whole chain, small; 21. the dense routes
     # at 1280x960; 24. SGM through densify; 25. the golden quality gate,
     # three modes; 26. the full product run at 1280x960; 27. the pipeline
-    # from the JPEG photos: side by side
+    # from the JPEG photos and densify on the JPEG 2000 views: side by side
     done = run_workers(roots={"dense": masks_root, "photos": photos_root})
-    for kind in ("sfm_again", "mesh", "chain", "routes", "sgm", "full_run"):
+    for kind in ("sfm_again", "mesh", "chain", "routes", "sgm", "full_run",
+                 "densify_jp2"):
         paths[kind] = done[kind]
     launches, summary, failed = done["photos_jpeg"]
     paths["photos_jpeg"] = (launches, dict(summary, decoder=jpeg_summary),

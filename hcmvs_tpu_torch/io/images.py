@@ -40,8 +40,13 @@ stored channels and depth, colour in BGR(A) order).
   an animation, EXIF orientation in the colour and gray modes).
 - GIF, Radiance HDR, PFM, PAM, Sun raster: ``io/image_formats.py``, each
   with the rules its cv2 reader follows.
-- JPEG 2000 and AVIF, which cv2 also reads, raise NotImplementedError
-  naming them.
+- JPEG 2000: ``native/jpeg2000.cpp`` (the JP2 box or a raw codestream,
+  everything of Part 1 but HTJ2K), bit-equal to the components OpenJPEG
+  2.5.3 gives cv2, read into arrays by OpenCV's rules (``_jpeg2000``);
+  signed components, precisions below 8 bits, image offsets, sub-sampled
+  components, two components unchanged and cut streams raise
+  NotImplementedError, as cv2 fails on them.
+- AVIF, which cv2 also reads, raises NotImplementedError naming it.
 
 Gray of a colour file: PNG through libpng's rgb_to_gray, the others
 through OpenCV's BT.601 fixed point (16-bit samples cut to 8 first).
@@ -816,8 +821,9 @@ def _jpeg(data: bytes, mode: str, path: str) -> np.ndarray:
 def _other_format(data: bytes, path: str):
     """The decoder ``(data, mode, path) -> array`` of the formats whose
     modes follow their own rules (WebP, GIF, Radiance HDR, PFM, PAM, Sun
-    raster), by signature; None for the rest.  Raises NotImplementedError
-    for a format cv2 reads and the port does not (JPEG 2000, AVIF)."""
+    raster, JPEG 2000), by signature; None for the rest.  Raises
+    NotImplementedError for a format cv2 reads and the port does not
+    (AVIF)."""
     if data[:4] == b"RIFF" and data[8:12] == b"WEBP":
         return _webp
     if data[:6] in (b"GIF87a", b"GIF89a"):
@@ -830,15 +836,112 @@ def _other_format(data: bytes, path: str):
         return image_formats.decode_hdr
     if data[:4] == image_formats.SUN_MAGIC:
         return image_formats.decode_sun
-    if data[:12] == b"\0\0\0\x0cjP  \r\n\x87\n" or \
-            data[:4] == b"\xff\x4f\xff\x51":
-        raise NotImplementedError(f"{path}: JPEG 2000 (decoding it needs a "
-                                  f"port of OpenJPEG, its 9/7 float "
-                                  f"wavelet included)")
+    if data[:12] == _JP2_SIGNATURE or data[:4] == b"\xff\x4f\xff\x51":
+        return _jpeg2000
     if data[4:8] == b"ftyp" and data[8:12] in (b"avif", b"avis"):
         raise NotImplementedError(f"{path}: AVIF (decoding it needs an AV1 "
                                   f"decoder)")
     return None
+
+
+_JP2_SIGNATURE = b"\0\0\0\x0cjP  \r\n\x87\n"
+
+
+def _yuv_bgr(y, u, v) -> np.ndarray:
+    """cvtColor's COLOR_YUV2BGR of 8-bit samples: coefficients 2.032,
+    -0.395, -0.581 and 1.140 in 14-bit fixed point, rounded, saturated."""
+    def descale(x):
+        return (x + (1 << 13)) >> 14
+    u, v = u - 128, v - 128
+    bgr = np.stack([y + descale(u * 33292),
+                    y + descale(u * -6472 + v * -9519),
+                    y + descale(v * 18678)], -1)
+    return np.clip(bgr, 0, 255).astype(np.uint8)
+
+
+def _jpeg2000(data: bytes, mode: str, path: str) -> np.ndarray:
+    """A JPEG 2000 file's ``imread`` (a JP2 box or a raw codestream) by
+    OpenCV 5.0's rules for OpenJPEG's output: the depth from the
+    codestream's highest precision (8 bits: uint8; 9-16: uint16 unchanged,
+    cut by ``>> (precision - 8)`` in the colour and gray modes; above 16
+    bits only those modes), every channel shifted alike and saturated; the
+    JP2 colour space decides the channels: sRGB (and an unknown or
+    unspecified one, as a raw codestream's) reads RGB(A) as BGR(A) and
+    gray through cvtColor's BGR2GRAY (one or two components: the first), gray repeats
+    its one component, sYCC converts through cvtColor's YUV2BGR (gray: its
+    Y); the JP2 palette and channel definitions applied first.  Raises
+    NotImplementedError naming each kind cv2 fails on: other than 1-4
+    components, signed ones, a precision below 8 bits, sub-sampled
+    components or an image offset, two components read unchanged, eYCC or
+    CMYK, or a stream OpenJPEG's strict decoder refuses (a cut one)."""
+    head = native.jp2_info(data, path)
+    n, comps = head["components"], head["comps"]
+    if not 1 <= n <= 4:
+        raise NotImplementedError(f"{path}: JPEG 2000 of {n} components "
+                                  f"(cv2 reads 1 to 4)")
+    if any(c[1] for c in comps):
+        raise NotImplementedError(f"{path}: JPEG 2000 with signed "
+                                  f"components (cv2 fails on them)")
+    prec = max(c[0] for c in comps)
+    if prec < 8:
+        raise NotImplementedError(f"{path}: JPEG 2000 of {prec}-bit "
+                                  f"samples (cv2 fails below 8 bits)")
+    if mode == "unchanged":
+        out_ch, out_prec = n, (8 if prec == 8 else 16)
+        if prec > 16:
+            raise NotImplementedError(f"{path}: JPEG 2000 of {prec}-bit "
+                                      f"samples read unchanged (cv2 fails "
+                                      f"above 16 bits)")
+        if n == 2:
+            raise NotImplementedError(f"{path}: JPEG 2000 of two components "
+                                      f"(gray and alpha) read unchanged "
+                                      f"(cv2 fails on it)")
+    else:
+        out_ch, out_prec = (1 if mode == "gray" else 3), 8
+    if head["x0"] or head["y0"] or any(c[2:4] != (1, 1) for c in comps):
+        raise NotImplementedError(f"{path}: JPEG 2000 with an image offset "
+                                  f"or sub-sampled components (cv2 fails: "
+                                  f"\"tiles are not supported\")")
+    space = native.JP2_COLOR_SPACES[head["colour_space"]]
+    if space not in ("unknown", "unspecified", "sRGB", "gray", "sYCC"):
+        raise NotImplementedError(f"{path}: JPEG 2000 in {space} (cv2 fails "
+                                  f"to convert it)")
+    planes = native.jp2_decode(data, path)
+    shift = max(prec - out_prec, 0)
+    dtype = np.uint8 if out_prec == 8 else np.uint16
+
+    def cut(ks):
+        top = (1 << out_prec) - 1
+        return np.stack([np.clip(planes[k] >> shift, 0, top) for k in ks],
+                        -1).astype(dtype)
+
+    fails = NotImplementedError(f"{path}: JPEG 2000 of {len(planes)} "
+                                f"channels in {space}, read into {out_ch} "
+                                f"(cv2 fails on it)")
+    if space == "gray":
+        if out_ch == 4:
+            raise fails
+        img = cut([0] * out_ch)
+    elif space == "sYCC":
+        if out_ch == 1:
+            img = cut([0])
+        elif out_ch == 3 and len(planes) >= 3 and dtype == np.uint8:
+            y, u, v = (planes[k].astype(np.int64) >> shift for k in range(3))
+            img = _yuv_bgr(*(np.clip(c, 0, 255) for c in (y, u, v)))
+        else:
+            raise fails
+    elif out_ch == 1:
+        if len(planes) <= 2:
+            img = cut([0])
+        elif dtype == np.uint8:
+            img = image_formats.gray_cvt(cut([2, 1, 0]))[..., None]
+        else:
+            raise fails
+    elif len(planes) >= out_ch:
+        img = cut([2, 1, 0, 3][:out_ch])
+    else:
+        raise fails
+    return np.ascontiguousarray(img[..., 0] if out_ch == 1 else img)
 
 
 def _webp(data: bytes, mode: str, path: str) -> np.ndarray:
@@ -907,7 +1010,8 @@ def imread(path: str, mode: str = "color") -> np.ndarray:
     else:
         raise NotImplementedError(
             f"{path}: unknown image format (JPEG, PNG, PNM, PAM, PFM, BMP, "
-            f"TIFF, WebP, GIF, Radiance HDR and Sun raster only)")
+            f"TIFF, WebP, GIF, Radiance HDR, Sun raster and JPEG 2000 "
+            f"only)")
     if mode == "unchanged":
         if gray_file:
             return image_formats.bt601(raw[..., :3])

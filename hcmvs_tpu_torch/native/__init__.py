@@ -12,16 +12,22 @@
   fancy upsampling and colour tables), behind ``io.images``;
 - ``webp.cpp``: WebP decoding (lossy VP8, lossless VP8L, alpha, the
   first frame of an animation) to the samples ``cv2.imread`` gives with
-  libwebp (its fancy upsampling and fixed-point colour conversion).
+  libwebp (its fancy upsampling and fixed-point colour conversion);
+- ``jpeg2000.cpp``: JPEG 2000 decoding (the JP2 box or a raw codestream)
+  to the components OpenJPEG 2.5.3 gives cv2 (its 9/7 in float32, its
+  reconstruction of cut passes, its palette and channel definitions).
 
 ``maxflow.cpp`` and ``raster.cpp`` are byte-for-byte the JAX package's;
-``jpeg.cpp`` and ``webp.cpp`` are the port's own (the JAX package decodes
-with OpenCV, which the port's machine does not have).  All four are
-compiled with
+``jpeg.cpp``, ``webp.cpp`` and ``jpeg2000.cpp`` are the port's own (the JAX
+package decodes with OpenCV, which the port's machine does not have).  All
+are compiled with
 the JAX package's flags, ``g++ -O3 -march=native -std=c++17 -shared
 -fPIC`` (the flags matter: without ``-march=native`` g++ forms no fused
 multiply-adds on x86 and the barycentrics differ in the last bit), so the
-two packages give equal outputs.  Each is compiled at first use into
+two packages give equal outputs; ``jpeg2000.cpp`` adds
+``-ffp-contract=off`` (``EXTRA_FLAGS``), since OpenJPEG rounds every
+multiply and add of its wavelet and colour transform on its own.  Each is
+compiled at first use into
 ``_build/<name>-<hash>.so`` beside this file (listed in ``.gitignore``;
 the hash covers the source, the flags and the CPU that ``-march=native``
 resolves to, so a copy of the tree on another machine builds anew) and
@@ -45,6 +51,8 @@ import numpy as np
 SRC_DIR = Path(__file__).resolve().parent
 BUILD_DIR = SRC_DIR / "_build"
 GXX_FLAGS = ("-O3", "-march=native", "-std=c++17", "-shared", "-fPIC")
+# flags of one source on top of GXX_FLAGS
+EXTRA_FLAGS = {"jpeg2000": ("-ffp-contract=off",)}
 
 _libs: Dict[str, ctypes.CDLL] = {}
 _arch: Dict[str, str] = {}
@@ -72,7 +80,8 @@ def build(name: str) -> Path:
     compile fails.  The object is written under a temporary name and
     renamed into place, so processes building at once do not collide."""
     src = SRC_DIR / f"{name}.cpp"
-    key = " ".join(GXX_FLAGS + (native_arch(),)).encode()
+    flags = GXX_FLAGS + EXTRA_FLAGS.get(name, ())
+    key = " ".join(flags + (native_arch(),)).encode()
     digest = hashlib.sha256(src.read_bytes() + key).hexdigest()[:16]
     so_path = BUILD_DIR / f"{name}-{digest}.so"
     if so_path.exists():
@@ -80,7 +89,7 @@ def build(name: str) -> Path:
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
     os.close(fd)
-    cmd = ["g++", *GXX_FLAGS, "-o", tmp, str(src)]
+    cmd = ["g++", *flags, "-o", tmp, str(src)]
     proc = subprocess.run(cmd, capture_output=True, text=True, timeout=300)
     if proc.returncode != 0:
         os.unlink(tmp)
@@ -117,13 +126,18 @@ _SIGNATURES = {
              ("hcmvs_webp_decode", ctypes.c_int,
               [_BYTES, ctypes.c_int64, ctypes.c_int32, _U8, ctypes.c_int64,
                _MSG, ctypes.c_int])],
+    "jpeg2000": [("hcmvs_jp2_info", ctypes.c_int,
+                  [_BYTES, ctypes.c_int64, _I64, _MSG, ctypes.c_int]),
+                 ("hcmvs_jp2_decode", ctypes.c_int,
+                  [_BYTES, ctypes.c_int64, _I32, ctypes.c_int64, _I64,
+                   _MSG, ctypes.c_int])],
 }
 
 
 def library(name: str) -> ctypes.CDLL:
-    """The loaded library of ``<name>.cpp`` ("maxflow", "raster", "jpeg"
-    or "webp"), built on first use, with its functions' argument types
-    declared."""
+    """The loaded library of ``<name>.cpp`` ("maxflow", "raster", "jpeg",
+    "webp" or "jpeg2000"), built on first use, with its functions'
+    argument types declared."""
     if name not in _libs:
         lib = ctypes.CDLL(str(build(name)))
         for fn_name, restype, argtypes in _SIGNATURES[name]:
@@ -217,6 +231,57 @@ def webp_decode(data: bytes, channels: int = 4,
     _jpeg_status(library("webp").hcmvs_webp_decode(
         data, len(data), channels, out, out.size, msg, len(msg)), msg, path)
     return out
+
+
+# OpenJPEG's OPJ_COLOR_SPACE, as jp2_info reports it
+JP2_COLOR_SPACES = {-1: "unknown", 0: "unspecified", 1: "sRGB", 2: "gray",
+                    3: "sYCC", 4: "eYCC", 5: "CMYK"}
+_JP2_MAX_COMPS = 16
+
+
+def jp2_info(data: bytes, path: str = "JPEG 2000") -> Dict:
+    """The header of a JPEG 2000 file (the JP2 box or a raw codestream) as
+    OpenJPEG's opj_read_header gives it: width, height, components (the
+    codestream's), colour_space (a key of JP2_COLOR_SPACES), channels (after
+    the JP2 palette), x0, y0 (the image offset), rsiz, and comps: for each
+    of the first 16 components (precision, signed, dx, dy, x0, y0).  Raises
+    as ``jp2_decode`` does."""
+    info = np.zeros(8 + 6 * _JP2_MAX_COMPS, np.int64)
+    msg = ctypes.create_string_buffer(256)
+    _jpeg_status(library("jpeg2000").hcmvs_jp2_info(
+        data, len(data), info, msg, len(msg)), msg, path)
+    keys = ("width", "height", "components", "colour_space", "channels",
+            "x0", "y0", "rsiz")
+    out = {k: int(v) for k, v in zip(keys, info)}
+    n = min(out["components"], _JP2_MAX_COMPS)
+    out["comps"] = [tuple(int(v) for v in info[8 + 6 * i:14 + 6 * i])
+                    for i in range(n)]
+    return out
+
+
+def jp2_decode(data: bytes, path: str = "JPEG 2000") -> list:
+    """A JPEG 2000 file's channels as OpenJPEG 2.5.3's opj_decode gives
+    them to cv2, after the JP2 palette and channel definitions: a list of
+    (h, w) int32 arrays (a sub-sampled component at its own size).
+    Raises NotImplementedError naming a feature or stream on which cv2's
+    OpenJPEG fails (a cut stream among them) and ValueError naming the
+    fault of a corrupt one."""
+    head = jp2_info(data, path)
+    n = max(head["channels"], head["components"])
+    if n > _JP2_MAX_COMPS:
+        raise NotImplementedError(f"{path}: JPEG 2000 of {n} channels")
+    cap = n * head["width"] * head["height"]   # no component is larger
+    out = np.empty(cap, np.int32)
+    info = np.zeros(5 * _JP2_MAX_COMPS, np.int64)
+    msg = ctypes.create_string_buffer(256)
+    _jpeg_status(library("jpeg2000").hcmvs_jp2_decode(
+        data, len(data), out, cap, info, msg, len(msg)), msg, path)
+    planes, at = [], 0
+    for k in range(head["channels"]):
+        w, h = int(info[5 * k + 2]), int(info[5 * k + 3])
+        planes.append(out[at:at + w * h].reshape(h, w))
+        at += w * h
+    return planes
 
 
 def maxflow(n_nodes: int, eu: np.ndarray, ev: np.ndarray,

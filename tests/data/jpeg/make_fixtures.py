@@ -4,7 +4,8 @@
     PYTHONPATH=. python tests/data/jpeg/make_fixtures.py
     PYTHONPATH=. python tests/data/jpeg/make_fixtures.py variants
 
-(the second keeps the photos and rewrites the rest and the manifest)
+(the second keeps the photos and the JPEG 2000 views and rewrites the
+rest and the manifest)
 
 - ``photos/p00.jpg`` .. ``p07.jpg``: chip_smoke.py phase 16's scene, the
   ridge of ``make_ridge_scene(default_rng(0))`` at 1280x960 with the blob
@@ -26,6 +27,17 @@
   with tag 262 set to 0 and its bits inverted); BMPs whose headers are
   written here: 16-bit 5-5-5, bit fields 5-6-5 and 32-bit, OS/2 core
   header at 8 and 24 bits.
+- ``formats/*.jp2``, ``*.j2k``: JPEG 2000 kinds (``write_jpeg2000_kinds``):
+  Pillow's options, cv2's encoder at 8 and 16 bits, libopenjp2's encoder
+  through ctypes (``openjpeg_encode``: code-block styles, progressions,
+  SOP / EPH, POC, ROI, tile-parts, precisions, TLM / PLT), and by hand
+  packet headers in PPT / PPM, PLM / CRG / COM markers, palette, cdef,
+  sYCC / eYCC / CMYK / ICC colour boxes, reordered tile-parts and cut
+  codestreams; with the kinds cv2 fails on.
+- ``jp2_views/v0.jp2`` .. ``v3.jp2``: views 0-3 of the photos' ridge
+  scene at 1280x960, undistorted, as colour 9/7 JP2 files in two quality
+  layers, RPCL, 512x512 tiles and precincts (chip_smoke.py phase 27's
+  densify run).
 - ``manifest.json``: for each file and each of ``cv2.imread``'s
   IMREAD_COLOR, IMREAD_GRAYSCALE and IMREAD_UNCHANGED, the shape and the
   sha256 of the array cv2 returns (C order, cv2's BGR channel order), or
@@ -56,17 +68,22 @@ PHOTO_QUALITY = 95
 MODES = ("color", "gray", "unchanged")
 
 
+def ridge_scene(h: int, w: int, n_views: int = PHOTO_VIEWS,
+                device: str = "cpu"):
+    """Phase 16's ridge at h x w (focal 1200 w / 1280, views 0.25 apart,
+    blob texture summed in torch on ``device``), rendered."""
+    from hcmvs_tpu_torch.utils.synth import blob_texture_fn, make_ridge_scene
+    return make_ridge_scene(np.random.default_rng(0), h=h, w=w,
+                            n_views=n_views, fx=1200.0 * w / 1280,
+                            spacing=0.25, texture_fn=blob_texture_fn(
+                                np.random.default_rng(0), device=device))
+
+
 def ridge_photos(h: int, w: int, n_views: int = PHOTO_VIEWS,
                  device: str = "cpu"):
-    """(scene, uint8 photos): phase 16's ridge at h x w (focal 1200 w /
-    1280, blob texture summed in torch on ``device``) through k1."""
-    from hcmvs_tpu_torch.utils.synth import (blob_texture_fn,
-                                             distort_images,
-                                             make_ridge_scene)
-    sc = make_ridge_scene(np.random.default_rng(0), h=h, w=w,
-                          n_views=n_views, fx=1200.0 * w / 1280,
-                          spacing=0.25, texture_fn=blob_texture_fn(
-                              np.random.default_rng(0), device=device))
+    """(scene, uint8 photos): ``ridge_scene`` through k1."""
+    from hcmvs_tpu_torch.utils.synth import distort_images
+    sc = ridge_scene(h, w, n_views, device)
     K = np.asarray(sc.cameras[0].K)
     photos = distort_images(sc.images, K, np.array([PHOTO_K1, 0.0, 0.0]))
     return sc, [(np.clip(p, 0, 1) * 255).astype(np.uint8) for p in photos]
@@ -776,8 +793,525 @@ def photo_webps(fmt_dir: str):
     return out
 
 
+# ---- JPEG 2000 ----
+
+def libopenjp2():
+    """Pillow's bundled libopenjp2 (OpenJPEG 2.5), for the encoder options
+    Pillow does not expose (code-block styles, SOP / EPH, POC, ROI,
+    precisions, signed samples, offsets, sub-sampling, TLM / PLT)."""
+    import ctypes
+    import glob
+    import PIL
+    libs = os.path.join(os.path.dirname(os.path.dirname(PIL.__file__)),
+                        "pillow.libs")
+    lib = ctypes.CDLL(glob.glob(os.path.join(libs, "libopenjp2-*.so*"))[0])
+    for fn in ("opj_create_compress", "opj_image_create",
+               "opj_stream_create_default_file_stream"):
+        getattr(lib, fn).restype = ctypes.c_void_p
+    lib.opj_stream_create_default_file_stream.argtypes = [ctypes.c_char_p,
+                                                          ctypes.c_int]
+    return lib
+
+
+def _opj_structs():
+    """ctypes layouts of openjpeg.h 2.5's opj_cparameters_t,
+    opj_image_cmptparm_t and the head of opj_image_t / opj_image_comp_t."""
+    import ctypes
+    U, I = ctypes.c_uint32, ctypes.c_int
+
+    class Poc(ctypes.Structure):
+        _fields_ = ([(n, U) for n in ("resno0 compno0 layno1 resno1 compno1 "
+                                      "layno0 precno0 precno1").split()]
+                    + [("prg1", I), ("prg", I),
+                       ("progorder", ctypes.c_char * 5), ("tile", U)]
+                    + [(n, ctypes.c_int32) for n in ("tx0", "tx1", "ty0",
+                                                     "ty1")]
+                    + [(n, U) for n in ("layS resS compS prcS layE resE "
+                                        "compE prcE txS txE tyS tyE dx dy "
+                                        "lay_t res_t comp_t prc_t tx0_t "
+                                        "ty0_t").split()])
+
+    class CParams(ctypes.Structure):
+        _fields_ = (
+            [(n, I) for n in ("tile_size_on cp_tx0 cp_ty0 cp_tdx cp_tdy "
+                              "cp_disto_alloc cp_fixed_alloc "
+                              "cp_fixed_quality").split()]
+            + [("cp_matrice", ctypes.c_void_p),
+               ("cp_comment", ctypes.c_char_p), ("csty", I),
+               ("prog_order", I), ("POC", Poc * 32), ("numpocs", U),
+               ("tcp_numlayers", I), ("tcp_rates", ctypes.c_float * 100),
+               ("tcp_distoratio", ctypes.c_float * 100)]
+            + [(n, I) for n in ("numresolution cblockw_init cblockh_init "
+                                "mode irreversible roi_compno roi_shift "
+                                "res_spec").split()]
+            + [("prcw_init", I * 33), ("prch_init", I * 33),
+               ("infile", ctypes.c_char * 4096),
+               ("outfile", ctypes.c_char * 4096), ("index_on", I),
+               ("index", ctypes.c_char * 4096)]
+            + [(n, I) for n in ("image_offset_x0 image_offset_y0 "
+                                "subsampling_dx subsampling_dy decod_format "
+                                "cod_format jpwl_epc_on "
+                                "jpwl_hprot_MH").split()]
+            + [(n, I * 16) for n in ("jpwl_hprot_TPH_tileno jpwl_hprot_TPH "
+                                     "jpwl_pprot_tileno jpwl_pprot_packno "
+                                     "jpwl_pprot").split()]
+            + [(n, I) for n in ("jpwl_sens_size jpwl_sens_addr "
+                                "jpwl_sens_range jpwl_sens_MH").split()]
+            + [("jpwl_sens_TPH_tileno", I * 16), ("jpwl_sens_TPH", I * 16),
+               ("cp_cinema", I), ("max_comp_size", I), ("cp_rsiz", I),
+               ("tp_on", ctypes.c_char), ("tp_flag", ctypes.c_char),
+               ("tcp_mct", ctypes.c_char), ("jpip_on", I),
+               ("mct_data", ctypes.c_void_p), ("max_cs_size", I),
+               ("rsiz", ctypes.c_uint16)])
+
+    class CmptParm(ctypes.Structure):
+        _fields_ = [(n, U) for n in "dx dy w h x0 y0 prec bpp sgnd".split()]
+
+    class Comp(ctypes.Structure):
+        _fields_ = ([(n, U) for n in ("dx dy w h x0 y0 prec bpp sgnd "
+                                      "resno_decoded factor").split()]
+                    + [("data", ctypes.POINTER(ctypes.c_int32)),
+                       ("alpha", ctypes.c_uint16)])
+
+    class Image(ctypes.Structure):
+        _fields_ = ([(n, U) for n in "x0 y0 x1 y1 numcomps".split()]
+                    + [("color_space", I), ("comps", ctypes.POINTER(Comp))])
+
+    return CParams, CmptParm, Image
+
+
+# OPJ_COLOR_SPACE, OPJ_PROG_ORDER
+OPJ_SRGB, OPJ_GRAY = 1, 2
+PROGRESSIONS = ("LRCP", "RLCP", "RPCL", "PCRL", "CPRL")
+
+
+def openjpeg_encode(comps, jp2: bool = True, prec=8, sgnd: int = 0,
+                    color_space: int = OPJ_SRGB, offset=(0, 0), dxy=None,
+                    extra=(), **params) -> bytes:
+    """A JP2 file (or with ``jp2`` False a raw codestream) of the (h, w)
+    integer components ``comps`` through libopenjp2's encoder: ``prec``
+    (one or per component), ``sgnd``, the image ``offset`` (x0, y0),
+    per-component sub-sampling ``dxy``, ``extra`` encoder options ("TLM=YES",
+    "PLT=YES"), and opj_cparameters_t fields as ``params`` (plus ``rates``
+    for the layers' compression ratios, ``precincts`` as (w, h) from the
+    top resolution down, ``pocs`` as (resno0, compno0, layno1, resno1,
+    compno1, order), ``tiles`` (w, h), ``tp_flag`` b"R" / b"L" / b"C")."""
+    import ctypes
+    import tempfile
+    lib = libopenjp2()
+    CParams, CmptParm, Image = _opj_structs()
+    n = len(comps)
+    parms = (CmptParm * n)()
+    x0, y0 = offset
+    dxy = dxy or [(1, 1)] * n
+    for i, c in enumerate(comps):
+        p = parms[i]
+        p.dx, p.dy = dxy[i]
+        p.h, p.w = c.shape
+        p.x0, p.y0 = -(-x0 // p.dx), -(-y0 // p.dy)
+        p.prec = p.bpp = prec if np.isscalar(prec) else prec[i]
+        p.sgnd = sgnd
+    img = ctypes.cast(lib.opj_image_create(n, parms, color_space),
+                      ctypes.POINTER(Image))
+    im = img.contents
+    h, w = comps[0].shape
+    im.x0, im.y0 = x0, y0
+    im.x1, im.y1 = x0 + w * dxy[0][0], y0 + h * dxy[0][1]
+    for i, c in enumerate(comps):
+        flat = np.ascontiguousarray(c, np.int32).ravel()
+        ctypes.memmove(im.comps[i].data, flat.ctypes.data, flat.nbytes)
+    p = CParams()
+    lib.opj_set_default_encoder_parameters(ctypes.byref(p))
+    p.tcp_numlayers, p.cp_disto_alloc = 1, 1
+    p.image_offset_x0, p.image_offset_y0 = x0, y0
+    for key, value in params.items():
+        if key == "rates":
+            p.tcp_numlayers = len(value)
+            for j, r in enumerate(value):
+                p.tcp_rates[j] = r
+        elif key == "precincts":
+            p.csty |= 1
+            p.res_spec = len(value)
+            for j, (pw, ph) in enumerate(value):
+                p.prcw_init[j], p.prch_init[j] = pw, ph
+        elif key == "pocs":
+            p.numpocs = len(value)
+            for j, (r0, c0, l1, r1, c1, prg) in enumerate(value):
+                q = p.POC[j]
+                q.resno0, q.compno0, q.layno1 = r0, c0, l1
+                q.resno1, q.compno1, q.prg1, q.tile = r1, c1, prg, 1
+        elif key == "tiles":
+            p.tile_size_on = 1
+            p.cp_tdx, p.cp_tdy = value
+        elif key == "tp_flag":
+            p.tp_on, p.tp_flag = b"\1", value
+        elif key == "tcp_mct":
+            p.tcp_mct = bytes([value])
+        else:
+            setattr(p, key, value)
+    codec = ctypes.c_void_p(lib.opj_create_compress(2 if jp2 else 0))
+    if not lib.opj_setup_encoder(codec, ctypes.byref(p), img):
+        raise RuntimeError(f"opj_setup_encoder refused {params}")
+    if extra:
+        opts = (ctypes.c_char_p * (len(extra) + 1))(
+            *[e.encode() for e in extra], None)
+        if not lib.opj_encoder_set_extra_options(codec, opts):
+            raise RuntimeError(f"opj_encoder_set_extra_options({extra})")
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "x.jp2")
+        st = ctypes.c_void_p(lib.opj_stream_create_default_file_stream(
+            path.encode(), 0))
+        ok = (lib.opj_start_compress(codec, img, st)
+              and lib.opj_encode(codec, st) and lib.opj_end_compress(codec,
+                                                                     st))
+        lib.opj_stream_destroy(st)
+        lib.opj_destroy_codec(codec)
+        lib.opj_image_destroy(img)
+        if not ok:
+            raise RuntimeError(f"OpenJPEG failed to encode ({params})")
+        with open(path, "rb") as f:
+            return f.read()
+
+
+def jp2_box(tag: bytes, body: bytes) -> bytes:
+    return struct.pack(">I", 8 + len(body)) + tag + body
+
+
+def jp2_file(codestream: bytes, colr: bytes, boxes: bytes = b"") -> bytes:
+    """A JP2 file around a raw codestream: signature, ftyp, jp2h (ihdr from
+    the codestream's SIZ, the colr box body ``colr``, then ``boxes``) and
+    jp2c."""
+    w, h, x0, y0 = struct.unpack_from(">IIII", codestream, 8)
+    (nc,) = struct.unpack_from(">H", codestream, 40)
+    bpc = codestream[42]
+    ihdr = jp2_box(b"ihdr", struct.pack(">IIHBBBB", h - y0, w - x0, nc, bpc,
+                                        7, 0, 0))
+    return (jp2_box(b"jP  ", b"\r\n\x87\n")
+            + jp2_box(b"ftyp", b"jp2 \0\0\0\0jp2 ")
+            + jp2_box(b"jp2h", ihdr + jp2_box(b"colr", colr) + boxes)
+            + jp2_box(b"jp2c", codestream))
+
+
+def enumerated(cs: int) -> bytes:
+    """A colr box body of the enumerated colour space ``cs`` (16 sRGB,
+    17 gray, 18 sYCC, 24 eYCC, 12 CMYK)."""
+    return struct.pack(">BBBI", 1, 0, 0, cs)
+
+
+def j2k_markers(cs: bytes):
+    """[(offset, marker, segment bytes)] of a raw codestream's main header
+    and tile-part headers, and the offsets of its tile-parts' SOT
+    markers."""
+    pos, out, sots = 2, [], []
+    while pos < len(cs):
+        (m,) = struct.unpack_from(">H", cs, pos)
+        if m == 0xFFD9:
+            break
+        if m == 0xFF90:
+            (psot,) = struct.unpack_from(">I", cs, pos + 6)
+            sots.append(pos)
+            pos += psot
+            continue
+        (n,) = struct.unpack_from(">H", cs, pos + 2)
+        out.append((pos, m, cs[pos:pos + 2 + n]))
+        pos += 2 + n
+    return out, sots
+
+
+def tile_parts(cs: bytes):
+    """(main header, [tile-part bytes]) of a raw codestream."""
+    _, sots = j2k_markers(cs)
+    ends = sots[1:] + [cs.rindex(b"\xff\xd9")]
+    return cs[:sots[0]], [cs[a:b] for a, b in zip(sots, ends)]
+
+
+def packet_headers_out(cs: bytes, ppm: bool) -> bytes:
+    """A one-tile-part codestream written with SOP and EPH markers, its
+    packet headers moved into a PPT marker (``ppm`` False) or the main
+    header's PPM marker: each packet's header and EPH leave the tile's
+    data, its SOP and body stay."""
+    head, parts = tile_parts(cs)
+    (part,) = parts
+    (lsot,) = struct.unpack_from(">H", part, 2)
+    sod = part.index(b"\xff\x93", 2 + lsot) + 2
+    data = part[sod:]
+    starts = [i for i in range(len(data) - 1)
+              if data[i] == 0xFF and data[i + 1] == 0x91]
+    headers, bodies = b"", b""
+    for a, b in zip(starts, starts[1:] + [len(data)]):
+        packet = data[a:b]
+        eph = packet.index(b"\xff\x92") + 2
+        headers += packet[6:eph]
+        bodies += packet[:6] + packet[eph:]
+    if ppm:
+        seg = b"\0" + struct.pack(">I", len(headers)) + headers
+        head += b"\xff\x60" + struct.pack(">H", 2 + len(seg)) + seg
+        tph = part[12:sod - 2]
+    else:
+        seg = b"\0" + headers
+        tph = part[12:sod - 2] + b"\xff\x61" + struct.pack(">H",
+                                                           2 + len(seg)) + seg
+    sot = bytearray(part[:12])
+    struct.pack_into(">I", sot, 6, 12 + len(tph) + 2 + len(bodies))
+    return head + bytes(sot) + tph + b"\xff\x93" + bodies + b"\xff\xd9"
+
+
+def insert_main_markers(cs: bytes, segments: bytes) -> bytes:
+    """``segments`` (whole marker segments) put in the main header right
+    after SIZ."""
+    (lsiz,) = struct.unpack_from(">H", cs, 4)
+    at = 4 + lsiz
+    return cs[:at] + segments + cs[at:]
+
+
+def write_jpeg2000_kinds(fmt_dir: str):
+    """The JPEG 2000 kinds (JP2 and raw codestreams of the pattern, small):
+    Pillow's options, cv2's encoder at 8 and 16 bits, libopenjp2's
+    code-block styles, progressions, SOP / EPH, POC, ROI, tile-parts,
+    precisions and TLM / PLT; written by hand: packet headers in PPT / PPM,
+    PLM / CRG / COM markers, a palette, channel definitions, sYCC, eYCC,
+    CMYK and ICC colour boxes, reordered tile-parts and cut codestreams;
+    and the kinds cv2 fails on (signed, 1-7 bits, an image offset,
+    sub-sampling, five components).  Returns their paths."""
+    import cv2
+    from PIL import Image
+    os.makedirs(fmt_dir, exist_ok=True)
+    rgb = pattern(32, 40)
+    comps = [rgb[..., k].astype(np.int32) for k in range(3)]
+    # lossless kinds and kinds cv2 fails on, smaller
+    small = [c[:16, :24] for c in comps]
+    tiny = [c[:8, :8] for c in comps]
+    h, w = rgb.shape[:2]
+    rng = np.random.default_rng(19)
+    alpha = np.clip(128 + 100 * np.sin(np.arange(w) / 4)[None] +
+                    rng.normal(0, 10, (h, w)), 0, 255).astype(np.int32)
+    files = {}
+
+    def pil(im, **kw):
+        buf = io.BytesIO()
+        im.save(buf, "JPEG2000", **kw)
+        return buf.getvalue()
+
+    im = Image.fromarray(rgb)
+    lossy = dict(irreversible=True, quality_mode="rates",
+                 quality_layers=[12])
+    for name, img, kw in (
+            ("pil_lossless.jp2", Image.fromarray(rgb[:16, :24]), {}),
+            ("pil_lossy.jp2", im, lossy),
+            ("pil_raw.j2k", im, dict(no_jp2=True, **lossy)),
+            ("pil_tiles_rpcl.jp2", pattern(64, 80),
+             dict(tile_size=(32, 32), progression="RPCL", num_resolutions=3,
+                  irreversible=True, quality_mode="rates",
+                  quality_layers=[20])),
+            ("pil_cblk16_prec16.jp2", im, dict(codeblock_size=(16, 16),
+                                               precinct_size=(16, 16),
+                                               **lossy)),
+            ("pil_mct0.jp2", im, dict(mct=0, **lossy)),
+            ("pil_one_res.jp2", im, dict(num_resolutions=1, **lossy)),
+            ("pil_layers_plt_comment.jp2", im,
+             dict(irreversible=True, quality_mode="rates",
+                  quality_layers=[40, 20, 8], plt=True,
+                  comment="hcmvs JPEG 2000 fixture")),
+            ("pil_rgba.jp2", Image.fromarray(np.concatenate(
+                [rgb, alpha[..., None].astype(np.uint8)], -1)), lossy),
+            ("pil_gray8.jp2", im.convert("L"), lossy),
+            ("pil_gray16.jp2", Image.fromarray(
+                (rgb[:16, :24, 1].astype(np.uint16) * 257 + 5).astype(
+                    np.uint16)), {})):
+        files[name] = pil(img if isinstance(img, Image.Image)
+                          else Image.fromarray(img), **kw)
+    bgr = np.ascontiguousarray(rgb[..., ::-1])
+    # (cv2's encoder takes 32 rows and columns at least; the lossless
+    # ones at 16 levels a channel)
+    coarse = bgr[:, :32] // 16
+    for name, img, rate in (("cv2_lossless.jp2", coarse * 17, 1000),
+                            ("cv2_lossy.jp2", bgr, 80),
+                            ("cv2_16bit.jp2",
+                             (coarse // 4).astype(np.uint16) * 21845, 1000),
+                            ("cv2_16bit_lossy.jp2",
+                             bgr.astype(np.uint16) * 250, 150)):
+        ok, enc = cv2.imencode(".jp2", np.ascontiguousarray(img), [
+            cv2.IMWRITE_JPEG2000_COMPRESSION_X1000, rate])
+        files[name] = enc.tobytes()
+    # libopenjp2: code-block styles (bypass 1, reset 2, terminate each
+    # pass 4, vertically causal 8, predictable termination 16,
+    # segmentation symbols 32), lossy in two layers (passes cut) and
+    # lossless
+    two = dict(irreversible=1, rates=[30, 8], numresolution=3,
+               cblockw_init=16, cblockh_init=16)
+    for name, mode in (("bypass", 1), ("reset", 2), ("termall", 4),
+                       ("vsc", 8), ("pterm", 16), ("segsym", 32),
+                       ("all", 63)):
+        files[f"style_{name}.jp2"] = openjpeg_encode(comps, mode=mode, **two)
+    files["style_all_lossless.j2k"] = openjpeg_encode(
+        small, jp2=False, mode=63, numresolution=3, cblockw_init=8,
+        cblockh_init=8)
+    files["style_bypass_vsc_lossless.jp2"] = openjpeg_encode(
+        small, mode=9, numresolution=2)
+    # every progression order, with precincts, tiles and layers
+    for k, order in enumerate(PROGRESSIONS):
+        files[f"order_{order.lower()}.j2k"] = openjpeg_encode(
+            comps, jp2=False, prog_order=k, precincts=[(16, 16), (8, 8)],
+            tiles=(24, 16), numresolution=3, irreversible=k % 2,
+            rates=[60, 20], cblockw_init=8, cblockh_init=8)
+    files["sop_eph.jp2"] = openjpeg_encode(comps, csty=6, **two)
+    files["poc.j2k"] = openjpeg_encode(
+        comps, jp2=False, rates=[30, 10, 4], numresolution=3,
+        pocs=[(0, 0, 1, 2, 3, 4), (0, 0, 3, 3, 3, 0)])
+    files["roi.jp2"] = openjpeg_encode(comps, roi_compno=0, roi_shift=5,
+                                       **two)
+    files["roi_lossless.j2k"] = openjpeg_encode(
+        small, jp2=False, roi_compno=1, roi_shift=3, numresolution=2)
+    for flag in "RLC":
+        files[f"tileparts_{flag}.j2k"] = openjpeg_encode(
+            small, jp2=False, tiles=(16, 16), tp_flag=flag.encode(),
+            numresolution=3, irreversible=1, rates=[60, 20])
+    files["tlm_plt.j2k"] = openjpeg_encode(comps, jp2=False,
+                                           extra=("TLM=YES", "PLT=YES"),
+                                           **two)
+    # precisions: 9-16 bits read (cut to 8 in colour and gray); 1-7 bits
+    # and signed samples are kinds cv2 fails on
+    g, sg, tg = comps[1], small[1], tiny[1]
+    for name, prec, cs_, cc in (
+            ("gray9.jp2", 9, OPJ_GRAY, [sg << 1 | 1]),
+            ("gray12.jp2", 12, OPJ_GRAY, [sg << 4 | 9]),
+            ("rgb10.jp2", 10, OPJ_SRGB, [c << 2 for c in small]),
+            ("rgb_8_10_12.jp2", (8, 10, 12), OPJ_SRGB,
+             [small[0], small[1] << 2, small[2] << 4]),
+            ("gray20.jp2", 20, OPJ_GRAY, [sg << 12]),
+            ("gray1.jp2", 1, OPJ_GRAY, [tg >> 7]),
+            ("rgb4.jp2", 4, OPJ_SRGB, [c >> 4 for c in tiny]),
+            ("gray7.jp2", 7, OPJ_GRAY, [tg >> 1])):
+        files[name] = openjpeg_encode(cc, prec=prec, color_space=cs_,
+                                      numresolution=2)
+    files["signed.j2k"] = openjpeg_encode([tg - 128], jp2=False, sgnd=1,
+                                          color_space=OPJ_GRAY,
+                                          numresolution=2)
+    files["offset.jp2"] = openjpeg_encode([tg], color_space=OPJ_GRAY,
+                                          offset=(5, 3), numresolution=2)
+    files["subsampled.jp2"] = openjpeg_encode(
+        [tiny[0], tiny[1][::2, ::2], tiny[2][::2, ::2]],
+        dxy=[(1, 1), (2, 2), (2, 2)], numresolution=2)
+    files["five.j2k"] = openjpeg_encode(tiny + tiny[:2], jp2=False,
+                                        numresolution=2)
+    files["gray_alpha.jp2"] = openjpeg_encode([g, alpha],
+                                              color_space=OPJ_GRAY, **two)
+    files["gray.j2k"] = openjpeg_encode([g], jp2=False, color_space=OPJ_GRAY,
+                                        **two)
+    files["rgba.j2k"] = openjpeg_encode(comps + [alpha], jp2=False, **two)
+    # by hand: packet headers in PPT / PPM; PLM, CRG and COM markers
+    sop = openjpeg_encode(comps, jp2=False, csty=6, **two)
+    files["ppt.j2k"] = packet_headers_out(sop, ppm=False)
+    files["ppm.jp2"] = jp2_file(packet_headers_out(sop, ppm=True),
+                                enumerated(16))
+    com = b"\0\1" + b"fixture"
+    files["plm_crg_com.j2k"] = insert_main_markers(openjpeg_encode(
+        comps, jp2=False, **two),
+        b"\xff\x57" + struct.pack(">HBB", 6, 0, 2) + b"\x05\x07"
+        + b"\xff\x63" + struct.pack(">H", 2 + 12) + bytes(12)
+        + b"\xff\x64" + struct.pack(">H", 2 + len(com)) + com)
+    # by hand: JP2 colour boxes around raw codestreams
+    raw3 = openjpeg_encode(comps, jp2=False, tcp_mct=0, **two)
+    files["sycc.jp2"] = jp2_file(raw3, enumerated(18))
+    files["eycc.jp2"] = jp2_file(raw3, enumerated(24))
+    files["icc.jp2"] = jp2_file(raw3, b"\2\0\0" + bytes(range(128)))
+    files["cmyk.jp2"] = jp2_file(openjpeg_encode(comps + [alpha], jp2=False,
+                                                 **two), enumerated(12))
+    # a palette: 8-bit indices into 48 RGB entries (pclr + cmap)
+    pal = rng.integers(0, 256, (48, 3)).astype(np.uint8)
+    idx = (np.arange(h)[:, None] // 3 + np.arange(w)[None] // 5) % 48
+    index = openjpeg_encode([idx.astype(np.int32)], jp2=False,
+                            color_space=OPJ_GRAY, numresolution=3)
+    pclr = jp2_box(b"pclr", struct.pack(">HB", 48, 3) + b"\7\7\7"
+                   + pal.tobytes())
+    cmap = jp2_box(b"cmap", b"".join(struct.pack(">HBB", 0, 1, i)
+                                     for i in range(3)))
+    files["palette.jp2"] = jp2_file(index, enumerated(16), pclr + cmap)
+    # channel definitions: stored B, G, R, A, put in order by cdef
+    bgra = openjpeg_encode([comps[2], comps[1], comps[0], alpha], jp2=False,
+                           tcp_mct=0, **two)
+    cdef = jp2_box(b"cdef", struct.pack(">H", 4) + b"".join(
+        struct.pack(">HHH", cn, typ, asoc) for cn, typ, asoc in (
+            (0, 0, 3), (1, 0, 2), (2, 0, 1), (3, 1, 0))))
+    files["cdef_bgra.jp2"] = jp2_file(bgra, enumerated(16), cdef)
+    # tile-parts out of order: each tile's parts interleaved with the
+    # others', the tiles last to first
+    head, parts = tile_parts(files["tileparts_R.j2k"])
+    by_tile = {}
+    for part in parts:
+        by_tile.setdefault(struct.unpack_from(">H", part, 4)[0],
+                           []).append(part)
+    order = []
+    for k in range(max(len(v) for v in by_tile.values())):
+        for t in sorted(by_tile, reverse=True):
+            if k < len(by_tile[t]):
+                order.append(by_tile[t][k])
+    files["tileparts_shuffled.j2k"] = head + b"".join(order) + b"\xff\xd9"
+    # cut codestreams: inside a tile-part (cv2 fails), after a tile-part
+    # with EOC appended (the missing tiles read 0) or without (cv2 fails),
+    # a JP2 cut in its codestream (cv2 fails)
+    tiled = files["order_rpcl.j2k"]
+    head, parts = tile_parts(tiled)
+    files["cut_in_tile.j2k"] = tiled[:len(head) + len(parts[0]) // 2]
+    files["cut_after_tile_eoc.j2k"] = head + parts[0] + b"\xff\xd9"
+    files["cut_after_tile.j2k"] = head + parts[0]
+    files["cut.jp2"] = files["pil_lossy.jp2"][:-60]
+    out = []
+    for name, data in files.items():
+        out.append(os.path.join(fmt_dir, name))
+        with open(out[-1], "wb") as f:
+            f.write(data)
+    return out
+
+
+# the densify run on JPEG 2000 views (chip_smoke.py phase 27): views 0-3
+# of phase 27's ridge scene, undistorted, each a colour 9/7 codestream in
+# two quality layers (ratios 600 and 150), RPCL, 512x512 tiles and
+# precincts
+JP2_VIEWS = 4
+JP2_VIEW_LAYERS = [600, 150]
+
+
+def jp2_view_scene(root: str, h: int = PHOTO_HW[0], w: int = PHOTO_HW[1],
+                   n_views: int = JP2_VIEWS):
+    """(scene.mvs path, scene): the views' ridge scene (``ridge_scene``'s
+    geometry at h x w, untextured) written under ``root``, its images
+    named ``v%d.jp2``: densify's input with ``--images-dir`` the views'
+    directory."""
+    from hcmvs_tpu_torch.io.mvs import read_mvs, write_mvs
+    from hcmvs_tpu_torch.utils.synth import (make_ridge_scene,
+                                             write_ridge_scene)
+    sc = make_ridge_scene(np.random.default_rng(0), h=h, w=w,
+                          n_views=n_views, fx=1200.0 * w / 1280,
+                          spacing=0.25,
+                          texture_fn=lambda xy: np.zeros(xy.shape[:-1],
+                                                         np.float32))
+    scene_path, _ = write_ridge_scene(root, sc)
+    scene = read_mvs(scene_path)
+    for i, im in enumerate(scene.images):
+        im.name = f"v{i}.jp2"
+    write_mvs(scene_path, scene)
+    return scene_path, sc
+
+
+def jp2_views(view_dir: str, images):
+    """Each (H, W) float image in [0, 1] as ``v%d.jp2`` (its gray level in
+    three channels); returns the paths."""
+    from PIL import Image
+    os.makedirs(view_dir, exist_ok=True)
+    paths = []
+    for i, g in enumerate(images):
+        u8 = (np.clip(g, 0, 1) * 255).astype(np.uint8)
+        paths.append(os.path.join(view_dir, f"v{i}.jp2"))
+        Image.fromarray(np.repeat(u8[..., None], 3, -1)).save(
+            paths[-1], "JPEG2000", irreversible=True, quality_mode="rates",
+            quality_layers=JP2_VIEW_LAYERS, progression="RPCL",
+            tile_size=(512, 512), precinct_size=(512, 512))
+    return paths
+
+
 IMAGE_EXTENSIONS = (".jpg", ".png", ".tif", ".bmp", ".webp", ".gif",
-                    ".hdr", ".pfm", ".pam", ".ras")
+                    ".hdr", ".pfm", ".pam", ".ras", ".jp2", ".j2k")
 
 
 def cv2_digests(path: str) -> dict:
@@ -813,11 +1347,14 @@ def main(argv=()) -> int:
         _, photos = ridge_photos(h, w)
         save_jpeg_photos(os.path.join(HERE, "photos"), photos,
                          1200.0 * 36.0 / 1280)
+        jp2_views(os.path.join(HERE, "jp2_views"),
+                  ridge_scene(h, w, JP2_VIEWS).images)
     write_variants(os.path.join(HERE, "variants"))
     write_jpeg_kinds(os.path.join(HERE, "variants"))
     write_formats(os.path.join(HERE, "formats"))
     write_image_kinds(os.path.join(HERE, "formats"))
     photo_webps(os.path.join(HERE, "formats"))
+    write_jpeg2000_kinds(os.path.join(HERE, "formats"))
     manifest = {"cv2": cv2.__version__, "files": manifest_entries()}
     with open(os.path.join(HERE, "manifest.json"), "w") as f:
         json.dump(manifest, f, indent=1, sort_keys=True)

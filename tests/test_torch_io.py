@@ -301,6 +301,20 @@ def _tiff_compressed(compression: int, extra=()) -> bytes:
     return b"II*\0" + struct.pack("<I", 12) + bytes(4) + ifd + bytes(4)
 
 
+def _j2k_signed() -> bytes:
+    """The main header of a 16x16 gray JPEG 2000 codestream of signed 8-bit
+    samples (SOC, SIZ, COD, QCD), then SOT and EOC."""
+    siz = struct.pack(">HIIIIIIIIHBBB", 0, 16, 16, 0, 0, 16, 16, 0, 0, 1,
+                      0x87, 1, 1)
+    cod = struct.pack(">BBHBBBBBB", 0, 0, 1, 0, 0, 4, 4, 0, 1)
+    qcd = bytes([0x40, 0x40])
+    return (b"\xff\x4f" + b"\xff\x51" + struct.pack(">H", 2 + len(siz)) + siz
+            + b"\xff\x52" + struct.pack(">H", 2 + len(cod)) + cod
+            + b"\xff\x5c" + struct.pack(">H", 2 + len(qcd)) + qcd
+            + b"\xff\x90" + struct.pack(">HHIBB", 10, 0, 14, 0, 1)
+            + b"\xff\x93" + b"\xff\xd9")
+
+
 @pytest.mark.parametrize("data,what", [
     (_jpeg_frame(0xC9), "arithmetic"), (_jpeg_frame(0xC3), "lossless"),
     (_jpeg_frame(0xC1, precision=12), "12-bit"),
@@ -315,9 +329,12 @@ def _tiff_compressed(compression: int, extra=()) -> bytes:
     # fail in cv2
     (b"BM" + bytes(12) + struct.pack("<IiiHHI", 40, 2, 2, 1, 16, 3)
      + bytes(20) + struct.pack("<III", 0xF00, 0xF0, 0xF), "bit fields"),
-    # GIF reads now; JPEG 2000 (its box, or a raw codestream) and AVIF,
-    # which cv2 reads too, are refused by name
+    # GIF and JPEG 2000 read now; a JP2 file that ends after its
+    # signature (no codestream), a JPEG 2000 codestream of signed samples
+    # (cv2 fails on both; the SIZ, Ssiz 0x87, is enough) and AVIF, which
+    # cv2 reads, are refused by name
     (b"\0\0\0\x0cjP  \r\n\x87\n" + bytes(20), "JPEG 2000"),
+    (_j2k_signed(), "JPEG 2000 with signed"),
     (b"\0\0\0\x1cftypavif" + bytes(20), "AVIF")])
 def test_unsupported_images_raise(tmp_path, data, what):
     path = str(tmp_path / "x.img")
