@@ -167,14 +167,15 @@ Phases, each fatal on failure:
  27. real photos: every image fixture of tests/data/jpeg (JPEG incl.
      CMYK, YCCK and cut progressive files, PNG, the TIFF and BMP kinds of
      ``formats/``, its WebP, GIF, HDR, PFM, PAM and Sun raster files, its
-     66 JPEG 2000 kinds and the 4 JPEG 2000 views of ``jp2_views/``)
-     through ``io.images.imread`` (the port's own decoders; JPEG, WebP
-     and JPEG 2000 through native/jpeg.cpp, native/webp.cpp and
-     native/jpeg2000.cpp, built on first use) in its three modes against
-     the manifest's cv2 digests (a raise where cv2 reads nothing), the
-     JPEG, WebP and JPEG 2000 decodes' ms per megapixel, the three
-     decoders' build times and ``resize_image``'s time to halve a
-     6000x4000 gray and RGB image on this host; then the 8
+     66 JPEG 2000 kinds and the 4 JPEG 2000 views of ``jp2_views/``, its
+     84 AVIF kinds and the 4 AVIF views of ``avif_views/``)
+     through ``io.images.imread`` (the port's own decoders; JPEG, WebP,
+     JPEG 2000 and AVIF through native/jpeg.cpp, native/webp.cpp,
+     native/jpeg2000.cpp and native/avif.cpp, built on first use) in its
+     three modes against the manifest's cv2 digests (a raise where cv2
+     reads nothing), the JPEG, WebP, JPEG 2000 and AVIF decodes' ms per
+     megapixel, the four decoders' build times and ``resize_image``'s
+     time to halve a 6000x4000 gray and RGB image on this host; then the 8
      committed 1280x960 JPEG photos (phase 16's scene, EXIF focal
      33.75 mm) through ``mvgmvs.main`` as phase 16 runs them: K exactly
      1200 from EXIF, 8 of 8 registered, k1 in its window, ATE below
@@ -185,7 +186,9 @@ Phases, each fatal on failure:
      scene undistorted, colour 9/7 in two layers, RPCL, 512x512 tiles)
      through a scene.mvs written here, resolution-level 0 on the default
      routes: kernels A, B and C launched, view 0 within 0.03 of the JAX
-     package's densify of the same files on the CPU.
+     package's densify of the same files on the CPU; and the same on the
+     4 AVIF views (the same views, Pillow's aom at quality 90, 4:2:0,
+     8-bit, 2 x 2 tiles).
  28. the (view, tile) mesh (``hcmvs_tpu_torch.parallel``): first each
      kernel against its plain version at the tile axis's band shapes
      (view 0 cut to each band's window of the (2 x 2) mesh); then
@@ -3708,32 +3711,63 @@ WEBP_PHOTOS = {"lossy_q90": "p00_q90.webp", "lossless": "p00_lossless.webp"}
 JP2_VIEW_DIR = JPEG_DIR / "jp2_views"
 JP2_JAX_ACC = 0.8221051458158634
 JP2_JAX_TOL = 0.03
+# phase 27's AVIF run: the same views as AVIF (make_fixtures.avif_views:
+# Pillow's aom at quality 90, 4:2:0, 8-bit, 2 x 2 tiles, 112,648 bytes in
+# all) through densify.main as the JPEG 2000 run; its gate: view 0 within
+# AVIF_JAX_TOL of the JAX package's densify of the same files on the CPU,
+# cv2 decoding them, volume and rect backends forced (PYTHONPATH=. python
+# tests/test_torch_avif.py 960 1280 jax)
+AVIF_VIEW_DIR = JPEG_DIR / "avif_views"
+AVIF_JAX_ACC = 0.8534287691836707
+AVIF_JAX_TOL = 0.03
 
 
-def check_jpeg_decoder() -> tuple:
+def time_resize(resize_image) -> dict:
+    """``resize_image``'s seconds to halve each of RESIZE_SHAPES (float32
+    in [0, 1], seed 0; median of 3), by shape."""
+    import numpy as np
+    rng = np.random.default_rng(0)
+    resize_s = {}
+    for shape in RESIZE_SHAPES:
+        img = rng.random(shape, dtype=np.float32)
+        times = []
+        for _ in range(3):
+            t0 = time.perf_counter()
+            resize_image(img, 0.5)
+            times.append(time.perf_counter() - t0)
+        resize_s["x".join(map(str, shape))] = float(np.median(times))
+    return resize_s
+
+
+NATIVE_DECODERS = ("jpeg", "webp", "jpeg2000", "avif")
+
+
+def timed_native_build(name: str) -> float:
+    """Seconds to build ``native/<name>.cpp`` (g++, on first use)."""
+    from hcmvs_tpu_torch import native
+    t0 = time.perf_counter()
+    native.build(name)
+    return time.perf_counter() - t0
+
+
+def check_jpeg_decoder(build_s: dict) -> tuple:
     """Phase 27, its host half: every image fixture (JPEG, PNG, TIFF, BMP,
-    WebP, GIF, HDR, PFM, PAM, Sun raster) through ``io.images.imread``
-    against the manifest's cv2 digests, the JPEG decode's ms per megapixel
-    (the 8 photos in color mode, median of 3 rounds), the WebP decode's
-    (WEBP_PHOTOS, median of 3), the JPEG 2000 decode's (the views of
-    JP2_VIEW_DIR, median of 3), the three native decoders' build times (built
-    side by side) and
-    ``resize_image``'s seconds to halve RESIZE_SHAPES (median of 3).
-    Returns (summary, failed checks)."""
+    WebP, GIF, HDR, PFM, PAM, Sun raster, JPEG 2000, AVIF) through
+    ``io.images.imread`` against the manifest's cv2 digests, the JPEG
+    decode's ms per megapixel (the 8 photos in color mode, median of 3
+    rounds), the WebP decode's (WEBP_PHOTOS, median of 3), the JPEG 2000
+    and AVIF decodes' (the views of JP2_VIEW_DIR and AVIF_VIEW_DIR,
+    median of 3) and ``resize_image``'s seconds to halve RESIZE_SHAPES
+    (median of 3); ``build_s``: the native decoders' build times by name
+    (built side by side with the kernels in step 2).  Returns (summary,
+    failed checks)."""
     import hashlib
     import numpy as np
-    from hcmvs_tpu_torch import native
     from hcmvs_tpu_torch.io.images import imread, resize_image
     label = "photos_jpeg"
     failed = []
-
-    def timed_build(name):
-        t0 = time.perf_counter()
-        native.build(name)
-        return time.perf_counter() - t0
-    with concurrent.futures.ThreadPoolExecutor(3) as pool:   # one g++ each
-        build_s, webp_build_s, jp2_build_s = pool.map(
-            timed_build, ("jpeg", "webp", "jpeg2000"))
+    build_s, webp_build_s, jp2_build_s, avif_build_s = (
+        build_s[name] for name in NATIVE_DECODERS)
     manifest = json.loads((JPEG_DIR / "manifest.json").read_text())["files"]
     bad = []
     for name, digests in manifest.items():
@@ -3779,36 +3813,41 @@ def check_jpeg_decoder() -> tuple:
             times.append(time.perf_counter() - t0)
     jp2_ms_per_mp = float(np.median(times)) * 1e3 / (
         img.shape[0] * img.shape[1] / 1e6)
-    rng = np.random.default_rng(0)
-    resize_s = {}
-    for shape in RESIZE_SHAPES:
-        img = rng.random(shape, dtype=np.float32)
-        times = []
-        for _ in range(3):
+    views = sorted(AVIF_VIEW_DIR.glob("v*.avif"))
+    times = []
+    for _ in range(3):
+        for path in views:
             t0 = time.perf_counter()
-            resize_image(img, 0.5)
+            img = imread(str(path), "color")
             times.append(time.perf_counter() - t0)
-        resize_s["x".join(map(str, shape))] = float(np.median(times))
+    avif_ms_per_mp = float(np.median(times)) * 1e3 / (
+        img.shape[0] * img.shape[1] / 1e6)
+    resize_s = time_resize(resize_image)
     n_jp2 = sum(name.endswith((".jp2", ".j2k")) for name in manifest)
-    log(f"[{label}] built side by side: jpeg.cpp in {build_s:.3f} s, "
+    n_avif = sum(name.endswith(".avif") for name in manifest)
+    log(f"[{label}] built side by side in step 2: jpeg.cpp in "
+        f"{build_s:.3f} s, "
         f"webp.cpp in {webp_build_s:.3f} s, jpeg2000.cpp in "
-        f"{jp2_build_s:.3f} s; "
-        f"{len(manifest)} fixtures ({n_jp2} JPEG 2000) x {len(JPEG_MODES)} "
-        f"modes, {len(bad)} differ from "
+        f"{jp2_build_s:.3f} s, avif.cpp in {avif_build_s:.3f} s; "
+        f"{len(manifest)} fixtures ({n_jp2} JPEG 2000, {n_avif} AVIF) x "
+        f"{len(JPEG_MODES)} modes, {len(bad)} differ from "
         f"their cv2 digests; decode {ms_per_mp:.3f} ms per megapixel (the "
         f"{len(photos)} photos, {pw}x{ph} colour, median of 3 rounds); WebP "
         f"decode {webp_ms} ms per megapixel (p00 at 1280x960, colour, "
         f"median of 3); JPEG 2000 decode {jp2_ms_per_mp:.3f} ms per "
-        f"megapixel (the {len(views)} views, colour, median of 3 rounds); "
+        f"megapixel and AVIF decode {avif_ms_per_mp:.3f} ms per megapixel "
+        f"(the 4 views of each, colour, median of 3 rounds); "
         f"resize_image at 0.5 {resize_s} s "
         f"(median of 3) on this host; {smi_line()}")
     return {"build_s": build_s, "webp_build_s": webp_build_s,
-            "jpeg2000_build_s": jp2_build_s,
+            "jpeg2000_build_s": jp2_build_s, "avif_build_s": avif_build_s,
             "fixtures": len(manifest), "jpeg2000_fixtures": n_jp2,
+            "avif_fixtures": n_avif,
             "modes": list(JPEG_MODES), "differ": bad,
             "decode_ms_per_mp": ms_per_mp,
             "webp_decode_ms_per_mp": webp_ms,
             "jpeg2000_decode_ms_per_mp": jp2_ms_per_mp,
+            "avif_decode_ms_per_mp": avif_ms_per_mp,
             "resize_half_s": resize_s}, failed
 
 
@@ -3908,18 +3947,22 @@ def jp2_fixtures():
     return module
 
 
-def check_densify_jp2(root):
-    """Phase 27, its JPEG 2000 run: ``pipeline.densify.main`` on the
-    committed JPEG 2000 views (JP2_VIEW_DIR) through a scene.mvs written
-    here, DENSIFY_FLAGS on the default routes, counts reset just before,
-    read just after.  Returns (launches, JSON summary, failed checks)."""
+def check_densify_jp2(root, fmt: str = "jp2"):
+    """Phase 27, its JPEG 2000 run (and with ``fmt`` "avif" its AVIF run):
+    ``pipeline.densify.main`` on the committed views (JP2_VIEW_DIR,
+    AVIF_VIEW_DIR) through a scene.mvs written here, DENSIFY_FLAGS on the
+    default routes, counts reset just before, read just after.  Returns
+    (launches, JSON summary, failed checks)."""
     import torch
     from hcmvs_tpu_torch import kernels
     from hcmvs_tpu_torch.pipeline import densify as D
     from hcmvs_tpu_torch.utils import profiling
-    label = "densify_jp2"
+    label = f"densify_{fmt}"
+    view_dir, jax_acc, tol, name = {
+        "jp2": (JP2_VIEW_DIR, JP2_JAX_ACC, JP2_JAX_TOL, "JPEG 2000"),
+        "avif": (AVIF_VIEW_DIR, AVIF_JAX_ACC, AVIF_JAX_TOL, "AVIF")}[fmt]
     failed = []
-    scene_path, sc = jp2_fixtures().jp2_view_scene(str(root))
+    scene_path, sc = jp2_fixtures().jp2_view_scene(str(root), ext=fmt)
     profiling.reset_report()
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
@@ -3927,7 +3970,7 @@ def check_densify_jp2(root):
     with launch_shapes() as shapes:
         t0 = time.perf_counter()
         stats = D.main(["--input-file", scene_path, "--images-dir",
-                        str(JP2_VIEW_DIR), "-w", str(root / "out"),
+                        str(view_dir), "-w", str(root / "out"),
                         "--flags", *DENSIFY_FLAGS])
         torch.cuda.synchronize()
         seconds = time.perf_counter() - t0
@@ -3941,19 +3984,19 @@ def check_densify_jp2(root):
         "densify.load_images", "densify.flows", "densify.scene_tensors",
         "densify.estimate", "densify.fuse"))
     acc = depth_acc_2pct(stats["depth"][0], sc.depth_gt)
-    log(f"[{label}] {len(sc.cameras)} JPEG 2000 views at {PHOTO_HW[1]}x"
+    log(f"[{label}] {len(sc.cameras)} {name} views at {PHOTO_HW[1]}x"
         f"{PHOTO_HW[0]}: view 0 depth_acc_2pct {acc:.4f} (the JAX "
-        f"package's {JP2_JAX_ACC:.4f} on the CPU, within {JP2_JAX_TOL}); "
+        f"package's {jax_acc:.4f} on the CPU, within {tol}); "
         f"valid {stats['valid_frac']:.4f}; {stats['n_points']} points; "
         f"launches {launches}; total {seconds:.3f} s, peak memory "
         f"{peak:.2f} GiB; {smi_line()}")
-    if abs(acc - JP2_JAX_ACC) > JP2_JAX_TOL:
+    if abs(acc - jax_acc) > tol:
         failed.append(f"{label}: view 0 accuracy {acc} against the JAX "
-                      f"package's {JP2_JAX_ACC} misses its gate")
+                      f"package's {jax_acc} misses its gate")
     return launches, {
         "views": len(sc.cameras), "h": PHOTO_HW[0], "w": PHOTO_HW[1],
         "flags": list(DENSIFY_FLAGS), "depth_acc_2pct": acc,
-        "jax_cpu_depth_acc_2pct": JP2_JAX_ACC,
+        "jax_cpu_depth_acc_2pct": jax_acc,
         "valid_frac": stats["valid_frac"], "n_points": stats["n_points"],
         "total_s": seconds, "stage_s": stages, "peak_gib": peak,
         "launches_by_shape": shapes}, failed
@@ -4472,7 +4515,7 @@ def check_phase_28(rows, device: str = "cuda", dense_args=VIEW_AXIS_ARGS,
 # whose attached tables take 67 GiB of the card, ends before they start.)
 WORKERS = ("mesh", "full_run", "golden_full_stack", "routes", "chain",
            "sgm", "golden_hierarchy", "golden_run", "photos_jpeg",
-           "sfm_again", "densify_jp2")
+           "sfm_again", "densify_jp2", "densify_avif")
 WORKER_TIMEOUT_S = 600
 
 
@@ -4504,8 +4547,8 @@ def _worker(kind: str, out_path: str, roots: str = "{}") -> int:
             result = check_sfm_again(Path(roots["photos"]), dev)
         elif kind == "photos_jpeg":
             result = check_photos_jpeg(root)
-        elif kind == "densify_jp2":
-            result = check_densify_jp2(root)
+        elif kind in ("densify_jp2", "densify_avif"):
+            result = check_densify_jp2(root, kind[len("densify_"):])
         else:
             result = check_golden(dev, (kind[len("golden_"):],))
     finally:
@@ -4602,15 +4645,23 @@ def main() -> int:
     log(f"[device] torch {torch.__version__}, CUDA {torch.version.cuda}, "
         f"{torch.cuda.get_device_name(0)} x {torch.cuda.device_count()}")
 
-    # 2. build: the library and the earlier designs, side by side
+    # 2. build: the library, the earlier designs and phase 27's host
+    # decoders (one nvcc or g++ each), side by side
     t0 = time.perf_counter()
-    with concurrent.futures.ThreadPoolExecutor(2) as pool:
-        lib_paths = list(pool.map(kernels.build,
-                                  (kernels.CSRC, kernels.EARLIER)))
+    with concurrent.futures.ThreadPoolExecutor(
+            2 + len(NATIVE_DECODERS)) as pool:
+        lib_builds = [pool.submit(kernels.build, src)
+                      for src in (kernels.CSRC, kernels.EARLIER)]
+        native_builds = {name: pool.submit(timed_native_build, name)
+                         for name in NATIVE_DECODERS}
+        lib_paths = [build.result() for build in lib_builds]
+        native_build_s = {name: build.result()
+                          for name, build in native_builds.items()}
     kernels.library()
     kernels.earlier_library()
-    log(f"[build] {lib_paths[0].name} and the earlier designs of B, C and "
-        f"D ready in {time.perf_counter() - t0:.1f} s")
+    log(f"[build] {lib_paths[0].name}, the earlier designs of B, C and D "
+        f"and the {len(NATIVE_DECODERS)} host decoders ready in "
+        f"{time.perf_counter() - t0:.1f} s")
     for path in lib_paths:
         for line in (path.parent / "build.log").read_text().splitlines():
             if "registers" in line or "spill" in line:
@@ -4700,7 +4751,7 @@ def main() -> int:
     phase_done("23")
     # 27, its host half: the JPEG decoder against the manifest, decode and
     # resize times (before the side-by-side group, so they run alone)
-    jpeg_summary, jpeg_failed = check_jpeg_decoder()
+    jpeg_summary, jpeg_failed = check_jpeg_decoder(native_build_s)
     phase_done("27 (decoder)")
     # 28. the view axis: the dense schedule over processes on the card,
     # sharded bundle adjustment, the refine benchmark, the roofline and
@@ -4713,10 +4764,11 @@ def main() -> int:
     # phase 16's photos; 19. the whole chain, small; 21. the dense routes
     # at 1280x960; 24. SGM through densify; 25. the golden quality gate,
     # three modes; 26. the full product run at 1280x960; 27. the pipeline
-    # from the JPEG photos and densify on the JPEG 2000 views: side by side
+    # from the JPEG photos and densify on the JPEG 2000 and the AVIF views:
+    # side by side
     done = run_workers(roots={"dense": masks_root, "photos": photos_root})
     for kind in ("sfm_again", "mesh", "chain", "routes", "sgm", "full_run",
-                 "densify_jp2"):
+                 "densify_jp2", "densify_avif"):
         paths[kind] = done[kind]
     launches, summary, failed = done["photos_jpeg"]
     paths["photos_jpeg"] = (launches, dict(summary, decoder=jpeg_summary),

@@ -572,3 +572,235 @@ def _decode_gif(data: bytes, mode: str) -> np.ndarray:
         return canvas
     bgr = np.ascontiguousarray(canvas[..., :3])
     return gray_cvt(bgr) if mode == "gray" else bgr
+
+
+# ---- AVIF: libavif 1.4's YUV -> RGB, as OpenCV 5.0 calls it
+
+# libyuv's YuvConstants (ub, ug, vg, vr, yg, yb) for the matrices libavif
+# hands to it: BT.601 (matrix coefficients 5, 6 and unspecified 2), BT.709
+# (1) and BT.2020 non-constant luminance (9), limited and full range
+# (read from libyuv inside OpenCV's libavif)
+_LIBYUV = {(601, 0): (128, 25, 52, 102, 18997, -1160),
+           (601, 1): (113, 22, 46, 90, 16320, 32),
+           (709, 0): (128, 14, 34, 115, 18997, -1160),
+           (709, 1): (119, 12, 30, 101, 16320, 32),
+           (2020, 0): (128, 12, 42, 107, 19003, -1160),
+           (2020, 1): (120, 11, 37, 94, 16320, 32)}
+_LIBYUV_MATRIX = {1: 709, 2: 601, 5: 601, 6: 601, 9: 2020}
+
+
+def libyuv_matrix(mc: int, cp: int):
+    """The matrix coefficients libavif hands to libyuv for (mc, cp), or
+    None: BT.601 / 709 / 2020-NCL themselves, and chroma-derived NCL (12)
+    of BT.709, BT.601 and BT.2020 primaries (unspecified ones as BT.709)
+    as that standard's matrix."""
+    if mc == 12:
+        mc = {1: 1, 2: 1, 5: 6, 6: 6, 9: 9}.get(cp)
+    return mc if mc in _LIBYUV_MATRIX else None
+# libavif's (kr, kb) of the matrices it converts itself
+_AVIF_KR_KB = {1: (0.2126, 0.0722), 2: (0.299, 0.114), 4: (0.30, 0.11),
+               5: (0.299, 0.114), 6: (0.299, 0.114), 7: (0.212, 0.087),
+               9: (0.2627, 0.0593)}
+# libavif's colour primaries (rX, rY, gX, gY, bX, bY, wX, wY) by their
+# CICP code, BT.709's for the codes it does not know (read from OpenCV's
+# libavif through avifColorPrimariesGetValues)
+_BT709_PRIMARIES = (0.64, 0.33, 0.3, 0.6, 0.15, 0.06, 0.3127, 0.329)
+_AVIF_PRIMARIES = {
+    4: (0.67, 0.33, 0.21, 0.71, 0.14, 0.08, 0.31, 0.316),
+    5: (0.64, 0.33, 0.29, 0.6, 0.15, 0.06, 0.3127, 0.329),
+    6: (0.63, 0.34, 0.31, 0.595, 0.155, 0.07, 0.3127, 0.329),
+    7: (0.63, 0.34, 0.31, 0.595, 0.155, 0.07, 0.3127, 0.329),
+    8: (0.681, 0.319, 0.243, 0.692, 0.145, 0.049, 0.31, 0.316),
+    9: (0.708, 0.292, 0.17, 0.797, 0.131, 0.046, 0.3127, 0.329),
+    10: (1.0, 0.0, 0.0, 1.0, 0.0, 0.0, 0.3333, 0.3333),
+    11: (0.68, 0.32, 0.265, 0.69, 0.15, 0.06, 0.314, 0.351),
+    12: (0.68, 0.32, 0.265, 0.69, 0.15, 0.06, 0.3127, 0.329),
+    22: (0.63, 0.34, 0.295, 0.605, 0.155, 0.077, 0.3127, 0.329)}
+
+
+def _kr_kb_from_primaries(cp: int):
+    """libavif's kr and kb of chroma-derived non-constant luminance
+    (matrix 12, H.273 equations 32-37) from the primaries, in float32 in
+    its order of operations."""
+    rx, ry, gx, gy, bx, by, wx, wy = (np.float32(v) for v in
+                                      _AVIF_PRIMARIES.get(cp,
+                                                          _BT709_PRIMARIES))
+    one = np.float32(1)
+    rz, gz, bz, wz = (one - (rx + ry), one - (gx + gy), one - (bx + by),
+                      one - (wx + wy))
+    den = wy * (rx * (gy * bz - by * gz) + gx * (by * rz - ry * bz)
+                + bx * (ry * gz - gy * rz))
+    kr = (ry * (wx * (gy * bz - by * gz) + wy * (bx * gz - gx * bz)
+                + wz * (gx * by - bx * gy))) / den
+    kb = (by * (wx * (ry * gz - gy * rz) + wy * (gx * rz - rx * gz)
+                + wz * (rx * gy - gx * ry))) / den
+    return kr, kb
+
+
+def _up2_linear(s: np.ndarray, n: int) -> np.ndarray:
+    """libyuv's ScaleRowUp2_Linear_Any along the last axis to n samples:
+    the first and last sample copied, (3 a + b + 2) >> 2 between."""
+    s = s.astype(np.int64)
+    d = np.empty(s.shape[:-1] + (n,), np.int64)
+    d[..., 0] = s[..., 0]
+    m = ((n - 1) & ~1) // 2
+    if m > 0:
+        d[..., 1:2 * m:2] = (s[..., :m] * 3 + s[..., 1:m + 1] + 2) >> 2
+        d[..., 2:2 * m + 1:2] = (s[..., :m] + s[..., 1:m + 1] * 3 + 2) >> 2
+    d[..., n - 1] = s[..., (n - 1) // 2]
+    return d
+
+
+def _up2_bilinear(near: np.ndarray, far: np.ndarray, n: int) -> np.ndarray:
+    """libyuv's ScaleRowUp2_Bilinear_Any of a row pair to n samples: the
+    near row weighted 3 to the far row's 1 at the two ends, 9:3:3:1
+    between."""
+    a, b = near.astype(np.int64), far.astype(np.int64)
+    d = np.empty(a.shape[:-1] + (n,), np.int64)
+    d[..., 0] = (3 * a[..., 0] + b[..., 0] + 2) >> 2
+    m = ((n - 1) & ~1) // 2
+    if m > 0:
+        a0, a1 = a[..., :m], a[..., 1:m + 1]
+        b0, b1 = b[..., :m], b[..., 1:m + 1]
+        d[..., 1:2 * m:2] = (a0 * 9 + a1 * 3 + b0 * 3 + b1 + 8) >> 4
+        d[..., 2:2 * m + 1:2] = (a0 * 3 + a1 * 9 + b0 + b1 * 3 + 8) >> 4
+    last = (n - 1) // 2
+    d[..., n - 1] = (3 * a[..., last] + b[..., last] + 2) >> 2
+    return d
+
+
+def libyuv_chroma(c: np.ndarray, h: int, w: int, ssy: int) -> np.ndarray:
+    """A chroma plane at full size as libyuv's *ToARGBMatrixFilter
+    upsamples it (bilinear for 4:2:0, linear along rows for 4:2:2)."""
+    if not ssy:
+        return _up2_linear(c, w)
+    # output row 0 and (for even h) the last from their own chroma row;
+    # rows 2k+1, 2k+2 from chroma rows k and k+1, each nearer one first
+    near, far = [0], [0]
+    for r in range(1, h - (0 if h & 1 else 1)):
+        k = (r - 1) // 2
+        near.append(k if r & 1 else k + 1)
+        far.append(k + 1 if r & 1 else k)
+    if not h & 1 and h > 1:
+        near.append((h - 1) // 2)
+        far.append((h - 1) // 2)
+    near, far = np.asarray(near[:h]), np.asarray(far[:h])
+    return _up2_bilinear(c[near], c[far], w)
+
+
+def _libyuv_bgr(y, u, v, key, y32=None) -> np.ndarray:
+    """libyuv's YuvPixel of 8-bit samples (u, v at full size): 16.6 fixed
+    point with the YuvConstants of ``key``, BGR uint8 (``y32``: the luma
+    as libyuv widens it, ``y * 0x0101`` for 8 bits)."""
+    ub, ug, vg, vr, yg, yb = _LIBYUV[key]
+    if y32 is None:
+        y32 = y.astype(np.int64) * 0x0101
+    y1 = ((y32 * yg) & 0xFFFFFFFF) >> 16
+    y1 = y1 + yb
+    ui, vi = u.astype(np.int64) - 128, v.astype(np.int64) - 128
+    bgr = (y1 + ui * ub, y1 - (ui * ug + vi * vg), y1 + vi * vr)
+    return np.stack([np.clip(c >> 6, 0, 255) for c in bgr], -1).astype(
+        np.uint8)
+
+
+def libyuv_bgr_high(y, u, v, depth: int, full: int, mc: int) -> np.ndarray:
+    """libyuv's YuvPixel10 / YuvPixel12 (u, v at full size): the luma
+    widened to 16 bits (``(y << 6) | (y >> 4)`` at 10 bits, ``(y << 4) |
+    (y >> 8)`` at 12), the chroma cut to 8 bits and saturated."""
+    s = depth - 8
+    y = y.astype(np.int64)
+    y32 = (y << (16 - depth)) | (y >> (2 * depth - 16))
+    u8, v8 = (np.clip(p.astype(np.int64) >> s, 0, 255) for p in (u, v))
+    return _libyuv_bgr(None, u8, v8, (_LIBYUV_MATRIX[mc], full), y32)
+
+
+def _avif_float_bgr(y, u, v, depth, ssx, ssy, full, mc, out_depth, cp=1):
+    """libavif's own YUV -> RGB (avifImageYUVAnyToRGBAnySlow and its fast
+    paths, which compute the same): samples to float32 through its unorm
+    tables, chroma upsampled bilinearly (9/16, 3/16, 3/16, 1/16 of the
+    nearest, the adjacent column, the adjacent row and the diagonal
+    sample, in that order), identity, YCgCo or kr / kb arithmetic in
+    float32, clamped to [0, 1], ``(uint)(0.5 + x * max)``."""
+    f32 = np.float32
+    h, w = y.shape
+    top = (1 << depth) - 1
+    bias_y = f32(0 if full else 16 << (depth - 8))
+    bias_uv = f32(1 << (depth - 1))
+    range_y = f32(top if full else 219 << (depth - 8))
+    range_uv = f32(top if full else 224 << (depth - 8))
+    code = np.arange(top + 1, dtype=f32)
+    t_y = ((code - bias_y) / range_y).astype(f32)
+    t_uv = (t_y if mc == 0 else ((code - bias_uv) / range_uv).astype(f32))
+    Y = t_y[np.minimum(y, top)]
+
+    def chroma(c):
+        c = np.minimum(c, top)
+        if not ssx:
+            return t_uv[c]
+        j, i = np.arange(h)[:, None], np.arange(w)[None, :]
+        uj, ui = j >> ssy, i >> ssx
+        adj_c = np.where((i == 0) | ((i == w - 1) & (i % 2 != 0)), 0,
+                         np.where(i % 2 != 0, 1, -1))
+        adj_r = (np.where((j == 0) | ((j == h - 1) & (j % 2 != 0)), 0,
+                          np.where(j % 2 != 0, 1, -1)) if ssy
+                 else np.zeros_like(j))
+        return (((t_uv[c[uj, ui]] * f32(9 / 16)
+                  + t_uv[c[uj, ui + adj_c]] * f32(3 / 16))
+                 + t_uv[c[uj + adj_r, ui]] * f32(3 / 16))
+                + t_uv[c[uj + adj_r, ui + adj_c]] * f32(1 / 16))
+
+    if u is None:
+        R = G = B = Y
+    else:
+        cb, cr = chroma(u), chroma(v)
+        if mc == 0:
+            G, B, R = Y, cb, cr
+        elif mc == 8:
+            t = (Y - cb).astype(f32)
+            G, B, R = (Y + cb).astype(f32), (t - cr).astype(f32), (
+                t + cr).astype(f32)
+        else:
+            kr, kb = (_kr_kb_from_primaries(cp) if mc == 12 else
+                      (f32(k) for k in _AVIF_KR_KB[mc]))
+            kg = f32(f32(f32(1) - kr) - kb)
+            R = (Y + (f32(2) * (f32(1) - kr)) * cr).astype(f32)
+            B = (Y + (f32(2) * (f32(1) - kb)) * cb).astype(f32)
+            G = (Y - ((f32(2) * ((kr * (f32(1) - kr) * cr)
+                                 + (kb * (f32(1) - kb) * cb))) / kg)
+                 ).astype(f32)
+    scale = f32((1 << out_depth) - 1)
+    dtype = np.uint8 if out_depth == 8 else np.uint16
+    return np.stack([(f32(0.5) + np.clip(c, f32(0), f32(1)) * scale)
+                     .astype(dtype) for c in (B, G, R)], -1)
+
+
+def avif_bgr(planes, depth: int, ssx: int, ssy: int, full: int, mc: int,
+             out_depth: int, cp: int = 1) -> np.ndarray:
+    """libavif 1.4's avifImageYUVToRGB of (Y, U, V) planes into BGR of
+    ``out_depth`` bits, as OpenCV 5.0 asks it (chroma upsampling
+    automatic, libyuv allowed): 8-bit output of BT.601 / 709 / 2020-NCL
+    (matrix 1, 2, 5, 6, 9) goes through libyuv, high bit depths cut to 8
+    bits first (``>> (depth - 8)``); the rest through libavif's float
+    conversion (matrix 12 with kr, kb from the colour primaries ``cp``).
+    Raises NotImplementedError where libavif fails (YCgCo in limited
+    range, identity other than 4:4:4, matrices it does not convert)."""
+    y, u, v = planes
+    h, w = y.shape
+    if mc == 8 and not full:
+        raise NotImplementedError("YCgCo in limited range (libavif fails)")
+    if mc == 0 and (ssx or ssy):
+        raise NotImplementedError("identity matrix with sub-sampled chroma "
+                                  "(libavif fails)")
+    if mc not in (0, 8, 12) and mc not in _AVIF_KR_KB:
+        raise NotImplementedError(f"matrix coefficients {mc} (libavif "
+                                  f"fails, or is not followed here)")
+    yuv_mc = libyuv_matrix(mc, cp)
+    if out_depth == 8 and yuv_mc:
+        mc = yuv_mc
+        shift = depth - 8
+        y8, u8, v8 = (p >> shift for p in (y, u, v))
+        if ssx:
+            u8, v8 = (libyuv_chroma(p, h, w, ssy) for p in (u8, v8))
+        return _libyuv_bgr(y8, u8, v8, (_LIBYUV_MATRIX[mc], full))
+    return _avif_float_bgr(y, u, v, depth, ssx, ssy, full, mc, out_depth,
+                           cp)

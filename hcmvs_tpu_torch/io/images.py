@@ -46,7 +46,12 @@ stored channels and depth, colour in BGR(A) order).
   signed components, precisions below 8 bits, image offsets, sub-sampled
   components, two components unchanged and cut streams raise
   NotImplementedError, as cv2 fails on them.
-- AVIF, which cv2 also reads, raises NotImplementedError naming it.
+- AVIF: ``native/avif.cpp`` (the HEIF container with grids, the alpha
+  item and the first sample of an ``avis`` sequence; AV1 key and
+  intra-only frames with every coding tool, 4:0:0-4:4:4 at 8-12 bits),
+  bit-equal to the planes libaom gives libavif, converted by libavif's
+  and OpenCV's rules (``_avif``); superres, premultiplied alpha and the
+  files cv2 fails on raise NotImplementedError.
 
 Gray of a colour file: PNG through libpng's rgb_to_gray, the others
 through OpenCV's BT.601 fixed point (16-bit samples cut to 8 first).
@@ -75,13 +80,15 @@ H + W numpy steps whatever the row filters.  Filters act on bytes, so a
 byte channel until the filters are undone.  The writer takes the row
 filter(s) to use (Up by default) and writes 8- or 16-bit samples.
 
-``resize_image`` follows ``cv2.resize``: INTER_AREA when shrinking, as
-exact area-overlap weights (cv2's ``computeResizeAreaTab``, right for
-non-integer ratios too), INTER_LINEAR when enlarging (half-pixel centres,
-clamped edges); each axis keeps only the source cells an output cell
-reads (2-3 taps at the usual ratios), applied as gathers and weighted
-sums in float32.  ``resize_mask`` is INTER_NEAREST's index rule;
-``build_pyramid`` is ``cv2.pyrDown`` level by level.
+``resize_image`` and ``resize_linear`` are ``cv2.resize`` bit for bit
+(OpenCV 5.0, probed with impulse images and orders of sums): INTER_AREA
+when shrinking, as exact area-overlap weights (cv2's
+``computeResizeAreaTab``) summed along x and then y in float32, or its
+fast path at integer ratios; INTER_LINEAR when enlarging, positions in
+float64 and each blend ``fma(p1 - p0, t, p0)``; uint8 through cv2's
+fixed-point INTER_LINEAR and rounded sums.  ``resize_mask`` is
+INTER_NEAREST's index rule; ``build_pyramid`` is ``cv2.pyrDown`` level
+by level.
 """
 
 from __future__ import annotations
@@ -821,9 +828,7 @@ def _jpeg(data: bytes, mode: str, path: str) -> np.ndarray:
 def _other_format(data: bytes, path: str):
     """The decoder ``(data, mode, path) -> array`` of the formats whose
     modes follow their own rules (WebP, GIF, Radiance HDR, PFM, PAM, Sun
-    raster, JPEG 2000), by signature; None for the rest.  Raises
-    NotImplementedError for a format cv2 reads and the port does not
-    (AVIF)."""
+    raster, JPEG 2000, AVIF), by signature; None for the rest."""
     if data[:4] == b"RIFF" and data[8:12] == b"WEBP":
         return _webp
     if data[:6] in (b"GIF87a", b"GIF89a"):
@@ -838,10 +843,19 @@ def _other_format(data: bytes, path: str):
         return image_formats.decode_sun
     if data[:12] == _JP2_SIGNATURE or data[:4] == b"\xff\x4f\xff\x51":
         return _jpeg2000
-    if data[4:8] == b"ftyp" and data[8:12] in (b"avif", b"avis"):
-        raise NotImplementedError(f"{path}: AVIF (decoding it needs an AV1 "
-                                  f"decoder)")
+    if data[4:8] == b"ftyp" and _avif_brand(data):
+        return _avif
     return None
+
+
+def _avif_brand(data: bytes) -> bool:
+    """An ISOBMFF file whose ftyp names the avif or avis brand (major or
+    compatible), as libavif's avifPeekCompatibleFileType asks."""
+    size = struct.unpack(">I", data[:4])[0]
+    if size < 16 or size > len(data):
+        return data[8:12] in (b"avif", b"avis")
+    brands = [data[8:12]] + [data[k:k + 4] for k in range(16, size - 3, 4)]
+    return bool({b"avif", b"avis"} & set(brands))
 
 
 _JP2_SIGNATURE = b"\0\0\0\x0cjP  \r\n\x87\n"
@@ -942,6 +956,82 @@ def _jpeg2000(data: bytes, mode: str, path: str) -> np.ndarray:
     else:
         raise fails
     return np.ascontiguousarray(img[..., 0] if out_ch == 1 else img)
+
+
+def _avif_alpha_bgr8(y, u, v, head, full, mc, cp) -> np.ndarray:
+    """The BGR libavif gives OpenCV for a 10- or 12-bit image with alpha
+    read into 8 bits (libyuv's *AlphaToARGB routes): 10-bit samples
+    straight through libyuv's 10-bit pixel (chroma upsampled at full
+    precision), 12-bit 4:2:0 through its 12-bit pixel with the chroma
+    repeated, other 12-bit images cut to 8 bits first like the images
+    without alpha."""
+    depth, ssx, ssy = head["depth"], head["ssx"], head["ssy"]
+    h, w = y.shape
+    if depth == 12 and not (ssx and ssy):
+        return image_formats.avif_bgr((y, u, v), depth, ssx, ssy, full, mc, 8,
+                                      cp)
+    if ssx and depth == 10:
+        u, v = (image_formats.libyuv_chroma(p, h, w, ssy) for p in (u, v))
+    elif ssx:
+        rows, cols = np.arange(h) >> ssy, np.arange(w) >> ssx
+        u, v = (p[rows[:, None], cols[None, :]] for p in (u, v))
+    return image_formats.libyuv_bgr_high(y, u, v, depth, full, mc)
+
+
+def _avif(data: bytes, mode: str, path: str) -> np.ndarray:
+    """An AVIF file's ``imread`` by OpenCV 5.0's rules for libavif's
+    output (``native/avif.cpp`` decodes the planes libaom gives libavif):
+    the image's channels are 1 (4:0:0) or 3, plus its alpha; a 4:0:0
+    image is its Y plane as it stands (10 and 12 bits cut to 8 by
+    convertTo's rounding, ``rint(v / 2**(depth - 8))``, except
+    unchanged), repeated to BGR in the colour mode; colour images go
+    through libavif's avifImageYUVToRGB (``image_formats.avif_bgr``) into
+    8 bits, or into the image's depth (uint16) unchanged, with the CICP
+    and range of the colr nclx property (else the AV1 sequence header's);
+    alpha is a fourth channel unchanged (BGRA), dropped in the colour
+    mode, ignored by cvtColor's BGR2GRAY in the gray mode; irot, imir,
+    clap and an Exif item's orientation are ignored, as cv2 ignores
+    them.  Raises NotImplementedError naming each kind the port does not
+    decode or cv2 fails on (gray with alpha, premultiplied or
+    limited-range alpha)."""
+    head, planes = native.avif_decode(data, path)
+    depth, mono, alpha = head["depth"], head["monochrome"], head["alpha"]
+    if mono and alpha:
+        raise NotImplementedError(f"{path}: AVIF gray with alpha (two "
+                                  f"channels; cv2 fails on it)")
+    if alpha and head["premultiplied"]:
+        raise NotImplementedError(f"{path}: AVIF with premultiplied alpha")
+    if alpha and not head["alpha_full_range"]:
+        raise NotImplementedError(f"{path}: AVIF with limited-range alpha")
+    out_depth = depth if mode == "unchanged" else 8
+    dtype = np.uint8 if out_depth == 8 else np.uint16
+    if mono:
+        y = planes[0].astype(np.int64)
+        if out_depth < depth:
+            y = np.clip(np.rint(y / (1 << (depth - 8))), 0, 255)
+        img = y.astype(dtype)
+        if mode == "color":
+            img = np.repeat(img[..., None], 3, -1)
+    else:
+        key = "nclx_" if head["nclx"] else ""
+        full, mc, cp = (head[key + k] for k in ("full_range", "mc", "cp"))
+        y, u, v = planes[:3]
+        try:
+            yuv_mc = image_formats.libyuv_matrix(mc, cp)
+            if alpha and out_depth == 8 and depth > 8 and yuv_mc:
+                img = _avif_alpha_bgr8(y, u, v, head, full, yuv_mc, cp)
+            else:
+                img = image_formats.avif_bgr((y, u, v), depth, head["ssx"],
+                                             head["ssy"], full, mc,
+                                             out_depth, cp)
+        except NotImplementedError as exc:
+            raise NotImplementedError(f"{path}: AVIF with {exc}") from None
+        if mode == "unchanged" and alpha:
+            a = planes[3]
+            img = np.concatenate([img, a[..., None].astype(dtype)], -1)
+        elif mode == "gray":
+            img = image_formats.gray_cvt(img)
+    return img
 
 
 def _webp(data: bytes, mode: str, path: str) -> np.ndarray:
@@ -1137,18 +1227,153 @@ def _area_taps(n_src: int, n_dst: int) -> Tuple[np.ndarray, np.ndarray]:
     return np.clip(pos, 0, n_src - 1), wts
 
 
-def _linear_taps(n_src: int, n_dst: int) -> Tuple[np.ndarray, np.ndarray]:
-    """INTER_LINEAR along one axis as (n_dst, 2) taps: half-pixel centres,
-    edges clamped (cv2 ``resize``'s coefficient setup)."""
-    scale = 1.0 / (n_dst / n_src)
-    f = ((np.arange(n_dst) + 0.5) * scale - 0.5).astype(np.float32)
-    sx = np.floor(f).astype(np.int64)
-    fx = (f - sx.astype(np.float32)).astype(np.float32)
-    edge = (sx < 0) | (sx >= n_src - 1)
-    fx = np.where(edge, np.float32(0.0), fx)
-    sx = np.clip(sx, 0, n_src - 1)
-    wts = np.stack([np.float32(1.0) - fx, fx], 1)
-    return np.stack([sx, np.minimum(sx + 1, n_src - 1)], 1), wts
+def _fma32(a, b, c):
+    """float32 ``fma(a, b, c)``: the product of two float32 values is exact
+    in float64, the sum is rounded there and then to float32."""
+    return (a.astype(np.float64) * b + c).astype(np.float32)
+
+
+def _linear_coords(n_src: int, n_dst: int, f32: bool):
+    """INTER_LINEAR's source index and float32 fraction along one axis:
+    half-pixel centres, the position in float64 (``f32``: cast to float32
+    first, as cv2 does for a source one pixel high or wide)."""
+    f = (np.arange(n_dst) + 0.5) * (n_src / n_dst) - 0.5
+    if f32:
+        f = f.astype(np.float32).astype(np.float64)
+    sx = np.floor(f)
+    return sx.astype(np.int64), (f - sx).astype(np.float32)
+
+
+def _resize_linear_f32(x: np.ndarray, new_h: int, new_w: int) -> np.ndarray:
+    """``cv2.resize(INTER_LINEAR)`` of float32 (H, W, C): along x, then
+    along y, each output ``fma(p1 - p0, t, p0)`` in float32 with both
+    taps clamped into the image; a source one pixel high or wide takes
+    cv2's other route (float32 positions, a clamped tap weighted 0,
+    ``p0 * (1 - t) + p1 * t``)."""
+    h, w = x.shape[:2]
+    old = h == 1 or w == 1
+    for axis, (n, m) in enumerate(((w, new_w), (h, new_h))):
+        ax = 1 - axis
+        sx, t = _linear_coords(n, m, old)
+        i0, i1 = np.clip(sx, 0, n - 1), np.clip(sx + 1, 0, n - 1)
+        shape = (-1,) + (1,) * (x.ndim - ax - 1)
+        p0, p1 = np.take(x, i0, ax), np.take(x, i1, ax)
+        if old:
+            if ax == 1:
+                t = np.where((sx < 0) | (sx >= n - 1), np.float32(0), t)
+            t = t.reshape(shape)
+            x = p0 * (np.float32(1) - t) + p1 * t
+        else:
+            x = _fma32(p1 - p0, t.reshape(shape), p0)
+    return x
+
+
+def _linear_taps_u8(n_src: int, n_dst: int, columns: bool):
+    """cv2.resize's INTER_LINEAR taps for uint8 along one axis: the two
+    source indices and their 11-bit fixed-point weights (saturate_cast<
+    short>(w * 2048), rounding to nearest), positions in float32.  Along
+    columns a tap left of the first or right of the last source column
+    takes that column whole (weights 2048, 0); along rows the weights
+    stay and both indices are clamped."""
+    i0, f = _linear_coords(n_src, n_dst, True)
+    if columns:
+        edge = (i0 < 0) | (i0 >= n_src - 1)
+        f[edge] = 0
+        i0 = np.clip(i0, 0, n_src - 1)
+    w1 = np.rint(f * np.float32(2048)).astype(np.int64)
+    w0 = np.rint((np.float32(1) - f) * np.float32(2048)).astype(np.int64)
+    return (np.clip(i0, 0, n_src - 1), np.clip(i0 + 1, 0, n_src - 1),
+            w0, w1)
+
+
+def _resize_linear_u8(src: np.ndarray, new_h: int, new_w: int) -> np.ndarray:
+    """``cv2.resize(INTER_LINEAR)`` of uint8 (H, W, C) as int64: rows
+    summed horizontally with 11-bit weights, then
+    ``((b0 * (r0 >> 4)) >> 16) + ((b1 * (r1 >> 4)) >> 16) + 2 >> 2``
+    vertically."""
+    h, w = src.shape[:2]
+    x0, x1, a0, a1 = _linear_taps_u8(w, new_w, columns=True)
+    y0, y1, b0, b1 = _linear_taps_u8(h, new_h, columns=False)
+    rows = src[:, x0] * a0[None, :, None] + src[:, x1] * a1[None, :, None]
+    return (((b0[:, None, None] * (rows[y0] >> 4)) >> 16)
+            + ((b1[:, None, None] * (rows[y1] >> 4)) >> 16) + 2) >> 2
+
+
+def _resize_area(x: np.ndarray, new_h: int, new_w: int,
+                 u8: bool) -> np.ndarray:
+    """``cv2.resize(INTER_AREA)`` shrinking (H, W, C) float32 (``u8``:
+    uint8 samples as int64): ``resizeArea``'s float32 sums, along x
+    (tap after tap of ``_area_taps``) then along y, rounded to nearest
+    for uint8; at integer ratios its fast path instead (``_area_fast``)."""
+    h, w = x.shape[:2]
+    kx, ky = w / new_w, h / new_h
+    if kx == int(kx) and ky == int(ky):
+        return _area_fast(x, int(ky), int(kx), u8)
+    x = x.astype(np.float32)
+    for ax, (n, m) in ((1, (w, new_w)), (0, (h, new_h))):
+        idx, wts = _area_taps(n, m)
+        wts = wts.astype(np.float32)
+        shape = (-1,) + (1,) * (x.ndim - ax - 1)
+        out = np.take(x, idx[:, 0], ax) * wts[:, 0].reshape(shape)
+        for j in range(1, idx.shape[1]):
+            live = (wts[:, j] != 0).reshape(shape)
+            out = np.where(live, out + np.take(x, idx[:, j], ax)
+                           * wts[:, j].reshape(shape), out)
+        x = out
+    return np.rint(x) if u8 else x
+
+
+def _area_fast(x: np.ndarray, ky: int, kx: int, u8: bool) -> np.ndarray:
+    """``resizeAreaFast``: each output the sum of its ky x kx block, row
+    by row in groups of four (``((a + b) + c) + d``), times 1 / area; at
+    2 x 2, uint8 is ``(a + b + c + d + 2) >> 2`` and one-channel float32
+    ``((a00 + a01) + (a10 + a11)) * 0.25`` over the samples its 4-lane
+    SIMD loop covers."""
+    h, w, cn = x.shape
+    nh, nw = h // ky, w // kx
+    blocks = [x[i::ky, j::kx][:nh, :nw] for i in range(ky) for j in range(kx)]
+    if u8 and (ky, kx) == (2, 2):
+        return (blocks[0] + blocks[1] + blocks[2] + blocks[3] + 2) >> 2
+    area = ky * kx
+    total = None
+    for g in range(0, area - 3, 4):
+        part = ((blocks[g] + blocks[g + 1]) + blocks[g + 2]) + blocks[g + 3]
+        total = part if total is None else total + part
+    for g in range(area // 4 * 4, area):
+        total = blocks[g] if total is None else total + blocks[g]
+    out = total.astype(np.float32) * np.float32(1.0 / area)
+    if u8:
+        return np.rint(out)
+    if (ky, kx) == (2, 2) and cn == 1:
+        simd = ((blocks[0] + blocks[1]) + (blocks[2] + blocks[3])) \
+            * np.float32(0.25)
+        lanes = np.arange(nw)[None, :, None] < nw // 4 * 4
+        out = np.where(lanes, simd, out)
+    return out
+
+
+def _resize(img: np.ndarray, new_h: int, new_w: int, area: bool
+            ) -> np.ndarray:
+    """cv2.resize of (H, W[, C]) to (new_h, new_w), INTER_AREA (``area``)
+    or INTER_LINEAR, bit for bit for uint8 and float32 samples; other
+    dtypes go through float32 and back.  INTER_LINEAR of uint8 at an
+    exact 2 x 2 reduction is INTER_AREA's fast path, as cv2 swaps it in
+    (for float32 it is not)."""
+    h, w = img.shape[:2]
+    x = img.reshape(h, w, -1)
+    u8 = img.dtype == np.uint8
+    x = x.astype(np.int64) if u8 else x.astype(np.float32, copy=False)
+    if u8 and (h, w) == (2 * new_h, 2 * new_w):
+        area = True
+    if area:
+        out = _resize_area(x, new_h, new_w, u8)
+    elif u8:
+        out = _resize_linear_u8(x, new_h, new_w)
+    else:
+        out = _resize_linear_f32(x, new_h, new_w)
+    if u8:
+        out = np.clip(out, 0, 255)
+    return out.astype(img.dtype).reshape((new_h, new_w) + img.shape[2:])
 
 
 def resize_image(img: np.ndarray, scale: float) -> np.ndarray:
@@ -1158,33 +1383,15 @@ def resize_image(img: np.ndarray, scale: float) -> np.ndarray:
         return img
     h, w = img.shape[:2]
     new_w, new_h = max(1, round(w * scale)), max(1, round(h * scale))
-    taps = _area_taps if scale < 1.0 else _linear_taps
-    return _resample(img, taps(h, new_h), taps(w, new_w))
-
-
-def _resample(img: np.ndarray, ty, tx) -> np.ndarray:
-    """Rows through the taps ``ty`` ((new_h, k) source indices and
-    weights), then columns through ``tx``, as gathers and weighted sums
-    in float32 (cv2's own precision for float32 images); the input's
-    dtype back."""
-    x = img.astype(np.float32, copy=False)
-    for axis, (idx, wts) in enumerate((ty, tx)):
-        wts = wts.astype(np.float32)
-        shape = (-1,) + (1,) * (x.ndim - axis - 1)
-        out = np.take(x, idx[:, 0], axis) * wts[:, 0].reshape(shape)
-        for j in range(1, idx.shape[1]):
-            out += np.take(x, idx[:, j], axis) * wts[:, j].reshape(shape)
-        x = out
-    return x.astype(img.dtype)
+    return _resize(img, new_h, new_w, area=scale < 1.0)
 
 
 def resize_linear(img: np.ndarray, new_h: int, new_w: int) -> np.ndarray:
     """Resize (H, W[, C]) to (new_h, new_w) like ``cv2.resize``'s default,
     INTER_LINEAR, whichever way the size goes."""
-    h, w = img.shape[:2]
-    if (h, w) == (new_h, new_w):
+    if img.shape[:2] == (new_h, new_w):
         return img
-    return _resample(img, _linear_taps(h, new_h), _linear_taps(w, new_w))
+    return _resize(img, new_h, new_w, area=False)
 
 
 def _reflect101(n: int, m: int) -> np.ndarray:

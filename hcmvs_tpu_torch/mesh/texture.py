@@ -19,12 +19,12 @@ leveling, RectsBinPack atlas packing):
 
 Everything but the message passing is host code, a numpy copy of the JAX
 package's.  The port has no OpenCV: a chart larger than the atlas is
-shrunk by ``resize_linear_u8`` (cv2.resize's INTER_LINEAR arithmetic
-for uint8) and the atlas is written by ``io.images.write_png``.  The
-per-face Python loops (``_face_adjacency``, ``_charts``' union-find, the
-per-chart UV loop) are the JAX package's; ``texture_mesh`` times its
-parts as ``texture.quality`` / ``.outliers`` / ``.labels`` /
-``.charts`` / ``.leveling`` / ``.packing``.
+shrunk by ``io.images.resize_linear`` (cv2.resize's INTER_LINEAR
+arithmetic for uint8) and the atlas is written by
+``io.images.write_png``.  The per-face Python loops (``_face_adjacency``,
+``_charts``' union-find, the per-chart UV loop) are the JAX package's;
+``texture_mesh`` times its parts as ``texture.quality`` / ``.outliers``
+/ ``.labels`` / ``.charts`` / ``.leveling`` / ``.packing``.
 """
 
 from __future__ import annotations
@@ -35,7 +35,7 @@ from typing import List, NamedTuple, Tuple
 import numpy as np
 import torch
 
-from hcmvs_tpu_torch.io.images import write_png
+from hcmvs_tpu_torch.io.images import resize_linear, write_png
 from hcmvs_tpu_torch.utils.profiling import stage_timer
 
 
@@ -555,51 +555,6 @@ def _apply_local_leveling(patch: np.ndarray, lo: np.ndarray,
     return patch + corr_field * fade[..., None]
 
 
-def _linear_taps(n_src: int, n_dst: int, columns: bool):
-    """cv2.resize's INTER_LINEAR taps along one axis: the two source
-    indices and their 11-bit fixed-point weights (saturate_cast<short>(w
-    * 2048), rounding to nearest).  Along columns a tap left of the first
-    or right of the last source column takes that column whole (weights
-    2048, 0); along rows the weights stay and both indices are clamped."""
-    scale = n_src / n_dst
-    f = ((np.arange(n_dst) + 0.5) * scale - 0.5).astype(np.float32)
-    i0 = np.floor(f).astype(np.int64)
-    f = f - i0
-    if columns:
-        low = i0 < 0
-        f[low], i0[low] = 0, 0
-        high = i0 >= n_src - 1
-        f[high], i0[high] = 0, n_src - 1
-    w1 = np.rint(f * np.float32(2048)).astype(np.int64)
-    w0 = np.rint((np.float32(1) - f) * np.float32(2048)).astype(np.int64)
-    return (np.clip(i0, 0, n_src - 1), np.clip(i0 + 1, 0, n_src - 1),
-            w0, w1)
-
-
-def resize_linear_u8(img: np.ndarray, size: Tuple[int, int]) -> np.ndarray:
-    """``cv2.resize(img, size)`` (INTER_LINEAR) of a uint8 (H, W[, C])
-    image to ``size`` = (width, height), with OpenCV's arithmetic: 11-bit
-    fixed-point weights, rows summed horizontally into int32, then
-    ``((b0 * (r0 >> 4)) >> 16) + ((b1 * (r1 >> 4)) >> 16) + 2 >> 2``
-    vertically.  An exact halving of both sides is the 2x2 average
-    ``(a + b + c + d + 2) >> 2``, as cv2 swaps in INTER_AREA there."""
-    w_dst, h_dst = size
-    h, w = img.shape[:2]
-    src = img.astype(np.int64)
-    if w == 2 * w_dst and h == 2 * h_dst:
-        s = (src[0::2, 0::2] + src[0::2, 1::2] + src[1::2, 0::2]
-             + src[1::2, 1::2] + 2) >> 2
-        return s.astype(np.uint8)
-    x0, x1, a0, a1 = _linear_taps(w, w_dst, columns=True)
-    y0, y1, b0, b1 = _linear_taps(h, h_dst, columns=False)
-    shape = (1, -1) + (1,) * (img.ndim - 2)
-    rows = src[:, x0] * a0.reshape(shape) + src[:, x1] * a1.reshape(shape)
-    col = (-1,) + (1,) * (img.ndim - 1)
-    out = (((b0.reshape(col) * (rows[y0] >> 4)) >> 16)
-           + ((b1.reshape(col) * (rows[y1] >> 4)) >> 16) + 2) >> 2
-    return out.astype(np.uint8)
-
-
 def texture_mesh(vertices: np.ndarray, faces: np.ndarray,
                  images: List[np.ndarray], Ks: np.ndarray, Rs: np.ndarray,
                  Cs: np.ndarray, atlas_size: int = 1024,
@@ -713,7 +668,7 @@ def _pack_atlas(vertices, faces, images, Ks, Rs, Cs, labels, charts,
             patch = patch * 255
         patch = np.clip(patch, 0, 255).astype(np.uint8)
         if scale != 1.0:
-            patch = resize_linear_u8(patch, (sw, sh))
+            patch = resize_linear(patch, sh, sw)
         atlas[y_cur:y_cur + sh, x_cur:x_cur + sw] = patch[:sh, :sw]
         placed_area += sw * sh
         # per-corner uvs

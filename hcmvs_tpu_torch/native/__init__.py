@@ -15,12 +15,17 @@
   libwebp (its fancy upsampling and fixed-point colour conversion);
 - ``jpeg2000.cpp``: JPEG 2000 decoding (the JP2 box or a raw codestream)
   to the components OpenJPEG 2.5.3 gives cv2 (its 9/7 in float32, its
-  reconstruction of cut passes, its palette and channel definitions).
+  reconstruction of cut passes, its palette and channel definitions);
+- ``avif.cpp``: AVIF decoding (the HEIF container: items, grids, the
+  alpha item, the first sample of an image sequence) and an AV1 decoder
+  of key and intra-only frames, to the YUV (and alpha) planes libaom
+  gives libavif for cv2; ``io.images._avif`` converts them as libavif
+  does.
 
 ``maxflow.cpp`` and ``raster.cpp`` are byte-for-byte the JAX package's;
-``jpeg.cpp``, ``webp.cpp`` and ``jpeg2000.cpp`` are the port's own (the JAX
-package decodes with OpenCV, which the port's machine does not have).  All
-are compiled with
+``jpeg.cpp``, ``webp.cpp``, ``jpeg2000.cpp`` and ``avif.cpp`` are the
+port's own (the JAX package decodes with OpenCV, which the port's machine
+does not have).  All are compiled with
 the JAX package's flags, ``g++ -O3 -march=native -std=c++17 -shared
 -fPIC`` (the flags matter: without ``-march=native`` g++ forms no fused
 multiply-adds on x86 and the barycentrics differ in the last bit), so the
@@ -103,6 +108,7 @@ _F32 = np.ctypeslib.ndpointer(np.float32, flags="C_CONTIGUOUS")
 _F64 = np.ctypeslib.ndpointer(np.float64, flags="C_CONTIGUOUS")
 _I32 = np.ctypeslib.ndpointer(np.int32, flags="C_CONTIGUOUS")
 _U8 = np.ctypeslib.ndpointer(np.uint8, flags="C_CONTIGUOUS")
+_U16 = np.ctypeslib.ndpointer(np.uint16, flags="C_CONTIGUOUS")
 
 _I64 = np.ctypeslib.ndpointer(np.int64, flags="C_CONTIGUOUS")
 _BYTES = ctypes.c_char_p
@@ -131,13 +137,18 @@ _SIGNATURES = {
                  ("hcmvs_jp2_decode", ctypes.c_int,
                   [_BYTES, ctypes.c_int64, _I32, ctypes.c_int64, _I64,
                    _MSG, ctypes.c_int])],
+    "avif": [("hcmvs_avif_info", ctypes.c_int,
+              [_BYTES, ctypes.c_int64, _I64, _MSG, ctypes.c_int]),
+             ("hcmvs_avif_decode", ctypes.c_int,
+              [_BYTES, ctypes.c_int64, _U16, ctypes.c_int64, _I64, _MSG,
+               ctypes.c_int])],
 }
 
 
 def library(name: str) -> ctypes.CDLL:
     """The loaded library of ``<name>.cpp`` ("maxflow", "raster", "jpeg",
-    "webp" or "jpeg2000"), built on first use, with its functions'
-    argument types declared."""
+    "webp", "jpeg2000" or "avif"), built on first use, with its
+    functions' argument types declared."""
     if name not in _libs:
         lib = ctypes.CDLL(str(build(name)))
         for fn_name, restype, argtypes in _SIGNATURES[name]:
@@ -282,6 +293,63 @@ def jp2_decode(data: bytes, path: str = "JPEG 2000") -> list:
         planes.append(out[at:at + w * h].reshape(h, w))
         at += w * h
     return planes
+
+
+_AVIF_KEYS = ("width", "height", "depth", "ssx", "ssy", "monochrome",
+              "full_range", "cp", "tc", "mc", "nclx", "nclx_cp", "nclx_tc",
+              "nclx_mc", "nclx_full_range", "alpha", "premultiplied")
+
+
+def _avif_status(rc: int, msg, path: str) -> None:
+    """Raises NotImplementedError for a nonzero status of the AVIF decoder
+    (1 a feature it does not decode, 2 a file it cannot read, on which
+    cv2's libavif fails too), naming it."""
+    if rc:
+        kind = "not decoded" if rc == 1 else "cv2 fails on it"
+        raise NotImplementedError(f"{path}: {msg.value.decode()} ({kind})")
+
+
+def avif_info(data: bytes, path: str = "AVIF") -> Dict[str, int]:
+    """The header of an AVIF file without decoding it: width and height
+    (of ispe, the grid or a sequence's sample entry), depth, ssx, ssy,
+    monochrome, full_range, cp, tc, mc (the AV1 sequence header's colour
+    config), nclx (1 with a colr nclx property) and its nclx_cp,
+    nclx_tc, nclx_mc, nclx_full_range, alpha (an alpha auxiliary image)
+    and premultiplied (its prem reference).  Raises as ``avif_decode``
+    does."""
+    info = np.zeros(len(_AVIF_KEYS), np.int64)
+    msg = ctypes.create_string_buffer(256)
+    _avif_status(library("avif").hcmvs_avif_info(
+        data, len(data), info, msg, len(msg)), msg, path)
+    return {k: int(v) for k, v in zip(_AVIF_KEYS, info)}
+
+
+def avif_decode(data: bytes, path: str = "AVIF") -> Tuple[Dict, list]:
+    """An AVIF file's planes as libaom decodes them for libavif: (info,
+    planes) with info as ``avif_info``'s (the decoded size) plus
+    alpha_depth and alpha_full_range, planes [Y, U, V] (uint16, each at
+    its own size; [Y] for 4:0:0) then the alpha image's Y if present.
+    Raises NotImplementedError naming a feature ``native/avif.cpp`` does
+    not decode or the fault of a file cv2's libavif fails on too."""
+    head = avif_info(data, path)
+    cap = 4 * max(head["width"], 1) * max(head["height"], 1) + 64
+    out = np.empty(cap, np.uint16)
+    keys = _AVIF_KEYS + ("alpha_depth", "alpha_full_range")
+    info = np.zeros(len(keys), np.int64)
+    msg = ctypes.create_string_buffer(256)
+    _avif_status(library("avif").hcmvs_avif_decode(
+        data, len(data), out, cap, info, msg, len(msg)), msg, path)
+    head = {k: int(v) for k, v in zip(keys, info)}
+    w, h = head["width"], head["height"]
+    cw, ch = (w + head["ssx"]) >> head["ssx"], (h + head["ssy"]) >> head["ssy"]
+    sizes = [(h, w)] + ([] if head["monochrome"] else [(ch, cw)] * 2)
+    if head["alpha"]:
+        sizes.append((h, w))
+    planes, at = [], 0
+    for ph, pw in sizes:
+        planes.append(out[at:at + ph * pw].reshape(ph, pw))
+        at += ph * pw
+    return head, planes
 
 
 def maxflow(n_nodes: int, eu: np.ndarray, ev: np.ndarray,

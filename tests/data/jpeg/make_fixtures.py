@@ -4,8 +4,8 @@
     PYTHONPATH=. python tests/data/jpeg/make_fixtures.py
     PYTHONPATH=. python tests/data/jpeg/make_fixtures.py variants
 
-(the second keeps the photos and the JPEG 2000 views and rewrites the
-rest and the manifest)
+(the second keeps the photos and the JPEG 2000 and AVIF views and
+rewrites the rest and the manifest)
 
 - ``photos/p00.jpg`` .. ``p07.jpg``: chip_smoke.py phase 16's scene, the
   ridge of ``make_ridge_scene(default_rng(0))`` at 1280x960 with the blob
@@ -34,10 +34,20 @@ rest and the manifest)
   packet headers in PPT / PPM, PLM / CRG / COM markers, palette, cdef,
   sYCC / eYCC / CMYK / ICC colour boxes, reordered tile-parts and cut
   codestreams; with the kinds cv2 fails on.
+- ``formats/*.avif``: AVIF kinds (``write_avif_kinds``): Pillow's
+  qualities, speeds, chroma samplings, alpha, Exif and aom tool switches
+  (palette, intra block copy, filter intra, CfL, CDEF, restoration,
+  tiles, delta q, 128x128 superblocks, quantiser matrices, film grain,
+  lossless), animations; cv2's encoder at 8, 10 and 12 bits; and HEIF
+  boxes written here around Pillow's AV1 payloads (grids, an alpha item,
+  idat, irot / imir / clap, every nclx matrix in both ranges); with the
+  kinds cv2 fails on.
 - ``jp2_views/v0.jp2`` .. ``v3.jp2``: views 0-3 of the photos' ridge
   scene at 1280x960, undistorted, as colour 9/7 JP2 files in two quality
   layers, RPCL, 512x512 tiles and precincts (chip_smoke.py phase 27's
-  densify run).
+  densify run); ``avif_views/v0.avif`` .. ``v3.avif``: the same views as
+  Pillow's AVIF at quality 90, 4:2:0, 8-bit, 2 x 2 tiles (phase 27's
+  densify-avif run).
 - ``manifest.json``: for each file and each of ``cv2.imread``'s
   IMREAD_COLOR, IMREAD_GRAYSCALE and IMREAD_UNCHANGED, the shape and the
   sha256 of the array cv2 returns (C order, cv2's BGR channel order), or
@@ -1273,10 +1283,10 @@ JP2_VIEW_LAYERS = [600, 150]
 
 
 def jp2_view_scene(root: str, h: int = PHOTO_HW[0], w: int = PHOTO_HW[1],
-                   n_views: int = JP2_VIEWS):
+                   n_views: int = JP2_VIEWS, ext: str = "jp2"):
     """(scene.mvs path, scene): the views' ridge scene (``ridge_scene``'s
     geometry at h x w, untextured) written under ``root``, its images
-    named ``v%d.jp2``: densify's input with ``--images-dir`` the views'
+    named ``v%d.<ext>``: densify's input with ``--images-dir`` the views'
     directory."""
     from hcmvs_tpu_torch.io.mvs import read_mvs, write_mvs
     from hcmvs_tpu_torch.utils.synth import (make_ridge_scene,
@@ -1289,7 +1299,7 @@ def jp2_view_scene(root: str, h: int = PHOTO_HW[0], w: int = PHOTO_HW[1],
     scene_path, _ = write_ridge_scene(root, sc)
     scene = read_mvs(scene_path)
     for i, im in enumerate(scene.images):
-        im.name = f"v{i}.jp2"
+        im.name = f"v{i}.{ext}"
     write_mvs(scene_path, scene)
     return scene_path, sc
 
@@ -1310,8 +1320,355 @@ def jp2_views(view_dir: str, images):
     return paths
 
 
+# ---- AVIF: Pillow's and cv2's writers, and the HEIF boxes around an AV1
+# payload written here for the kinds no writer makes
+
+def box(tag: bytes, body: bytes) -> bytes:
+    """An ISOBMFF box."""
+    return struct.pack(">I", 8 + len(body)) + tag + body
+
+
+def full_box(tag: bytes, version: int, flags: int, body: bytes) -> bytes:
+    """An ISOBMFF full box."""
+    return box(tag, struct.pack(">I", (version << 24) | flags) + body)
+
+
+def boxes_of(data: bytes, start: int = 0, end: int = None) -> list:
+    """[(tag, payload start, end)] of the boxes in data[start:end]."""
+    end = len(data) if end is None else end
+    out, pos = [], start
+    while pos + 8 <= end:
+        size, tag = struct.unpack(">I4s", data[pos:pos + 8])
+        out.append((tag, pos + 8, pos + size))
+        pos += size
+    return out
+
+
+def avif_parts(data: bytes) -> dict:
+    """The primary item of a single-image AVIF written by libavif:
+    {"obus": its AV1 payload, "props": {tag: box bytes} of its
+    properties (av1C, ispe, pixi, colr)}."""
+    meta = next((s, e) for t, s, e in boxes_of(data) if t == b"meta")
+    sub = {t: (s, e) for t, s, e in boxes_of(data, meta[0] + 4, meta[1])}
+    s, e = sub[b"iloc"]
+    v = data[s]
+    osz, lsz = data[s + 4] >> 4, data[s + 4] & 15
+    bsz = data[s + 5] >> 4
+    pos = s + 6
+    n = struct.unpack(">H", data[pos:pos + 2])[0]
+    pos += 2
+    locs = {}
+    for _ in range(n):
+        iid = struct.unpack(">H", data[pos:pos + 2])[0]
+        pos += 2 + (2 if v else 0) + 2
+        base = int.from_bytes(data[pos:pos + bsz], "big")
+        pos += bsz
+        ne = struct.unpack(">H", data[pos:pos + 2])[0]
+        pos += 2
+        chunks = []
+        for _ in range(ne):
+            off = int.from_bytes(data[pos:pos + osz], "big")
+            ln = int.from_bytes(data[pos + osz:pos + osz + lsz], "big")
+            pos += osz + lsz
+            chunks.append(data[base + off:base + off + ln])
+        locs[iid] = b"".join(chunks)
+    s, e = sub[b"pitm"]
+    primary = struct.unpack(">H", data[s + 4:s + 6])[0]
+    s, e = sub[b"iprp"]
+    parts = {t: (a, b) for t, a, b in boxes_of(data, s, e)}
+    props = [data[a - 8:b] for _, a, b in boxes_of(data, *parts[b"ipco"])]
+    a, b = parts[b"ipma"]
+    pos = a + 4
+    assoc = {}
+    for _ in range(struct.unpack(">I", data[pos:pos + 4])[0]):
+        iid, k = struct.unpack(">HB", data[pos + 4:pos + 7])
+        assoc[iid] = [x & 0x7F for x in data[pos + 7:pos + 7 + k]]
+        pos += 7 + k
+    return {"obus": locs[primary],
+            "props": {props[i - 1][4:8]: props[i - 1]
+                      for i in assoc[primary]}}
+
+
+def pil_av1(img: np.ndarray, **kw) -> dict:
+    """``avif_parts`` of Pillow's AVIF of img."""
+    from PIL import Image
+    buf = io.BytesIO()
+    Image.fromarray(img).save(buf, "AVIF", **kw)
+    return avif_parts(buf.getvalue())
+
+
+def nclx(cp: int, tc: int, mc: int, full: int) -> bytes:
+    return box(b"colr", b"nclx" + struct.pack(">HHHB", cp, tc, mc,
+                                              full << 7))
+
+
+ALPHA_URN = b"urn:mpeg:mpegB:cicp:systems:auxiliary:alpha\0"
+
+
+def heif_file(items, primary: int, refs=(), brands=(b"avif", b"mif1",
+                                                   b"miaf"),
+              idat: bool = False) -> bytes:
+    """A HEIF file: items is a list of (id, type, data, [(property box,
+    essential)]), refs (type, from, [to]); the data in an mdat (or with
+    ``idat`` in the meta box's idat), located by iloc version 1."""
+    props, ipma = [], []
+    for iid, _, _, plist in items:
+        marks = []
+        for pb, ess in plist:
+            if pb not in props:
+                props.append(pb)
+            marks.append(((1 if ess else 0) << 7) | (props.index(pb) + 1))
+        ipma.append(struct.pack(">HB", iid, len(marks)) + bytes(marks))
+    hdlr = full_box(b"hdlr", 0, 0, bytes(4) + b"pict" + bytes(12) + b"\0")
+    pitm = full_box(b"pitm", 0, 0, struct.pack(">H", primary))
+    iinf = full_box(b"iinf", 0, 0, struct.pack(">H", len(items)) + b"".join(
+        full_box(b"infe", 2, 0, struct.pack(">HH", iid, 0) + typ + b"\0")
+        for iid, typ, _, _ in items))
+    iref = (full_box(b"iref", 0, 0, b"".join(
+        box(t, struct.pack(">HH", f, len(to)) + b"".join(
+            struct.pack(">H", x) for x in to)) for t, f, to in refs))
+        if refs else b"")
+    iprp = box(b"iprp", box(b"ipco", b"".join(props)) + full_box(
+        b"ipma", 0, 0, struct.pack(">I", len(ipma)) + b"".join(ipma)))
+    ftyp = box(b"ftyp", brands[0] + bytes(4) + b"".join(brands))
+    payload = b"".join(d for _, _, d, _ in items)
+
+    def iloc(base):
+        body = struct.pack(">BBH", 0x44, 0x00, len(items))
+        at = 0
+        for iid, _, d, _ in items:
+            body += struct.pack(">HHHHII", iid, 1 if idat else 0, 0, 1,
+                                base + at, len(d))
+            at += len(d)
+        return full_box(b"iloc", 1, 0, body)
+
+    def meta(base):
+        return full_box(b"meta", 0, 0, hdlr + pitm + iloc(base) + iinf + iref
+                        + iprp + (box(b"idat", payload) if idat else b""))
+    if idat:
+        return ftyp + meta(0)
+    base = len(ftyp) + len(meta(0)) + 8
+    return ftyp + meta(base) + box(b"mdat", payload)
+
+
+def avif_with(parts: dict, extra=(), drop=(), **heif_kw) -> bytes:
+    """``parts`` (``avif_parts``) as a one-item HEIF file, its property
+    boxes ``drop``ped by tag and ``extra`` (box, essential) added."""
+    plist = [(b, t == b"av1C") for t, b in parts["props"].items()
+             if t not in drop] + list(extra)
+    return heif_file([(1, b"av01", parts["obus"], plist)], 1, **heif_kw)
+
+
+def avif_grid(cells, rows: int, cols: int, out_w: int, out_h: int,
+              flags: int = 0) -> bytes:
+    """A grid item of rows x cols AV1 items (``avif_parts`` of equal
+    cells), output out_w x out_h."""
+    fw = 4 if flags & 1 else 2
+    grid = struct.pack(">BBBB", 0, flags, rows - 1, cols - 1) + \
+        out_w.to_bytes(fw, "big") + out_h.to_bytes(fw, "big")
+    c0 = cells[0]["props"]
+    ispe = full_box(b"ispe", 0, 0, struct.pack(">II", out_w, out_h))
+    items = [(1, b"grid", grid, [(ispe, False), (c0[b"colr"], False),
+                                 (c0[b"pixi"], False)])]
+    for k, c in enumerate(cells):
+        items.append((2 + k, b"av01", c["obus"],
+                      [(b, t == b"av1C") for t, b in c["props"].items()]))
+    return heif_file(items, 1, refs=[(b"dimg", 1, list(
+        range(2, 2 + len(cells))))])
+
+
+def avif_alpha(color: dict, alpha: dict, premultiplied: bool = False) -> bytes:
+    """A colour item and an alpha auxiliary item (``avif_parts`` each)."""
+    aux = full_box(b"auxC", 0, 0, ALPHA_URN)
+    items = [(1, b"av01", color["obus"],
+              [(b, t == b"av1C") for t, b in color["props"].items()]),
+             (2, b"av01", alpha["obus"],
+              [(b, t == b"av1C") for t, b in alpha["props"].items()
+               if t != b"colr"] + [(aux, True)])]
+    refs = [(b"auxl", 2, [1])] + ([(b"prem", 1, [2])] if premultiplied
+                                   else [])
+    return heif_file(items, 1, refs=refs)
+
+
+def avif_exif(parts: dict, orient: int) -> bytes:
+    """``parts`` with an Exif item ('cdsc' to it) holding orientation
+    ``orient``."""
+    from PIL import Image
+    ex = Image.Exif()
+    ex[0x0112] = orient
+    tiff = ex.tobytes()
+    if tiff.startswith(b"Exif\0\0"):
+        tiff = tiff[6:]
+    items = [(1, b"av01", parts["obus"],
+              [(b, t == b"av1C") for t, b in parts["props"].items()]),
+             (2, b"Exif", struct.pack(">I", 0) + tiff, [])]
+    return heif_file(items, 1, refs=[(b"cdsc", 2, [1])])
+
+
+def screen(h: int = 64, w: int = 96, seed: int = 21) -> np.ndarray:
+    """(h, w, 3) uint8: flat rectangles of a few colours, text and a
+    repeated patch (aom's screen-content tools, palette and intra block
+    copy, pick it)."""
+    import cv2
+    rng = np.random.default_rng(seed)
+    img = np.full((h, w, 3), 230, np.uint8)
+    cols = rng.integers(0, 256, (5, 3))
+    for _ in range(14):
+        y, x = rng.integers(0, h - 4), rng.integers(0, w - 4)
+        img[y:y + rng.integers(3, 24), x:x + rng.integers(3, 30)] = \
+            cols[rng.integers(0, 5)]
+    cv2.putText(img, "AV1 42", (4, h // 2), cv2.FONT_HERSHEY_SIMPLEX, 0.6,
+                (20, 20, 120), 1)
+    img[h - 20:h - 4, w - 20:w - 4] = img[4:20, 4:20]
+    return img
+
+
+def write_avif_kinds(fmt_dir: str):
+    """The AVIF kinds (small images of the pattern): Pillow's qualities,
+    speeds, chroma samplings, gray, alpha, Exif, orientation (irot) and
+    aom tool switches (palette and intra block copy on screen content,
+    filter intra, CfL, CDEF, loop restoration, tiles, delta q, 128x128
+    superblocks, quantiser matrices, film grain, lossless), an animation
+    (avis) with
+    and without alpha; cv2's encoder at 8, 10 and 12 bits in colour,
+    gray and BGRA; written here around those AV1 payloads: grids, an
+    alpha item, an idat, irot / imir / clap, every nclx matrix in both
+    ranges, no colr, an unknown property; and the kinds cv2 fails on (no
+    ispe, no avif brand, an unknown essential property, the matrices
+    libavif does not convert).  Returns their paths."""
+    import cv2
+    from PIL import Image
+    os.makedirs(fmt_dir, exist_ok=True)
+    rgb = pattern(48, 64)
+    files = {}
+
+    def pil(img, **kw):
+        buf = io.BytesIO()
+        Image.fromarray(img).save(buf, "AVIF", **kw)
+        return buf.getvalue()
+
+    for q, speed in ((10, 6), (50, 2), (90, 9), (100, 6)):
+        files[f"avif_q{q}_s{speed}.avif"] = pil(rgb, quality=q, speed=speed)
+    for sub in ("4:2:0", "4:2:2", "4:4:4", "4:0:0"):
+        files[f"avif_{sub.replace(':', '')}.avif"] = pil(
+            rgb, quality=70, subsampling=sub)
+    files["avif_gray.avif"] = pil(rgb[..., 1], quality=70)
+    alpha = np.clip(128 + 100 * np.sin(np.arange(64) / 4)[None]
+                    + np.zeros((48, 1)), 0, 255).astype(np.uint8)
+    files["avif_alpha.avif"] = pil(np.dstack([rgb, alpha]), quality=70)
+    ex = Image.Exif()
+    ex[0x0110] = "hcmvs"
+    files["avif_exif.avif"] = pil(rgb, quality=70, exif=ex.tobytes())
+    ex[0x0112] = 6
+    files["avif_orientation6.avif"] = pil(rgb, quality=70, exif=ex.tobytes())
+    big = pattern(96, 136)
+    tools = {"palette_ibc": ({"tune-content": "screen"}, screen()),
+             "palette": ({"tune-content": "screen", "enable-intrabc": "0"},
+                         screen()),
+             "filter_intra_off": ({"enable-filter-intra": "0"}, rgb),
+             "cfl_off": ({"enable-cfl-intra": "0"}, rgb),
+             "cdef_off": ({"enable-cdef": "0"}, rgb),
+             "restoration": ({"enable-restoration": "1"}, big),
+             "tiles": ({"tile-columns": "1", "tile-rows": "1"}, big),
+             "deltaq": ({"deltaq-mode": "1"}, big),
+             "sb128": ({"sb-size": "128"}, big),
+             "qm": ({"enable-qm": "1"}, rgb),
+             "sharpness7": ({"sharpness": "7"}, rgb),
+             "film_grain": ({"film-grain-test": "1"}, rgb),
+             "film_grain_denoised": ({"denoise-noise-level": "25"}, big)}
+    for name, (adv, img) in tools.items():
+        files[f"avif_{name}.avif"] = pil(img, quality=60, speed=4,
+                                         advanced=adv)
+    files["avif_lossless.avif"] = pil(rgb, lossless=True)
+    frames = [Image.fromarray(np.roll(rgb, 7 * k, 1)) for k in range(2)]
+    buf = io.BytesIO()
+    frames[0].save(buf, "AVIF", save_all=True, append_images=frames[1:],
+                   duration=100, quality=60)
+    files["avif_animation.avif"] = buf.getvalue()
+    frames = [Image.fromarray(np.dstack([np.roll(rgb, 7 * k, 1), alpha]))
+              for k in range(2)]
+    buf = io.BytesIO()
+    frames[0].save(buf, "AVIF", save_all=True, append_images=frames[1:],
+                   duration=100, quality=60)
+    files["avif_animation_alpha.avif"] = buf.getvalue()
+    bgr = rgb[..., ::-1]
+    for depth in (8, 10, 12):
+        up = (lambda a: a) if depth == 8 else (
+            lambda a: a.astype(np.uint16) << (depth - 8))
+        opts = [cv2.IMWRITE_AVIF_DEPTH, depth, cv2.IMWRITE_AVIF_QUALITY, 80]
+        for name, img in (("color", bgr), ("gray", bgr[..., 1]),
+                          ("bgra", np.dstack([bgr, alpha]))):
+            files[f"cv2_{name}{depth}.avif"] = cv2.imencode(
+                ".avif", up(img), opts)[1].tobytes()
+    # around Pillow's AV1 payloads
+    parts = pil_av1(rgb, quality=70)
+    cells = [pil_av1(np.roll(pattern(64, 64), 9 * k, 0), quality=40)
+             for k in range(4)]
+    files["avif_grid.avif"] = avif_grid(cells, 2, 2, 128, 128)
+    files["avif_grid_cropped.avif"] = avif_grid(cells, 2, 2, 122, 100)
+    files["avif_grid_32bit.avif"] = avif_grid(cells[:2], 1, 2, 128, 64, 1)
+    gray_alpha = pil_av1(np.repeat(alpha[..., None], 3, -1), quality=90,
+                         subsampling="4:0:0")
+    files["avif_alpha_item.avif"] = avif_alpha(parts, gray_alpha)
+    files["avif_idat.avif"] = avif_with(parts, idat=True)
+    files["avif_irot1.avif"] = avif_with(parts, [(box(b"irot", b"\1"), True)])
+    files["avif_imir.avif"] = avif_with(parts, [(box(b"imir", b"\1"), True)])
+    files["avif_clap.avif"] = avif_with(parts, [(box(b"clap", struct.pack(
+        ">8I", 32, 1, 24, 1, 0, 1, 0, 1)), True)])
+    files["avif_no_colr.avif"] = avif_with(parts, drop=[b"colr"])
+    files["avif_unknown_property.avif"] = avif_with(
+        parts, [(box(b"xyzw", b"1234"), False)])
+    small = pil_av1(rgb[:24, :32], quality=70)
+    four44 = pil_av1(rgb[:24, :32], quality=70, subsampling="4:4:4")
+    for mc in range(15):
+        for full in (0, 1):
+            src = four44 if mc == 0 else small
+            name = f"avif_nclx_mc{mc}_{'full' if full else 'limited'}.avif"
+            files[name] = avif_with(src, [(nclx(1, 13, mc, full), False)],
+                                    drop=[b"colr"])
+    files["avif_nclx_mc12_bt2020.avif"] = avif_with(
+        small, [(nclx(9, 16, 12, 0), False)], drop=[b"colr"])
+    files["avif_nclx_mc12_smpte431.avif"] = avif_with(
+        small, [(nclx(11, 17, 12, 1), False)], drop=[b"colr"])
+    # cv2 fails on these
+    files["avif_nclx_mc0_420.avif"] = avif_with(
+        small, [(nclx(1, 13, 0, 1), False)], drop=[b"colr"])
+    files["avif_grid_odd.avif"] = avif_grid(cells, 2, 2, 121, 100)
+    files["avif_no_ispe.avif"] = avif_with(parts, drop=[b"ispe"])
+    files["avif_mif1_brand.avif"] = avif_with(parts, brands=(b"mif1",
+                                                              b"miaf"))
+    files["avif_unknown_essential.avif"] = avif_with(
+        parts, [(box(b"xyzw", b"1234"), True)])
+    paths = []
+    for name, data in files.items():
+        paths.append(os.path.join(fmt_dir, name))
+        with open(paths[-1], "wb") as f:
+            f.write(data)
+    return paths
+
+
+# the AVIF views (avif_views/): Pillow's aom at quality 90, 4:2:0, 8-bit,
+# as 2 x 2 tiles
+AVIF_VIEW_OPTIONS = {"quality": 90, "subsampling": "4:2:0", "speed": 6,
+                     "advanced": {"tile-rows": "1", "tile-columns": "1"}}
+
+
+def avif_views(view_dir: str, images):
+    """Each (H, W) float image in [0, 1] as ``v%d.avif`` (its gray level in
+    three channels, AVIF_VIEW_OPTIONS); returns the paths."""
+    from PIL import Image
+    os.makedirs(view_dir, exist_ok=True)
+    paths = []
+    for i, g in enumerate(images):
+        u8 = (np.clip(g, 0, 1) * 255).astype(np.uint8)
+        paths.append(os.path.join(view_dir, f"v{i}.avif"))
+        Image.fromarray(np.repeat(u8[..., None], 3, -1)).save(
+            paths[-1], "AVIF", **AVIF_VIEW_OPTIONS)
+    return paths
+
+
 IMAGE_EXTENSIONS = (".jpg", ".png", ".tif", ".bmp", ".webp", ".gif",
-                    ".hdr", ".pfm", ".pam", ".ras", ".jp2", ".j2k")
+                    ".hdr", ".pfm", ".pam", ".ras", ".jp2", ".j2k", ".avif")
 
 
 def cv2_digests(path: str) -> dict:
@@ -1347,14 +1704,16 @@ def main(argv=()) -> int:
         _, photos = ridge_photos(h, w)
         save_jpeg_photos(os.path.join(HERE, "photos"), photos,
                          1200.0 * 36.0 / 1280)
-        jp2_views(os.path.join(HERE, "jp2_views"),
-                  ridge_scene(h, w, JP2_VIEWS).images)
+        views = ridge_scene(h, w, JP2_VIEWS).images
+        jp2_views(os.path.join(HERE, "jp2_views"), views)
+        avif_views(os.path.join(HERE, "avif_views"), views)
     write_variants(os.path.join(HERE, "variants"))
     write_jpeg_kinds(os.path.join(HERE, "variants"))
     write_formats(os.path.join(HERE, "formats"))
     write_image_kinds(os.path.join(HERE, "formats"))
     photo_webps(os.path.join(HERE, "formats"))
     write_jpeg2000_kinds(os.path.join(HERE, "formats"))
+    write_avif_kinds(os.path.join(HERE, "formats"))
     manifest = {"cv2": cv2.__version__, "files": manifest_entries()}
     with open(os.path.join(HERE, "manifest.json"), "w") as f:
         json.dump(manifest, f, indent=1, sort_keys=True)

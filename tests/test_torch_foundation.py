@@ -419,11 +419,13 @@ _NO_JAX_SCRIPT = textwrap.dedent("""
         hcmvs_tpu_torch.__file__)), "tests", "data", "jpeg")
     with open(os.path.join(jdir, "manifest.json")) as f:
         manifest = json.load(f)["files"]
-    # and a WebP (native/webp.cpp), a GIF (io/image_formats.py) and a
-    # JPEG 2000 file (native/jpeg2000.cpp)
+    # and a WebP (native/webp.cpp), a GIF (io/image_formats.py), a
+    # JPEG 2000 file (native/jpeg2000.cpp) and a 10-bit AVIF with alpha
+    # (native/avif.cpp and libavif's conversion in io/image_formats.py)
     for name in ("variants/s420.jpg", "variants/orient6.jpg",
                  "formats/webp_q90_m4_seg4.webp",
-                 "formats/gif_transparent.gif", "formats/style_all.jp2"):
+                 "formats/gif_transparent.gif", "formats/style_all.jp2",
+                 "formats/cv2_bgra10.avif"):
         for mode, want in manifest[name].items():
             img = imread(os.path.join(jdir, name), mode)
             assert hashlib.sha256(img.tobytes()).hexdigest() \

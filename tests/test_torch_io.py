@@ -329,10 +329,10 @@ def _j2k_signed() -> bytes:
     # fail in cv2
     (b"BM" + bytes(12) + struct.pack("<IiiHHI", 40, 2, 2, 1, 16, 3)
      + bytes(20) + struct.pack("<III", 0xF00, 0xF0, 0xF), "bit fields"),
-    # GIF and JPEG 2000 read now; a JP2 file that ends after its
+    # GIF, JPEG 2000 and AVIF read now; a JP2 file that ends after its
     # signature (no codestream), a JPEG 2000 codestream of signed samples
-    # (cv2 fails on both; the SIZ, Ssiz 0x87, is enough) and AVIF, which
-    # cv2 reads, are refused by name
+    # (cv2 fails on both; the SIZ, Ssiz 0x87, is enough) and an AVIF ftyp
+    # followed by zeros (malformed: cv2 fails on it) are refused by name
     (b"\0\0\0\x0cjP  \r\n\x87\n" + bytes(20), "JPEG 2000"),
     (_j2k_signed(), "JPEG 2000 with signed"),
     (b"\0\0\0\x1cftypavif" + bytes(20), "AVIF")])
@@ -377,17 +377,29 @@ def test_png_depths_and_palette_decode(tmp_path):
         timg._decode_png(_png(3, 8), path)
 
 
-@pytest.mark.parametrize("scale", [2.0, 0.8, 1.5, 0.5, 0.37])
+_RESIZE_SCALES = [2.0, 0.8, 1.5, 0.5, 0.37, 1 / 3, 0.25, 0.75, 0.6]
+_RESIZE_SHAPES = ((45, 61, 3), (45, 61), (960, 1280, 3), (960, 1280))
+
+
+def _resize_inputs(rng):
+    """float32 in [0, 1] and uint8 images of each shape."""
+    for shape in _RESIZE_SHAPES:
+        yield rng.uniform(0, 1, shape).astype(np.float32)
+        yield rng.integers(0, 256, shape).astype(np.uint8)
+
+
+@pytest.mark.parametrize("scale", _RESIZE_SCALES)
 def test_resize_and_gray_match_opencv(scale):
+    """resize_image is the JAX package's cv2.resize bit for bit: INTER_AREA
+    shrinking (its fast path at 0.5 and 0.25), INTER_LINEAR enlarging."""
     pytest.importorskip("cv2")
     from hcmvs_tpu.io import images as jimg
     rng = np.random.default_rng(6)
-    for shape in ((45, 61, 3), (45, 61)):
-        img = rng.uniform(0, 1, shape).astype(np.float32)
+    for img in _resize_inputs(rng):
         ours, ref = timg.resize_image(img, scale), jimg.resize_image(img,
                                                                      scale)
         assert ours.shape == ref.shape and ours.dtype == ref.dtype
-        np.testing.assert_allclose(ours, ref, rtol=0, atol=1e-5)
+        assert np.array_equal(ours, ref), (img.shape, img.dtype)
     rgb = rng.uniform(0, 1, (45, 61, 3)).astype(np.float32)
     assert np.array_equal(timg.to_gray(rgb), jimg.to_gray(rgb))
     for args in ((1280, 960, 0, 3200, 640), (1280, 960, 1, 3200, 640),
@@ -395,6 +407,20 @@ def test_resize_and_gray_match_opencv(scale):
                  (640, 480, 3, 3200, 640)):
         assert (timg.compute_resolution_scale(*args)
                 == jimg.compute_resolution_scale(*args))
+
+
+@pytest.mark.parametrize("scale", _RESIZE_SCALES)
+def test_resize_linear_matches_opencv(scale):
+    """resize_linear is cv2.resize's default (INTER_LINEAR) both ways, the
+    uint8 2 x 2 reduction through cv2's swap to INTER_AREA included."""
+    cv2 = pytest.importorskip("cv2")
+    rng = np.random.default_rng(7)
+    for img in _resize_inputs(rng):
+        h, w = img.shape[:2]
+        nh, nw = max(1, round(h * scale)), max(1, round(w * scale))
+        ours, ref = timg.resize_linear(img, nh, nw), cv2.resize(img, (nw, nh))
+        assert ours.shape == ref.shape and ours.dtype == ref.dtype
+        assert np.array_equal(ours, ref), (img.shape, img.dtype)
 
 
 def test_depth_png_is_readable(tmp_path):

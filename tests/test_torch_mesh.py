@@ -37,6 +37,7 @@ from hcmvs_tpu.mesh import texture as jtex
 
 from hcmvs_tpu_torch import native as tnative
 from hcmvs_tpu_torch.io import obj as tobj
+from hcmvs_tpu_torch.io.images import resize_linear
 from hcmvs_tpu_torch.io import ply as tply
 from hcmvs_tpu_torch.mesh import delaunay as tdel
 from hcmvs_tpu_torch.mesh import mesh_ops as tops
@@ -273,7 +274,7 @@ def test_resize_matches_cv2():
             h, w, size = 40, 60, (30, 20)
         img = rng.integers(0, 256, (h, w) if t % 2 else (h, w, 3),
                            dtype=np.uint8)
-        ours = ttex.resize_linear_u8(img, size)
+        ours = resize_linear(img, size[1], size[0])
         ref = cv2.resize(img, size)
         assert ours.shape == ref.shape and ours.dtype == np.uint8
         assert np.abs(ours.astype(int) - ref).max() <= 1
@@ -313,7 +314,7 @@ def _two_view_scene():
 @pytest.mark.parametrize("atlas_size", [64, 256])
 def test_texture_mesh_matches(atlas_size, tmp_path):
     """At 64 every chart is larger than the atlas, so it is shrunk (cv2 in
-    the JAX package, ``resize_linear_u8`` in the port)."""
+    the JAX package, ``io.images.resize_linear`` in the port)."""
     import cv2
     verts, faces, imgs, Ks, Rs, Cs = _two_view_scene()
     tt = ttex.texture_mesh(verts, faces, imgs, Ks, Rs, Cs,
